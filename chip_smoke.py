@@ -6,9 +6,11 @@
 Builds the port's CUDA kernels from `mgtpu_torch/csrc/`, holds each one
 against its plain PyTorch version at the shapes R-MG-34 gives it, serves
 a few requests through `mgtpu_torch.serve.Server` (R-MG-34, BN folded,
-bf16, seeded random weights), checks that the forward went through the
-kernels and agrees with the port's plain CPU path in f32, and times the
-kernels and the serving forward with CUDA events. Phases:
+bf16, seeded random weights), takes a few training steps through
+`mgtpu_torch.trainer.Trainer` (R-MG-34, bf16, SGD), checks that both
+paths went through the kernels and agree with the port's plain CPU path
+in f32, and times the kernels, the serving forward and the training
+step with CUDA events. Phases:
 
   1 device   the card, and its name and power limit from nvidia-smi
   2 build    nvcc over mgtpu_torch/csrc/*.cu, bound with ctypes
@@ -22,12 +24,29 @@ kernels and the serving forward with CUDA events. Phases:
   6 times    each kernel vs its plain version (cuDNN) at batch 128 bf16,
              the serving forward in images/s at batch 128 bf16, and its
              time per call at batch 1
+  7 conv3x3_bn_relu_in  kernel vs its plain version at every (H, W, Ci,
+             Co) of the training step, batch 8, bf16 and f32, relu_out
+             and with_stats on and off, some shifts positive (the halo)
+  8 maxpool2_bwd  kernel vs maxpool2_bwd_plain, exact, both tie rules, at
+             the training step's shapes and odd sizes; ties at zero and
+             at positive values, NaN, all -inf windows
+  9 grads    the conv3x3, conv3x3_bn_relu_in and maxpool2 autograd
+             Functions vs autograd of their plain versions, f32, no TF32
+ 10 train    4 steps of R-MG-34 bf16 at batch 32 on one fixed batch: the
+             loss stays finite and falls; exactly 76 conv3x3, 36
+             conv3x3_bn_relu_in, 46 maxpool2 and 46 maxpool2_bwd launches
+             per step; one f32 step on the card vs the plain CPU step
+ 11 times    the training step in images/s at batch 128 bf16; each new
+             kernel's summed time per step vs its plain version
 
 Any failed check exits non-zero. The second-to-last line of stdout is
-one JSON object with the kernels (their launches in phase 5, the largest
-error of phases 3-4, and ``ms`` / ``plain_ms``: the summed time of one
-batch-128 bf16 forward's launches of that kernel and of its plain
-version); the last line is
+one JSON object with the kernels: ``launches`` sums each kernel's
+launches over the main-path runs (phase 5's serving forwards and phase
+10's training steps), ``max_abs_err`` is its largest error against its
+plain version (phases 3, 4, 7, 8), and ``ms`` / ``plain_ms`` are the
+summed times of its launches and of its plain version in one batch-128
+bf16 serving forward (conv3x3, maxpool2) or training step
+(conv3x3_bn_relu_in, maxpool2_bwd). The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -43,23 +62,51 @@ import numpy as np
 import torch
 
 from mgtpu_torch import kernels
-from mgtpu_torch.ops import cuda_conv, resample
-from mgtpu_torch.ops.cuda_conv import conv3x3, conv3x3_plain
-from mgtpu_torch.ops.cuda_pool import maxpool2, maxpool2_plain
+from mgtpu_torch.models import get_net
+from mgtpu_torch.models.base import imagenet_rule
+from mgtpu_torch.ops import cuda_conv, cuda_pool
+from mgtpu_torch.ops.cuda_conv import (bn_relu_plain, conv3x3, conv3x3_bn_relu_in,
+                                       conv3x3_bn_relu_in_plain, conv3x3_plain)
+from mgtpu_torch.ops.cuda_pool import (maxpool2, maxpool2_backward, maxpool2_bwd_plain,
+                                       maxpool2_plain)
 from mgtpu_torch.serve import IMAGE_SHAPE, Server
+from mgtpu_torch.trainer import Trainer, synthetic_batch
+from mgtpu_torch.utils.bridge import export_jax_tree
 
 DEPTH = 34
-# launches per R-MG-34 forward (one per 3x3 same/down part; every
+# launches per R-MG-34 serving forward (one per 3x3 same/down part; every
 # maxpool2_ceil of the exchange and the MgPools)
-PER_FORWARD = {"conv3x3": 112, "maxpool2": 46}
+PER_FORWARD = {"conv3x3": 112, "conv3x3_bn_relu_in": 0, "maxpool2": 46, "maxpool2_bwd": 0}
+# launches per training step: stage 2's 36 same-scale parts take the
+# prologue kernel instead of conv3x3; every pool is differentiated once
+PER_STEP = {"conv3x3": 76, "conv3x3_bn_relu_in": 36, "maxpool2": 46, "maxpool2_bwd": 46}
 KERNELS = {
     "conv3x3": dict(route="cuda", source="mgtpu_torch/csrc/conv3x3.cu",
                     replaces="mgtpu/ops/pallas_conv.py:220"),
+    "conv3x3_bn_relu_in": dict(route="cuda", source="mgtpu_torch/csrc/conv3x3.cu",
+                               replaces="mgtpu/ops/pallas_conv.py:259"),
     "maxpool2": dict(route="cuda", source="mgtpu_torch/csrc/maxpool2.cu",
                      replaces="mgtpu/ops/pallas_pool.py:63"),
+    "maxpool2_bwd": dict(route="cuda", source="mgtpu_torch/csrc/maxpool2.cu",
+                         replaces="mgtpu/ops/pallas_pool.py:84"),
 }
 CHECK_BATCH, TIME_BATCH = 8, 128
 SERVE_BATCHES = (1, 8, 32)
+TRAIN_BATCH, TRAIN_STEPS, F32_STEP_BATCH = 32, 4, 2
+# imagenet_rule's second stage (epoch 31): at the epoch-1 rate of 0.1 a
+# fixed batch of 32 from a random init overshoots after the first step,
+# in the JAX train step as in the port
+TRAIN_RULE = imagenet_rule(31)
+# f32 step, card vs CPU, same seed and batch: the L2 error of the whole
+# parameter update relative to its L2 norm, and the running stats' error
+# relative to their scale. Both sides compute in f32 (no TF32) in another
+# summation order. One step of this net is sensitive to that: where a
+# pre-activation rounds to the other side of a ReLU kink, or a BN's
+# one-pass variance cancels, whole gradient terms change. On the CPU the
+# same step in f32 against f64 moves the update by 1.6e-3 of its norm
+# (4.7% of one tensor's largest change) and the stats by 4e-6; the
+# bounds are about six times that and 25 times that.
+F32_STEP_PARAM_BOUND, F32_STEP_STATS_BOUND = 1e-2, 1e-4
 
 
 def check(ok: bool, what: str) -> None:
@@ -71,27 +118,43 @@ def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
 
 
-def record_kernel_shapes():
-    """One R-MG-34 f32 forward at batch 1 on the CPU (the plain path),
-    recording the input shape of every conv3x3 and maxpool2 call."""
-    convs, pools = [], []
-    orig_conv, orig_pool = cuda_conv.conv3x3, resample.maxpool2
+def record_kernel_shapes(train: bool):
+    """One R-MG-34 f32 pass at batch 1 on the CPU (the plain path),
+    recording the input shapes of every kernel entry point it calls:
+    the serving forward (BN folded), or a training forward and backward.
+    Returns {kernel: Counter of shapes}."""
+    shapes = {k: Counter() for k in PER_STEP}
+    hooks = {(cuda_conv, "conv3x3_forward"): ("conv3x3", lambda x, *a, **kw: (
+                 x.shape[1], x.shape[2], x.shape[3], a[0].shape[3])),
+             (cuda_conv, "conv3x3_bn_relu_in_forward"): ("conv3x3_bn_relu_in", lambda x, *a, **kw: (
+                 x.shape[1], x.shape[2], x.shape[3], a[0].shape[3])),
+             (cuda_pool, "maxpool2_forward"): ("maxpool2", lambda x, *a: tuple(x.shape[1:])),
+             (cuda_pool, "maxpool2_backward"): ("maxpool2_bwd", lambda x, *a: tuple(x.shape[1:]))}
+    originals = {key: getattr(*key) for key in hooks}
 
-    def rec_conv(x, w, b, **kw):
-        convs.append((x.shape[1], x.shape[2], x.shape[3], w.shape[3]))
-        return orig_conv(x, w, b, **kw)
+    def recording(key):
+        name, shape_of = hooks[key]
 
-    def rec_pool(x):
-        pools.append(tuple(x.shape[1:]))
-        return orig_pool(x)
+        def fn(*a, **kw):
+            shapes[name][shape_of(*a, **kw)] += 1
+            return originals[key](*a, **kw)
+        return fn
 
-    server = Server(DEPTH, seed=0, device="cpu", compute_dtype=torch.float32)
-    cuda_conv.conv3x3, resample.maxpool2 = rec_conv, rec_pool
+    if train:
+        model = get_net("ilsvrc/rnmg")(depth=DEPTH).train()
+    else:
+        server = Server(DEPTH, seed=0, device="cpu", compute_dtype=torch.float32)
+    for key in hooks:
+        setattr(*key, recording(key))
     try:
-        server.predict(np.zeros((1, *IMAGE_SHAPE), np.float32))
+        if train:
+            model(torch.zeros((1, *IMAGE_SHAPE)))[:, 0].sum().backward()
+        else:
+            server.predict(np.zeros((1, *IMAGE_SHAPE), np.float32))
     finally:
-        cuda_conv.conv3x3, resample.maxpool2 = orig_conv, orig_pool
-    return Counter(convs), Counter(pools)
+        for key, fn in originals.items():
+            setattr(*key, fn)
+    return shapes
 
 
 def conv_inputs(n, h, w, ci, co, dtype, seed):
@@ -102,13 +165,30 @@ def conv_inputs(n, h, w, ci, co, dtype, seed):
     return x.cuda().to(dtype), wt.cuda().to(dtype), b.cuda()
 
 
-def pool_input(shape, dtype, seed):
+def pool_input(shape, dtype, seed, ties=False):
     x = np.random.default_rng(seed).standard_normal(shape, dtype=np.float32)
+    if ties:  # ReLU outputs on a coarse grid: ties at zero and at positive values
+        x = np.maximum(np.round(x * 2) / 2, 0)
     x[0, 0, 0, 0] = np.nan
     x[0, -1, -1, -1] = np.inf
     x[-1, :2, :2, :] = -np.inf  # a window of -inf only
     x[-1, -1, -1, -1] = np.nan  # in a clipped edge window when H or W is odd
     return torch.from_numpy(x).cuda().to(dtype)
+
+
+def bn_inputs(ci, seed):
+    """A BN scale and shift; about three shifts in four are positive, so
+    a kernel that normalized its zero halo would be caught."""
+    rng = np.random.default_rng(seed)
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, ci).astype(np.float32))
+    shift = torch.from_numpy(rng.normal(0.3, 0.5, ci).astype(np.float32))
+    return scale.cuda(), shift.cuda()
+
+
+def rel_share(got, ref, rtol):
+    """Largest error as a share of its bound rtol*|ref| + 1e-5*max|ref|."""
+    err = (got.float() - ref.float()).abs()
+    return (err / (rtol * ref.float().abs() + 1e-5 * ref.float().abs().max())).max().item()
 
 
 def cuda_time_ms(fn, windows=5, min_reps=1):
@@ -132,6 +212,219 @@ def cuda_time_ms(fn, windows=5, min_reps=1):
         per.append(a.elapsed_time(b) / reps)
     med = statistics.median(per)
     return med, (max(per) - min(per)) / med
+
+
+def check_prologue(shapes, max_err) -> None:
+    """7: conv3x3_bn_relu_in vs its plain version. Reference: the plain
+    version in f32 on the same inputs, its normalized input rounded to
+    the kernel's operand type first (bn_relu_plain, then conv3x3_plain in
+    f32), so that the bounds are conv3x3's (phase 3)."""
+    n_cases = 0
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for k, (h, w, ci, co) in enumerate(sorted(shapes)):
+        scale, shift = bn_inputs(ci, seed=100 + k)
+        for dtype in (torch.bfloat16, torch.float32):
+            x, wt, b = conv_inputs(CHECK_BATCH, h, w, ci, co, dtype, seed=100 + k)
+            xn = bn_relu_plain(x, scale, shift).float()
+            for relu_out in (False, True):
+                for with_stats in (False, True):
+                    y, st = conv3x3_bn_relu_in(x, wt, b, scale, shift, relu_out=relu_out,
+                                               with_stats=with_stats)
+                    y_ref, st_ref = conv3x3_plain(xn, wt.float(), b, relu_out=relu_out,
+                                                  with_stats=with_stats)
+                    torch.cuda.synchronize()
+                    what = (f"conv3x3_bn_relu_in {h}x{w}x{ci}->{co} {dtype} relu={relu_out} "
+                            f"stats={with_stats}")
+                    share = rel_share(y, y_ref, 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5)
+                    err = (y.float() - y_ref).abs().max().item()
+                    check(y.dtype == dtype and share <= 1.0, f"{what}: max abs err {err:.3g}")
+                    worst[dtype] = max(worst[dtype], share)
+                    if with_stats:
+                        st_err = (st - st_ref).abs()
+                        st_tol = 1e-4 * st_ref.abs() + 1e-5 * st_ref.abs().max()
+                        check(bool((st_err <= st_tol).all()),
+                              f"{what}: stats max abs err {st_err.max().item():.3g}")
+                    else:
+                        check(not st.any(), f"{what}: stats not zero")
+                    max_err["conv3x3_bn_relu_in"] = max(max_err["conv3x3_bn_relu_in"], err)
+                    n_cases += 1
+    phase("conv3x3_bn_relu_in", f"{n_cases} cases at {len(shapes)} shapes, batch {CHECK_BATCH}: "
+          f"match the plain version (max abs err {max_err['conv3x3_bn_relu_in']:.3g}; largest "
+          f"error {worst[torch.bfloat16]:.2f} of its bound in bf16, "
+          f"{worst[torch.float32]:.2f} in f32)")
+
+
+def check_pool_bwd(shapes, max_err) -> None:
+    """8: maxpool2_bwd vs maxpool2_bwd_plain. Both select g or 0 per
+    element, so they must be equal, under either tie rule."""
+    shapes = [(CHECK_BATCH, *s) for s in sorted(shapes)]
+    shapes += [(2, 7, 9, 3), (3, 15, 14, 130), (1, 1, 1, 4), (2, 57, 55, 64)]
+    n_cases = 0
+    for k, shape in enumerate(shapes):
+        for dtype in (torch.bfloat16, torch.float32):
+            for ties in (False, True):
+                x = pool_input(shape, dtype, seed=200 + k, ties=ties)
+                y = maxpool2_plain(x)
+                g = torch.randn(y.shape, device="cuda")
+                for rule in ("all", "first"):
+                    dx = maxpool2_backward(x, y, g, rule)
+                    ref = maxpool2_bwd_plain(x, y, g, rule)
+                    torch.cuda.synchronize()
+                    err = (dx.float() - ref.float()).abs().max().item()
+                    max_err["maxpool2_bwd"] = max(max_err["maxpool2_bwd"], err)
+                    check(dx.dtype == dtype and bool(torch.equal(dx, ref)),
+                          f"maxpool2_bwd {shape} {dtype} ties={rule}: differs from the plain "
+                          f"version (max abs err {err:.3g})")
+                    n_cases += 1
+    phase("maxpool2_bwd", f"{n_cases} cases (bf16 and f32, both tie rules; odd sizes, ties at "
+          f"0 and > 0, NaN, all -inf windows): equal to the plain version")
+
+
+def check_grads() -> None:
+    """9: the autograd Functions (kernel forward; cuDNN dgrad and wgrad
+    and the elementwise reductions backward) vs autograd of the plain
+    versions, f32 without TF32: summation order only. Without relu_out,
+    as the training path calls them: with it, each side masks its
+    gradient by its own y > 0, and the two forwards round some y to
+    opposite sides of 0 (tests/test_torch_conv3x3.py holds relu_out's
+    backward against jax.grad on the CPU)."""
+    worst = 0.0
+    for k, (n, h, w, ci, co) in enumerate([(4, 28, 28, 32, 32), (4, 14, 14, 64, 64),
+                                           (2, 7, 7, 128, 128)]):
+        x, wt, b = conv_inputs(n, h, w, ci, co, torch.float32, seed=300 + k)
+        scale, shift = bn_inputs(ci, seed=300 + k)
+        r = torch.randn((n, h, w, co), device="cuda")
+        for fn, plain, extra in ((conv3x3, conv3x3_plain, ()),
+                                 (conv3x3_bn_relu_in, conv3x3_bn_relu_in_plain, (scale, shift))):
+            grads = []
+            for f in (fn, plain):
+                ins = [t.clone().requires_grad_() for t in (x, wt, b, *extra)]
+                y, _ = f(*ins)
+                (y * r).sum().backward()
+                grads.append([t.grad for t in ins])
+            for name, g, g_ref in zip("x w b scale shift".split(), *grads):
+                share = rel_share(g, g_ref, 1e-4)
+                check(share <= 1.0, f"{fn.__name__} {n}x{h}x{w}x{ci}->{co}: d{name} differs "
+                      f"from the plain autograd's")
+                worst = max(worst, share)
+    # the first-tie rule is torch max_pool2d's own: its autograd is the reference
+    for dtype in (torch.float32, torch.bfloat16):
+        x = pool_input((4, 28, 28, 64), dtype, seed=310, ties=True).nan_to_num(0.0)
+        grads = []
+        for f in (lambda t: maxpool2(t, "first"), maxpool2_plain):
+            xt = x.clone().requires_grad_()
+            f(xt).float().sin().sum().backward()
+            grads.append(xt.grad)
+        check(torch.equal(*grads), f"maxpool2 (first-tie rule) {dtype}: gradient differs from "
+              f"max_pool2d's")
+    phase("grads", f"conv3x3 and conv3x3_bn_relu_in gradients match plain autograd (largest "
+          f"error {worst:.2f} of its bound, rtol 1e-4); maxpool2 first-tie gradients equal "
+          f"max_pool2d's")
+
+
+def check_train(name) -> dict:
+    """10: the training path, through the entry point a user calls."""
+    t0 = time.perf_counter()
+    trainer = Trainer(DEPTH, seed=0, device="cuda", compute_dtype=torch.bfloat16)
+    x, y = synthetic_batch(TRAIN_BATCH, seed=1)
+    phase("train", f"R-MG-{DEPTH}, seeded random weights, bf16 on {name}: built in "
+          f"{time.perf_counter() - t0:.1f} s; {TRAIN_STEPS} steps at batch {TRAIN_BATCH} on one "
+          f"batch, lr {TRAIN_RULE['lr']}, wd {TRAIN_RULE['wd']}")
+    kernels.reset_launches()
+    losses, prev = [], dict(kernels.LAUNCHES)
+    for i in range(TRAIN_STEPS):
+        m = trainer.step(x, y, TRAIN_RULE["lr"], TRAIN_RULE["wd"])
+        now = dict(kernels.LAUNCHES)
+        got = {k: now[k] - prev[k] for k in now}
+        check(got == PER_STEP, f"step {i}: kernel launches {got}, expected {PER_STEP}")
+        prev = now
+        losses.append({k: float(v) for k, v in m.items()})
+    launches = dict(kernels.LAUNCHES)
+    loss = [m["loss"] for m in losses]
+    check(all(np.isfinite(loss)), f"non-finite loss {loss}")
+    check(loss[-1] < loss[0], f"the loss did not fall: {loss}")
+    phase("train", "losses " + ", ".join(f"{v:.4f}" for v in loss) + "; top-1 "
+          + ", ".join(f"{m['top1']:.3f}" for m in losses)
+          + f"; launches per step {PER_STEP}, total {launches}")
+
+    # one f32 step on the card (kernels + cuDNN without TF32) against the
+    # same step of the port's plain path on the CPU
+    x2, y2 = synthetic_batch(F32_STEP_BATCH, seed=2)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(DEPTH, seed=0, device=dev, compute_dtype=torch.float32)
+        before, _ = export_jax_tree(tr.model)
+        m = tr.step(x2, y2, TRAIN_RULE["lr"], TRAIN_RULE["wd"])
+        res[dev] = (float(m["loss"]), before, *export_jax_tree(tr.model))
+    (l_gpu, p0, p_gpu, s_gpu), (l_cpu, _, p_cpu, s_cpu) = res["cuda"], res["cpu"]
+    # the f32 serving forward agrees to 1e-5 of the log-probs' scale
+    # (phase 5); the loss is a mean of log-probs
+    check(abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu), f"f32 step loss: card {l_gpu} vs CPU {l_cpu}")
+    # the update of all parameters together: |change on the card - change
+    # on the CPU| / |change on the CPU| (L2 over every parameter); the
+    # running stats relative to their scale
+    d_gpu = np.concatenate([(a - o).ravel() for a, o in zip(flat(p_gpu), flat(p0))])
+    d_cpu = np.concatenate([(c - o).ravel() for c, o in zip(flat(p_cpu), flat(p0))])
+    upd = float(np.linalg.norm(d_gpu - d_cpu) / np.linalg.norm(d_cpu))
+    st = max(float(np.abs(a - c).max() / max(np.abs(c).max(), 1e-12))
+             for a, c in zip(flat(s_gpu), flat(s_cpu)))
+    check(upd <= F32_STEP_PARAM_BOUND and st <= F32_STEP_STATS_BOUND,
+          f"f32 step, card vs CPU: update err {upd:.3g} (bound {F32_STEP_PARAM_BOUND}), "
+          f"running stats err {st:.3g} (bound {F32_STEP_STATS_BOUND})")
+    phase("train", f"f32 step on the card vs the plain CPU step, batch {F32_STEP_BATCH}: loss "
+          f"{l_gpu:.6f} vs {l_cpu:.6f}; parameter update err {upd:.3g} of its L2 norm (bound "
+          f"{F32_STEP_PARAM_BOUND}); running stats err {st:.3g} of their scale (bound "
+          f"{F32_STEP_STATS_BOUND})")
+    return launches
+
+
+def flat(tree):
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in flat(tree[k])]
+    return [tree]
+
+
+def time_train(name, train_shapes, ms, plain_ms) -> None:
+    """11: the training step and the two new kernels at batch 128 bf16."""
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(DEPTH, seed=0, device="cuda", compute_dtype=torch.bfloat16)
+    x, y = synthetic_batch(TIME_BATCH, seed=4)
+    xt = torch.from_numpy(x).cuda().to(torch.bfloat16)
+    yt = torch.from_numpy(y).cuda()
+    t_step, s_step = cuda_time_ms(lambda: trainer.step(xt, yt, TRAIN_RULE["lr"],
+                                                       TRAIN_RULE["wd"]), min_reps=3)
+    phase("times", f"training step, R-MG-{DEPTH} bf16, batch {TIME_BATCH}: {t_step:.2f} ms "
+          f"(spread {s_step:.1%}) = {TIME_BATCH / t_step * 1e3:.1f} img/s on {name}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    del trainer
+    for k, ((h, w, ci, co), count) in enumerate(sorted(train_shapes["conv3x3_bn_relu_in"].items())):
+        x, wt, b = conv_inputs(TIME_BATCH, h, w, ci, co, torch.bfloat16, seed=400 + k)
+        scale, shift = bn_inputs(ci, seed=400 + k)
+        t_k, s_k = cuda_time_ms(lambda: conv3x3_bn_relu_in(x, wt, b, scale, shift,
+                                                           with_stats=False))
+        t_p, s_p = cuda_time_ms(lambda: conv3x3_bn_relu_in_plain(x, wt, b, scale, shift,
+                                                                 with_stats=False))
+        ms["conv3x3_bn_relu_in"] += count * t_k
+        plain_ms["conv3x3_bn_relu_in"] += count * t_p
+        tflops = 2 * TIME_BATCH * h * w * 9 * ci * co / t_k / 1e9
+        phase("times", f"conv3x3_bn_relu_in {TIME_BATCH}x{h}x{w}x{ci}->{co} (x{count}/step): "
+              f"kernel {t_k:.4f} ms (spread {s_k:.1%}, {tflops:.1f} TFLOP/s), plain "
+              f"{t_p:.4f} ms (spread {s_p:.1%})")
+    for k, ((h, w, c), count) in enumerate(sorted(train_shapes["maxpool2_bwd"].items())):
+        x = pool_input((TIME_BATCH, h, w, c), torch.bfloat16, seed=500 + k, ties=True)
+        y = maxpool2_plain(x)
+        g = torch.randn(y.shape, device="cuda").to(torch.bfloat16)
+        t_k, s_k = cuda_time_ms(lambda: maxpool2_backward(x, y, g, "first"))
+        t_p, s_p = cuda_time_ms(lambda: maxpool2_bwd_plain(x, y, g, "first"))
+        ms["maxpool2_bwd"] += count * t_k
+        plain_ms["maxpool2_bwd"] += count * t_p
+        gbs = 2 * TIME_BATCH * c * (2 * h * w + 2 * -(-h // 2) * -(-w // 2)) / t_k / 1e6
+        phase("times", f"maxpool2_bwd {TIME_BATCH}x{h}x{w}x{c} (x{count}/step): kernel "
+              f"{t_k:.4f} ms (spread {s_k:.1%}, {gbs:.0f} GB/s), plain {t_p:.4f} ms "
+              f"(spread {s_p:.1%})")
+    for kname in ("conv3x3_bn_relu_in", "maxpool2_bwd"):
+        phase("times", f"{kname} per batch-{TIME_BATCH} training step: kernel "
+              f"{ms[kname]:.3f} ms, plain {plain_ms[kname]:.3f} ms")
 
 
 def main() -> None:
@@ -159,12 +452,13 @@ def main() -> None:
         if "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
             phase("build", line.strip())
 
-    conv_shapes, pool_shapes = record_kernel_shapes()
-    check(sum(conv_shapes.values()) == PER_FORWARD["conv3x3"]
-          and sum(pool_shapes.values()) == PER_FORWARD["maxpool2"],
-          f"the CPU forward made {sum(conv_shapes.values())} conv3x3 and "
-          f"{sum(pool_shapes.values())} maxpool2 calls, expected {PER_FORWARD}")
-    max_err = {"conv3x3": 0.0, "maxpool2": 0.0}
+    serve_shapes, train_shapes = record_kernel_shapes(False), record_kernel_shapes(True)
+    for what, shapes, want in (("serving forward", serve_shapes, PER_FORWARD),
+                               ("training step", train_shapes, PER_STEP)):
+        got = {k: sum(c.values()) for k, c in shapes.items()}
+        check(got == want, f"the CPU {what} made kernel calls {got}, expected {want}")
+    conv_shapes, pool_shapes = serve_shapes["conv3x3"], serve_shapes["maxpool2"]
+    max_err = dict.fromkeys(KERNELS, 0.0)
 
     # 3 conv3x3 vs plain. Reference: the plain version in f32 on the same
     # (bf16-rounded) inputs. f32 differs by summation order only; bf16 adds
@@ -262,8 +556,8 @@ def main() -> None:
           f"{int((y_bf16.argmax(-1) == y_cpu.argmax(-1)).sum())}/2")
 
     # 6 times at batch 128, bf16
-    ms = {"conv3x3": 0.0, "maxpool2": 0.0}
-    plain_ms = {"conv3x3": 0.0, "maxpool2": 0.0}
+    ms = dict.fromkeys(KERNELS, 0.0)
+    plain_ms = dict.fromkeys(KERNELS, 0.0)
     for k, ((h, w, ci, co), count) in enumerate(sorted(conv_shapes.items())):
         x, wt, b = conv_inputs(TIME_BATCH, h, w, ci, co, torch.bfloat16, seed=k)
         t_k, s_k = cuda_time_ms(lambda: conv3x3(x, wt, b, with_stats=False))
@@ -283,7 +577,7 @@ def main() -> None:
         gbs = 2 * TIME_BATCH * c * (h * w + -(-h // 2) * -(-w // 2)) / t_k / 1e6
         phase("times", f"maxpool2 {TIME_BATCH}x{h}x{w}x{c} (x{count}/forward): kernel {t_k:.4f} ms "
               f"(spread {s_k:.1%}, {gbs:.0f} GB/s), plain {t_p:.4f} ms (spread {s_p:.1%})")
-    for kname in ms:
+    for kname in ("conv3x3", "maxpool2"):
         phase("times", f"{kname} per batch-{TIME_BATCH} forward: kernel {ms[kname]:.3f} ms, "
               f"plain {plain_ms[kname]:.3f} ms")
     images = torch.from_numpy(np.random.default_rng(2).standard_normal(
@@ -294,6 +588,14 @@ def main() -> None:
     t_one, s_one = cuda_time_ms(lambda: server.predict(images[:1]), min_reps=5)
     phase("times", f"serving forward, batch 1: {t_one:.2f} ms per call (spread {s_one:.1%}), "
           f"back to back")
+    del server, images
+
+    check_prologue(train_shapes["conv3x3_bn_relu_in"], max_err)
+    check_pool_bwd(train_shapes["maxpool2_bwd"], max_err)
+    check_grads()
+    train_launches = check_train(name)
+    launches = {k: launches[k] + train_launches[k] for k in KERNELS}
+    time_train(name, train_shapes, ms, plain_ms)
 
     print(json.dumps({"kernels": [
         {"name": k, **KERNELS[k], "launches": launches[k], "max_abs_err": max_err[k],

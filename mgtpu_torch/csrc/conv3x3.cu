@@ -1,10 +1,12 @@
 // 3x3, stride 1, pad 1 convolution, NHWC x / HWIO w, bf16 and f32,
 // with an f32 accumulator that starts at the bias, an optional ReLU and
-// an optional per-channel (sum, sum of squares) epilogue.
+// an optional per-channel (sum, sum of squares) epilogue; optionally
+// with a BatchNorm-apply + ReLU prologue on its input.
 //
 // Replaces: mgtpu/ops/pallas_conv.py::conv3x3 (kernel bodies
-// _conv_rows_kernel and _conv_slab_kernel). Same function; not a
-// block-by-block copy.
+// _conv_rows_kernel and _conv_slab_kernel) as mg_conv3x3, and
+// pallas_conv.py::conv3x3_bn_relu_in (body _conv_slab_pro_kernel) as
+// mg_conv3x3_bn_relu_in. Same functions; not a block-by-block copy.
 //
 // Bound on this card: at the multigrid's shapes (Ci, Co in 16..512,
 // K = 9*Ci) the conv is a GEMM with enough reuse to be bound by
@@ -20,6 +22,14 @@
 // padding is a bounds check on the gather: no padded copy of x is made
 // (the Pallas kernel pads in device memory, pallas_conv.py::_pad_input).
 // Every tail (pixels, Ci, Co) is masked.
+// The prologue (PRO) changes only the gather of A: an in-image tap
+// becomes max(x*scale[ci] + shift[ci], 0), computed in f32 and rounded
+// to the operand type before the tile; an out-of-image tap stays 0, not
+// relu(shift): pad positions are not activations (the Pallas kernel
+// forces its halo back to zero for the same reason). The normalized
+// input never goes to device memory. It adds two f32 loads (L1-cached),
+// a multiply and an add per gathered element: small against the 2*Co
+// flops that each gathered element feeds.
 //   bf16: 4 warps, each a 32x32 sub-tile of 2x2 WMMA 16x16x16 bf16
 //         products with f32 accumulators; K chunks of 32 channels,
 //         loaded 16 bytes a thread when Ci and Co are multiples of 8
@@ -76,6 +86,14 @@ __device__ __forceinline__ float finish(float v, int relu, T* dst) {
   return v;
 }
 
+// BN-apply + ReLU of the prologue, rounded as x*scale + shift is in
+// plain f32 (a product, then a sum: no fused multiply-add); NaN stays
+// NaN, as in jnp.maximum
+__device__ __forceinline__ float bn_relu(float v, const float* scale, const float* shift, int c) {
+  v = __fadd_rn(__fmul_rn(v, __ldg(scale + c)), __ldg(shift + c));
+  return v < 0.f ? 0.f : v;
+}
+
 // ---------------------------------------------------------------- bf16
 
 constexpr int WK = 32;            // input channels per K chunk
@@ -84,10 +102,11 @@ constexpr int A_LD = WK + 8;      // padded leading dims (multiples of 8
 constexpr int B_LD = BN + 8;      // elements, as WMMA needs)
 constexpr int C_LD = BN + 4;
 
-template <bool VEC>
+template <bool VEC, bool PRO>
 __global__ void __launch_bounds__(WTHREADS)
 conv3x3_wmma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-                    const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
+                    const float* __restrict__ bias, const float* __restrict__ scale,
+                    const float* __restrict__ shift, __nv_bfloat16* __restrict__ y,
                     float* __restrict__ stats, int H, int W, int Ci, int Co, long long M,
                     long long w_tap_stride, int relu, int with_stats) {
   using namespace nvcuda;
@@ -136,12 +155,27 @@ conv3x3_wmma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
         const __nv_bfloat16* src = x + (((long long)ap[r].img * H + hh) * W + ww) * Ci + ci0 + k;
         if (VEC) {
           uint4 val = make_uint4(0, 0, 0, 0);
-          if (in && ci0 + k < Ci) val = *reinterpret_cast<const uint4*>(src);
+          if (in && ci0 + k < Ci) {
+            val = *reinterpret_cast<const uint4*>(src);
+            if (PRO) {
+              __nv_bfloat16* e8 = reinterpret_cast<__nv_bfloat16*>(&val);
+#pragma unroll
+              for (int e = 0; e < 8; ++e)
+                e8[e] = __float2bfloat16(
+                    bn_relu(__bfloat162float(e8[e]), scale, shift, ci0 + k + e));
+            }
+          }
           *reinterpret_cast<uint4*>(&As[row][k]) = val;
         } else {
 #pragma unroll
-          for (int e = 0; e < 8; ++e)
-            As[row][k + e] = in && ci0 + k + e < Ci ? src[e] : __float2bfloat16(0.f);
+          for (int e = 0; e < 8; ++e) {
+            __nv_bfloat16 a = __float2bfloat16(0.f);
+            if (in && ci0 + k + e < Ci) {
+              a = src[e];
+              if (PRO) a = __float2bfloat16(bn_relu(__bfloat162float(a), scale, shift, ci0 + k + e));
+            }
+            As[row][k + e] = a;
+          }
         }
       }
 #pragma unroll
@@ -216,9 +250,11 @@ conv3x3_wmma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
 constexpr int FK = 16;  // input channels per K chunk
 constexpr int FTHREADS = 256;
 
+template <bool PRO>
 __global__ void __launch_bounds__(FTHREADS)
 conv3x3_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ bias, float* __restrict__ y,
+                   const float* __restrict__ bias, const float* __restrict__ scale,
+                   const float* __restrict__ shift, float* __restrict__ y,
                    float* __restrict__ stats, int H, int W, int Ci, int Co, long long M,
                    long long w_tap_stride, int relu, int with_stats) {
   __shared__ float As[FK][BM + 1];  // +1: the transposed store hits distinct banks
@@ -258,8 +294,10 @@ conv3x3_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
       for (int i = 0; i < 4; ++i) {
         const int hh = ap[i].h + dh, ww = ap[i].w + dw;
         float v = 0.f;
-        if (ap[i].ok && ci < Ci && hh >= 0 && hh < H && ww >= 0 && ww < W)
+        if (ap[i].ok && ci < Ci && hh >= 0 && hh < H && ww >= 0 && ww < W) {
           v = x[(((long long)ap[i].img * H + hh) * W + ww) * Ci + ci];
+          if (PRO) v = bn_relu(v, scale, shift, ci);
+        }
         As[tx][ty + 16 * i] = v;
       }
 #pragma unroll
@@ -318,15 +356,15 @@ conv3x3_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
 
-}  // namespace
-
-extern "C" int mg_conv3x3(const void* x, const void* w, const void* b, void* y, void* stats,
-                          int n, int h, int wd, int ci, int co, long long w_tap_stride,
-                          int relu, int with_stats, int is_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+template <bool PRO>
+int launch(const void* x, const void* w, const void* b, const void* scale, const void* shift,
+           void* y, void* stats, int n, int h, int wd, int ci, int co, long long w_tap_stride,
+           int relu, int with_stats, int is_bf16, cudaStream_t s) {
   const long long m = (long long)n * h * wd;
   const dim3 grid((unsigned)((m + BM - 1) / BM), (unsigned)((co + BN - 1) / BN));
   const float* bias = static_cast<const float*>(b);
+  const float* sc = static_cast<const float*>(scale);
+  const float* sh = static_cast<const float*>(shift);
   float* st = static_cast<float*>(stats);
   if (is_bf16) {
     auto xb = static_cast<const __nv_bfloat16*>(x);
@@ -336,15 +374,35 @@ extern "C" int mg_conv3x3(const void* x, const void* w, const void* b, void* y, 
     const bool vec = ci % 8 == 0 && co % 8 == 0 && w_tap_stride % 8 == 0 && aligned16(x) &&
                      aligned16(w);
     if (vec)
-      conv3x3_wmma_kernel<true><<<grid, WTHREADS, 0, s>>>(xb, wb, bias, yb, st, h, wd, ci, co, m,
-                                                          w_tap_stride, relu, with_stats);
+      conv3x3_wmma_kernel<true, PRO><<<grid, WTHREADS, 0, s>>>(
+          xb, wb, bias, sc, sh, yb, st, h, wd, ci, co, m, w_tap_stride, relu, with_stats);
     else
-      conv3x3_wmma_kernel<false><<<grid, WTHREADS, 0, s>>>(xb, wb, bias, yb, st, h, wd, ci, co,
-                                                           m, w_tap_stride, relu, with_stats);
+      conv3x3_wmma_kernel<false, PRO><<<grid, WTHREADS, 0, s>>>(
+          xb, wb, bias, sc, sh, yb, st, h, wd, ci, co, m, w_tap_stride, relu, with_stats);
   } else {
-    conv3x3_fma_kernel<<<grid, FTHREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), bias,
+    conv3x3_fma_kernel<PRO><<<grid, FTHREADS, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), bias, sc, sh,
         static_cast<float*>(y), st, h, wd, ci, co, m, w_tap_stride, relu, with_stats);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int mg_conv3x3(const void* x, const void* w, const void* b, void* y, void* stats,
+                          int n, int h, int wd, int ci, int co, long long w_tap_stride,
+                          int relu, int with_stats, int is_bf16, void* stream) {
+  return launch<false>(x, w, b, nullptr, nullptr, y, stats, n, h, wd, ci, co, w_tap_stride, relu,
+                       with_stats, is_bf16, static_cast<cudaStream_t>(stream));
+}
+
+// conv3x3(max(x*scale + shift, 0)) with the conv's zero padding kept;
+// scale and shift (ci,) f32
+extern "C" int mg_conv3x3_bn_relu_in(const void* x, const void* w, const void* b,
+                                     const void* scale, const void* shift, void* y, void* stats,
+                                     int n, int h, int wd, int ci, int co,
+                                     long long w_tap_stride, int relu, int with_stats,
+                                     int is_bf16, void* stream) {
+  return launch<true>(x, w, b, scale, shift, y, stats, n, h, wd, ci, co, w_tap_stride, relu,
+                      with_stats, is_bf16, static_cast<cudaStream_t>(stream));
 }

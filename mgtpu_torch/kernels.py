@@ -11,7 +11,8 @@ launches its kernel or raises.
 
 Each launch goes through :func:`launch`, which adds one to that
 kernel's count in :data:`LAUNCHES`; ``chip_smoke.py`` reads the counts to
-show that a forward pass really ran through the kernels.
+show that a forward pass or a training step really ran through the
+kernels.
 """
 
 from __future__ import annotations
@@ -31,10 +32,11 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES: dict[str, int] = {"conv3x3": 0, "maxpool2": 0}
+LAUNCHES: dict[str, int] = {"conv3x3": 0, "conv3x3_bn_relu_in": 0, "maxpool2": 0,
+                            "maxpool2_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,8 +46,14 @@ _SIGNATURES = {
     # x, w, b, y, stats, n, h, w, ci, co, w_tap_stride, relu, with_stats,
     # is_bf16, stream
     "mg_conv3x3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _I, _P),
+    # x, w, b, scale, shift, y, stats, n, h, w, ci, co, w_tap_stride, relu,
+    # with_stats, is_bf16, stream
+    "mg_conv3x3_bn_relu_in": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _I,
+                              _P),
     # x, y, n, h, w, c, is_bf16, stream
     "mg_maxpool2": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # x, y, g, dx, n, h, w, c, first_only, is_bf16, stream
+    "mg_maxpool2_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -81,24 +89,40 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmgtpu_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; raise if any fails. Returns their
+    joined output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 @functools.cache
 def build() -> tuple[Path, float, str]:
-    """Compile the kernels if no library for these sources exists yet.
+    """Compile the kernels if no library for these sources exists yet:
+    one nvcc per source, all started together, then one link.
     Returns (library path, build seconds, nvcc's output)."""
     so = library_path()
     if so.exists():
         return so, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                    for src, o in zip(_sources(), objs)])
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    log += _run_all([[_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                      "-o", str(tmp), *map(str, objs)]])
     secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    for o in objs:
+        o.unlink()
     os.replace(tmp, so)
-    return so, secs, proc.stdout + proc.stderr
+    return so, secs, log
 
 
 @functools.cache

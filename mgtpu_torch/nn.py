@@ -1,17 +1,18 @@
 """Layer library of the port (counterpart of `mgtpu/nn.py`).
 
-Layers are ``nn.Module``s that serve the eval forward. Layouts follow
-the JAX package at every public function: activations are NHWC and conv
-weights HWIO, so the tests compare like with like and
-`mgtpu_torch.utils.bridge` copies weights without transposing them.
+Layers are ``nn.Module``s; ``.train()`` and ``.eval()`` select the JAX
+``train=`` flag. Layouts follow the JAX package at every public
+function: activations are NHWC and conv weights HWIO, so the tests
+compare like with like and `mgtpu_torch.utils.bridge` copies weights
+without transposing them.
 
 ``compute_dtype`` follows the JAX ``dtype=`` rules: conv weights and
 activations are cast to it; ``Dense`` accumulates in f32 and adds an
-f32 bias; eval BatchNorm computes in f32. Parameters are f32 masters,
-drawn on the CPU from an explicit ``torch.Generator`` and then moved to
-``device``, so a seed gives the same weights on every device.
-
-Only the eval forward is ported: a BatchNorm in training mode raises.
+f32 bias; BatchNorm computes in f32 in both modes. Parameters are f32
+masters, drawn on the CPU from an explicit ``torch.Generator`` and then
+moved to ``device``, so a seed gives the same weights on every device.
+BatchNorm's running stats are buffers, updated in place by a
+train-mode forward (the JAX layer returns them as new stats).
 """
 
 from __future__ import annotations
@@ -23,10 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mgtpu_torch.ops.cuda_conv import bn_relu_plain, conv3x3, conv3x3_bn_relu_in
 from mgtpu_torch.ops.resample import nchw, nhwc, upsample_nearest2
-
-TRAIN_NOT_PORTED = ("training is not ported yet (ROADMAP Queue 1 item 4, the "
-                    "training step); call .eval() to serve")
 
 
 def cast_to(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -66,15 +65,61 @@ class Conv(nn.Module):
         return y + self.b.to(y.dtype)
 
 
-class BatchNorm(nn.Module):
-    """Spatial batch norm, eval mode: normalizes with the running stats
-    in f32 and returns ``x.dtype``. After `mgtpu_torch.ops.fold` folds it
-    into the preceding conv, its parameters and stats are gone (the JAX
-    package's empty-dict marker) and it is the identity."""
+def _bn_axes_n(x):
+    axes = tuple(range(x.dim() - 1))  # all but the channels
+    return axes, math.prod(x.shape[:-1])
 
-    def __init__(self, c, eps=1e-5, device=None):
+
+def _bn_moments(x):
+    """One-pass f32 batch moments: mean, and the biased variance
+    E[x^2] - E[x]^2 (as `mgtpu/nn.py::_bn_train_fwd`)."""
+    xf = x.float()
+    axes, _ = _bn_axes_n(x)
+    mean = xf.mean(dim=axes)
+    return mean, torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0)
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Train-mode BN apply with the JAX package's custom VJP
+    (`mgtpu/nn.py::_bn_train`): one-pass f32 moments E[x^2] - E[x]^2,
+    normalize with the biased variance; the backward takes two
+    reductions (sum dy, sum dy*xhat). mean and var feed only the
+    running-stat update and are not differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        mean, var = _bn_moments(x)
+        inv = torch.rsqrt(var + eps)
+        a = inv * scale
+        y = (x.float() * a + (bias - mean * a)).to(x.dtype)
+        ctx.save_for_backward(x, mean, inv, scale)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, mean, inv, scale = ctx.saved_tensors
+        axes, n = _bn_axes_n(x)
+        gf = gy.float()
+        xhat = (x.float() - mean) * inv
+        sum_dy = gf.sum(dim=axes)
+        sum_dy_xhat = (gf * xhat).sum(dim=axes)
+        dx = (scale * inv) * (gf - sum_dy / n - xhat * (sum_dy_xhat / n))
+        return dx.to(x.dtype), sum_dy_xhat, sum_dy, None
+
+
+class BatchNorm(nn.Module):
+    """Spatial batch norm over the last axis, computed in f32, returning
+    ``x.dtype``. Eval mode normalizes with the running stats. Train mode
+    normalizes with the batch's one-pass moments (biased variance) and
+    updates the running stats in place with momentum 0.1 and the
+    unbiased variance. After `mgtpu_torch.ops.fold` folds it into the
+    preceding conv, its parameters and stats are gone (the JAX package's
+    empty-dict marker) and it is the identity, in eval mode only."""
+
+    def __init__(self, c, eps=1e-5, momentum=0.1, device=None):
         super().__init__()
-        self.c, self.eps = c, eps
+        self.c, self.eps, self.momentum = c, eps, momentum
         self.scale = nn.Parameter(torch.ones(c, device=device))
         self.bias = nn.Parameter(torch.zeros(c, device=device))
         self.register_buffer("mean", torch.zeros(c, device=device))
@@ -88,9 +133,36 @@ class BatchNorm(nn.Module):
         """Mark as folded: remove the parameters and stats."""
         self.scale = self.bias = self.mean = self.var = None
 
+    def _check_trainable(self):
+        if self.folded:
+            raise ValueError("BatchNorm was folded (mgtpu_torch.ops.fold): folded "
+                             "params serve eval/inference only, not training")
+
+    @torch.no_grad()
+    def _update_running(self, mean, var, n):
+        m = self.momentum
+        self.mean.copy_((1 - m) * self.mean + m * mean)
+        self.var.copy_((1 - m) * self.var + m * (var * (n / max(n - 1, 1))))
+
+    def batch_affine(self, x):
+        """Train mode, split: the batch's per-channel (scale, shift) f32
+        with bn(x) = x * scale + shift, from the same one-pass moments,
+        and the running-stat update. Gradients reach x, the affine and
+        the moments by autograd, which is the function that the custom
+        VJP of ``forward`` computes. For a caller that applies the BN
+        elsewhere (the prologue of `conv3x3_bn_relu_in`)."""
+        self._check_trainable()
+        mean, var = _bn_moments(x)
+        scale = torch.rsqrt(var + self.eps) * self.scale
+        self._update_running(mean.detach(), var.detach(), _bn_axes_n(x)[1])
+        return scale, self.bias - mean * scale
+
     def forward(self, x):
         if self.training:
-            raise NotImplementedError(f"BatchNorm: {TRAIN_NOT_PORTED}")
+            self._check_trainable()
+            y, mean, var = _BatchNormTrain.apply(x, self.scale, self.bias, self.eps)
+            self._update_running(mean, var, _bn_axes_n(x)[1])
+            return y
         if self.folded:
             return x
         inv = torch.rsqrt(self.var + self.eps) * self.scale
@@ -164,38 +236,55 @@ class ConvBN(nn.Module):
         return self._tail(self.conv(x))
 
     def apply_parts(self, parts):
-        """Fused-exchange path: the conv of the channel concat of
-        ``parts`` (a list of ``(kind, tensor)`` from
+        """Fused-exchange path: conv of the channel concat of ``parts``
+        (see `conv_parts`), then BN [and ReLU]."""
+        return self._tail(self.conv_parts(parts))
+
+    def conv_parts(self, parts):
+        """The conv (with its bias, before the BN) of the channel concat
+        of ``parts`` (a list of ``(kind, tensor)`` from
         `mgtpu_torch.ops.mg.exchange_parts`) without building the concat,
         as the sum of one conv per part over its slice of the weight's
-        input channels. Each part goes one of three ways:
+        input channels. Each part goes one of four ways:
 
+          * a "same" part that arrives un-normalized, as the tuple
+            ``(y_raw, scale, shift)`` of the previous ConvBN's raw output
+            and its BN's batch scale and shift, under a 3x3 conv: one
+            launch of the `conv3x3_bn_relu_in` kernel, which applies
+            relu(y_raw * scale + shift) as it reads (other convs take
+            the materialized activation);
           * a 3x3/s1/p1 conv of a "same" or "down" part (or of an "up"
             part materialized for an odd partner): one launch of the
-            `conv3x3` kernel; the first launch carries the conv bias;
+            `conv3x3` kernel;
           * an exact-2x "up" part under a 3x3 conv: `_conv_up3`, the
             upsample folded into a stride-2 transposed conv;
           * a k=1 "up" part: the conv at coarse resolution, then the
             upsample of the result.
 
-        Other convs go to the stock conv on the materialized part."""
-        from mgtpu_torch.ops.cuda_conv import conv3x3
+        The first kernel launch carries the conv bias. Other convs go to
+        the stock conv on the materialized part. Differentiable."""
         from mgtpu_torch.ops.mg import materialize_part
 
         conv = self.conv
         dt = conv.compute_dtype
-        w = conv.w
+        w = cast_to(conv.w, dt)  # cast once; each part takes a view of its slice
         is3x3 = self.k == 3 and conv.stride == 1 and conv.pad == 1
         oh = ow = None
         for kind, xp in parts:
             if kind != "up":
-                oh, ow = xp.shape[1], xp.shape[2]
+                xr = xp[0] if isinstance(xp, tuple) else xp
+                oh, ow = xr.shape[1], xr.shape[2]
         bias = conv.b
         y = None
         ofs = 0
         for kind, xp in parts:
+            bn_in = None
+            if isinstance(xp, tuple):  # un-normalized: (y_raw, scale, shift)
+                xp, *bn_in = xp
+                if not is3x3:
+                    xp, bn_in = bn_relu_plain(xp, *bn_in), None
             c = xp.shape[-1]
-            ws = cast_to(w[:, :, ofs:ofs + c, :], dt)
+            ws = w[:, :, ofs:ofs + c, :]
             ofs += c
             xp = cast_to(xp, dt)
             exact2x = kind == "up" and (oh, ow) == (2 * xp.shape[1], 2 * xp.shape[2])
@@ -208,15 +297,18 @@ class ConvBN(nn.Module):
                 if is3x3:
                     b = torch.zeros(ws.shape[3], device=xp.device) if bias is None else bias
                     bias = None
-                    yy, _ = conv3x3(xp, ws, b, with_stats=False)
+                    if bn_in is None:
+                        yy, _ = conv3x3(xp, ws, b, with_stats=False)
+                    else:
+                        yy, _ = conv3x3_bn_relu_in(xp, ws, b, *bn_in, with_stats=False)
                 else:
                     yy = conv2d_nhwc(xp, ws, conv.stride, conv.pad)
             y = yy if y is None else y + yy
         if ofs != w.shape[2]:
             raise ValueError(f"parts carry {ofs} channels, the conv takes {w.shape[2]}")
-        if bias is not None:  # no conv3x3 launch took it
+        if bias is not None:  # no kernel launch took it
             y = y + bias.to(y.dtype)
-        return self._tail(y)
+        return y
 
 
 def _conv_up3(xp, ws, oh: int, ow: int):

@@ -3,7 +3,8 @@
 A pyramid is a tuple of NHWC tensors, finest scale first; scale i+1 has
 half the spatial extent of scale i. Only the fused-exchange formulation
 is ported: each exchange conv takes its scale's parts through
-`ConvBN.apply_parts` and the resample-concat is never built.
+`ConvBN.apply_parts` and the resample-concat is never built. Every block
+runs in eval mode (serving) and in train mode (the training step).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mgtpu_torch.nn import ConvBN
+from mgtpu_torch.ops.cuda_conv import bn_relu_plain
 from mgtpu_torch.ops.resample import maxpool, maxpool2_ceil, avgpool, upsample_nearest2
 
 Pyramid = tuple
@@ -34,16 +36,18 @@ def pyramid_widths_after_exchange(widths: Sequence[int]) -> list[int]:
     return out
 
 
-def exchange_parts(pyr: Pyramid, i: int):
+def exchange_parts(pyr: Pyramid, i: int, same=None):
     """The i-th scale's exchange inputs as a list of ``(kind, tensor)``,
     in the concat order {maxpool2(finer), self, coarser}. The coarser
     neighbour is passed raw (kind "up") so the conv can fold its
-    nearest upsample."""
+    nearest upsample. ``same`` replaces ``pyr[i]`` as the "same" part
+    (an un-normalized ``(y_raw, scale, shift)``, see
+    `ConvBN.conv_parts`)."""
     n = len(pyr)
     parts = []
     if i > 0:
         parts.append(("down", maxpool2_ceil(pyr[i - 1])))
-    parts.append(("same", pyr[i]))
+    parts.append(("same", pyr[i] if same is None else same))
     if i + 1 < n:
         parts.append(("up", pyr[i + 1]))
     return parts
@@ -118,8 +122,25 @@ class MgResidual(nn.Module):
         return tuple(layer.apply_parts(exchange_parts(pyr, i))
                      for i, layer in enumerate(layers))
 
+    def _train_stages(self, pyr):
+        """Both stages in train mode. Stage 1 stops at each scale's raw
+        part sum y1 and its BN's batch (scale, shift); stage 2 takes its
+        same-scale part un-normalized, so the `conv3x3_bn_relu_in`
+        kernel applies relu(bn(y1)) as it reads. relu(bn(y1)) is built
+        only for the neighbours' down and up parts: nowhere in a
+        single-scale block."""
+        n = len(pyr)
+        raw = [layer.conv_parts(exchange_parts(pyr, i)) for i, layer in enumerate(self.stage1)]
+        affine = [layer.bn.batch_affine(y) for layer, y in zip(self.stage1, raw)]
+        act = tuple(bn_relu_plain(y, *a) if n > 1 else None for y, a in zip(raw, affine))
+        return tuple(layer._tail(layer.conv_parts(exchange_parts(act, i, (raw[i], *affine[i]))))
+                     for i, layer in enumerate(self.stage2))
+
     def forward(self, pyr):
-        h = self._stage(self.stage2, self._stage(self.stage1, pyr))
+        if self.training:
+            h = self._train_stages(pyr)
+        else:
+            h = self._stage(self.stage2, self._stage(self.stage1, pyr))
         out = []
         for i, (x, y) in enumerate(zip(pyr, h)):
             cin, cout = self.in_widths[i], self.out_widths[i]

@@ -28,8 +28,10 @@ def nhwc(x: torch.Tensor) -> torch.Tensor:
 def maxpool2_ceil(x: torch.Tensor) -> torch.Tensor:
     """2x2/2 max pool with ceil semantics: a window that runs past the
     bottom or right edge is clipped, as the JAX version's -inf padding
-    does. On a CUDA tensor this launches the hand-written kernel."""
-    return maxpool2(x)
+    does. Its gradient goes to the first tied element of a window, as
+    XLA's SelectAndScatter gives the JAX version's. On a CUDA tensor
+    this launches the hand-written kernels."""
+    return maxpool2(x, ties="first")
 
 
 def maxpool(x: torch.Tensor, k: int, s: int, pad: int = 0) -> torch.Tensor:

@@ -64,6 +64,16 @@ def calibrate_batchnorm(model: torch.nn.Module, generator: torch.Generator,
             h.remove()
 
 
+def read_checkpoint(path: str, depth: int) -> tuple[dict, int]:
+    """An mgtpu-ckpt of ``ilsvrc/rnmg`` (see `read_mgtpu_ckpt`) and the
+    depth it names (``depth`` when it names none)."""
+    blob = read_mgtpu_ckpt(path)
+    meta = blob["meta"]
+    if meta.get("netType", NET) != NET:
+        raise ValueError(f"{path} holds a {meta['netType']!r}, not {NET!r}")
+    return blob, int(meta.get("depth", depth))
+
+
 class Server:
     """R-MG-``depth`` behind ``predict``: BN folded, conv weights in
     ``compute_dtype`` (biases, the classifier's bias and the log-probs
@@ -80,11 +90,7 @@ class Server:
         self.compute_dtype = compute_dtype
         gen = torch.Generator().manual_seed(seed)
         if ckpt is not None:
-            blob = read_mgtpu_ckpt(ckpt)
-            meta = blob["meta"]
-            if meta.get("netType", NET) != NET:
-                raise ValueError(f"{ckpt} holds a {meta['netType']!r}, not {NET!r}")
-            depth = int(meta.get("depth", depth))
+            blob, depth = read_checkpoint(ckpt, depth)
         model = get_net(NET)(depth=depth, compute_dtype=compute_dtype, generator=gen)
         if ckpt is not None:
             load_jax_tree(model, blob["params"], blob["stats"])

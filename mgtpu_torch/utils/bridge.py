@@ -1,12 +1,16 @@
-"""Weights from the JAX package into the port, without JAX.
+"""Weights between the JAX package and the port, without JAX.
 
 ``load_jax_tree`` copies the JAX package's parameter and stats trees
 (nested dicts keyed '0', '1', ... with numpy or torch leaves: conv
 ``w`` HWIO and ``b``; BN ``scale``/``bias`` and stats ``mean``/``var``;
 empty dicts for folded BNs, identity shortcuts and pools) into a port
-module. ``read_mgtpu_ckpt`` reads an mgtpu-ckpt npz archive (a JSON
-``__struct__`` plus arrays ``a0``, ``a1``, ...) with numpy alone; leaves
-come back as torch tensors, bf16 and fp8 ones in their real dtype.
+module; ``export_jax_tree`` is its inverse. ``load_momentum`` and
+``export_momentum`` carry the SGD state: the JAX ``{"m": tree}`` with the
+parameter tree's structure, the port's ``{"m": [buffer per parameter]}``
+(`mgtpu_torch.train.optim`). ``read_mgtpu_ckpt`` reads an mgtpu-ckpt npz
+archive (a JSON ``__struct__`` plus arrays ``a0``, ``a1``, ...) with
+numpy alone; leaves come back as torch tensors, bf16 and fp8 ones in
+their real dtype.
 """
 
 from __future__ import annotations
@@ -47,65 +51,123 @@ def _copy(dst: torch.Tensor, value, path: str) -> None:
     dst.copy_(src)
 
 
-def _load(m: nn.Module, p: dict, s: dict, path: str) -> None:
+def _live(m: nn.Module, path: str = "") -> tuple[dict, dict]:
+    """The JAX-structured (params, stats) trees of ``m`` with the port's
+    own parameters and buffers as leaves."""
     if isinstance(m, Conv):
-        if isinstance(p.get("w"), dict):
-            raise NotImplementedError(f"{path}: int8-quantized convs are not ported")
-        _expect_keys(p, {"w", "b"}, path)
-        _copy(m.w, p["w"], path + ".w")
-        _copy(m.b, p["b"], path + ".b")
-    elif isinstance(m, BatchNorm):
-        if not p and not s:  # folded in the JAX tree
-            m.drop_folded()
-            return
+        if m.b is None:
+            return {"w": m.w}, {}
+        return {"w": m.w, "b": m.b}, {}
+    if isinstance(m, BatchNorm):
         if m.folded:
-            raise ValueError(f"{path}: the port's BN is folded, the tree's is not")
-        _expect_keys(p, {"scale", "bias"}, path)
-        _expect_keys(s, {"mean", "var"}, path + " (stats)")
-        for name, v in (("scale", p["scale"]), ("bias", p["bias"]),
-                        ("mean", s["mean"]), ("var", s["var"])):
-            _copy(getattr(m, name), v, f"{path}.{name}")
-    elif isinstance(m, ConvBN):
-        _expect_keys(p, {"conv", "bn"}, path)
-        _load(m.conv, p["conv"], {}, path + ".conv")
-        _load(m.bn, p["bn"], s["bn"], path + ".bn")
-    elif isinstance(m, Dense):
-        _expect_keys(p, {"w", "b"}, path)
-        _copy(m.w, p["w"], path + ".w")
-        _copy(m.b, p["b"], path + ".b")
-    elif isinstance(m, LogSoftmaxClassifier):  # its tree is its Dense's
-        _load(m.dense, p, s, path)
-    elif isinstance(m, MgNet):
-        _load(m.seq, p, s, path)
-    elif isinstance(m, (Sequential, MgStem7x7)):
+            return {}, {}
+        return {"scale": m.scale, "bias": m.bias}, {"mean": m.mean, "var": m.var}
+    if isinstance(m, ConvBN):
+        pb, sb = _live(m.bn, path + ".bn")
+        return {"conv": _live(m.conv, path + ".conv")[0], "bn": pb}, {"bn": sb}
+    if isinstance(m, Dense):
+        return {"w": m.w, "b": m.b}, {}
+    if isinstance(m, LogSoftmaxClassifier):
+        return _live(m.dense, path)
+    if isinstance(m, MgNet):
+        return _live(m.seq, path)
+    if isinstance(m, (Sequential, MgStem7x7)):
         subs = m.layers if isinstance(m, Sequential) else m.convs
-        _expect_keys(p, {str(i) for i in range(len(subs))}, path)
-        for i, sub in enumerate(subs):
-            _load(sub, p[str(i)], s[str(i)], f"{path}.{i}")
-    elif isinstance(m, MgResidual):
-        _expect_keys(p, {"s1", "s2", "sc"}, path)
+        trees = [_live(sub, f"{path}.{i}") for i, sub in enumerate(subs)]
+        return ({str(i): t[0] for i, t in enumerate(trees)},
+                {str(i): t[1] for i, t in enumerate(trees)})
+    if isinstance(m, MgResidual):
+        p, s = {}, {}
         for name, layers in (("s1", m.stage1), ("s2", m.stage2)):
-            _expect_keys(p[name], {str(i) for i in range(len(layers))}, f"{path}.{name}")
-            for i, layer in enumerate(layers):
-                _load(layer, p[name][str(i)], s[name][str(i)], f"{path}.{name}.{i}")
+            trees = [_live(layer, f"{path}.{name}.{i}") for i, layer in enumerate(layers)]
+            p[name] = {str(i): t[0] for i, t in enumerate(trees)}
+            s[name] = {str(i): t[1] for i, t in enumerate(trees)}
+        p["sc"], s["sc"] = {}, {}
         for i in range(len(m.in_widths)):
             k = str(i)
-            if k in m.shortcuts:
-                _load(m.shortcuts[k], p["sc"][k], s["sc"][k], f"{path}.sc.{k}")
-            elif p["sc"].get(k):
-                raise KeyError(f"{path}.sc.{k}: the tree has a conv shortcut, the port none")
-    elif isinstance(m, MgPool):
-        if p or s:
-            raise KeyError(f"{path}: a pool has no parameters, the tree has {sorted(p)}")
+            sc = _live(m.shortcuts[k], f"{path}.sc.{k}") if k in m.shortcuts else ({}, {})
+            p["sc"][k], s["sc"][k] = sc
+        return p, s
+    if isinstance(m, MgPool):
+        return {}, {}
+    raise TypeError(f"{path}: no JAX-tree mapping for {type(m).__name__}")
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _zip(live, tree, fn, path: str = "") -> None:
+    """fn(live leaf, tree leaf, path) over two trees of one structure."""
+    if isinstance(live, dict):
+        if not isinstance(tree, dict):
+            raise KeyError(f"{path or '<root>'}: expected a dict, got {type(tree).__name__}")
+        _expect_keys(tree, set(live), path)
+        for k, v in live.items():
+            _zip(v, tree[k], fn, f"{path}.{k}")
+    elif isinstance(tree, dict):  # e.g. an int8 conv's {"w8", "scale", ...}
+        raise NotImplementedError(f"{path}: the tree holds {sorted(tree)}, the port one "
+                                  f"array (int8-quantized convs are not ported)")
     else:
-        raise TypeError(f"{path}: no JAX-tree mapping for {type(m).__name__}")
+        fn(live, tree, path)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def export_jax_tree(model: nn.Module) -> tuple[dict, dict]:
+    """The inverse of ``load_jax_tree``: ``model``'s (params, stats) as
+    numpy trees in the JAX package's structure."""
+    p, s = _live(model)
+    return _map(p, _numpy), _map(s, _numpy)
+
+
+def export_momentum(model: nn.Module, opt_state: dict) -> dict:
+    """The port's SGD state for ``model.parameters()`` as the JAX
+    package's ``{"m": tree}``, numpy leaves."""
+    m = {id(p): buf for p, buf in zip(model.parameters(), opt_state["m"], strict=True)}
+    return {"m": _map(_live(model)[0], lambda p: _numpy(m[id(p)]))}
+
+
+def load_momentum(model: nn.Module, opt_tree: dict) -> dict:
+    """The JAX package's ``{"m": tree}`` as the port's SGD state for
+    ``model.parameters()``, each buffer like its parameter. Raises on
+    any key, shape or structure mismatch."""
+    m = {}
+
+    def take(p, value, path):
+        buf = torch.zeros_like(p)
+        _copy(buf, value, path)
+        m[id(p)] = buf
+
+    _zip(_live(model)[0], opt_tree["m"], take, "m")
+    return {"m": [m[id(p)] for p in model.parameters()]}
 
 
 def load_jax_tree(model: nn.Module, params: dict, stats: dict) -> nn.Module:
     """Copy a JAX (params, stats) tree into ``model`` in place (values
     are cast to each parameter's dtype and device); returns ``model``.
-    Raises on any key, shape or structure mismatch."""
-    _load(model, params, stats, "")
+    A BN whose tree is an empty dict (folded in the JAX package) is
+    folded in the port too. Raises on any key, shape or structure
+    mismatch."""
+    bns = {id(m.scale): m for m in model.modules()
+           if isinstance(m, BatchNorm) and not m.folded}
+
+    def fold_marked(live, tree):
+        if tree == {} and "scale" in live:
+            bns[id(live["scale"])].drop_folded()
+        elif isinstance(tree, dict):
+            for k in live.keys() & tree.keys():
+                if isinstance(live[k], dict):
+                    fold_marked(live[k], tree[k])
+
+    fold_marked(_live(model)[0], params)
+    p, s = _live(model)
+    _zip(p, params, _copy)
+    _zip(s, stats, _copy)
     return model
 
 

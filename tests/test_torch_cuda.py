@@ -12,8 +12,10 @@ import pytest
 import torch
 
 from mgtpu_torch import kernels
-from mgtpu_torch.ops.cuda_conv import conv3x3, conv3x3_plain
-from mgtpu_torch.ops.cuda_pool import maxpool2, maxpool2_plain
+from mgtpu_torch.ops.cuda_conv import (bn_relu_plain, conv3x3, conv3x3_bn_relu_in,
+                                       conv3x3_bn_relu_in_plain, conv3x3_plain)
+from mgtpu_torch.ops.cuda_pool import (maxpool2, maxpool2_backward, maxpool2_bwd_plain,
+                                       maxpool2_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -93,8 +95,8 @@ def test_conv3x3_wrapper_refuses(dev):
         conv3x3(x.transpose(1, 2), w, b)
     with pytest.raises(ValueError):
         conv3x3(x, w.transpose(2, 3), b)
-    with pytest.raises(NotImplementedError):
-        conv3x3(x, w.requires_grad_(), b)
+    with pytest.raises(ValueError, match="scale"):
+        conv3x3_bn_relu_in(x, w, b, torch.ones(8, device=dev), torch.zeros(16, device=dev))
 
 
 def _pool_input(shape, dtype, dev, seed=0):
@@ -121,8 +123,19 @@ def test_maxpool2_wrapper_refuses(dev):
         maxpool2(x.half())
     with pytest.raises(ValueError):
         maxpool2(x.transpose(1, 2))
-    with pytest.raises(NotImplementedError):
-        maxpool2(x.clone().requires_grad_())
+    with pytest.raises(ValueError, match="ties"):
+        maxpool2(x, ties="last")
+
+
+def test_no_grad_call_on_grad_requiring_tensors_launches_the_kernels(dev):
+    """A grad-requiring tensor under no_grad takes the forward kernels
+    (the wrappers no longer refuse tensors that require grad)."""
+    x, w, b = _conv_inputs(1, 8, 8, 16, 16, torch.float32, dev)
+    kernels.reset_launches()
+    with torch.no_grad():
+        conv3x3(x.requires_grad_(), w.requires_grad_(), b)
+        maxpool2(x)
+    assert kernels.LAUNCHES["conv3x3"] == 1 and kernels.LAUNCHES["maxpool2"] == 1
 
 
 def test_rmg18_forward_launches_and_matches_cpu(dev):
@@ -139,7 +152,87 @@ def test_rmg18_forward_launches_and_matches_cpu(dev):
         model.to(dev)
         kernels.reset_launches()
         got = model(x.to(dev)).cpu()
-    assert kernels.LAUNCHES == {"conv3x3": 56, "maxpool2": 26}
+    assert kernels.LAUNCHES == {"conv3x3": 56, "conv3x3_bn_relu_in": 0, "maxpool2": 26,
+                                "maxpool2_bwd": 0}
     # f32 on both sides; the deep random-init net amplifies the
     # summation-order differences, so the bound is relative
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
+
+
+def _bn(ci, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, ci).astype(np.float32))
+    shift = torch.from_numpy(rng.normal(0.3, 0.5, ci).astype(np.float32))  # some > 0
+    return scale.to(dev), shift.to(dev)
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu_out", [False, True])
+def test_conv3x3_bn_relu_in_kernel_matches_plain(dev, shape, dtype, relu_out):
+    x, w, b = _conv_inputs(*shape, dtype, dev)
+    scale, shift = _bn(shape[3], dev)
+    y, st = conv3x3_bn_relu_in(x, w, b, scale, shift, relu_out=relu_out)
+    # reference: the normalized input rounded to the operand type as the
+    # kernel rounds it, then the plain conv in f32; bounds as for conv3x3
+    y_ref, st_ref = conv3x3_plain(bn_relu_plain(x, scale, shift).float(), w.float(), b,
+                                  relu_out=relu_out)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(y.float(), y_ref, rtol=rtol, atol=1e-5 * y_ref.abs().max().item())
+    torch.testing.assert_close(st, st_ref, rtol=1e-4, atol=1e-5 * st_ref.abs().max().item())
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 16, 5), (2, 7, 9, 3), (1, 1, 1, 4),
+                                   (4, 56, 56, 64), (3, 15, 14, 130)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ties", ["all", "first"])
+def test_maxpool2_bwd_kernel_exact(dev, shape, dtype, ties):
+    x = _pool_input(shape, dtype, dev)
+    x[0] = torch.relu(torch.round(x[0].float() * 2) / 2).to(dtype)  # ties at 0 and > 0
+    y = maxpool2_plain(x)
+    g = torch.randn(y.shape, device=dev)
+    dx = maxpool2_backward(x, y, g, ties)
+    assert torch.equal(dx, maxpool2_bwd_plain(x, y, g, ties))
+
+
+def test_conv_functions_grads_match_plain_autograd(dev):
+    """Kernel forward, cuDNN dgrad/wgrad and the prologue's reductions
+    backward, against autograd of the plain versions (f32, no TF32:
+    summation order only). Without relu_out: with it each side masks
+    its gradient by its own y > 0, and the two forwards round some y to
+    opposite sides of 0."""
+    x, w, b = _conv_inputs(2, 14, 14, 32, 24, torch.float32, dev)
+    scale, shift = _bn(32, dev)
+    r = torch.randn((2, 14, 14, 24), device=dev)
+    for fn, plain, extra in ((conv3x3, conv3x3_plain, ()),
+                             (conv3x3_bn_relu_in, conv3x3_bn_relu_in_plain, (scale, shift))):
+        grads = []
+        for f in (fn, plain):
+            ins = [t.clone().requires_grad_() for t in (x, w, b, *extra)]
+            (f(*ins)[0] * r).sum().backward()
+            grads.append([t.grad for t in ins])
+        for g, g_ref in zip(*grads):
+            torch.testing.assert_close(g, g_ref, rtol=1e-4, atol=1e-5 * g_ref.abs().max().item())
+
+
+def test_rmg18_train_step_launches_and_matches_cpu(dev):
+    """A depth-18 f32 training forward and backward on the card goes
+    through all four kernels and gives the CPU's loss."""
+    from mgtpu_torch.models import get_net
+    from mgtpu_torch.models.base import nll_loss
+
+    model = get_net("ilsvrc/rnmg")(depth=18, generator=torch.Generator().manual_seed(0)).train()
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, 224, 224, 3),
+                                                                  dtype=np.float32))
+    y = torch.tensor([3, 5])
+    ref = nll_loss(model(x), y)
+    model.to(dev)
+    kernels.reset_launches()
+    loss = nll_loss(model(x.to(dev)), y.to(dev))
+    loss.backward()
+    assert kernels.LAUNCHES == {"conv3x3": 38, "conv3x3_bn_relu_in": 18, "maxpool2": 26,
+                                "maxpool2_bwd": 26}
+    # f32 on both sides, summation order only
+    torch.testing.assert_close(loss.cpu(), ref.detach(), rtol=1e-4, atol=0)

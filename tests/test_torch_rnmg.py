@@ -24,7 +24,8 @@ from mgtpu_torch.models import get_net
 from mgtpu_torch.nn import param_count
 from mgtpu_torch.ops.fold import fold_batchnorm
 from mgtpu_torch.serve import Server, calibrate_batchnorm
-from mgtpu_torch.utils.bridge import load_jax_tree, read_mgtpu_ckpt
+from mgtpu_torch.utils.bridge import (export_jax_tree, export_momentum, load_jax_tree,
+                                      load_momentum, read_mgtpu_ckpt)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -104,6 +105,29 @@ def test_rmg18_folded_forward_matches_jax(rmg18):
     _assert_logprobs_close(got, rmg18.ref)
 
 
+def _assert_trees_equal(got, ref):
+    assert jax.tree.structure(got) == jax.tree.structure(ref)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(ref)):
+        assert a.dtype == np.asarray(b).dtype
+        np.testing.assert_array_equal(a, np.asarray(b))
+
+
+@pytest.mark.parametrize("folded", [False, True])
+def test_rmg18_bridge_round_trip(rmg18, folded):
+    """export_jax_tree inverts load_jax_tree, folded BNs (empty dicts)
+    included, and the SGD momentum tree carries across both ways."""
+    p, s = (rmg18.fp, rmg18.fs) if folded else (rmg18.p, rmg18.s)
+    model = load_jax_tree(_port18(), p, s)
+    got_p, got_s = export_jax_tree(model)
+    _assert_trees_equal(got_p, p)
+    _assert_trees_equal(got_s, s)
+    rng = np.random.default_rng(6)
+    m = jax.tree.map(lambda a: rng.standard_normal(a.shape, dtype=np.float32), p)
+    opt = load_momentum(model, {"m": m})
+    assert [t.shape for t in opt["m"]] == [q.shape for q in model.parameters()]
+    _assert_trees_equal(export_momentum(model, opt)["m"], m)
+
+
 def test_server_from_jax_checkpoint(rmg18, tmp_path):
     """A checkpoint the JAX trainer writes serves in the port: read
     without JAX, BN folded, f32 on the CPU."""
@@ -171,7 +195,7 @@ def test_port_never_imports_jax():
     imported."""
     code = textwrap.dedent("""
         import sys, torch
-        import mgtpu_torch.serve, mgtpu_torch.kernels
+        import mgtpu_torch.serve, mgtpu_torch.kernels, mgtpu_torch.trainer
         from mgtpu_torch.models.common import LogSoftmaxClassifier, MgNet
         from mgtpu_torch.ops.fold import fold_batchnorm
         from mgtpu_torch.ops.mg import MgPool, MgResidual, MgStem7x7
