@@ -15,18 +15,27 @@ step with CUDA events. Phases:
   1 device   the card, and its name and power limit from nvidia-smi
   2 build    nvcc over mgtpu_torch/csrc/*.cu, bound with ctypes
   3 conv3x3  kernel vs conv3x3_plain at every (H, W, Ci, Co) of the slice,
-             batch 8, bf16 and f32, relu_out and with_stats on and off
+             batch 8, bf16 and f32, relu_out and with_stats on and off,
+             each launch through the design cuda_conv._route picks (sm90:
+             TMA + wgmma, for bf16 with Ci, Co multiples of 64; tile:
+             the rest)
   4 maxpool2 kernel vs maxpool2_plain, exact, with odd sizes, NaN and -inf
   5 serve    batches of 1, 8 and 32 images: shape, finiteness, rows that
              are distributions, exactly 112 conv3x3 and 46 maxpool2
-             launches per forward; the f32 forward on the card vs the
-             plain forward on the CPU
+             launches per forward, each conv through the design _route
+             predicts from the shapes recorded on the CPU; the f32
+             forward on the card vs the plain forward on the CPU
   6 times    each kernel vs its plain version (cuDNN) at batch 128 bf16,
-             the serving forward in images/s at batch 128 bf16, and its
-             time per call at batch 1
+             on the card's clock (queued behind a sleep kernel, so the
+             host's launch rate does not set the pace), in turns, with the
+             tile design beside the sm90 one at every shape routed to
+             sm90; the serving forward in images/s at batch 128 bf16, and
+             its time per call at batch 1 (these two include the host)
   7 conv3x3_bn_relu_in  kernel vs its plain version at every (H, W, Ci,
              Co) of the training step, batch 8, bf16 and f32, relu_out
-             and with_stats on and off, some shifts positive (the halo)
+             and with_stats on and off, some shifts positive (the halo);
+             at the shapes routed to sm90 also with exact zeros in the
+             border rows and columns of x
   8 maxpool2_bwd  kernel vs maxpool2_bwd_plain, exact, both tie rules, at
              the training step's shapes and odd sizes; ties at zero and
              at positive values, NaN, all -inf windows
@@ -35,18 +44,20 @@ step with CUDA events. Phases:
  10 train    4 steps of R-MG-34 bf16 at batch 32 on one fixed batch: the
              loss stays finite and falls; exactly 76 conv3x3, 36
              conv3x3_bn_relu_in, 46 maxpool2 and 46 maxpool2_bwd launches
-             per step; one f32 step on the card vs the plain CPU step
+             per step, the convs through the predicted designs; one f32
+             step on the card vs the plain CPU step
  11 times    the training step in images/s at batch 128 bf16; each new
-             kernel's summed time per step vs its plain version
+             kernel's summed time per step vs its plain version (and the
+             tile design's, as in phase 6)
 
 Any failed check exits non-zero. The second-to-last line of stdout is
 one JSON object with the kernels: ``launches`` sums each kernel's
 launches over the main-path runs (phase 5's serving forwards and phase
 10's training steps), ``max_abs_err`` is its largest error against its
 plain version (phases 3, 4, 7, 8), and ``ms`` / ``plain_ms`` are the
-summed times of its launches and of its plain version in one batch-128
-bf16 serving forward (conv3x3, maxpool2) or training step
-(conv3x3_bn_relu_in, maxpool2_bwd). The last line is
+summed times of its launches (through the design each takes) and of its
+plain version in one batch-128 bf16 serving forward (conv3x3, maxpool2)
+or training step (conv3x3_bn_relu_in, maxpool2_bwd). The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -157,6 +168,35 @@ def record_kernel_shapes(train: bool):
     return shapes
 
 
+def predicted_routes(shapes) -> dict:
+    """{(kernel, design): launches} that cuda_conv._route gives one pass's
+    recorded conv calls in bf16: stand-in CPU tensors of their shapes (on
+    the card the activations and the weight slices, which start at a
+    multiple of Co elements, are 16-byte aligned as they are)."""
+    got = dict.fromkeys(kernels.ROUTES, 0)
+    for kernel in ("conv3x3", "conv3x3_bn_relu_in"):
+        for (h, w, ci, co), count in shapes[kernel].items():
+            x = torch.empty((1, h, w, ci), dtype=torch.bfloat16)
+            wt = torch.empty((3, 3, ci, co), dtype=torch.bfloat16)
+            got[(kernel, cuda_conv._route(x, wt))] += count
+    return got
+
+
+def routes_since(before: dict) -> dict:
+    return {k: kernels.ROUTES[k] - before[k] for k in kernels.ROUTES}
+
+
+def routed(kernel, x, wt, fn):
+    """fn(), which must launch `kernel` once, through the design _route
+    picks for (x, wt)."""
+    before = dict(kernels.ROUTES)
+    out = fn()
+    want = {k: int(k == (kernel, cuda_conv._route(x, wt))) for k in kernels.ROUTES}
+    check(routes_since(before) == want, f"{kernel} {tuple(x.shape)}->{wt.shape[3]} {x.dtype}: "
+          f"launched {routes_since(before)}, expected {want}")
+    return out
+
+
 def conv_inputs(n, h, w, ci, co, dtype, seed):
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((n, h, w, ci), dtype=np.float32))
@@ -191,6 +231,59 @@ def rel_share(got, ref, rtol):
     return (err / (rtol * ref.float().abs() + 1e-5 * ref.float().abs().max())).max().item()
 
 
+def device_ms(fns, windows=5):
+    """Median and relative spread (max - min over median) of each
+    function's per-call time on the card, timed in turns: each window
+    times every function once, in an order that rotates from window to
+    window. A window's back-to-back calls (enough to fill ~5 ms) are
+    queued behind a sleep kernel that outlasts the host's enqueueing of
+    them, so the CUDA events time the card, not the host's launch rate
+    (which sets the pace of back-to-back calls of a short kernel).
+    Returns [(median, spread)] in the order of fns."""
+    reps, host_s = [], []
+    for fn in fns:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        reps.append(max(1, min(50, int(0.005 / max(time.perf_counter() - t0, 1e-6)))))
+        t0 = time.perf_counter()
+        for _ in range(reps[-1]):
+            fn()
+        host_s.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    per = [[] for _ in fns]
+    for i in range(windows):
+        for j in [(i + k) % len(fns) for k in range(len(fns))]:
+            # ~2e9 cycles a second at the H100's boost clock; longer at a lower one
+            torch.cuda._sleep(int(2e9 * (2 * host_s[j] + 1e-3)))
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps[j]):
+                fns[j]()
+            b.record()
+            b.synchronize()
+            per[j].append(a.elapsed_time(b) / reps[j])
+    return [(statistics.median(p), (max(p) - min(p)) / statistics.median(p)) for p in per]
+
+
+def time_conv(kname, shape, count, unit, fns, flops, ms, plain_ms, tile_ms) -> None:
+    """Times of one conv shape at batch 128, in turns: the routed kernel,
+    its plain version and, where the kernel is routed to sm90, the tile
+    design. Adds count x each to the per-forward (or per-step) sums."""
+    names = list(fns)
+    res = dict(zip(names, device_ms([fns[k] for k in names])))
+    route = names[0]
+    ms[kname] += count * res[route][0]
+    plain_ms[kname] += count * res["plain"][0]
+    tile_ms[kname] += count * res["tile" if "tile" in res else route][0]
+    h, w, ci, co = shape
+    phase("times", f"{kname} {TIME_BATCH}x{h}x{w}x{ci}->{co} (x{count}/{unit}): " + ", ".join(
+        f"{k} {t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s, spread {sp:.1%})"
+        for k, (t, sp) in res.items()))
+
+
 def cuda_time_ms(fn, windows=5, min_reps=1):
     """Median and relative spread (max - min over median) of the
     per-call device time, over `windows` windows of back-to-back calls
@@ -219,37 +312,49 @@ def check_prologue(shapes, max_err) -> None:
     version in f32 on the same inputs, its normalized input rounded to
     the kernel's operand type first (bn_relu_plain, then conv3x3_plain in
     f32), so that the bounds are conv3x3's (phase 3)."""
-    n_cases = 0
+    n_cases = n_halo = 0
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     for k, (h, w, ci, co) in enumerate(sorted(shapes)):
         scale, shift = bn_inputs(ci, seed=100 + k)
         for dtype in (torch.bfloat16, torch.float32):
             x, wt, b = conv_inputs(CHECK_BATCH, h, w, ci, co, dtype, seed=100 + k)
-            xn = bn_relu_plain(x, scale, shift).float()
-            for relu_out in (False, True):
-                for with_stats in (False, True):
-                    y, st = conv3x3_bn_relu_in(x, wt, b, scale, shift, relu_out=relu_out,
-                                               with_stats=with_stats)
-                    y_ref, st_ref = conv3x3_plain(xn, wt.float(), b, relu_out=relu_out,
-                                                  with_stats=with_stats)
-                    torch.cuda.synchronize()
-                    what = (f"conv3x3_bn_relu_in {h}x{w}x{ci}->{co} {dtype} relu={relu_out} "
-                            f"stats={with_stats}")
-                    share = rel_share(y, y_ref, 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5)
-                    err = (y.float() - y_ref).abs().max().item()
-                    check(y.dtype == dtype and share <= 1.0, f"{what}: max abs err {err:.3g}")
-                    worst[dtype] = max(worst[dtype], share)
-                    if with_stats:
-                        st_err = (st - st_ref).abs()
-                        st_tol = 1e-4 * st_ref.abs() + 1e-5 * st_ref.abs().max()
-                        check(bool((st_err <= st_tol).all()),
-                              f"{what}: stats max abs err {st_err.max().item():.3g}")
-                    else:
-                        check(not st.any(), f"{what}: stats not zero")
-                    max_err["conv3x3_bn_relu_in"] = max(max_err["conv3x3_bn_relu_in"], err)
-                    n_cases += 1
-    phase("conv3x3_bn_relu_in", f"{n_cases} cases at {len(shapes)} shapes, batch {CHECK_BATCH}: "
-          f"match the plain version (max abs err {max_err['conv3x3_bn_relu_in']:.3g}; largest "
+            # where the sm90 design runs, also with exact zeros in the border
+            # rows and columns: TMA fills the halo with zeros too, and only
+            # the position tells the two apart (relu(shift) > 0 inside)
+            halos = (False, True) if cuda_conv._route(x, wt) == "sm90" else (False,)
+            for halo in halos:
+                if halo:
+                    x = x.clone()
+                    x[:, [0, -1]] = 0
+                    x[:, :, [0, -1]] = 0
+                xn = bn_relu_plain(x, scale, shift).float()
+                for relu_out in (False, True):
+                    for with_stats in (False, True):
+                        y, st = routed("conv3x3_bn_relu_in", x, wt, lambda: conv3x3_bn_relu_in(
+                            x, wt, b, scale, shift, relu_out=relu_out, with_stats=with_stats))
+                        y_ref, st_ref = conv3x3_plain(xn, wt.float(), b, relu_out=relu_out,
+                                                      with_stats=with_stats)
+                        torch.cuda.synchronize()
+                        what = (f"conv3x3_bn_relu_in {h}x{w}x{ci}->{co} {dtype} relu={relu_out} "
+                                f"stats={with_stats} zero border={halo}")
+                        share = rel_share(y, y_ref,
+                                          2.0 ** -7 if dtype == torch.bfloat16 else 1e-5)
+                        err = (y.float() - y_ref).abs().max().item()
+                        check(y.dtype == dtype and share <= 1.0, f"{what}: max abs err {err:.3g}")
+                        worst[dtype] = max(worst[dtype], share)
+                        if with_stats:
+                            st_err = (st - st_ref).abs()
+                            st_tol = 1e-4 * st_ref.abs() + 1e-5 * st_ref.abs().max()
+                            check(bool((st_err <= st_tol).all()),
+                                  f"{what}: stats max abs err {st_err.max().item():.3g}")
+                        else:
+                            check(not st.any(), f"{what}: stats not zero")
+                        max_err["conv3x3_bn_relu_in"] = max(max_err["conv3x3_bn_relu_in"], err)
+                        n_cases += 1
+                        n_halo += halo
+    phase("conv3x3_bn_relu_in", f"{n_cases} cases at {len(shapes)} shapes, batch {CHECK_BATCH} "
+          f"({n_halo} with a zero border, sm90), each through its routed design: match the "
+          f"plain version (max abs err {max_err['conv3x3_bn_relu_in']:.3g}; largest "
           f"error {worst[torch.bfloat16]:.2f} of its bound in bf16, "
           f"{worst[torch.float32]:.2f} in f32)")
 
@@ -322,7 +427,7 @@ def check_grads() -> None:
           f"max_pool2d's")
 
 
-def check_train(name) -> dict:
+def check_train(name, train_routes) -> dict:
     """10: the training path, through the entry point a user calls."""
     t0 = time.perf_counter()
     trainer = Trainer(DEPTH, seed=0, device="cuda", compute_dtype=torch.bfloat16)
@@ -333,10 +438,13 @@ def check_train(name) -> dict:
     kernels.reset_launches()
     losses, prev = [], dict(kernels.LAUNCHES)
     for i in range(TRAIN_STEPS):
+        prev_routes = dict(kernels.ROUTES)
         m = trainer.step(x, y, TRAIN_RULE["lr"], TRAIN_RULE["wd"])
         now = dict(kernels.LAUNCHES)
         got = {k: now[k] - prev[k] for k in now}
         check(got == PER_STEP, f"step {i}: kernel launches {got}, expected {PER_STEP}")
+        check(routes_since(prev_routes) == train_routes, f"step {i}: conv designs "
+              f"{routes_since(prev_routes)}, predicted {train_routes}")
         prev = now
         losses.append({k: float(v) for k, v in m.items()})
     launches = dict(kernels.LAUNCHES)
@@ -345,7 +453,8 @@ def check_train(name) -> dict:
     check(loss[-1] < loss[0], f"the loss did not fall: {loss}")
     phase("train", "losses " + ", ".join(f"{v:.4f}" for v in loss) + "; top-1 "
           + ", ".join(f"{m['top1']:.3f}" for m in losses)
-          + f"; launches per step {PER_STEP}, total {launches}")
+          + f"; launches per step {PER_STEP}, total {launches}; conv designs per step as "
+          f"predicted")
 
     # one f32 step on the card (kernels + cuDNN without TF32) against the
     # same step of the port's plain path on the CPU
@@ -384,7 +493,7 @@ def flat(tree):
     return [tree]
 
 
-def time_train(name, train_shapes, ms, plain_ms) -> None:
+def time_train(name, train_shapes, ms, plain_ms, tile_ms) -> None:
     """11: the training step and the two new kernels at batch 128 bf16."""
     torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(DEPTH, seed=0, device="cuda", compute_dtype=torch.bfloat16)
@@ -400,31 +509,32 @@ def time_train(name, train_shapes, ms, plain_ms) -> None:
     for k, ((h, w, ci, co), count) in enumerate(sorted(train_shapes["conv3x3_bn_relu_in"].items())):
         x, wt, b = conv_inputs(TIME_BATCH, h, w, ci, co, torch.bfloat16, seed=400 + k)
         scale, shift = bn_inputs(ci, seed=400 + k)
-        t_k, s_k = cuda_time_ms(lambda: conv3x3_bn_relu_in(x, wt, b, scale, shift,
-                                                           with_stats=False))
-        t_p, s_p = cuda_time_ms(lambda: conv3x3_bn_relu_in_plain(x, wt, b, scale, shift,
-                                                                 with_stats=False))
-        ms["conv3x3_bn_relu_in"] += count * t_k
-        plain_ms["conv3x3_bn_relu_in"] += count * t_p
-        tflops = 2 * TIME_BATCH * h * w * 9 * ci * co / t_k / 1e9
-        phase("times", f"conv3x3_bn_relu_in {TIME_BATCH}x{h}x{w}x{ci}->{co} (x{count}/step): "
-              f"kernel {t_k:.4f} ms (spread {s_k:.1%}, {tflops:.1f} TFLOP/s), plain "
-              f"{t_p:.4f} ms (spread {s_p:.1%})")
+        fns = {cuda_conv._route(x, wt): lambda: conv3x3_bn_relu_in(x, wt, b, scale, shift,
+                                                                   with_stats=False),
+               "plain": lambda: conv3x3_bn_relu_in_plain(x, wt, b, scale, shift,
+                                                         with_stats=False)}
+        if "sm90" in fns:
+            fns["tile"] = lambda: cuda_conv._tile_forward(x, wt, b, scale, shift,
+                                                          with_stats=False)
+        time_conv("conv3x3_bn_relu_in", (h, w, ci, co), count, "step", fns,
+                  2 * TIME_BATCH * h * w * 9 * ci * co, ms, plain_ms, tile_ms)
     for k, ((h, w, c), count) in enumerate(sorted(train_shapes["maxpool2_bwd"].items())):
         x = pool_input((TIME_BATCH, h, w, c), torch.bfloat16, seed=500 + k, ties=True)
         y = maxpool2_plain(x)
         g = torch.randn(y.shape, device="cuda").to(torch.bfloat16)
-        t_k, s_k = cuda_time_ms(lambda: maxpool2_backward(x, y, g, "first"))
-        t_p, s_p = cuda_time_ms(lambda: maxpool2_bwd_plain(x, y, g, "first"))
+        (t_k, s_k), (t_p, s_p) = device_ms([lambda: maxpool2_backward(x, y, g, "first"),
+                                            lambda: maxpool2_bwd_plain(x, y, g, "first")])
         ms["maxpool2_bwd"] += count * t_k
         plain_ms["maxpool2_bwd"] += count * t_p
         gbs = 2 * TIME_BATCH * c * (2 * h * w + 2 * -(-h // 2) * -(-w // 2)) / t_k / 1e6
         phase("times", f"maxpool2_bwd {TIME_BATCH}x{h}x{w}x{c} (x{count}/step): kernel "
               f"{t_k:.4f} ms (spread {s_k:.1%}, {gbs:.0f} GB/s), plain {t_p:.4f} ms "
               f"(spread {s_p:.1%})")
-    for kname in ("conv3x3_bn_relu_in", "maxpool2_bwd"):
-        phase("times", f"{kname} per batch-{TIME_BATCH} training step: kernel "
-              f"{ms[kname]:.3f} ms, plain {plain_ms[kname]:.3f} ms")
+    phase("times", f"conv3x3_bn_relu_in per batch-{TIME_BATCH} training step: kernel "
+          f"{ms['conv3x3_bn_relu_in']:.3f} ms (the tile design alone "
+          f"{tile_ms['conv3x3_bn_relu_in']:.3f} ms), plain {plain_ms['conv3x3_bn_relu_in']:.3f} ms")
+    phase("times", f"maxpool2_bwd per batch-{TIME_BATCH} training step: kernel "
+          f"{ms['maxpool2_bwd']:.3f} ms, plain {plain_ms['maxpool2_bwd']:.3f} ms")
 
 
 def main() -> None:
@@ -459,6 +569,14 @@ def main() -> None:
         check(got == want, f"the CPU {what} made kernel calls {got}, expected {want}")
     conv_shapes, pool_shapes = serve_shapes["conv3x3"], serve_shapes["maxpool2"]
     max_err = dict.fromkeys(KERNELS, 0.0)
+    # the designs each pass's bf16 convs take, predicted from the shapes
+    serve_routes, train_routes = predicted_routes(serve_shapes), predicted_routes(train_shapes)
+    check(serve_routes[("conv3x3", "sm90")] >= 70
+          and train_routes[("conv3x3_bn_relu_in", "sm90")] >= 26,
+          f"too few convs routed to sm90: {serve_routes}, {train_routes}")
+    for what, routes in (("serving forward", serve_routes), ("training step", train_routes)):
+        phase("route", f"per {what}, predicted: " + ", ".join(
+            f"{k} {r} {n}" for (k, r), n in routes.items()))
 
     # 3 conv3x3 vs plain. Reference: the plain version in f32 on the same
     # (bf16-rounded) inputs. f32 differs by summation order only; bf16 adds
@@ -472,7 +590,8 @@ def main() -> None:
             x, wt, b = conv_inputs(CHECK_BATCH, h, w, ci, co, dtype, seed=k)
             for relu_out in (False, True):
                 for with_stats in (False, True):
-                    y, st = conv3x3(x, wt, b, relu_out=relu_out, with_stats=with_stats)
+                    y, st = routed("conv3x3", x, wt, lambda: conv3x3(
+                        x, wt, b, relu_out=relu_out, with_stats=with_stats))
                     y_ref, st_ref = conv3x3_plain(x.float(), wt.float(), b, relu_out=relu_out,
                                                   with_stats=with_stats)
                     torch.cuda.synchronize()
@@ -493,9 +612,9 @@ def main() -> None:
                         check(not st.any(), f"{what}: stats not zero")
                     max_err["conv3x3"] = max(max_err["conv3x3"], err.max().item())
                     n_cases += 1
-    phase("conv3x3", f"{n_cases} cases at {len(conv_shapes)} shapes, batch {CHECK_BATCH}: match "
-          f"the plain version (max abs err {max_err['conv3x3']:.3g}; largest error "
-          f"{worst[torch.bfloat16]:.2f} of its bound in bf16, {worst[torch.float32]:.2f} in f32)")
+    phase("conv3x3", f"{n_cases} cases at {len(conv_shapes)} shapes, batch {CHECK_BATCH}, each "
+          f"through its routed design: match the plain version (max abs err "
+          f"{max_err['conv3x3']:.3g}; largest error {worst[torch.bfloat16]:.2f} of its bound in bf16, {worst[torch.float32]:.2f} in f32)")
 
     # 4 maxpool2 vs plain: a max selects one input, so exact, NaN included
     shapes = [(CHECK_BATCH, *s) for s in sorted(pool_shapes)]
@@ -523,10 +642,13 @@ def main() -> None:
     kernels.reset_launches()
     outs, prev = [], dict(kernels.LAUNCHES)
     for x in requests:
+        prev_routes = dict(kernels.ROUTES)
         outs.append(server.predict(x))
         now = dict(kernels.LAUNCHES)
         got = {k: now[k] - prev[k] for k in now}
         check(got == PER_FORWARD, f"batch {len(x)}: kernel launches {got}, expected {PER_FORWARD}")
+        check(routes_since(prev_routes) == serve_routes, f"batch {len(x)}: conv designs "
+              f"{routes_since(prev_routes)}, predicted {serve_routes}")
         prev = now
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
@@ -537,7 +659,8 @@ def main() -> None:
         check(bool(torch.isfinite(y).all()), f"batch {len(x)}: non-finite log-probs")
         check(bool((lse.abs() < 1e-3).all()), f"batch {len(x)}: logsumexp {lse.abs().max().item():.3g}")
     phase("serve", f"batches {list(SERVE_BATCHES)}: (B, 1000) finite f32 log-probs, rows sum to 1; "
-          f"launches per forward {PER_FORWARD}, total {launches}")
+          f"launches per forward {PER_FORWARD}, total {launches}; conv designs per forward as "
+          f"predicted")
 
     # the f32 forward on the card (kernels + cuDNN without TF32) against the
     # port's plain path on the CPU, same weights: f32 summation order only,
@@ -558,28 +681,28 @@ def main() -> None:
     # 6 times at batch 128, bf16
     ms = dict.fromkeys(KERNELS, 0.0)
     plain_ms = dict.fromkeys(KERNELS, 0.0)
+    tile_ms = dict.fromkeys(KERNELS, 0.0)  # the same launches, all through the tile design
     for k, ((h, w, ci, co), count) in enumerate(sorted(conv_shapes.items())):
         x, wt, b = conv_inputs(TIME_BATCH, h, w, ci, co, torch.bfloat16, seed=k)
-        t_k, s_k = cuda_time_ms(lambda: conv3x3(x, wt, b, with_stats=False))
-        t_p, s_p = cuda_time_ms(lambda: conv3x3_plain(x, wt, b, with_stats=False))
-        ms["conv3x3"] += count * t_k
-        plain_ms["conv3x3"] += count * t_p
-        tflops = 2 * TIME_BATCH * h * w * 9 * ci * co / t_k / 1e9
-        phase("times", f"conv3x3 {TIME_BATCH}x{h}x{w}x{ci}->{co} (x{count}/forward): kernel "
-              f"{t_k:.4f} ms (spread {s_k:.1%}, {tflops:.1f} TFLOP/s), plain {t_p:.4f} ms "
-              f"(spread {s_p:.1%})")
+        fns = {cuda_conv._route(x, wt): lambda: conv3x3(x, wt, b, with_stats=False),
+               "plain": lambda: conv3x3_plain(x, wt, b, with_stats=False)}
+        if "sm90" in fns:
+            fns["tile"] = lambda: cuda_conv._tile_forward(x, wt, b, with_stats=False)
+        time_conv("conv3x3", (h, w, ci, co), count, "forward", fns,
+                  2 * TIME_BATCH * h * w * 9 * ci * co, ms, plain_ms, tile_ms)
     for k, ((h, w, c), count) in enumerate(sorted(pool_shapes.items())):
         x = pool_input((TIME_BATCH, h, w, c), torch.bfloat16, seed=k)
-        t_k, s_k = cuda_time_ms(lambda: maxpool2(x))
-        t_p, s_p = cuda_time_ms(lambda: maxpool2_plain(x))
+        (t_k, s_k), (t_p, s_p) = device_ms([lambda: maxpool2(x), lambda: maxpool2_plain(x)])
         ms["maxpool2"] += count * t_k
         plain_ms["maxpool2"] += count * t_p
         gbs = 2 * TIME_BATCH * c * (h * w + -(-h // 2) * -(-w // 2)) / t_k / 1e6
         phase("times", f"maxpool2 {TIME_BATCH}x{h}x{w}x{c} (x{count}/forward): kernel {t_k:.4f} ms "
               f"(spread {s_k:.1%}, {gbs:.0f} GB/s), plain {t_p:.4f} ms (spread {s_p:.1%})")
-    for kname in ("conv3x3", "maxpool2"):
-        phase("times", f"{kname} per batch-{TIME_BATCH} forward: kernel {ms[kname]:.3f} ms, "
-              f"plain {plain_ms[kname]:.3f} ms")
+    phase("times", f"conv3x3 per batch-{TIME_BATCH} forward: kernel {ms['conv3x3']:.3f} ms "
+          f"(the tile design alone {tile_ms['conv3x3']:.3f} ms), plain "
+          f"{plain_ms['conv3x3']:.3f} ms")
+    phase("times", f"maxpool2 per batch-{TIME_BATCH} forward: kernel {ms['maxpool2']:.3f} ms, "
+          f"plain {plain_ms['maxpool2']:.3f} ms")
     images = torch.from_numpy(np.random.default_rng(2).standard_normal(
         (TIME_BATCH, *IMAGE_SHAPE), dtype=np.float32)).cuda()
     t_fwd, s_fwd = cuda_time_ms(lambda: server.predict(images), min_reps=5)
@@ -593,9 +716,9 @@ def main() -> None:
     check_prologue(train_shapes["conv3x3_bn_relu_in"], max_err)
     check_pool_bwd(train_shapes["maxpool2_bwd"], max_err)
     check_grads()
-    train_launches = check_train(name)
+    train_launches = check_train(name, train_routes)
     launches = {k: launches[k] + train_launches[k] for k in KERNELS}
-    time_train(name, train_shapes, ms, plain_ms)
+    time_train(name, train_shapes, ms, plain_ms, tile_ms)
 
     print(json.dumps({"kernels": [
         {"name": k, **KERNELS[k], "launches": launches[k], "max_abs_err": max_err[k],

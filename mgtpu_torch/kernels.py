@@ -10,9 +10,10 @@ A failed build raises. There is no fallback: on a CUDA tensor a wrapper
 launches its kernel or raises.
 
 Each launch goes through :func:`launch`, which adds one to that
-kernel's count in :data:`LAUNCHES`; ``chip_smoke.py`` reads the counts to
-show that a forward pass or a training step really ran through the
-kernels.
+kernel's count in :data:`LAUNCHES` and, for a kernel with two designs,
+to the count of the design it took in :data:`ROUTES`; ``chip_smoke.py``
+reads the counts to show that a forward pass or a training step really
+ran through the kernels, and through which design.
 """
 
 from __future__ import annotations
@@ -37,6 +38,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: dict[str, int] = {"conv3x3": 0, "conv3x3_bn_relu_in": 0, "maxpool2": 0,
                             "maxpool2_bwd": 0}
+# (kernel, design) -> launches since the last reset_launches(), for the
+# convs' two designs (mgtpu_torch/ops/cuda_conv.py::_route)
+ROUTES: dict[tuple[str, str], int] = {(k, r): 0 for k in ("conv3x3", "conv3x3_bn_relu_in")
+                                      for r in ("sm90", "tile")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +55,10 @@ _SIGNATURES = {
     # with_stats, is_bf16, stream
     "mg_conv3x3_bn_relu_in": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _I,
                               _P),
+    # the sm90 designs of the two: the same arguments
+    "mg_conv3x3_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _I, _P),
+    "mg_conv3x3_bn_relu_in_sm90": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I,
+                                   _I, _P),
     # x, y, n, h, w, c, is_bf16, stream
     "mg_maxpool2": (_P, _P, _I, _I, _I, _I, _I, _P),
     # x, y, g, dx, n, h, w, c, first_only, is_bf16, stream
@@ -60,6 +69,8 @@ _SIGNATURES = {
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in ROUTES:
+        ROUTES[k] = 0
 
 
 def _nvcc() -> str:
@@ -135,9 +146,10 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
+def launch(kernel: str, entry: str, device: torch.device, *args, route: str | None = None) -> None:
     """Call C entry ``entry`` with ``device`` current, on its current
-    stream; raise on a launch error, and count one launch of ``kernel``."""
+    stream; raise on a launch error, and count one launch of ``kernel``
+    (and of its design ``route``, for the convs)."""
     fn = getattr(library(), entry)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
@@ -145,3 +157,5 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{entry}: CUDA error {err} "
                            f"({torch.cuda.get_device_name()} launch refused or failed)")
     LAUNCHES[kernel] += 1
+    if route is not None:
+        ROUTES[(kernel, route)] += 1

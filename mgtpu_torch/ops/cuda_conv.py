@@ -6,7 +6,11 @@ Ports of `mgtpu/ops/pallas_conv.py::conv3x3` (its ``rows`` and ``slab``
 variants compute the same function) and ``conv3x3_bn_relu_in`` (the
 BatchNorm-apply + ReLU prologue); the signatures drop ``variant``,
 ``th`` and ``interpret``. Both kernels are in
-`mgtpu_torch/csrc/conv3x3.cu`.
+`mgtpu_torch/csrc/conv3x3.cu`, each in two designs: ``sm90`` (TMA and
+wgmma, for bf16 with Ci and Co multiples of 64: the large shapes) and
+``tile`` (WMMA or FMA tiles: everything else). :func:`_route` picks one
+from dtype, shape and alignment alone; it is not a fallback, and a
+launch that fails raises.
 
 The backward of both is cuDNN's dgrad and wgrad (``convolution_backward``
 on the ``channels_last`` views) plus elementwise reductions: the JAX
@@ -89,36 +93,67 @@ def _check(name, x, w, b, vectors=()):
         raise ValueError(f"{name}: all operands must be on one device")
 
 
-def _launch(kernel, x, w, b, vectors, relu_out, with_stats):
+def _route(x, w):
+    """The design a CUDA launch of these operands takes: "sm90" (TMA and
+    wgmma) for bf16 with Ci and Co multiples of 64 (one 128-byte
+    swizzled row of the tiles), at most 2048 (the block keeps per-channel
+    sums and the prologue's scale and shift in shared memory), and x and
+    w on 16-byte boundaries (TMA's rule); "tile" for everything else. A
+    fixed function of dtype, shape and alignment: a launch on either
+    route that fails raises."""
+    ci, co = x.shape[3], w.shape[3]
+    if (x.dtype == torch.bfloat16 and ci % 64 == 0 and co % 64 == 0 and max(ci, co) <= 2048
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0):
+        return "sm90"
+    return "tile"
+
+
+def _launch(kernel, route, x, w, b, vectors, relu_out, with_stats):
     n, h, wd, ci = x.shape
     co = w.shape[3]
     y = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
     stats = torch.zeros((2, co), dtype=torch.float32, device=x.device)
     if y.numel():
-        kernels.launch(kernel, "mg_" + kernel, x.device, x.data_ptr(), w.data_ptr(),
-                       b.data_ptr(), *(v.data_ptr() for v in vectors), y.data_ptr(),
-                       stats.data_ptr(), n, h, wd, ci, co, w.stride(1), int(relu_out),
-                       int(with_stats), int(x.dtype == torch.bfloat16))
+        entry = "mg_" + kernel + ("_sm90" if route == "sm90" else "")
+        kernels.launch(kernel, entry, x.device, x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                       *(v.data_ptr() for v in vectors), y.data_ptr(), stats.data_ptr(), n, h,
+                       wd, ci, co, w.stride(1), int(relu_out), int(with_stats),
+                       int(x.dtype == torch.bfloat16), route=route)
     return y, stats
 
 
 def conv3x3_forward(x, w, b, *, relu_out=False, with_stats=True):
     """The forward alone: CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the kernel (the design :func:`_route` picks) or
+    raise."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, b, relu_out=relu_out, with_stats=with_stats)
     _check("conv3x3", x, w, b)
-    return _launch("conv3x3", x, w, b, (), relu_out, with_stats)
+    return _launch("conv3x3", _route(x, w), x, w, b, (), relu_out, with_stats)
 
 
 def conv3x3_bn_relu_in_forward(x, w, b, scale, shift, *, relu_out=False, with_stats=True):
     """The forward alone: CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the kernel (the design :func:`_route` picks) or
+    raise."""
     if x.device.type == "cpu":
         return conv3x3_bn_relu_in_plain(x, w, b, scale, shift, relu_out=relu_out,
                                         with_stats=with_stats)
     _check("conv3x3_bn_relu_in", x, w, b, (("scale", scale), ("shift", shift)))
-    return _launch("conv3x3_bn_relu_in", x, w, b, (scale, shift), relu_out, with_stats)
+    return _launch("conv3x3_bn_relu_in", _route(x, w), x, w, b, (scale, shift), relu_out,
+                   with_stats)
+
+
+def _tile_forward(x, w, b, scale=None, shift=None, *, relu_out=False, with_stats=True):
+    """The forward of conv3x3 (or of conv3x3_bn_relu_in, given scale and
+    shift) through the tile design at any shape, on CUDA tensors.
+    Private: only for holding the two designs against each other and
+    timing them at one shape (chip_smoke.py, tests/test_torch_cuda.py)."""
+    if scale is None:
+        _check("conv3x3", x, w, b)
+        return _launch("conv3x3", "tile", x, w, b, (), relu_out, with_stats)
+    _check("conv3x3_bn_relu_in", x, w, b, (("scale", scale), ("shift", shift)))
+    return _launch("conv3x3_bn_relu_in", "tile", x, w, b, (scale, shift), relu_out, with_stats)
 
 
 def _conv_grads(gy, x, w, need_x, need_w):

@@ -12,8 +12,9 @@ import pytest
 import torch
 
 from mgtpu_torch import kernels
-from mgtpu_torch.ops.cuda_conv import (bn_relu_plain, conv3x3, conv3x3_bn_relu_in,
-                                       conv3x3_bn_relu_in_plain, conv3x3_plain)
+from mgtpu_torch.ops.cuda_conv import (_route, _tile_forward, bn_relu_plain, conv3x3,
+                                       conv3x3_bn_relu_in, conv3x3_bn_relu_in_plain,
+                                       conv3x3_plain)
 from mgtpu_torch.ops.cuda_pool import (maxpool2, maxpool2_backward, maxpool2_bwd_plain,
                                        maxpool2_plain)
 
@@ -42,18 +43,36 @@ def _conv_inputs(n, h, w, ci, co, dtype, dev, seed=0, ci_total=None):
 
 # (n, h, w, ci, co): the path's smallest and a 56x56 one, plus tails of
 # every tile dimension (64 pixels, 16 or 32 input channels, 64 output
-# channels); Ci or Co not a multiple of 8 takes the element-load path
+# channels); Ci or Co not a multiple of 8 takes the element-load path.
+# In bf16, the shapes with Ci and Co multiples of 64 take the sm90 design:
+# 56x56, 7x7x512 and 14x14x256 (large shapes of R-MG-34), and 3x9x5,
+# whose M (135), H and W are no multiples of its tiles
 CONV_SHAPES = [(2, 7, 7, 16, 16), (2, 56, 56, 64, 64), (3, 9, 5, 40, 24),
-               (1, 14, 14, 96, 130), (2, 6, 5, 19, 40)]
+               (1, 14, 14, 96, 130), (2, 6, 5, 19, 40), (2, 7, 7, 512, 512),
+               (3, 9, 5, 64, 128), (2, 14, 14, 256, 256)]
+SM90_SHAPES = [s for s in CONV_SHAPES if s[3] % 64 == 0 and s[4] % 64 == 0]
+
+
+def _run(kernel, design, x, w, fn):
+    """fn(), which must launch `kernel` once through `design` ("routed":
+    the design _route picks)"""
+    want = _route(x, w) if design == "routed" else design
+    kernels.reset_launches()
+    out = fn()
+    assert kernels.ROUTES[(kernel, want)] == 1 and sum(kernels.ROUTES.values()) == 1
+    return out
 
 
 @pytest.mark.parametrize("shape", CONV_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("relu_out", [False, True])
 @pytest.mark.parametrize("with_stats", [False, True])
-def test_conv3x3_kernel_matches_plain(dev, shape, dtype, relu_out, with_stats):
+@pytest.mark.parametrize("design", ["routed", "tile"])
+def test_conv3x3_kernel_matches_plain(dev, shape, dtype, relu_out, with_stats, design):
     x, w, b = _conv_inputs(*shape, dtype, dev)
-    y, st = conv3x3(x, w, b, relu_out=relu_out, with_stats=with_stats)
+    fn = conv3x3 if design == "routed" else _tile_forward
+    y, st = _run("conv3x3", design, x, w,
+                 lambda: fn(x, w, b, relu_out=relu_out, with_stats=with_stats))
     # reference: the plain version in f32 on the same (bf16-rounded) inputs
     y_ref, st_ref = conv3x3_plain(x.float(), w.float(), b, relu_out=relu_out,
                                   with_stats=with_stats)
@@ -74,15 +93,41 @@ def test_conv3x3_kernel_matches_plain(dev, shape, dtype, relu_out, with_stats):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_conv3x3_kernel_takes_weight_slice(dev, dtype):
-    """The exchange passes an input-channel slice of a wider weight."""
-    x, w, b = _conv_inputs(2, 8, 8, 24, 32, dtype, dev, ci_total=56)
-    ws = w[:, :, 16:40, :]
-    y, _ = conv3x3(x, ws, b, with_stats=False)
+@pytest.mark.parametrize("ci, co, ci_total, start", [(24, 32, 56, 16), (64, 128, 192, 64)])
+def test_conv3x3_kernel_takes_weight_slice(dev, dtype, ci, co, ci_total, start):
+    """The exchange passes an input-channel slice of a wider weight (in
+    bf16 the second goes to the sm90 design)."""
+    x, w, b = _conv_inputs(2, 8, 8, ci, co, dtype, dev, ci_total=ci_total)
+    ws = w[:, :, start:start + ci, :]
+    y, _ = _run("conv3x3", "routed", x, ws, lambda: conv3x3(x, ws, b, with_stats=False))
     y_ref, _ = conv3x3_plain(x.float(), ws.float().contiguous(), b, with_stats=False)
     # as in test_conv3x3_kernel_matches_plain
     rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(y.float(), y_ref, rtol=rtol, atol=1e-5 * y_ref.abs().max().item())
+
+
+@pytest.mark.parametrize("shape", SM90_SHAPES)
+@pytest.mark.parametrize("relu_out", [False, True])
+@pytest.mark.parametrize("with_stats", [False, True])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_sm90_design_matches_tile_design(dev, shape, relu_out, with_stats, prologue):
+    """The two designs on the same bf16 operands: each rounds its f32 sum
+    once to bf16, in another summation order, so they differ by at most
+    about one bf16 step (2^-8 to 2^-7 relative)."""
+    x, w, b = _conv_inputs(*shape, torch.bfloat16, dev)
+    vectors = _bn(shape[3], dev) if prologue else ()
+    kernel = "conv3x3_bn_relu_in" if prologue else "conv3x3"
+    fn = conv3x3_bn_relu_in if prologue else conv3x3
+    assert _route(x, w) == "sm90"
+    y, st = _run(kernel, "sm90", x, w,
+                 lambda: fn(x, w, b, *vectors, relu_out=relu_out, with_stats=with_stats))
+    y_t, st_t = _run(kernel, "tile", x, w, lambda: _tile_forward(
+        x, w, b, *vectors, relu_out=relu_out, with_stats=with_stats))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), y_t.float(), rtol=2.0 ** -7,
+                               atol=1e-5 * y_t.float().abs().max().item())
+    # per-channel sums of the f32 values, in two atomic orders
+    torch.testing.assert_close(st, st_t, rtol=1e-4, atol=1e-5 * st_t.abs().max().item())
 
 
 def test_conv3x3_wrapper_refuses(dev):
@@ -169,10 +214,18 @@ def _bn(ci, dev, seed=0):
 @pytest.mark.parametrize("shape", CONV_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("relu_out", [False, True])
-def test_conv3x3_bn_relu_in_kernel_matches_plain(dev, shape, dtype, relu_out):
+@pytest.mark.parametrize("zero_border", [False, True])
+def test_conv3x3_bn_relu_in_kernel_matches_plain(dev, shape, dtype, relu_out, zero_border):
+    """With exact zeros in x's border rows and columns, an in-image 0 must
+    become relu(shift) (> 0 for most channels) while the halo stays 0:
+    the sm90 design's TMA fill gives both the value 0."""
     x, w, b = _conv_inputs(*shape, dtype, dev)
+    if zero_border:
+        x[:, [0, -1]] = 0
+        x[:, :, [0, -1]] = 0
     scale, shift = _bn(shape[3], dev)
-    y, st = conv3x3_bn_relu_in(x, w, b, scale, shift, relu_out=relu_out)
+    y, st = _run("conv3x3_bn_relu_in", "routed", x, w, lambda: conv3x3_bn_relu_in(
+        x, w, b, scale, shift, relu_out=relu_out))
     # reference: the normalized input rounded to the operand type as the
     # kernel rounds it, then the plain conv in f32; bounds as for conv3x3
     y_ref, st_ref = conv3x3_plain(bn_relu_plain(x, scale, shift).float(), w.float(), b,
