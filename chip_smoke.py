@@ -19,18 +19,31 @@ step with CUDA events. Phases:
              each launch through the design cuda_conv._route picks (sm90:
              TMA + wgmma, for bf16 with Ci, Co multiples of 64; tile:
              the rest)
-  4 maxpool2 kernel vs maxpool2_plain, exact, with odd sizes, NaN and -inf
+  4 maxpool2 kernel vs maxpool2_plain, exact, with odd sizes, NaN and -inf,
+             each launch through the design cuda_pool._route picks (sm90:
+             bulk copies into a ring, 16-byte lanes, for even H and
+             16-byte pixels; simple: the rest), and the simple design
+             beside it at every shape routed to sm90
   5 serve    batches of 1, 8 and 32 images: shape, finiteness, rows that
              are distributions, exactly 112 conv3x3 and 46 maxpool2
-             launches per forward, each conv through the design _route
-             predicts from the shapes recorded on the CPU; the f32
-             forward on the card vs the plain forward on the CPU
+             launches per forward, each conv and pool through the design
+             _route predicts from the shapes recorded on the CPU (all 46
+             pools sm90); the f32 forward on the card vs the plain
+             forward on the CPU
   6 times    each kernel vs its plain version (cuDNN) at batch 128 bf16,
              on the card's clock (queued behind a sleep kernel, so the
              host's launch rate does not set the pace), in turns, with the
              tile design beside the sm90 one at every shape routed to
-             sm90; the serving forward in images/s at batch 128 bf16, and
-             its time per call at batch 1 (these two include the host)
+             sm90 and cuDNN's one call (library); the pool at each shape
+             through sm90, simple, its plain version and F.max_pool2d,
+             each call on the next of enough copies of its input (over
+             100 MB) that it reads from device memory, not the 50 MB L2,
+             after a check at batch 128 that sm90 equals the plain
+             version; ms, GB/s and share of the bound; each pool
+             design's time split by least squares into a fixed cost a
+             launch and a rate, beside an empty kernel's; the serving
+             forward in images/s at batch 128 bf16, and its time per call
+             at batch 1 (these two include the host)
   7 conv3x3_bn_relu_in  kernel vs its plain version at every (H, W, Ci,
              Co) of the training step, batch 8, bf16 and f32, relu_out
              and with_stats on and off, some shifts positive (the halo);
@@ -44,25 +57,33 @@ step with CUDA events. Phases:
  10 train    4 steps of R-MG-34 bf16 at batch 32 on one fixed batch: the
              loss stays finite and falls; exactly 76 conv3x3, 36
              conv3x3_bn_relu_in, 46 maxpool2 and 46 maxpool2_bwd launches
-             per step, the convs through the predicted designs; one f32
-             step on the card vs the plain CPU step
+             per step, the convs and pools through the predicted designs;
+             one f32 step on the card vs the plain CPU step
  11 times    the training step in images/s at batch 128 bf16; each new
              kernel's summed time per step vs its plain version (and the
-             tile design's, as in phase 6)
+             tile design's, as in phase 6); the pool backward on rotated
+             inputs as in phase 6, beside aten's
+             max_pool2d_with_indices_backward (indices made outside the
+             timed calls: not quite the same function)
 
 Any failed check exits non-zero. The second-to-last line of stdout is
 one JSON object with the kernels: ``launches`` sums each kernel's
 launches over the main-path runs (phase 5's serving forwards and phase
 10's training steps), ``max_abs_err`` is its largest error against its
-plain version (phases 3, 4, 7, 8), and ``ms`` / ``plain_ms`` are the
-summed times of its launches (through the design each takes) and of its
-plain version in one batch-128 bf16 serving forward (conv3x3, maxpool2)
-or training step (conv3x3_bn_relu_in, maxpool2_bwd). The last line is
+plain version (phases 3, 4, 7, 8), and ``ms`` / ``plain_ms`` /
+``library_ms`` are the summed times of its launches (through the design
+each takes), of its plain version and of one PyTorch call of the same
+function (null where there is none) in one batch-128 bf16 serving
+forward (conv3x3, maxpool2) or training step (conv3x3_bn_relu_in,
+maxpool2_bwd). ``bound_ms`` is the least time the card could take for
+the same launches (:func:`path_bounds`), ``bound_by`` which bound sets
+most of it. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -71,6 +92,7 @@ from collections import Counter
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from mgtpu_torch import kernels
 from mgtpu_torch.models import get_net
@@ -80,6 +102,7 @@ from mgtpu_torch.ops.cuda_conv import (bn_relu_plain, conv3x3, conv3x3_bn_relu_i
                                        conv3x3_bn_relu_in_plain, conv3x3_plain)
 from mgtpu_torch.ops.cuda_pool import (maxpool2, maxpool2_backward, maxpool2_bwd_plain,
                                        maxpool2_plain)
+from mgtpu_torch.ops.resample import nchw
 from mgtpu_torch.serve import IMAGE_SHAPE, Server
 from mgtpu_torch.trainer import Trainer, synthetic_batch
 from mgtpu_torch.utils.bridge import export_jax_tree
@@ -91,6 +114,9 @@ PER_FORWARD = {"conv3x3": 112, "conv3x3_bn_relu_in": 0, "maxpool2": 46, "maxpool
 # launches per training step: stage 2's 36 same-scale parts take the
 # prologue kernel instead of conv3x3; every pool is differentiated once
 PER_STEP = {"conv3x3": 76, "conv3x3_bn_relu_in": 36, "maxpool2": 46, "maxpool2_bwd": 46}
+# the (H, W, C) at which R-MG-34 pools, in either pass
+RMG34_POOLS = [(14, 14, 16), (14, 14, 32), (14, 14, 64), (14, 14, 128), (14, 14, 256),
+               (28, 28, 32), (28, 28, 64), (28, 28, 128), (56, 56, 64)]
 KERNELS = {
     "conv3x3": dict(route="cuda", source="mgtpu_torch/csrc/conv3x3.cu",
                     replaces="mgtpu/ops/pallas_conv.py:220"),
@@ -102,6 +128,14 @@ KERNELS = {
                          replaces="mgtpu/ops/pallas_pool.py:84"),
 }
 CHECK_BATCH, TIME_BATCH = 8, 128
+# the H100 SXM's published peaks (NVIDIA's data sheet): dense bf16 on the
+# tensor cores and HBM3 bandwidth. Bounds and shares are against these,
+# whatever power limit the card runs at (printed beside them).
+PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
+# a timed pool call reads its input from device memory only if the other
+# inputs it rotates through (more than this in all) have pushed it out of
+# the 50 MB L2
+COLD_BYTES = 100e6
 SERVE_BATCHES = (1, 8, 32)
 TRAIN_BATCH, TRAIN_STEPS, F32_STEP_BATCH = 32, 4, 2
 # imagenet_rule's second stage (epoch 31): at the epoch-1 rate of 0.1 a
@@ -169,17 +203,83 @@ def record_kernel_shapes(train: bool):
 
 
 def predicted_routes(shapes) -> dict:
-    """{(kernel, design): launches} that cuda_conv._route gives one pass's
-    recorded conv calls in bf16: stand-in CPU tensors of their shapes (on
-    the card the activations and the weight slices, which start at a
-    multiple of Co elements, are 16-byte aligned as they are)."""
+    """{(kernel, design): launches} that cuda_conv._route and
+    cuda_pool._route give one pass's recorded conv and pool calls in
+    bf16: stand-in CPU tensors of their shapes (on the card the
+    activations and the weight slices, which start at a multiple of Co
+    elements, are 16-byte aligned as they are)."""
     got = dict.fromkeys(kernels.ROUTES, 0)
     for kernel in ("conv3x3", "conv3x3_bn_relu_in"):
         for (h, w, ci, co), count in shapes[kernel].items():
             x = torch.empty((1, h, w, ci), dtype=torch.bfloat16)
             wt = torch.empty((3, 3, ci, co), dtype=torch.bfloat16)
             got[(kernel, cuda_conv._route(x, wt))] += count
+    for shape, count in shapes["maxpool2"].items():
+        got[("maxpool2", cuda_pool._route(torch.empty((1, *shape), dtype=torch.bfloat16)))] += count
     return got
+
+
+def kernel_work(kernel, shape, batch, itemsize=2):
+    """(operations, bytes) that one launch of `kernel` at a recorded shape
+    must do at `batch`: each input read once, each output written once.
+    A conv's operations are its multiply-adds (2 each) on taps inside
+    the image: along H, 3H - 2 of the 3H taps (the first and the last
+    row each miss one to the zero padding), and as many along W. A pool's
+    comparisons are not counted (no peak rate of the card is theirs, and
+    they are far below its bytes)."""
+    if kernel.startswith("conv3x3"):
+        h, w, ci, co = shape
+        px = batch * h * w
+        # x, w, y in the operand type; the f32 bias (and scale and shift)
+        nbytes = itemsize * (px * ci + 9 * ci * co + px * co) + 4 * co
+        if kernel == "conv3x3_bn_relu_in":
+            nbytes += 8 * ci
+        return 2 * batch * (3 * h - 2) * (3 * w - 2) * ci * co, nbytes
+    h, w, c = shape
+    x_el, y_el = batch * h * w * c, batch * -(-h // 2) * -(-w // 2) * c
+    if kernel == "maxpool2":
+        return 0, itemsize * (x_el + y_el)
+    return 0, itemsize * (2 * x_el + 2 * y_el)  # maxpool2_bwd: x, y, g in; dx out
+
+
+def bound(flops, nbytes):
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for this work, and which of the two sets it."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
+
+
+def path_bounds(shapes, batch):
+    """{kernel: (operations, bytes, bound ms, bound_by)} summed over one
+    pass's launches (record_kernel_shapes' counts) at `batch` in bf16:
+    the bound of each launch, summed; bound_by names the bound that sets
+    most of that sum."""
+    out = {}
+    for kernel, counts in shapes.items():
+        flops = nbytes = ms = ops_ms = 0
+        for shape, count in counts.items():
+            f, b = kernel_work(kernel, shape, batch)
+            t, by = bound(f, b)
+            flops, nbytes, ms = flops + count * f, nbytes + count * b, ms + count * t
+            ops_ms += count * t * (by == "operations")
+        out[kernel] = (flops, nbytes, ms, "operations" if ms and 2 * ops_ms >= ms else "bytes")
+    return out
+
+
+def rotating(fn, sets):
+    """A function that calls fn on the next argument tuple of `sets` each
+    time, in turn: with sets of more than COLD_BYTES in all, each call
+    reads its inputs from device memory, not from the L2 cache."""
+    it = itertools.cycle(sets)
+    return lambda: fn(*next(it))
+
+
+def cold_copies(tensors):
+    """`tensors` and enough copies of them to hold more than COLD_BYTES
+    in all: argument tuples for :func:`rotating`."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors)
+                               for _ in range(int(COLD_BYTES // nbytes) + 1)]
 
 
 def routes_since(before: dict) -> dict:
@@ -214,6 +314,66 @@ def pool_input(shape, dtype, seed, ties=False):
     x[-1, :2, :2, :] = -np.inf  # a window of -inf only
     x[-1, -1, -1, -1] = np.nan  # in a clipped edge window when H or W is odd
     return torch.from_numpy(x).cuda().to(dtype)
+
+
+def misaligned(t):
+    """t's values in a contiguous tensor whose data starts 4 bytes past a
+    16-byte boundary"""
+    flat = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    off = next(i for i in range(1, 16) if (flat.data_ptr() + i * t.element_size()) % 16 == 4)
+    view = flat[off:off + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def pool_equal(y, y_ref):
+    """(equal, largest abs difference): NaN equals NaN"""
+    same = (y == y_ref) | (torch.isnan(y) & torch.isnan(y_ref))
+    err = torch.where(same, 0.0, (y.float() - y_ref.float()).abs().nan_to_num(float("inf")))
+    return bool(same.all()) and y.shape == y_ref.shape, err.max().item()
+
+
+def pooled(x, design):
+    """maxpool2's forward on x, which must launch once, through `design`:
+    maxpool2 where that is the design cuda_pool._route picks, else the
+    simple design's own entry."""
+    before = dict(kernels.ROUTES)
+    y = maxpool2(x) if design == cuda_pool._route(x) else cuda_pool._simple_forward(x)
+    want = {k: int(k == ("maxpool2", design)) for k in kernels.ROUTES}
+    check(routes_since(before) == want, f"maxpool2 {tuple(x.shape)} {x.dtype}: launched "
+          f"{routes_since(before)}, expected {want}")
+    return y
+
+
+def check_pool(pool_shapes, max_err) -> None:
+    """4: maxpool2 vs maxpool2_plain: a max selects one input, so exact,
+    NaN included. Each launch through the design _route picks; at the
+    shapes routed to sm90 also through the simple design and, from a
+    misaligned copy of x, through the route that takes (simple)."""
+    shapes = [(CHECK_BATCH, *s) for s in sorted(pool_shapes)]
+    # odd H (simple), odd W (sm90 at 8x9x64), a last chunk of fewer row
+    # pairs (280 pairs at 40x14x14x16: 3 a chunk on 132 SMs), a row pair
+    # wider than a stage (4x300x64: simple)
+    shapes += [(2, 7, 9, 3), (3, 15, 14, 130), (1, 1, 1, 4), (2, 57, 55, 64), (2, 8, 9, 64),
+               (40, 14, 14, 16), (1, 4, 300, 64)]
+    designs = Counter()
+    for k, shape in enumerate(shapes):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = pool_input(shape, dtype, seed=k)
+            cases = [(x, cuda_pool._route(x))]
+            if cases[0][1] == "sm90":
+                cases += [(x, "simple"), (misaligned(x), "simple")]
+            for xi, design in cases:
+                y, y_ref = pooled(xi, design), maxpool2_plain(xi)
+                torch.cuda.synchronize()
+                same, err = pool_equal(y, y_ref)
+                max_err["maxpool2"] = max(max_err["maxpool2"], err)
+                check(same, f"maxpool2 {shape} {dtype} {design} (x at {xi.data_ptr() % 16} "
+                      f"past 16 bytes): differs from the plain version")
+                designs[design] += 1
+    phase("maxpool2", f"{sum(designs.values())} cases at {len(shapes)} shapes (bf16 and f32; "
+          f"odd sizes, NaN, +-inf; {designs['sm90']} through sm90, {designs['simple']} through "
+          f"simple): equal to the plain version")
 
 
 def bn_inputs(ci, seed):
@@ -268,20 +428,71 @@ def device_ms(fns, windows=5):
     return [(statistics.median(p), (max(p) - min(p)) / statistics.median(p)) for p in per]
 
 
-def time_conv(kname, shape, count, unit, fns, flops, ms, plain_ms, tile_ms) -> None:
+def time_conv(kname, shape, count, unit, fns, ms, plain_ms, tile_ms, library_ms) -> None:
     """Times of one conv shape at batch 128, in turns: the routed kernel,
-    its plain version and, where the kernel is routed to sm90, the tile
-    design. Adds count x each to the per-forward (or per-step) sums."""
+    its plain version, cuDNN's one call where there is one (library)
+    and, where the kernel is routed to sm90, the tile design, with their
+    rates in the operations kernel_work counts. Adds count x each to the
+    per-forward (or per-step) sums."""
+    flops = kernel_work(kname, shape, TIME_BATCH)[0]
     names = list(fns)
     res = dict(zip(names, device_ms([fns[k] for k in names])))
     route = names[0]
     ms[kname] += count * res[route][0]
     plain_ms[kname] += count * res["plain"][0]
     tile_ms[kname] += count * res["tile" if "tile" in res else route][0]
+    if "library" in res:
+        library_ms[kname] += count * res["library"][0]
     h, w, ci, co = shape
     phase("times", f"{kname} {TIME_BATCH}x{h}x{w}x{ci}->{co} (x{count}/{unit}): " + ", ".join(
         f"{k} {t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s, spread {sp:.1%})"
         for k, (t, sp) in res.items()))
+
+
+def time_pool(pool_shapes, ms, plain_ms, library_ms) -> None:
+    """6, the pool forward at each shape of the serving forward, batch 128
+    bf16: first a check that the routed design (sm90) equals the plain
+    version at this size (many chunks a block: the ring wraps), then the
+    times of sm90, simple, the plain version and F.max_pool2d(ceil_mode)
+    on the channels_last view, in turns, each call on the next of its
+    rotated copies of the input (cold L2)."""
+    simple_ms = bound_ms = 0.0
+    points = {"sm90": [], "simple": []}  # (bytes, ms) of each design at each shape
+    for k, ((h, w, c), count) in enumerate(sorted(pool_shapes.items())):
+        x = pool_input((TIME_BATCH, h, w, c), torch.bfloat16, seed=k)
+        same, _ = pool_equal(pooled(x, "sm90"), maxpool2_plain(x))
+        check(same, f"maxpool2 {TIME_BATCH}x{h}x{w}x{c} sm90: differs from the plain version")
+        sets = cold_copies([x])
+        fns = {"sm90": rotating(maxpool2, sets),
+               "simple": rotating(cuda_pool._simple_forward, sets),
+               "plain": rotating(maxpool2_plain, sets),
+               "max_pool2d": rotating(lambda t: F.max_pool2d(nchw(t), 2, 2, ceil_mode=True), sets)}
+        res = dict(zip(fns, device_ms(list(fns.values()))))
+        nbytes = kernel_work("maxpool2", (h, w, c), TIME_BATCH)[1]
+        t_bound = bound(0, nbytes)[0]
+        ms["maxpool2"] += count * res["sm90"][0]
+        simple_ms += count * res["simple"][0]
+        plain_ms["maxpool2"] += count * res["plain"][0]
+        library_ms["maxpool2"] += count * res["max_pool2d"][0]
+        bound_ms += count * t_bound
+        for d, pts in points.items():
+            pts.append((nbytes, res[d][0]))
+        phase("times", f"maxpool2 {TIME_BATCH}x{h}x{w}x{c} (x{count}/forward; {nbytes / 1e6:.1f} "
+              f"MB, bound {t_bound:.4f} ms; {len(sets)} rotated inputs): " + ", ".join(
+                  f"{d} {t:.4f} ms ({nbytes / t / 1e6:.0f} GB/s, {t_bound / t:.0%} of the bound, "
+                  f"spread {sp:.1%})" for d, (t, sp) in res.items()))
+    phase("times", f"maxpool2 per batch-{TIME_BATCH} forward, cold L2: sm90 {ms['maxpool2']:.3f} "
+          f"ms ({bound_ms / ms['maxpool2']:.0%} of its {bound_ms:.4f} ms bound), simple "
+          f"{simple_ms:.3f} ms, plain {plain_ms['maxpool2']:.3f} ms, F.max_pool2d "
+          f"{library_ms['maxpool2']:.3f} ms")
+    # what a launch costs before it streams: each design's time as a fixed
+    # cost plus its bytes at a rate, and the card's floor for any launch
+    empty = device_ms([lambda: torch.cuda._sleep(0)])[0][0]
+    for d, pts in points.items():
+        slope, fixed = np.polyfit([b for b, _ in pts], [t for _, t in pts], 1)
+        phase("times", f"maxpool2 {d}: {fixed * 1e3:.2f} us a launch + its bytes at "
+              f"{1e-9 / slope:.2f} TB/s (least squares over the {len(pts)} shapes); an empty "
+              f"kernel (torch.cuda._sleep(0)) takes {empty * 1e3:.2f} us back to back")
 
 
 def cuda_time_ms(fn, windows=5, min_reps=1):
@@ -443,7 +654,7 @@ def check_train(name, train_routes) -> dict:
         now = dict(kernels.LAUNCHES)
         got = {k: now[k] - prev[k] for k in now}
         check(got == PER_STEP, f"step {i}: kernel launches {got}, expected {PER_STEP}")
-        check(routes_since(prev_routes) == train_routes, f"step {i}: conv designs "
+        check(routes_since(prev_routes) == train_routes, f"step {i}: conv and pool designs "
               f"{routes_since(prev_routes)}, predicted {train_routes}")
         prev = now
         losses.append({k: float(v) for k, v in m.items()})
@@ -453,8 +664,8 @@ def check_train(name, train_routes) -> dict:
     check(loss[-1] < loss[0], f"the loss did not fall: {loss}")
     phase("train", "losses " + ", ".join(f"{v:.4f}" for v in loss) + "; top-1 "
           + ", ".join(f"{m['top1']:.3f}" for m in losses)
-          + f"; launches per step {PER_STEP}, total {launches}; conv designs per step as "
-          f"predicted")
+          + f"; launches per step {PER_STEP}, total {launches}; conv and pool designs per step "
+          f"as predicted")
 
     # one f32 step on the card (kernels + cuDNN without TF32) against the
     # same step of the port's plain path on the CPU
@@ -493,8 +704,10 @@ def flat(tree):
     return [tree]
 
 
-def time_train(name, train_shapes, ms, plain_ms, tile_ms) -> None:
-    """11: the training step and the two new kernels at batch 128 bf16."""
+def time_train(name, train_shapes, ms, plain_ms, tile_ms, library_ms) -> None:
+    """11: the training step and the two kernels it adds, at batch 128
+    bf16; the pool backward on rotated inputs (cold L2), as the forward
+    in phase 6."""
     torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(DEPTH, seed=0, device="cuda", compute_dtype=torch.bfloat16)
     x, y = synthetic_batch(TIME_BATCH, seed=4)
@@ -516,25 +729,39 @@ def time_train(name, train_shapes, ms, plain_ms, tile_ms) -> None:
         if "sm90" in fns:
             fns["tile"] = lambda: cuda_conv._tile_forward(x, wt, b, scale, shift,
                                                           with_stats=False)
-        time_conv("conv3x3_bn_relu_in", (h, w, ci, co), count, "step", fns,
-                  2 * TIME_BATCH * h * w * 9 * ci * co, ms, plain_ms, tile_ms)
+        time_conv("conv3x3_bn_relu_in", (h, w, ci, co), count, "step", fns, ms, plain_ms, tile_ms,
+                  library_ms)
+    bound_ms = 0.0
     for k, ((h, w, c), count) in enumerate(sorted(train_shapes["maxpool2_bwd"].items())):
         x = pool_input((TIME_BATCH, h, w, c), torch.bfloat16, seed=500 + k, ties=True)
         y = maxpool2_plain(x)
         g = torch.randn(y.shape, device="cuda").to(torch.bfloat16)
-        (t_k, s_k), (t_p, s_p) = device_ms([lambda: maxpool2_backward(x, y, g, "first"),
-                                            lambda: maxpool2_bwd_plain(x, y, g, "first")])
-        ms["maxpool2_bwd"] += count * t_k
-        plain_ms["maxpool2_bwd"] += count * t_p
-        gbs = 2 * TIME_BATCH * c * (2 * h * w + 2 * -(-h // 2) * -(-w // 2)) / t_k / 1e6
-        phase("times", f"maxpool2_bwd {TIME_BATCH}x{h}x{w}x{c} (x{count}/step): kernel "
-              f"{t_k:.4f} ms (spread {s_k:.1%}, {gbs:.0f} GB/s), plain {t_p:.4f} ms "
-              f"(spread {s_p:.1%})")
+        # aten's backward starts from the first-tie indices, made here,
+        # outside the timed calls: not quite the same function
+        idx = F.max_pool2d(nchw(x), 2, 2, ceil_mode=True, return_indices=True)[1]
+        sets = cold_copies([x, y, g, idx])
+        res = dict(zip(("kernel", "plain", "aten"), device_ms([
+            rotating(lambda x, y, g, i: maxpool2_backward(x, y, g, "first"), sets),
+            rotating(lambda x, y, g, i: maxpool2_bwd_plain(x, y, g, "first"), sets),
+            rotating(lambda x, y, g, i: torch.ops.aten.max_pool2d_with_indices_backward(
+                nchw(g), nchw(x), [2, 2], [2, 2], [0, 0], [1, 1], True, i), sets)])))
+        nbytes = kernel_work("maxpool2_bwd", (h, w, c), TIME_BATCH)[1]
+        t_bound = bound(0, nbytes)[0]
+        ms["maxpool2_bwd"] += count * res["kernel"][0]
+        plain_ms["maxpool2_bwd"] += count * res["plain"][0]
+        library_ms["maxpool2_bwd"] += count * res["aten"][0]
+        bound_ms += count * t_bound
+        phase("times", f"maxpool2_bwd {TIME_BATCH}x{h}x{w}x{c} (x{count}/step; "
+              f"{nbytes / 1e6:.1f} MB, bound {t_bound:.4f} ms; {len(sets)} rotated inputs): "
+              + ", ".join(f"{d} {t:.4f} ms ({nbytes / t / 1e6:.0f} GB/s, {t_bound / t:.0%} of the "
+                          f"bound, spread {sp:.1%})" for d, (t, sp) in res.items()))
     phase("times", f"conv3x3_bn_relu_in per batch-{TIME_BATCH} training step: kernel "
           f"{ms['conv3x3_bn_relu_in']:.3f} ms (the tile design alone "
           f"{tile_ms['conv3x3_bn_relu_in']:.3f} ms), plain {plain_ms['conv3x3_bn_relu_in']:.3f} ms")
-    phase("times", f"maxpool2_bwd per batch-{TIME_BATCH} training step: kernel "
-          f"{ms['maxpool2_bwd']:.3f} ms, plain {plain_ms['maxpool2_bwd']:.3f} ms")
+    phase("times", f"maxpool2_bwd per batch-{TIME_BATCH} training step, cold L2: kernel "
+          f"{ms['maxpool2_bwd']:.3f} ms ({bound_ms / ms['maxpool2_bwd']:.0%} of its "
+          f"{bound_ms:.4f} ms bound), plain {plain_ms['maxpool2_bwd']:.3f} ms, aten's "
+          f"max_pool2d_with_indices_backward {library_ms['maxpool2_bwd']:.3f} ms")
 
 
 def main() -> None:
@@ -567,6 +794,8 @@ def main() -> None:
                                ("training step", train_shapes, PER_STEP)):
         got = {k: sum(c.values()) for k, c in shapes.items()}
         check(got == want, f"the CPU {what} made kernel calls {got}, expected {want}")
+        check(sorted(shapes["maxpool2"]) == RMG34_POOLS,
+              f"the CPU {what} pooled at {sorted(shapes['maxpool2'])}, expected {RMG34_POOLS}")
     conv_shapes, pool_shapes = serve_shapes["conv3x3"], serve_shapes["maxpool2"]
     max_err = dict.fromkeys(KERNELS, 0.0)
     # the designs each pass's bf16 convs take, predicted from the shapes
@@ -574,6 +803,9 @@ def main() -> None:
     check(serve_routes[("conv3x3", "sm90")] >= 70
           and train_routes[("conv3x3_bn_relu_in", "sm90")] >= 26,
           f"too few convs routed to sm90: {serve_routes}, {train_routes}")
+    check(serve_routes[("maxpool2", "sm90")] == PER_FORWARD["maxpool2"]
+          and train_routes[("maxpool2", "sm90")] == PER_STEP["maxpool2"],
+          f"not every pool routed to sm90: {serve_routes}, {train_routes}")
     for what, routes in (("serving forward", serve_routes), ("training step", train_routes)):
         phase("route", f"per {what}, predicted: " + ", ".join(
             f"{k} {r} {n}" for (k, r), n in routes.items()))
@@ -616,21 +848,7 @@ def main() -> None:
           f"through its routed design: match the plain version (max abs err "
           f"{max_err['conv3x3']:.3g}; largest error {worst[torch.bfloat16]:.2f} of its bound in bf16, {worst[torch.float32]:.2f} in f32)")
 
-    # 4 maxpool2 vs plain: a max selects one input, so exact, NaN included
-    shapes = [(CHECK_BATCH, *s) for s in sorted(pool_shapes)]
-    shapes += [(2, 7, 9, 3), (3, 15, 14, 130), (1, 1, 1, 4), (2, 57, 55, 64)]
-    for k, shape in enumerate(shapes):
-        for dtype in (torch.bfloat16, torch.float32):
-            x = pool_input(shape, dtype, seed=k)
-            y, y_ref = maxpool2(x), maxpool2_plain(x)
-            torch.cuda.synchronize()
-            check(y.shape == y_ref.shape, f"maxpool2 {shape} {dtype}: shape {tuple(y.shape)}")
-            same = (y == y_ref) | (torch.isnan(y) & torch.isnan(y_ref))
-            err = torch.where(same, 0.0, (y.float() - y_ref.float()).abs().nan_to_num(float("inf")))
-            max_err["maxpool2"] = max(max_err["maxpool2"], err.max().item())
-            check(bool(same.all()), f"maxpool2 {shape} {dtype}: differs from the plain version")
-    phase("maxpool2", f"{2 * len(shapes)} cases (bf16 and f32; odd sizes, NaN, +-inf): "
-          f"equal to the plain version")
+    check_pool(pool_shapes, max_err)
 
     # 5 serve: the main path, through the entry point a user calls
     t0 = time.perf_counter()
@@ -647,8 +865,8 @@ def main() -> None:
         now = dict(kernels.LAUNCHES)
         got = {k: now[k] - prev[k] for k in now}
         check(got == PER_FORWARD, f"batch {len(x)}: kernel launches {got}, expected {PER_FORWARD}")
-        check(routes_since(prev_routes) == serve_routes, f"batch {len(x)}: conv designs "
-              f"{routes_since(prev_routes)}, predicted {serve_routes}")
+        check(routes_since(prev_routes) == serve_routes, f"batch {len(x)}: conv and pool "
+              f"designs {routes_since(prev_routes)}, predicted {serve_routes}")
         prev = now
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
@@ -659,8 +877,8 @@ def main() -> None:
         check(bool(torch.isfinite(y).all()), f"batch {len(x)}: non-finite log-probs")
         check(bool((lse.abs() < 1e-3).all()), f"batch {len(x)}: logsumexp {lse.abs().max().item():.3g}")
     phase("serve", f"batches {list(SERVE_BATCHES)}: (B, 1000) finite f32 log-probs, rows sum to 1; "
-          f"launches per forward {PER_FORWARD}, total {launches}; conv designs per forward as "
-          f"predicted")
+          f"launches per forward {PER_FORWARD}, total {launches}; conv and pool designs per "
+          f"forward as predicted")
 
     # the f32 forward on the card (kernels + cuDNN without TF32) against the
     # port's plain path on the CPU, same weights: f32 summation order only,
@@ -682,27 +900,23 @@ def main() -> None:
     ms = dict.fromkeys(KERNELS, 0.0)
     plain_ms = dict.fromkeys(KERNELS, 0.0)
     tile_ms = dict.fromkeys(KERNELS, 0.0)  # the same launches, all through the tile design
+    # one PyTorch call of the same function; conv3x3_bn_relu_in has none
+    library_ms = {k: None if k == "conv3x3_bn_relu_in" else 0.0 for k in KERNELS}
     for k, ((h, w, ci, co), count) in enumerate(sorted(conv_shapes.items())):
         x, wt, b = conv_inputs(TIME_BATCH, h, w, ci, co, torch.bfloat16, seed=k)
+        w_lib = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        b_lib = b.to(x.dtype)
         fns = {cuda_conv._route(x, wt): lambda: conv3x3(x, wt, b, with_stats=False),
-               "plain": lambda: conv3x3_plain(x, wt, b, with_stats=False)}
+               "plain": lambda: conv3x3_plain(x, wt, b, with_stats=False),
+               "library": lambda: F.conv2d(nchw(x), w_lib, b_lib, padding=1)}
         if "sm90" in fns:
             fns["tile"] = lambda: cuda_conv._tile_forward(x, wt, b, with_stats=False)
-        time_conv("conv3x3", (h, w, ci, co), count, "forward", fns,
-                  2 * TIME_BATCH * h * w * 9 * ci * co, ms, plain_ms, tile_ms)
-    for k, ((h, w, c), count) in enumerate(sorted(pool_shapes.items())):
-        x = pool_input((TIME_BATCH, h, w, c), torch.bfloat16, seed=k)
-        (t_k, s_k), (t_p, s_p) = device_ms([lambda: maxpool2(x), lambda: maxpool2_plain(x)])
-        ms["maxpool2"] += count * t_k
-        plain_ms["maxpool2"] += count * t_p
-        gbs = 2 * TIME_BATCH * c * (h * w + -(-h // 2) * -(-w // 2)) / t_k / 1e6
-        phase("times", f"maxpool2 {TIME_BATCH}x{h}x{w}x{c} (x{count}/forward): kernel {t_k:.4f} ms "
-              f"(spread {s_k:.1%}, {gbs:.0f} GB/s), plain {t_p:.4f} ms (spread {s_p:.1%})")
+        time_conv("conv3x3", (h, w, ci, co), count, "forward", fns, ms, plain_ms, tile_ms,
+                  library_ms)
     phase("times", f"conv3x3 per batch-{TIME_BATCH} forward: kernel {ms['conv3x3']:.3f} ms "
           f"(the tile design alone {tile_ms['conv3x3']:.3f} ms), plain "
-          f"{plain_ms['conv3x3']:.3f} ms")
-    phase("times", f"maxpool2 per batch-{TIME_BATCH} forward: kernel {ms['maxpool2']:.3f} ms, "
-          f"plain {plain_ms['maxpool2']:.3f} ms")
+          f"{plain_ms['conv3x3']:.3f} ms, cuDNN's one call {library_ms['conv3x3']:.3f} ms")
+    time_pool(pool_shapes, ms, plain_ms, library_ms)
     images = torch.from_numpy(np.random.default_rng(2).standard_normal(
         (TIME_BATCH, *IMAGE_SHAPE), dtype=np.float32)).cuda()
     t_fwd, s_fwd = cuda_time_ms(lambda: server.predict(images), min_reps=5)
@@ -718,11 +932,23 @@ def main() -> None:
     check_grads()
     train_launches = check_train(name, train_routes)
     launches = {k: launches[k] + train_launches[k] for k in KERNELS}
-    time_train(name, train_shapes, ms, plain_ms, tile_ms)
+    time_train(name, train_shapes, ms, plain_ms, tile_ms, library_ms)
 
+    # each kernel's bound over the pass its times sum: the serving forward
+    # (conv3x3, maxpool2) or the training step (the other two)
+    fwd_bounds = path_bounds(serve_shapes, TIME_BATCH)
+    step_bounds = path_bounds(train_shapes, TIME_BATCH)
+    bounds = {k: (fwd_bounds if PER_FORWARD[k] else step_bounds)[k] for k in KERNELS}
+    for k, (flops, nbytes, t_bound, by) in bounds.items():
+        lib = "none" if library_ms[k] is None else f"{library_ms[k]:.3f} ms"
+        phase("bounds", f"{k} per batch-{TIME_BATCH} {'forward' if PER_FORWARD[k] else 'step'}: "
+              f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB, bound {t_bound:.4f} ms (by {by}); "
+              f"kernel {ms[k]:.3f} ms ({t_bound / ms[k]:.0%} of the bound), plain "
+              f"{plain_ms[k]:.3f} ms, library {lib}")
     print(json.dumps({"kernels": [
         {"name": k, **KERNELS[k], "launches": launches[k], "max_abs_err": max_err[k],
-         "ms": ms[k], "plain_ms": plain_ms[k]} for k in KERNELS]}), flush=True)
+         "ms": ms[k], "plain_ms": plain_ms[k], "bound_ms": bounds[k][2],
+         "bound_by": bounds[k][3], "library_ms": library_ms[k]} for k in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

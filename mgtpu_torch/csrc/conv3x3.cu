@@ -59,6 +59,8 @@
 
 #include <cstdint>
 
+#include "sm90_async.cuh"
+
 namespace {
 
 constexpr int BM = 64;  // output pixels per block
@@ -477,44 +479,7 @@ struct Cfg {
   }
 };
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void bar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// Wait until the barrier's phase of this parity has completed. A wait
-// that never ends is a bug: trap after ~2^34 cycles (about 9 s), so the
-// launch fails instead of hanging the card.
-__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
-  long long t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0)
-      t0 = clock64();
-    else if (clock64() - t0 > (1ll << 34))
-      __trap();
-  }
-}
+using namespace mg_async;  // saddr, the mbarrier helpers (bar_wait traps)
 
 __device__ __forceinline__ void load_im2col(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c, int w, int h, int n, uint16_t dw,
@@ -686,7 +651,7 @@ conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
       bar_init(saddr(full + s), 1);   // the producer's arrival, plus the bytes of the stage
       bar_init(saddr(empty + s), 2);  // one arrival per consumer warpgroup
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    bar_init_fence();
   }
   __syncthreads();
 

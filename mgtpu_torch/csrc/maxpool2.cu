@@ -3,18 +3,29 @@
 // Forward. Replaces: mgtpu/ops/pallas_pool.py::_fwd_kernel (called by
 // maxpool2_pallas -> _pool_fwd_call), extended to ceil mode: a window
 // that runs past the bottom or right edge is clipped, which equals the
-// -inf padding of mgtpu/ops/resample.py::maxpool2_ceil. So one kernel
-// serves every H and W and the wrapper needs no shape dispatch (the
-// Pallas kernel took even sizes only).
+// -inf padding of mgtpu/ops/resample.py::maxpool2_ceil, so the simple
+// design below serves every H and W (the Pallas kernel took even sizes
+// only).
 //
 // Bound on this card: device-memory bandwidth. Each output element
 // reads 4 inputs and writes 1; there is no arithmetic to speak of.
 //
-// Design: one thread per output element, with C the fastest index, so
-// a warp's loads of one window corner and its stores are contiguous
-// runs along C (coalesced). The max propagates NaN like lax.max and
-// torch's max_pool2d (fmaxf would drop it), and selects the input value
-// itself, so the result is bit-exact in both types.
+// The max propagates NaN like lax.max and torch's max_pool2d (fmaxf
+// would drop it), and selects the input value itself, so the result is
+// bit-exact in both types. Two designs compute it; which one a launch
+// takes is a fixed function of dtype, shape and alignment, decided by
+// the wrapper (mgtpu_torch/ops/cuda_pool.py::_route):
+//   sm90   (mg_maxpool2_sm90; section "sm90" below): bulk asynchronous
+//          copies into a shared-memory ring, 16-byte lanes; even H,
+//          C*sizeof(T) a multiple of 16, 16-byte aligned x, a row pair
+//          within one stage: every pool of R-MG-34;
+//   simple (mg_maxpool2): the first design, for everything else. One
+//          thread per output element, with C the fastest index, so a
+//          warp's loads of one window corner and its stores are
+//          contiguous runs along C (coalesced). It moves 2 bytes a
+//          thread per access and pays 64-bit divisions per element: it
+//          is bound by instruction issue, at under a third of the
+//          bandwidth on R-MG-34's large shapes.
 //
 // Backward. Replaces: mgtpu/ops/pallas_pool.py::_pool_bwd (body
 // _bwd_kernel), with two tie rules for a window whose max several
@@ -50,6 +61,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "sm90_async.cuh"
 
 namespace {
 
@@ -177,12 +190,214 @@ int launch_bwd(const void* x, const void* y, const void* g, void* dx, int n, int
   return (int)cudaGetLastError();
 }
 
+// The sm90 design of the forward: a stream of bulk asynchronous copies
+// through a shared-memory ring, reduced in 16-byte lanes.
+//
+// Rows as one flat stream: with H even, NHWC with n outermost puts row
+// pair (n, 2*oh, 2*oh + 1) right after (n, 2*oh - 2, 2*oh - 1) and after
+// the last pair of image n - 1. So x is a flat sequence of N*H/2 row
+// pairs of 2*W*C elements, and y the matching sequence of output rows of
+// OW*C. A chunk is K consecutive row pairs: one contiguous copy in, one
+// contiguous run of y out. The wrapper's planner (cuda_pool.py::_plan)
+// picks K (K row pairs fit a stage) and the grid (at most one block an
+// SM, each walking chunks blockIdx.x, + gridDim.x, ...).
+// Loads: one producer thread brings each chunk into a ring of STAGES
+// stages guarded by mbarrier full/empty pairs, with one cp.async.bulk
+// after mbarrier.arrive.expect_tx: no tensor map, since the chunk is
+// contiguous. Up to six chunks (~170 KB at R-MG-34's large shapes) are
+// in flight an SM from one thread; the simple design keeps 2 bytes in
+// flight a thread.
+// The reduction: 16 consumer warps. Each lane owns up to MAX_ITEMS
+// 16-byte output vectors of a stage (8 bf16 or 4 f32 channels of one
+// output pixel), the same ones in every chunk, so the index math, 32-bit
+// divisions included, runs once per block and not per element: it gives
+// each vector's top-left corner as an offset into the stage. The lane
+// reads the four corners with 16-byte shared loads, consecutive lanes
+// on consecutive vectors along C (no bank conflicts where C*sizeof(T)
+// is 128 bytes or more; up to two-way below), takes the max in
+// row-major window order under take_max's rule, and writes y with one
+// 16-byte store; a warp's stores are contiguous. Then each warp arrives
+// on the stage's empty barrier.
+// Odd W: a clipped last window of a row has no right column. Its right
+// corners are read from its left column again, which cannot change the
+// max under take_max's rule (an equal candidate never wins, a NaN best
+// stays), so no branch is needed. Odd H breaks the flat stream of pairs
+// and takes the simple design.
+// Hangs: every mbarrier wait traps after ~2^34 cycles (bar_wait), so a
+// broken ring fails the launch instead of hanging the card.
+namespace sm90 {
+
+using namespace mg_async;
+
+constexpr int CONSUMER_WARPS = 16;
+constexpr int CONSUMERS = 32 * CONSUMER_WARPS;
+constexpr int THREADS = 32 + CONSUMERS;  // warp 0 loads; warps 1.. reduce
+constexpr int STAGES = 6;
+// the most a stage holds; the wrapper's planner keeps K row pairs within
+// it and passes its own limit (cuda_pool.py::SM90_STAGE_BYTES), which
+// launch() refuses unless it is this one
+constexpr int STAGE_BYTES = 32768;
+// 16-byte output vectors a consumer thread owns in a stage: a stage of B
+// bytes yields at most B/32 of them (W = 1; about B/64 for an even W)
+constexpr int MAX_ITEMS = STAGE_BYTES / 32 / CONSUMERS;
+constexpr int BAR_BYTES = 2 * STAGES * 8;  // the full and empty barriers, before the ring
+
+// take_max on bit patterns: one f32, or one bf16 in the high half (the
+// f32 it widens to)
+__device__ __forceinline__ uint32_t pick(uint32_t best, uint32_t cand) {
+  const float b = __uint_as_float(best), c = __uint_as_float(cand);
+  return b == b && (c > b || c != c) ? cand : best;
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pick_word(uint32_t best, uint32_t cand);
+template <>
+__device__ __forceinline__ uint32_t pick_word<float>(uint32_t best, uint32_t cand) {
+  return pick(best, cand);
+}
+// two bf16 a word, low one first
+template <>
+__device__ __forceinline__ uint32_t pick_word<__nv_bfloat16>(uint32_t best, uint32_t cand) {
+  return pick(best & 0xffff0000u, cand & 0xffff0000u) | pick(best << 16, cand << 16) >> 16;
+}
+
+template <typename T>
+__device__ __forceinline__ void take_max16(uint4& best, const uint8_t* p) {
+  const uint4 c = *reinterpret_cast<const uint4*>(p);
+  best.x = pick_word<T>(best.x, c.x);
+  best.y = pick_word<T>(best.y, c.y);
+  best.z = pick_word<T>(best.z, c.z);
+  best.w = pick_word<T>(best.w, c.w);
+}
+
+// x, y as bytes and 16-byte vectors; W input columns, CV 16-byte vectors
+// a pixel (C*sizeof(T)/16), K row pairs a chunk, pairs = N*H/2 in all
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+maxpool2_sm90_kernel(const uint8_t* __restrict__ x, uint4* __restrict__ y, int W, int CV, int K,
+                     int pairs) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + STAGES;
+  uint8_t* ring = smem + BAR_BYTES;
+  const uint32_t OW = (W + 1) / 2;
+  const uint32_t row_bytes = 16u * W * CV;  // one input row
+  const uint32_t stage_bytes = 2u * K * row_bytes;
+  const int row_out = OW * CV;  // output vectors a row pair
+  const int chunks = (pairs + K - 1) / K;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(saddr(full + s), 1);                // the producer's arrival, plus the bytes
+      bar_init(saddr(empty + s), CONSUMER_WARPS);  // one arrival per consumer warp
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid < 32) {
+    // producer: one thread keeps the ring full
+    if (tid == 0) {
+      uint32_t it = 0;
+      for (int c = blockIdx.x; c < chunks; c += gridDim.x, ++it) {
+        const int s = it % STAGES;
+        const long long p0 = (long long)c * K;
+        const uint32_t kc = pairs - p0 < K ? (uint32_t)(pairs - p0) : (uint32_t)K;
+        bar_wait(saddr(empty + s), (it / STAGES & 1) ^ 1);
+        bar_expect_tx(saddr(full + s), kc * 2 * row_bytes);
+        load_1d(saddr(ring + s * stage_bytes), x + p0 * 2 * row_bytes, kc * 2 * row_bytes,
+                saddr(full + s));
+      }
+    }
+    return;
+  }
+
+  // consumers: this thread's output vectors j = ct + i*CONSUMERS of a
+  // chunk, each at pixel t = j / CV (row pair t / OW, column t % OW),
+  // vector j % CV; off[i] is its top-left corner in a stage, right[i]
+  // the step to its right column (0 where the window is clipped)
+  const int ct = tid - 32, lane = tid % 32;
+  uint32_t off[MAX_ITEMS], right[MAX_ITEMS];
+#pragma unroll
+  for (int i = 0; i < MAX_ITEMS; ++i) {
+    const uint32_t j = ct + i * CONSUMERS, t = j / CV, cv = j % CV;
+    const uint32_t k = t / OW, ow = t % OW;
+    off[i] = ((2 * k * W + 2 * ow) * CV + cv) * 16;
+    right[i] = 2 * ow + 1 < (uint32_t)W ? 16 * CV : 0;
+  }
+  uint32_t it = 0;
+  for (int c = blockIdx.x; c < chunks; c += gridDim.x, ++it) {
+    const int s = it % STAGES;
+    const long long p0 = (long long)c * K;
+    const int n_out = (pairs - p0 < K ? (int)(pairs - p0) : K) * row_out;
+    uint4* out = y + p0 * row_out;
+    const uint8_t* stage = ring + s * stage_bytes;
+    bar_wait(saddr(full + s), it / STAGES & 1);
+#pragma unroll
+    for (int i = 0; i < MAX_ITEMS; ++i) {
+      const int j = ct + i * CONSUMERS;
+      if (j < n_out) {
+        const uint8_t* p = stage + off[i];
+        uint4 best = *reinterpret_cast<const uint4*>(p);
+        take_max16<T>(best, p + right[i]);
+        take_max16<T>(best, p + row_bytes);
+        take_max16<T>(best, p + row_bytes + right[i]);
+        out[j] = best;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) bar_arrive(saddr(empty + s));
+  }
+}
+
+template <typename T>
+int launch(const void* x, void* y, int n, int h, int w, int c, int k, int grid, int stage_limit,
+           cudaStream_t s) {
+  const long long pairs = (long long)n * h / 2;
+  const long long stage_bytes = 2ll * k * w * c * (long long)sizeof(T);
+  // the launches the wrapper routes here; anything else is refused
+  if (h % 2 != 0 || c * sizeof(T) % 16 != 0 || !aligned16(x) || !aligned16(y) || w < 1 ||
+      k < 1 || grid < 1 || pairs < 1 || pairs >= (1ll << 31) - k || stage_bytes > STAGE_BYTES ||
+      stage_limit != STAGE_BYTES)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = maxpool2_sm90_kernel<T>;
+  // allow this instantiation a full ring, once per device
+  static unsigned allowed = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 32) return (int)cudaErrorInvalidDevice;
+  if (!(allowed >> dev & 1)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               BAR_BYTES + STAGES * STAGE_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    allowed |= 1u << dev;
+  }
+  const size_t smem = BAR_BYTES + STAGES * stage_bytes;
+  kernel<<<grid, THREADS, smem, s>>>(static_cast<const uint8_t*>(x), static_cast<uint4*>(y), w,
+                                     (int)(c * sizeof(T) / 16), k, (int)pairs);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace sm90
+
 }  // namespace
 
 extern "C" int mg_maxpool2(const void* x, void* y, int n, int h, int w, int c, int is_bf16,
                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch<__nv_bfloat16>(x, y, n, h, w, c, s) : launch<float>(x, y, n, h, w, c, s);
+}
+
+// The sm90 design of mg_maxpool2, plus the planner's k (row pairs a
+// chunk), grid and the stage limit it planned for: refuses, with
+// cudaErrorInvalidValue, any launch the wrapper would not route here
+extern "C" int mg_maxpool2_sm90(const void* x, void* y, int n, int h, int w, int c, int k,
+                                int grid, int stage_limit, int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? sm90::launch<__nv_bfloat16>(x, y, n, h, w, c, k, grid, stage_limit, s)
+                 : sm90::launch<float>(x, y, n, h, w, c, k, grid, stage_limit, s);
 }
 
 // x (n, h, w, c); y, g (n, ceil(h/2), ceil(w/2), c); dx like x; g in x's

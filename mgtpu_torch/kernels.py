@@ -2,9 +2,10 @@
 
 The sources in ``mgtpu_torch/csrc/*.cu`` are compiled at first use by
 ``nvcc`` into one shared library with a plain C interface, cached in
-``mgtpu_torch/_build/`` under a hash of the sources and flags, and bound
-with ``ctypes``. Nothing is built or loaded when this module is
-imported, so the CPU tests import it on a machine without ``nvcc``.
+``mgtpu_torch/_build/`` under a hash of the sources, the headers they
+include (``csrc/*.cuh``) and the flags, and bound with ``ctypes``.
+Nothing is built or loaded when this module is imported, so the CPU
+tests import it on a machine without ``nvcc``.
 
 A failed build raises. There is no fallback: on a CUDA tensor a wrapper
 launches its kernel or raises.
@@ -39,9 +40,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: dict[str, int] = {"conv3x3": 0, "conv3x3_bn_relu_in": 0, "maxpool2": 0,
                             "maxpool2_bwd": 0}
 # (kernel, design) -> launches since the last reset_launches(), for the
-# convs' two designs (mgtpu_torch/ops/cuda_conv.py::_route)
-ROUTES: dict[tuple[str, str], int] = {(k, r): 0 for k in ("conv3x3", "conv3x3_bn_relu_in")
-                                      for r in ("sm90", "tile")}
+# kernels with two designs: the convs' (mgtpu_torch/ops/cuda_conv.py::_route)
+# and the pool forward's (mgtpu_torch/ops/cuda_pool.py::_route)
+ROUTES: dict[tuple[str, str], int] = {
+    **{(k, r): 0 for k in ("conv3x3", "conv3x3_bn_relu_in") for r in ("sm90", "tile")},
+    **{("maxpool2", r): 0 for r in ("sm90", "simple")}}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -61,6 +64,8 @@ _SIGNATURES = {
                                    _I, _P),
     # x, y, n, h, w, c, is_bf16, stream
     "mg_maxpool2": (_P, _P, _I, _I, _I, _I, _I, _P),
+    # x, y, n, h, w, c, k (row pairs a chunk), grid, stage_limit, is_bf16, stream
+    "mg_maxpool2_sm90": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, y, g, dx, n, h, w, c, first_only, is_bf16, stream
     "mg_maxpool2_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
@@ -92,9 +97,10 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
+    """Where the library for the current sources and headers lives (built
+    or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libmgtpu_kernels_{h.hexdigest()[:16]}.so"
@@ -149,7 +155,7 @@ def library() -> ctypes.CDLL:
 def launch(kernel: str, entry: str, device: torch.device, *args, route: str | None = None) -> None:
     """Call C entry ``entry`` with ``device`` current, on its current
     stream; raise on a launch error, and count one launch of ``kernel``
-    (and of its design ``route``, for the convs)."""
+    (and of its design ``route``, for a kernel with two designs)."""
     fn = getattr(library(), entry)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)

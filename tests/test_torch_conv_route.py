@@ -11,10 +11,10 @@ counts against), and against operands the sm90 design does not take.
 import pytest
 import torch
 
-from chip_smoke import PER_FORWARD, PER_STEP, predicted_routes, record_kernel_shapes
+from chip_smoke import PER_FORWARD, PER_STEP, misaligned, predicted_routes, record_kernel_shapes
 from mgtpu_torch.ops.cuda_conv import _route
 
-# the four 29.6-GFLOP shapes (H, W, Ci, Co) at batch 128
+# the four largest shapes (H, W, Ci, Co): 24-29 GFLOP each at batch 128
 LARGE = [(14, 14, 256, 256), (28, 28, 128, 128), (56, 56, 64, 64), (7, 7, 512, 512)]
 
 
@@ -57,21 +57,16 @@ def test_route_takes_the_large_shapes_to_sm90(recorded, pass_, kernel, shape):
 
 
 def test_route_counts_per_pass(recorded):
-    """The counts chip_smoke.py holds the card's launches to."""
+    """The counts chip_smoke.py holds the card's launches to (the pool's
+    are tests/test_torch_pool_route.py's)."""
     assert predicted_routes(recorded["serve"]) == {
         ("conv3x3", "sm90"): 70, ("conv3x3", "tile"): 42,
-        ("conv3x3_bn_relu_in", "sm90"): 0, ("conv3x3_bn_relu_in", "tile"): 0}
+        ("conv3x3_bn_relu_in", "sm90"): 0, ("conv3x3_bn_relu_in", "tile"): 0,
+        ("maxpool2", "sm90"): 46, ("maxpool2", "simple"): 0}
     assert predicted_routes(recorded["train"]) == {
         ("conv3x3", "sm90"): 44, ("conv3x3", "tile"): 32,
-        ("conv3x3_bn_relu_in", "sm90"): 26, ("conv3x3_bn_relu_in", "tile"): 10}
-
-
-def _misaligned(t):
-    """t's values in a tensor whose data starts 2 bytes past a 16-byte
-    boundary"""
-    flat = torch.empty(t.numel() + 8, dtype=t.dtype)
-    off = next(i for i in range(1, 8) if (flat.data_ptr() + i * t.element_size()) % 16 == 2)
-    return flat[off:off + t.numel()].view(t.shape)
+        ("conv3x3_bn_relu_in", "sm90"): 26, ("conv3x3_bn_relu_in", "tile"): 10,
+        ("maxpool2", "sm90"): 46, ("maxpool2", "simple"): 0}
 
 
 @pytest.mark.parametrize("case", ["f32", "f32_wide", "x_misaligned", "w_misaligned",
@@ -88,7 +83,7 @@ def test_route_keeps_the_rest_on_the_tile_design(case):
     x, w = _operands(ci, co, dtype)
     if case.endswith("misaligned"):
         assert _route(x, w) == "sm90"  # aligned, the same operands take sm90
-        x, w = (_misaligned(x), w) if case == "x_misaligned" else (x, _misaligned(w))
+        x, w = (misaligned(x), w) if case == "x_misaligned" else (x, misaligned(w))
     assert _route(x, w) == "tile"
 
 

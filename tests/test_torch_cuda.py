@@ -11,12 +11,13 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import RMG34_POOLS, misaligned
 from mgtpu_torch import kernels
 from mgtpu_torch.ops.cuda_conv import (_route, _tile_forward, bn_relu_plain, conv3x3,
                                        conv3x3_bn_relu_in, conv3x3_bn_relu_in_plain,
                                        conv3x3_plain)
-from mgtpu_torch.ops.cuda_pool import (maxpool2, maxpool2_backward, maxpool2_bwd_plain,
-                                       maxpool2_plain)
+from mgtpu_torch.ops.cuda_pool import (_route as _pool_route, _simple_forward, maxpool2,
+                                       maxpool2_backward, maxpool2_bwd_plain, maxpool2_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -159,6 +160,38 @@ def _pool_input(shape, dtype, dev, seed=0):
 def test_maxpool2_kernel_exact(dev, shape, dtype):
     x = _pool_input(shape, dtype, dev)
     y = maxpool2(x)
+    torch.testing.assert_close(y, maxpool2_plain(x), rtol=0, atol=0, equal_nan=True)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("shape", RMG34_POOLS + [(8, 9, 64), (14, 14, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_maxpool2_sm90_equals_plain_and_simple(dev, shape, dtype):
+    """At batch 128, the main path's (a block walks many chunks, so the
+    ring wraps; 8x9 has an odd W), with NaN, +-inf and an all -inf
+    window: the sm90 design equals the plain version and, bit for bit,
+    the simple design (both select the input value by one rule)."""
+    x = _pool_input((128, *shape), dtype, dev, seed=sum(shape))
+    assert _pool_route(x) == "sm90"
+    kernels.reset_launches()
+    y, y_simple = maxpool2(x), _simple_forward(x)
+    assert kernels.ROUTES[("maxpool2", "sm90")] == 1
+    assert kernels.ROUTES[("maxpool2", "simple")] == 1
+    torch.testing.assert_close(y, maxpool2_plain(x), rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(_bits(y), _bits(y_simple))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_maxpool2_misaligned_view_takes_the_simple_design(dev, dtype):
+    x = _pool_input((2, 8, 8, 64), dtype, dev)
+    xm = misaligned(x)
+    assert _pool_route(x) == "sm90" and _pool_route(xm) == "simple"
+    kernels.reset_launches()
+    y = maxpool2(xm)
+    assert kernels.ROUTES[("maxpool2", "simple")] == 1
     torch.testing.assert_close(y, maxpool2_plain(x), rtol=0, atol=0, equal_nan=True)
 
 
