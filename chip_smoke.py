@@ -4,11 +4,11 @@
     python3 chip_smoke.py        # from the repository root; needs one CUDA card and nvcc
 
 Builds the port's CUDA kernels from `mgtpu_torch/csrc/`, holds each one
-against its plain PyTorch version at the shapes R-MG-34 and the six
-CIFAR nets give it, serves a few requests through
-`mgtpu_torch.serve.Server` (R-MG-34 and each CIFAR net, BN folded, bf16,
-seeded random weights), takes a few training steps through
-`mgtpu_torch.trainer.Trainer` (the same nets, bf16, SGD), checks that
+against its plain PyTorch version at the shapes R-MG-34, the six CIFAR
+nets, the four cluttered-MNIST nets and PR-MG-30 give it, serves a few
+requests through `mgtpu_torch.serve.Server` (each of those nets, BN
+folded, bf16, seeded random weights), takes a few training steps
+through `mgtpu_torch.trainer.Trainer` (the same nets, bf16, SGD), checks that
 every path went through the kernels and agrees with the port's plain
 CPU path in f32, and times the kernels, the serving forward and the
 training step with CUDA events. Phases:
@@ -86,13 +86,39 @@ training step with CUDA events. Phases:
              included), the card's busy share of each from a
              torch.profiler trace, and each kernel at prnmg's shapes
              beside its plain version and one PyTorch call
+ 16 seg route  the cluttered-MNIST nets (unet, unmg, pnmg.mnist,
+             prnmg.mnist: 64x64x1 images, per-pixel sigmoids) and
+             PR-MG-30 (ilsvrc/prnmgseg, shortcut A) at their recipes:
+             their kernel calls recorded on the CPU and held to the
+             pinned counts (SEG_PER_FORWARD, SEG_PER_MICRO)
+ 17 seg kernels  each kernel vs its plain version at every shape they
+             give it (and pnmg.mnist's on mnist-seg: Co = 10), at each
+             serving batch and the recipe's micro-batch, bf16 and f32,
+             the convs also through the tile design where sm90 takes
+             the shape
+ 18 seg serve  each net BN-folded bf16 at its recipe's batch (64; 32 for
+             prnmg.mnist; 1 and 128 for PR-MG-30) and PR-MG-52 at batch
+             8: probabilities in [0, 1] or log-probs that are
+             distributions, the pinned launches per forward through the
+             predicted designs; each net's f32 forward on the card vs
+             the plain CPU forward
+ 19 seg train  each net 4 bf16 steps at its recipe's micro-batch and
+             iterSize (PR-MG-30's 16 cut to 2) on one batch: the loss
+             falls, the pinned launches per step through the predicted
+             designs; one f32 step of each net on the card vs the plain
+             CPU step
+ 20 seg times  each net's bf16 serving forward and training step,
+             interleaved, with the card's busy share from a profile, and
+             each kernel at its shapes beside its plain version and one
+             PyTorch call
 
 Any failed check exits non-zero. The second-to-last line of stdout is
 one JSON object with the kernels: ``launches`` sums each kernel's
 launches over the main-path runs (phase 5's serving forwards, phase
-10's training steps, and phases 13 and 14's bf16 forwards and steps of
-the CIFAR nets), ``max_abs_err`` is its largest error against its
-plain version (phases 3, 4, 7, 8, 12), and ``ms`` / ``plain_ms`` /
+10's training steps, phases 13 and 14's bf16 forwards and steps of
+the CIFAR nets and phases 18 and 19's of the others), ``max_abs_err``
+is its largest error against its plain version (phases 3, 4, 7, 8, 12,
+17), and ``ms`` / ``plain_ms`` /
 ``library_ms`` are the summed times of its launches (through the design
 each takes), of its plain version and of one PyTorch call of the same
 function (null where there is none) in one batch-128 bf16 serving
@@ -102,7 +128,10 @@ the same launches (:func:`path_bounds`), ``bound_by`` which bound sets
 most of it. Under the key "cifar/prnmg" each kernel has the same
 numbers for cifar/prnmg: its launches in phases 13 and 14 (cifar/prnmg's
 own), its times and bounds per batch-128 forward or 64 x 2 step (phase
-15). The last line is
+15); under each net of phases 16-20 that launches it, the same numbers
+for that net (its launches in phases 18 and 19, its times and bounds per
+forward at its largest serving batch or per training step, phase 20).
+The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -120,7 +149,7 @@ import torch
 import torch.nn.functional as F
 
 from mgtpu_torch import kernels
-from mgtpu_torch.models import create_model
+from mgtpu_torch.models import create_model, get_spec
 from mgtpu_torch.models.base import NetOpts, imagenet_rule
 from mgtpu_torch.ops import cuda_conv, cuda_pool
 from mgtpu_torch.ops.cuda_conv import (bn_relu_plain, conv3x3, conv3x3_bn_relu_in,
@@ -187,8 +216,13 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+T0 = time.perf_counter()
+
+
 def phase(name: str, msg: str) -> None:
-    print(f"[{name}] {msg}", flush=True)
+    """One line of the run's log, tagged with the phase and the seconds
+    since the script started."""
+    print(f"[{name} {time.perf_counter() - T0:.0f}s] {msg}", flush=True)
 
 
 def record_kernel_shapes(train: bool, opt: NetOpts = RMG34):
@@ -363,6 +397,16 @@ def pool_equal(y, y_ref):
     return bool(same.all()) and y.shape == y_ref.shape, err.max().item()
 
 
+def tiled(kernel, fn):
+    """fn(), which must launch `kernel` once, through the tile design."""
+    before = dict(kernels.ROUTES)
+    out = fn()
+    want = {k: int(k == (kernel, "tile")) for k in kernels.ROUTES}
+    check(routes_since(before) == want, f"{kernel}: launched {routes_since(before)} through "
+          f"_tile_forward, expected {want}")
+    return out
+
+
 def pooled(x, design):
     """maxpool2's forward on x, which must launch once, through `design`:
     maxpool2 where that is the design cuda_pool._route picks, else the
@@ -382,7 +426,7 @@ POOL_EDGE_SHAPES = [(2, 7, 9, 3), (3, 15, 14, 130), (1, 1, 1, 4), (2, 57, 55, 64
                     (40, 14, 14, 16), (1, 4, 300, 64)]
 
 
-def check_conv(cases, max_err, what="", slices=False) -> None:
+def check_conv(cases, max_err, what="", slices=False, both=False) -> None:
     """3: conv3x3 vs plain at each ((H, W, Ci, Co), batch). Reference: the
     plain version in f32 on the same (bf16-rounded) inputs. f32 differs
     by summation order only; bf16 adds one rounding of the f32
@@ -391,8 +435,9 @@ def check_conv(cases, max_err, what="", slices=False) -> None:
     varying order. With ``slices``, each shape routed to the tile design
     is also taken with its weight a slice of a wider one at input
     channel 3, whose start is off a 16-byte boundary for most Co (the
-    exchange passes such slices)."""
-    n_cases = n_slices = 0
+    exchange passes such slices). With ``both``, each shape routed to
+    sm90 is also taken through the tile design."""
+    n_cases = n_slices = n_tile = 0
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}  # largest error / its bound
     for k, ((h, w, ci, co), batch) in enumerate(sorted(cases)):
         for dtype in (torch.bfloat16, torch.float32):
@@ -401,11 +446,16 @@ def check_conv(cases, max_err, what="", slices=False) -> None:
             if slices and cuda_conv._route(x, wt) == "tile":
                 wide = torch.cat([torch.randn((3, 3, 3, co), device="cuda").to(dtype), wt], dim=2)
                 weights.append(wide[:, :, 3:])
-            for wi in weights:
+            designs = ["routed"] + (["tile"] if both and cuda_conv._route(x, wt) == "sm90" else [])
+            for wi, design in itertools.product(weights, designs):
                 for relu_out in (False, True):
                     for with_stats in (False, True):
-                        y, st = routed("conv3x3", x, wi, lambda: conv3x3(
-                            x, wi, b, relu_out=relu_out, with_stats=with_stats))
+                        if design == "tile":
+                            y, st = tiled("conv3x3", lambda: cuda_conv._tile_forward(
+                                x, wi, b, relu_out=relu_out, with_stats=with_stats))
+                        else:
+                            y, st = routed("conv3x3", x, wi, lambda: conv3x3(
+                                x, wi, b, relu_out=relu_out, with_stats=with_stats))
                         y_ref, st_ref = conv3x3_plain(x.float(), wi.float(), b,
                                                       relu_out=relu_out, with_stats=with_stats)
                         torch.cuda.synchronize()
@@ -414,7 +464,7 @@ def check_conv(cases, max_err, what="", slices=False) -> None:
                         err = (y.float() - y_ref).abs()
                         share = (err / (rtol * y_ref.abs() + 1e-5 * scale)).max().item()
                         what_ = (f"conv3x3 {batch}x{h}x{w}x{ci}->{co} {dtype} relu={relu_out} "
-                                 f"stats={with_stats} w slice={wi is not wt}")
+                                 f"stats={with_stats} w slice={wi is not wt} {design}")
                         check(y.dtype == dtype and share <= 1.0,
                               f"{what_}: max abs err {err.max().item():.3g} (scale {scale:.3g})")
                         worst[dtype] = max(worst[dtype], share)
@@ -428,8 +478,10 @@ def check_conv(cases, max_err, what="", slices=False) -> None:
                         max_err["conv3x3"] = max(max_err["conv3x3"], err.max().item())
                         n_cases += 1
                         n_slices += wi is not wt
+                        n_tile += design == "tile"
     phase("conv3x3", f"{what}{n_cases} cases at {len(cases)} shapes and batches ({n_slices} with a "
-          f"weight slice), each through its routed design: match the plain version (max abs "
+          f"weight slice; {n_tile} through the tile design at shapes routed to sm90), the "
+          f"others each through its routed design: match the plain version (max abs "
           f"err {max_err['conv3x3']:.3g}; largest error {worst[torch.bfloat16]:.2f} of its bound "
           f"in bf16, {worst[torch.float32]:.2f} in f32)")
 
@@ -513,15 +565,15 @@ def device_ms(fns, windows=5):
 
 
 def time_conv(kname, shape, count, unit, fns, ms, plain_ms, tile_ms, library_ms,
-              batch=TIME_BATCH) -> None:
+              batch=TIME_BATCH, windows=5) -> None:
     """Times of one conv shape at ``batch``, in turns: the routed kernel,
     its plain version, cuDNN's one call where there is one (library)
-    and, where the kernel is routed to sm90, the tile design, with their
-    rates in the operations kernel_work counts. Adds count x each to the
-    per-forward (or per-step) sums."""
+    and, where the kernel is routed to sm90 and ``fns`` has it, the tile
+    design, with their rates in the operations kernel_work counts. Adds
+    count x each to the per-forward (or per-step) sums."""
     flops = kernel_work(kname, shape, batch)[0]
     names = list(fns)
-    res = dict(zip(names, device_ms([fns[k] for k in names])))
+    res = dict(zip(names, device_ms([fns[k] for k in names], windows)))
     route = names[0]
     ms[kname] += count * res[route][0]
     plain_ms[kname] += count * res["plain"][0]
@@ -580,13 +632,14 @@ def time_pool(pool_shapes, ms, plain_ms, library_ms) -> None:
               f"kernel (torch.cuda._sleep(0)) takes {empty * 1e3:.2f} us back to back")
 
 
-def check_prologue(cases, max_err, what="") -> None:
+def check_prologue(cases, max_err, what="", both=False) -> None:
     """7: conv3x3_bn_relu_in vs its plain version at each ((H, W, Ci, Co),
     batch). Reference: the plain version in f32 on the same inputs, its
     normalized input rounded to the kernel's operand type first
     (bn_relu_plain, then conv3x3_plain in f32), so that the bounds are
-    conv3x3's (phase 3)."""
-    n_cases = n_halo = 0
+    conv3x3's (phase 3). With ``both``, each shape routed to sm90 is also
+    taken through the tile design."""
+    n_cases = n_halo = n_tile = 0
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     for k, ((h, w, ci, co), batch) in enumerate(sorted(cases)):
         scale, shift = bn_inputs(ci, seed=100 + k)
@@ -596,7 +649,8 @@ def check_prologue(cases, max_err, what="") -> None:
             # rows and columns: TMA fills the halo with zeros too, and only
             # the position tells the two apart (relu(shift) > 0 inside)
             halos = (False, True) if cuda_conv._route(x, wt) == "sm90" else (False,)
-            for halo in halos:
+            designs = ["routed"] + (["tile"] if both and cuda_conv._route(x, wt) == "sm90" else [])
+            for halo, design in itertools.product(halos, designs):
                 if halo:
                     x = x.clone()
                     x[:, [0, -1]] = 0
@@ -604,13 +658,17 @@ def check_prologue(cases, max_err, what="") -> None:
                 xn = bn_relu_plain(x, scale, shift).float()
                 for relu_out in (False, True):
                     for with_stats in (False, True):
-                        y, st = routed("conv3x3_bn_relu_in", x, wt, lambda: conv3x3_bn_relu_in(
-                            x, wt, b, scale, shift, relu_out=relu_out, with_stats=with_stats))
+                        if design == "tile":
+                            y, st = tiled("conv3x3_bn_relu_in", lambda: cuda_conv._tile_forward(
+                                x, wt, b, scale, shift, relu_out=relu_out, with_stats=with_stats))
+                        else:
+                            y, st = routed("conv3x3_bn_relu_in", x, wt, lambda: conv3x3_bn_relu_in(
+                                x, wt, b, scale, shift, relu_out=relu_out, with_stats=with_stats))
                         y_ref, st_ref = conv3x3_plain(xn, wt.float(), b, relu_out=relu_out,
                                                       with_stats=with_stats)
                         torch.cuda.synchronize()
                         case = (f"conv3x3_bn_relu_in {batch}x{h}x{w}x{ci}->{co} {dtype} "
-                                f"relu={relu_out} stats={with_stats} zero border={halo}")
+                                f"relu={relu_out} stats={with_stats} zero border={halo} {design}")
                         share = rel_share(y, y_ref,
                                           2.0 ** -7 if dtype == torch.bfloat16 else 1e-5)
                         err = (y.float() - y_ref).abs().max().item()
@@ -626,8 +684,10 @@ def check_prologue(cases, max_err, what="") -> None:
                         max_err["conv3x3_bn_relu_in"] = max(max_err["conv3x3_bn_relu_in"], err)
                         n_cases += 1
                         n_halo += halo
+                        n_tile += design == "tile"
     phase("conv3x3_bn_relu_in", f"{what}{n_cases} cases at {len(cases)} shapes and batches "
-          f"({n_halo} with a zero border, sm90), each through its routed design: match the "
+          f"({n_halo} with a zero border; {n_tile} through the tile design at shapes routed to "
+          f"sm90), the others each through its routed design: match the "
           f"plain version (max abs err {max_err['conv3x3_bn_relu_in']:.3g}; largest "
           f"error {worst[torch.bfloat16]:.2f} of its bound in bf16, "
           f"{worst[torch.float32]:.2f} in f32)")
@@ -1080,23 +1140,127 @@ def interleaved_ms(fns, windows=5, min_reps=1):
     return [(statistics.median(p), (max(p) - min(p)) / statistics.median(p)) for p in per]
 
 
-def device_busy_ms(fn, calls=3):
-    """The card's busy time per call of fn (the sum of its kernels'
-    device times in a torch.profiler trace of ``calls`` calls) and the
-    wall time per call of the same calls, or None where the trace holds
-    no device time."""
+def device_busy_ms(fn):
+    """The card's busy time of one call of fn (the sum of its kernels'
+    device times in a torch.profiler trace) and the wall time of the same
+    call, or None where the trace holds no device time. One call: the
+    trace of a step holds tens of thousands of events, and with three
+    calls phase 20 took 169 s (the log's timestamps), most of it reading
+    the traces of prnmg.mnist and prnmgseg."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
+        fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / calls * 1e3
-    busy = sum(e.self_device_time_total for e in prof.key_averages()) / calls / 1e3
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
     return (busy, wall) if busy > 0 else None
+
+
+def time_end_to_end(tag, label, name, fns, imgs) -> None:
+    """End-to-end times of ``fns`` (what -> function), interleaved on the
+    card's clock (host included), with images/s from ``imgs`` (what ->
+    images a call), and the card's busy share of each from a profile of
+    one call."""
+    res = dict(zip(fns, interleaved_ms(list(fns.values()))))
+    for what, (t, sp) in res.items():
+        phase(tag, f"{label} bf16 {what}: {t:.3f} ms (median of 5 interleaved windows, spread "
+              f"{sp:.1%}) = {imgs[what] / t * 1e3:.1f} img/s on {name}")
+    for what, fn in fns.items():
+        busy = device_busy_ms(fn)
+        phase(tag, f"{label} bf16 {what}, profiled: " + (
+            "no device time in the trace (not measured)" if busy is None else
+            f"card busy {busy[0]:.3f} ms a call, {busy[1]:.3f} ms wall under the profiler; "
+            f"against the median above the card is idle {1 - busy[0] / res[what][0]:.0%}"))
+
+
+def time_kernels(label, serve, train, serve_batch, micro, iters, seed=600, alternatives=True,
+                 windows=5):
+    """Each kernel at a net's shapes (``serve``: its serving forward's,
+    at ``serve_batch``; ``train``: its training micro-batch's, at
+    ``micro``, ``iters`` a step) beside its plain version, one PyTorch
+    call of the same function (cuDNN's conv, F.max_pool2d, aten's pool
+    backward) and, with ``alternatives``, the tile design (conv) or the
+    simple one (pool) where the routed design is sm90; each the median of
+    ``windows`` windows. Returns ({kernel: ms}, {kernel: plain ms},
+    {kernel: library ms}) per forward (conv3x3, maxpool2) or per step
+    (the other two); a kernel the net does not launch is left out."""
+    ms, plain_ms = dict.fromkeys(KERNELS, 0.0), dict.fromkeys(KERNELS, 0.0)
+    alt_ms, library_ms = dict.fromkeys(KERNELS, 0.0), dict.fromkeys(KERNELS, 0.0)
+    library_ms["conv3x3_bn_relu_in"] = None
+    for k, ((h, w, ci, co), count) in enumerate(sorted(serve["conv3x3"].items())):
+        xc, wt, b = conv_inputs(serve_batch, h, w, ci, co, torch.bfloat16, seed=seed + k)
+        w_lib = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        b_lib = b.to(xc.dtype)
+        cfns = {cuda_conv._route(xc, wt): lambda: conv3x3(xc, wt, b, with_stats=False),
+                "plain": lambda: conv3x3_plain(xc, wt, b, with_stats=False),
+                "library": lambda: F.conv2d(nchw(xc), w_lib, b_lib, padding=1)}
+        if "sm90" in cfns and alternatives:
+            cfns["tile"] = lambda: cuda_conv._tile_forward(xc, wt, b, with_stats=False)
+        time_conv("conv3x3", (h, w, ci, co), count, "forward", cfns, ms, plain_ms, alt_ms,
+                  library_ms, serve_batch, windows)
+    for k, ((h, w, ci, co), count) in enumerate(sorted(train["conv3x3_bn_relu_in"].items())):
+        xc, wt, b = conv_inputs(micro, h, w, ci, co, torch.bfloat16, seed=seed + 100 + k)
+        scale, shift = bn_inputs(ci, seed=seed + 100 + k)
+        cfns = {cuda_conv._route(xc, wt): lambda: conv3x3_bn_relu_in(xc, wt, b, scale, shift,
+                                                                     with_stats=False),
+                "plain": lambda: conv3x3_bn_relu_in_plain(xc, wt, b, scale, shift,
+                                                          with_stats=False)}
+        if "sm90" in cfns and alternatives:
+            cfns["tile"] = lambda: cuda_conv._tile_forward(xc, wt, b, scale, shift,
+                                                           with_stats=False)
+        time_conv("conv3x3_bn_relu_in", (h, w, ci, co), iters * count, "step", cfns, ms,
+                  plain_ms, alt_ms, library_ms, micro, windows)
+    for kname, shapes, batch, per in (("maxpool2", serve["maxpool2"], serve_batch, 1),
+                                      ("maxpool2_bwd", train["maxpool2_bwd"], micro, iters)):
+        for k, ((h, w, c), count) in enumerate(sorted(shapes.items())):
+            xp = pool_input((batch, h, w, c), torch.bfloat16, seed=seed + 200 + k,
+                            ties=kname != "maxpool2")
+            if kname == "maxpool2":
+                route = cuda_pool._route(xp)
+                sets = cold_copies([xp])
+                pfns = {route: rotating(maxpool2, sets),
+                        "plain": rotating(maxpool2_plain, sets),
+                        "library": rotating(lambda t: F.max_pool2d(nchw(t), 2, 2, ceil_mode=True),
+                                            sets)}
+                if route == "sm90" and alternatives:
+                    pfns["simple"] = rotating(cuda_pool._simple_forward, sets)
+            else:
+                yp = maxpool2_plain(xp)
+                g = torch.randn(yp.shape, device="cuda").to(torch.bfloat16)
+                idx = F.max_pool2d(nchw(xp), 2, 2, ceil_mode=True, return_indices=True)[1]
+                sets = cold_copies([xp, yp, g, idx])
+                pfns = {"kernel": rotating(lambda a, b, c, i: maxpool2_backward(a, b, c, "first"),
+                                           sets),
+                        "plain": rotating(lambda a, b, c, i: maxpool2_bwd_plain(a, b, c, "first"),
+                                          sets),
+                        "library": rotating(
+                            lambda a, b, c, i: torch.ops.aten.max_pool2d_with_indices_backward(
+                                nchw(c), nchw(a), [2, 2], [2, 2], [0, 0], [1, 1], True, i), sets)}
+            pres = dict(zip(pfns, device_ms(list(pfns.values()), windows)))
+            names = list(pfns)
+            nbytes = kernel_work(kname, (h, w, c), batch)[1]
+            ms[kname] += per * count * pres[names[0]][0]
+            plain_ms[kname] += per * count * pres["plain"][0]
+            library_ms[kname] += per * count * pres["library"][0]
+            phase("times", f"{kname} {batch}x{h}x{w}x{c} (x{per * count}/"
+                  f"{'forward' if per == 1 else 'step'}; {nbytes / 1e6:.2f} MB, bound "
+                  f"{bound(0, nbytes)[0] * 1e3:.2f} us; cold inputs): " + ", ".join(
+                      f"{d} {t:.4f} ms (spread {sp:.1%})" for d, (t, sp) in pres.items()))
+    used = [k for k in KERNELS if (serve if k in ("conv3x3", "maxpool2") else train)[k]]
+    for k in used:
+        unit = (f"batch-{serve_batch} forward" if k in ("conv3x3", "maxpool2")
+                else f"{micro} x {iters} step")
+        lib = "none" if library_ms[k] is None else f"{library_ms[k]:.3f} ms"
+        alt = (f", the tile design alone {alt_ms[k]:.3f} ms"
+               if k.startswith("conv") and alternatives else "")
+        phase("times", f"{label} {k} per {unit}: kernel {ms[k]:.3f} ms{alt}, plain "
+              f"{plain_ms[k]:.3f} ms, one PyTorch call {lib}")
+    return ({k: ms[k] for k in used}, {k: plain_ms[k] for k in used},
+            {k: library_ms[k] for k in used})
 
 
 def time_cifar(name, rec):
@@ -1104,11 +1268,8 @@ def time_cifar(name, rec):
     batch 128 and at batch 1, the bf16 training step at its recipe's 64 x
     2), interleaved on the card's clock, and the card's busy share of
     each from a profile; then each kernel at prnmg's shapes (the
-    forward's at batch 128, the step's at its micro-batch 64) beside its
-    plain version, cuDNN's or F.max_pool2d's one call and the tile design
-    (conv) or the simple one (pool). Returns ({kernel: ms}, {kernel:
-    plain ms}, {kernel: library ms}) per forward (conv3x3, maxpool2) or
-    per step (the other two)."""
+    forward's at batch 128, the step's at its micro-batch 64), as
+    :func:`time_kernels`."""
     serve, train = rec[CIFAR_TIMED]
     micro, iters = CIFAR_RECIPES[CIFAR_TIMED][1:]
     server = Server(seed=0, device="cuda", compute_dtype=torch.bfloat16,
@@ -1123,100 +1284,311 @@ def time_cifar(name, rec):
     fns = {f"forward {CIFAR_SERVE_BATCH}": lambda: server.predict(images),
            "forward 1": lambda: server.predict(images[:1]),
            f"step {micro}x{iters}": lambda: trainer.step(xt, yt, CIFAR_LR, 5e-4)}
-    res = dict(zip(fns, interleaved_ms(list(fns.values()))))
-    imgs = {f"forward {CIFAR_SERVE_BATCH}": CIFAR_SERVE_BATCH, "forward 1": 1,
-            f"step {micro}x{iters}": micro * iters}
-    for what, (t, sp) in res.items():
-        phase("cifar times", f"{CIFAR_TIMED} bf16 {what}: {t:.3f} ms (median of 5 interleaved "
-              f"windows, spread {sp:.1%}) = {imgs[what] / t * 1e3:.1f} img/s on {name}")
-    for what, fn in fns.items():
-        busy = device_busy_ms(fn)
-        phase("cifar times", f"{CIFAR_TIMED} bf16 {what}, profiled: " + (
-            "no device time in the trace (not measured)" if busy is None else
-            f"card busy {busy[0]:.3f} ms a call, {busy[1]:.3f} ms wall under the profiler; "
-            f"against the median above the card is idle {1 - busy[0] / res[what][0]:.0%}"))
+    time_end_to_end("cifar times", CIFAR_TIMED, name, fns,
+                    {f"forward {CIFAR_SERVE_BATCH}": CIFAR_SERVE_BATCH, "forward 1": 1,
+                     f"step {micro}x{iters}": micro * iters})
     del server, trainer, images
-
-    ms, plain_ms = dict.fromkeys(KERNELS, 0.0), dict.fromkeys(KERNELS, 0.0)
-    alt_ms, library_ms = dict.fromkeys(KERNELS, 0.0), dict.fromkeys(KERNELS, 0.0)
-    library_ms["conv3x3_bn_relu_in"] = None
-    for k, ((h, w, ci, co), count) in enumerate(sorted(serve["conv3x3"].items())):
-        xc, wt, b = conv_inputs(CIFAR_SERVE_BATCH, h, w, ci, co, torch.bfloat16, seed=600 + k)
-        w_lib = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        b_lib = b.to(xc.dtype)
-        cfns = {cuda_conv._route(xc, wt): lambda: conv3x3(xc, wt, b, with_stats=False),
-                "plain": lambda: conv3x3_plain(xc, wt, b, with_stats=False),
-                "library": lambda: F.conv2d(nchw(xc), w_lib, b_lib, padding=1)}
-        if "sm90" in cfns:
-            cfns["tile"] = lambda: cuda_conv._tile_forward(xc, wt, b, with_stats=False)
-        time_conv("conv3x3", (h, w, ci, co), count, "forward", cfns, ms, plain_ms, alt_ms,
-                  library_ms, CIFAR_SERVE_BATCH)
-    for k, ((h, w, ci, co), count) in enumerate(sorted(train["conv3x3_bn_relu_in"].items())):
-        xc, wt, b = conv_inputs(micro, h, w, ci, co, torch.bfloat16, seed=700 + k)
-        scale, shift = bn_inputs(ci, seed=700 + k)
-        cfns = {cuda_conv._route(xc, wt): lambda: conv3x3_bn_relu_in(xc, wt, b, scale, shift,
-                                                                     with_stats=False),
-                "plain": lambda: conv3x3_bn_relu_in_plain(xc, wt, b, scale, shift,
-                                                          with_stats=False)}
-        if "sm90" in cfns:
-            cfns["tile"] = lambda: cuda_conv._tile_forward(xc, wt, b, scale, shift,
-                                                           with_stats=False)
-        time_conv("conv3x3_bn_relu_in", (h, w, ci, co), iters * count, "step", cfns, ms,
-                  plain_ms, alt_ms, library_ms, micro)
-    for kname, shapes, batch, per in (("maxpool2", serve["maxpool2"], CIFAR_SERVE_BATCH, 1),
-                                      ("maxpool2_bwd", train["maxpool2_bwd"], micro, iters)):
-        for k, ((h, w, c), count) in enumerate(sorted(shapes.items())):
-            xp = pool_input((batch, h, w, c), torch.bfloat16, seed=800 + k, ties=kname != "maxpool2")
-            if kname == "maxpool2":
-                route = cuda_pool._route(xp)
-                sets = cold_copies([xp])
-                pfns = {route: rotating(maxpool2, sets),
-                        "plain": rotating(maxpool2_plain, sets),
-                        "library": rotating(lambda t: F.max_pool2d(nchw(t), 2, 2, ceil_mode=True),
-                                            sets)}
-                if route == "sm90":
-                    pfns["simple"] = rotating(cuda_pool._simple_forward, sets)
-            else:
-                yp = maxpool2_plain(xp)
-                g = torch.randn(yp.shape, device="cuda").to(torch.bfloat16)
-                idx = F.max_pool2d(nchw(xp), 2, 2, ceil_mode=True, return_indices=True)[1]
-                sets = cold_copies([xp, yp, g, idx])
-                pfns = {"kernel": rotating(lambda a, b, c, i: maxpool2_backward(a, b, c, "first"),
-                                           sets),
-                        "plain": rotating(lambda a, b, c, i: maxpool2_bwd_plain(a, b, c, "first"),
-                                          sets),
-                        "library": rotating(
-                            lambda a, b, c, i: torch.ops.aten.max_pool2d_with_indices_backward(
-                                nchw(c), nchw(a), [2, 2], [2, 2], [0, 0], [1, 1], True, i), sets)}
-            pres = dict(zip(pfns, device_ms(list(pfns.values()))))
-            names = list(pfns)
-            nbytes = kernel_work(kname, (h, w, c), batch)[1]
-            ms[kname] += per * count * pres[names[0]][0]
-            plain_ms[kname] += per * count * pres["plain"][0]
-            library_ms[kname] += per * count * pres["library"][0]
-            phase("times", f"{kname} {batch}x{h}x{w}x{c} (x{per * count}/"
-                  f"{'forward' if per == 1 else 'step'}; {nbytes / 1e6:.2f} MB, bound "
-                  f"{bound(0, nbytes)[0] * 1e3:.2f} us; cold inputs): " + ", ".join(
-                      f"{d} {t:.4f} ms (spread {sp:.1%})" for d, (t, sp) in pres.items()))
-    for k in KERNELS:
-        unit = "batch-128 forward" if k in ("conv3x3", "maxpool2") else f"{micro} x {iters} step"
-        lib = "none" if library_ms[k] is None else f"{library_ms[k]:.3f} ms"
-        alt = f", the tile design alone {alt_ms[k]:.3f} ms" if k.startswith("conv") else ""
-        phase("times", f"{CIFAR_TIMED} {k} per {unit}: kernel {ms[k]:.3f} ms{alt}, plain "
-              f"{plain_ms[k]:.3f} ms, one PyTorch call {lib}")
-    return ms, plain_ms, library_ms
+    return time_kernels(CIFAR_TIMED, serve, train, CIFAR_SERVE_BATCH, micro, iters)
 
 
-def cifar_bounds(rec):
-    """{kernel: (operations, bytes, bound ms, bound_by)} of cifar/prnmg's
-    launches in one batch-128 serving forward (conv3x3, maxpool2) or one
-    64 x 2 training step (the other two)."""
-    serve, train = rec[CIFAR_TIMED]
-    micro, iters = CIFAR_RECIPES[CIFAR_TIMED][1:]
-    fwd, micro_b = path_bounds(serve, CIFAR_SERVE_BATCH), path_bounds(train, micro)
+def net_bounds(serve, train, serve_batch, micro, iters):
+    """{kernel: (operations, bytes, bound ms, bound_by)} of a net's
+    launches in one serving forward at ``serve_batch`` (conv3x3,
+    maxpool2) or one ``micro`` x ``iters`` training step (the other
+    two)."""
+    fwd, micro_b = path_bounds(serve, serve_batch), path_bounds(train, micro)
     return {k: fwd[k] if k in ("conv3x3", "maxpool2") else
             (iters * micro_b[k][0], iters * micro_b[k][1], iters * micro_b[k][2], micro_b[k][3])
             for k in KERNELS}
+
+
+def cifar_bounds(rec):
+    """net_bounds of cifar/prnmg: one batch-128 serving forward, one 64 x
+    2 training step."""
+    serve, train = rec[CIFAR_TIMED]
+    micro, iters = CIFAR_RECIPES[CIFAR_TIMED][1:]
+    return net_bounds(serve, train, CIFAR_SERVE_BATCH, micro, iters)
+
+# ------------------------------------------- the segmentation nets and PR-MG
+
+# each net at its recipe (scripts/mnist-cluttered/*.sh, scripts/ilsvrc/prnmgseg.sh):
+# its options (the recipe's -dataset, -depth, -shortcutType), -batchSize (the
+# micro-batch), -iterSize, and the serving batches. prnmgseg's -iterSize 16
+# is cut to 2 here for time (SEG_PRNMGSEG_RECIPE_ITERS)
+SEG_RECIPES = {
+    "mnist-cluttered/unet": (NetOpts(netType="mnist-cluttered/unet", dataset="mnist-sca"),
+                             64, 1, (64,)),
+    "mnist-cluttered/unmg": (NetOpts(netType="mnist-cluttered/unmg", dataset="mnist-seg"),
+                             64, 1, (64,)),
+    "mnist-cluttered/pnmg.mnist": (NetOpts(netType="mnist-cluttered/pnmg.mnist",
+                                           dataset="mnist-aff"), 64, 1, (64,)),
+    "mnist-cluttered/prnmg.mnist": (NetOpts(netType="mnist-cluttered/prnmg.mnist",
+                                            dataset="mnist-spt"), 32, 2, (32,)),
+    "ilsvrc/prnmgseg": (NetOpts(netType="ilsvrc/prnmgseg", depth=30, shortcutType="A"),
+                        16, 2, (1, 128)),
+}
+SEG_PRNMGSEG_RECIPE_ITERS = 16
+# one serving forward of PR-MG-52 (shortcut A), at this batch
+PRNMGSEG52, PRNMGSEG52_BATCH = NetOpts(netType="ilsvrc/prnmgseg", depth=52, shortcutType="A"), 8
+# pnmg.mnist on mnist-seg: its output conv at Co = 10 (its kernels checked in phase 17)
+PNMG_SEG = NetOpts(netType="mnist-cluttered/pnmg.mnist", dataset="mnist-seg")
+# launches per serving forward (BN folded) and per training micro-batch,
+# counted as for the CIFAR nets. The transposed convs, the 1x1 convs and
+# the stems' 7x7 convs and 3x3/2 pools take stock ops. In training a pool
+# whose output reaches no loss is not differentiated: the three coarsest
+# scales dropped by the mnist P-nets, the scales of unmg's head that the
+# sigmoid does not read, the scales of prnmgseg's last layer that its
+# classifier does not read
+SEG_PER_FORWARD = {
+    "mnist-cluttered/unet": launch_counts(7, 0, 3, 0),
+    "mnist-cluttered/unmg": launch_counts(25, 0, 16, 0),
+    "mnist-cluttered/pnmg.mnist": launch_counts(50, 0, 18, 0),
+    "mnist-cluttered/prnmg.mnist": launch_counts(94, 0, 36, 0),
+    "ilsvrc/prnmgseg": launch_counts(148, 0, 60, 0)}
+SEG_PER_MICRO = {
+    "mnist-cluttered/unet": launch_counts(7, 0, 3, 3),
+    "mnist-cluttered/unmg": launch_counts(25, 0, 16, 13),
+    "mnist-cluttered/pnmg.mnist": launch_counts(50, 0, 18, 15),
+    "mnist-cluttered/prnmg.mnist": launch_counts(68, 26, 36, 33),
+    "ilsvrc/prnmgseg": launch_counts(106, 42, 60, 57)}
+PRNMGSEG52_PER_FORWARD = launch_counts(278, 0, 114, 0)
+# the check steps' rate: the mnist nets' epoch-1 rate (0.1 under both
+# their rules), at which their f32 losses fall from the first step on the
+# CPU (at 0.01 unmg's fell by 0.0007 over 4 steps); prnmgseg R-MG-34's
+# (TRAIN_RULE), which the ImageNet nets' epoch-1 rate of 0.1 overshoots
+SEG_LR = {net: TRAIN_RULE["lr"] if net == "ilsvrc/prnmgseg" else 0.1 for net in SEG_RECIPES}
+# the f32 card-vs-CPU step: two micro-batches of 4 images (2 at 224 px)
+SEG_F32_MICRO = {net: 2 if net == "ilsvrc/prnmgseg" else 4 for net in SEG_RECIPES}
+
+
+def record_seg() -> tuple[dict, dict]:
+    """{net: (serving forward's shapes, training micro-batch's shapes)}
+    of the five nets, recorded on the CPU and their calls checked against
+    the pinned counts; and the serving forward's shapes of PR-MG-52
+    ("depth 52") and of pnmg.mnist on mnist-seg ("mnist-seg")."""
+    rec = {}
+    for net, (opt, *_) in SEG_RECIPES.items():
+        rec[net] = (record_kernel_shapes(False, opt), record_kernel_shapes(True, opt))
+        for what, shapes, want in (("forward", rec[net][0], SEG_PER_FORWARD[net]),
+                                   ("training micro-batch", rec[net][1], SEG_PER_MICRO[net])):
+            got = {k: sum(c.values()) for k, c in shapes.items()}
+            check(got == want, f"{net}: the CPU {what} made kernel calls {got}, expected {want}")
+        phase("seg route", f"{get_spec(net).describe(opt)} per forward: "
+              + ", ".join(f"{k} {r} {n}" for (k, r), n in predicted_routes(rec[net][0]).items()
+                          if n)
+              + "; per training micro-batch: "
+              + ", ".join(f"{k} {r} {n}" for (k, r), n in predicted_routes(rec[net][1]).items()
+                          if n))
+    extra = {"depth 52": record_kernel_shapes(False, PRNMGSEG52),
+             "mnist-seg": record_kernel_shapes(False, PNMG_SEG)}
+    got = {k: sum(c.values()) for k, c in extra["depth 52"].items()}
+    check(got == PRNMGSEG52_PER_FORWARD, f"PR-MG-52: the CPU forward made kernel calls {got}, "
+          f"expected {PRNMGSEG52_PER_FORWARD}")
+    return rec, extra
+
+
+def check_seg_kernels(rec, extra, max_err) -> None:
+    """17: each kernel vs its plain version at every shape the five nets
+    (and pnmg.mnist on mnist-seg) give it, at each serving batch and at
+    the recipe's micro-batch: bf16 and f32, the convs also through the
+    tile design where sm90 takes the shape, the pool forward through
+    both designs where sm90 takes it. New here: Ci = 1 (the 1-channel
+    stems), Co = 1 and 10 (pnmg.mnist's output conv), widths 8-32 on
+    7x7 and 14x14 grids, pools of 64 px maps."""
+    conv, pro, pool, pool_bwd = set(), set(), set(), set()
+    # pnmg.mnist on mnist-seg at its batch (its step makes its forward's
+    # calls; the pool backward's shapes are mnist-aff's)
+    nets = {**rec, "mnist-seg": (extra["mnist-seg"], extra["mnist-seg"])}
+    for net, (serve, train) in nets.items():
+        _, micro, _, batches = SEG_RECIPES.get(net, SEG_RECIPES["mnist-cluttered/pnmg.mnist"])
+        for shapes, batch in [(serve, b) for b in batches] + [(train, micro)]:
+            conv |= {(shape, batch) for shape in shapes["conv3x3"]}
+            pool |= {(batch, *shape) for shape in shapes["maxpool2"]}
+        pro |= {(shape, micro) for shape in train["conv3x3_bn_relu_in"]}
+        pool_bwd |= {(micro, *shape) for shape in train["maxpool2_bwd"]}
+    check({ci for (_, _, ci, _), _ in conv} >= {1} and {co for (*_, co), _ in conv} >= {1, 10},
+          "the seg shapes lack Ci = 1 or Co = 1, 10")
+    check_conv(sorted(conv), max_err, "seg: ", slices=True, both=True)
+    check_pool(sorted(pool), max_err, "seg: ")
+    check_prologue(sorted(pro), max_err, "seg: ", both=True)
+    check_pool_bwd(sorted(pool_bwd), max_err, "seg: ")
+
+
+def seg_images(net, batch, seed):
+    return np.random.default_rng(seed).standard_normal((batch, *get_spec(net).image_shape),
+                                                       dtype=np.float32)
+
+
+def output_checks(what, y, batch, opt) -> None:
+    """A classifier's (B, classes) log-probs whose rows are
+    distributions, or an mnist net's (B, 64, 64, classes) probabilities
+    in [0, 1]: f32 and finite."""
+    spec = get_spec(opt.netType)
+    if spec.target_shape(opt):
+        check(y.shape == (batch, *spec.target_shape(opt)) and y.dtype == torch.float32,
+              f"{what}: output {tuple(y.shape)} {y.dtype}")
+        check(bool(torch.isfinite(y).all()), f"{what}: non-finite probabilities")
+        check(bool(((y >= 0) & (y <= 1)).all()), f"{what}: probabilities outside [0, 1]")
+    else:
+        logprob_checks(what, y, batch, spec.n_classes(opt))
+
+
+def check_seg_serve(name, rec, extra) -> dict:
+    """18: each net served (BN folded, bf16) through Server at its
+    serving batches: its outputs checked, the pinned launches per
+    forward through the predicted designs; PR-MG-52's forward at batch
+    8; each net's f32 forward on the card vs the plain CPU forward.
+    Returns {net: Counter of its launches}."""
+    launches = {net: Counter() for net in SEG_RECIPES}
+    for net, (opt, _, _, batches) in SEG_RECIPES.items():
+        t0 = time.perf_counter()
+        server = Server(opt, seed=0, device="cuda", compute_dtype=torch.bfloat16)
+        built = time.perf_counter() - t0
+        for batch in batches:
+            kernels.reset_launches()
+            y = server.predict(seg_images(net, batch, seed=11))
+            got, routes = dict(kernels.LAUNCHES), dict(kernels.ROUTES)
+            torch.cuda.synchronize()
+            check(got == SEG_PER_FORWARD[net], f"{net} batch {batch}: launches per forward {got}, "
+                  f"expected {SEG_PER_FORWARD[net]}")
+            check(routes == predicted_routes(rec[net][0]), f"{net}: conv and pool designs "
+                  f"{routes}, predicted {predicted_routes(rec[net][0])}")
+            output_checks(f"{net} batch {batch}", y, batch, opt)
+            launches[net].update(got)
+            phase("seg serve", f"{get_spec(net).describe(opt)}, BN folded, bf16, batch {batch} "
+                  f"on {name} (built in {built:.1f} s): {tuple(y.shape)} finite f32 outputs in "
+                  f"range; launches {got}, designs as predicted")
+        del server
+    server = Server(PRNMGSEG52, seed=0, device="cuda", compute_dtype=torch.bfloat16)
+    kernels.reset_launches()
+    y = server.predict(seg_images("ilsvrc/prnmgseg", PRNMGSEG52_BATCH, seed=11))
+    got = dict(kernels.LAUNCHES)
+    check(got == PRNMGSEG52_PER_FORWARD and dict(kernels.ROUTES) == predicted_routes(
+        extra["depth 52"]), f"PR-MG-52: launches {got} and designs {kernels.ROUTES}, expected "
+        f"{PRNMGSEG52_PER_FORWARD}")
+    output_checks("PR-MG-52", y, PRNMGSEG52_BATCH, PRNMGSEG52)
+    launches["ilsvrc/prnmgseg"].update(got)
+    phase("seg serve", f"{get_spec('ilsvrc/prnmgseg').describe(PRNMGSEG52)}, BN folded, bf16, "
+          f"batch {PRNMGSEG52_BATCH}: finite log-probs, rows sum to 1; launches {got}")
+    del server
+    # the f32 forward, card vs CPU: within 1e-5 of the outputs' scale, or
+    # three times the change that moving the images by 1e-6 makes to the
+    # CPU's own forward where that is larger (the deep mnist nets' f32
+    # outputs moved by up to 5.1e-6 against an f64 forward on the CPU)
+    for net, (opt, *_) in SEG_RECIPES.items():
+        xs = seg_images(net, 1 if net == "ilsvrc/prnmgseg" else 2, seed=13)
+        moved = xs * (1 + 1e-6 * np.random.default_rng(3).standard_normal(xs.shape,
+                                                                          dtype=np.float32))
+        y_gpu = Server(opt, seed=0, device="cuda", compute_dtype=torch.float32).predict(xs).cpu()
+        cpu = Server(opt, seed=0, device="cpu", compute_dtype=torch.float32)
+        y_cpu, y_moved = cpu.predict(xs), cpu.predict(moved)
+        err, scale = (y_gpu - y_cpu).abs().max().item(), y_cpu.abs().max().item()
+        own = (y_moved - y_cpu).abs().max().item()
+        limit = max(1e-5 * scale, CIFAR_F32_OWN_FACTOR * own)
+        check(err <= limit, f"{net} f32 forward: card vs CPU max abs err {err:.3g} (bound "
+              f"{limit:.3g}; scale {scale:.3g}, the CPU's own under moved images {own:.3g})")
+        phase("seg serve", f"{net} f32 forward on the card vs the plain CPU forward: max abs "
+              f"err {err:.3g} (bound {limit:.3g}: 1e-5 x {scale:.4g}, or 3 x {own:.3g}, the "
+              f"CPU's own change under images moved by 1e-6)")
+    return launches
+
+
+def seg_batch(net, images, seed):
+    opt = SEG_RECIPES[net][0]
+    spec = get_spec(net)
+    return synthetic_batch(images, seed=seed, n_classes=spec.n_classes(opt),
+                           shape=spec.image_shape, target_shape=spec.target_shape(opt))
+
+
+def check_seg_train(name, rec) -> dict:
+    """19: each net takes 4 bf16 steps through Trainer at its recipe's
+    micro-batch and iterSize (prnmgseg's cut to 2) on one fixed batch at
+    SEG_LR: the loss stays finite and falls, with the pinned launches
+    per step through the predicted designs; one f32 step of each net on
+    the card vs the same step on the CPU, with the CIFAR nets' bounds.
+    Returns {net: Counter of its launches}."""
+    launches = {net: Counter() for net in SEG_RECIPES}
+    for net, (opt, micro, iters, _) in SEG_RECIPES.items():
+        trainer = Trainer(opt, seed=0, device="cuda", compute_dtype=torch.bfloat16,
+                          iter_size=iters)
+        wd = trainer.net.train_rule(1, opt)["wd"]
+        x, y = seg_batch(net, micro * iters, seed=1)
+        want = {k: iters * n for k, n in SEG_PER_MICRO[net].items()}
+        want_routes = {k: iters * n for k, n in predicted_routes(rec[net][1]).items()}
+        kernels.reset_launches()
+        losses = []
+        for i in range(TRAIN_STEPS):
+            prev, prev_routes = dict(kernels.LAUNCHES), dict(kernels.ROUTES)
+            m = trainer.step(x, y, SEG_LR[net], wd)
+            got = {k: kernels.LAUNCHES[k] - prev[k] for k in prev}
+            check(got == want, f"{net} step {i}: launches {got}, expected {want}")
+            check(routes_since(prev_routes) == want_routes, f"{net} step {i}: conv and pool "
+                  f"designs {routes_since(prev_routes)}, predicted {want_routes}")
+            losses.append(float(m["loss"]))
+        launches[net].update(kernels.LAUNCHES)
+        check(all(np.isfinite(losses)), f"{net}: non-finite loss {losses}")
+        check(losses[-1] < losses[0], f"{net}: the loss did not fall: {losses}")
+        cut = (f" (the recipe's iterSize {SEG_PRNMGSEG_RECIPE_ITERS} cut to {iters} for time)"
+               if net == "ilsvrc/prnmgseg" else "")
+        phase("seg train", f"{get_spec(net).describe(opt)}, bf16, {micro} x {iters}{cut} on "
+              f"{name}: losses " + ", ".join(f"{v:.4f}" for v in losses)
+              + f" at lr {SEG_LR[net]}, wd {wd}; launches per step {want}, designs as predicted")
+        del trainer
+
+    for net, (opt, *_) in SEG_RECIPES.items():
+        micro = SEG_F32_MICRO[net]
+        x2, y2 = seg_batch(net, 2 * micro, seed=2)
+        moved = x2 * (1 + 1e-6 * np.random.default_rng(3).standard_normal(x2.shape,
+                                                                          dtype=np.float32))
+        wd = get_spec(net).train_rule(1, opt)["wd"]
+        res = {}
+        for key, dev, x in (("cuda", "cuda", x2), ("cpu", "cpu", x2), ("moved", "cpu", moved)):
+            tr = Trainer(opt, seed=0, device=dev, compute_dtype=torch.float32, iter_size=2)
+            before, _ = export_jax_tree(tr.model)
+            m = tr.step(x, y2, 0.1, wd)
+            res[key] = (float(m["loss"]), before, *export_jax_tree(tr.model))
+        loss_err, upd, st = step_error(res)
+        own = step_error({"cuda": res["moved"], "cpu": res["cpu"]})[1]
+        limit = max(F32_STEP_PARAM_BOUND, CIFAR_F32_OWN_FACTOR * own)
+        check(loss_err <= 1e-4 and upd <= limit and st <= F32_STEP_STATS_BOUND,
+              f"{net} f32 step, card vs CPU: loss err {loss_err:.3g} (bound 1e-4), update err "
+              f"{upd:.3g} (bound {limit:.3g}; the CPU's own under moved images {own:.3g}), "
+              f"running stats err {st:.3g} (bound {F32_STEP_STATS_BOUND})")
+        phase("seg train", f"{net} f32 step on the card vs the plain CPU step, {micro} x 2 at "
+              f"lr 0.1: loss {res['cuda'][0]:.6f} vs {res['cpu'][0]:.6f}; parameter update err "
+              f"{upd:.3g} of its L2 norm (bound {limit:.3g}; images moved by 1e-6 move the CPU's "
+              f"own update by {own:.3g}); running stats err {st:.3g} of their scale (bound "
+              f"{F32_STEP_STATS_BOUND})")
+    return launches
+
+
+def time_seg(name, rec) -> dict:
+    """20: each net's bf16 serving forward (at its largest serving batch)
+    and training step (its recipe's micro-batch x iterSize, prnmgseg's
+    cut to 2), interleaved on the card's clock, with the card's busy
+    share from a profile; then each kernel at the net's shapes beside its
+    plain version and one PyTorch call, the median of 3 windows (as
+    :func:`time_kernels`, without the other design: the run's time).
+    Returns {net: (ms, plain_ms, library_ms, bounds)}."""
+    out = {}
+    for k, (net, (opt, micro, iters, batches)) in enumerate(SEG_RECIPES.items()):
+        serve, train = rec[net]
+        server = Server(opt, seed=0, device="cuda", compute_dtype=torch.bfloat16)
+        trainer = Trainer(opt, seed=0, device="cuda", compute_dtype=torch.bfloat16,
+                          iter_size=iters)
+        images = torch.from_numpy(seg_images(net, batches[-1], seed=12)).cuda()
+        x, y = seg_batch(net, micro * iters, seed=4)
+        xt, yt = torch.from_numpy(x).cuda().to(torch.bfloat16), torch.from_numpy(y).cuda()
+        wd = trainer.net.train_rule(1, opt)["wd"]
+        fns = {f"forward {batches[-1]}": lambda: server.predict(images),
+               f"step {micro}x{iters}": lambda: trainer.step(xt, yt, SEG_LR[net], wd)}
+        time_end_to_end("seg times", get_spec(net).describe(opt), name, fns,
+                        {f"forward {batches[-1]}": batches[-1], f"step {micro}x{iters}": micro * iters})
+        del server, trainer, images
+        out[net] = (*time_kernels(net, serve, train, batches[-1], micro, iters,
+                                  seed=1000 * (k + 1), alternatives=False, windows=3),
+                    net_bounds(serve, train, batches[-1], micro, iters))
+    return out
 
 
 def main() -> None:
@@ -1366,34 +1738,53 @@ def main() -> None:
               f"CIFAR path")
     c_ms, c_plain_ms, c_library_ms = time_cifar(name, rec)
 
+    # 16-20 the segmentation nets and PR-MG
+    seg_rec, seg_extra = record_seg()
+    check_seg_kernels(seg_rec, seg_extra, max_err)
+    served = check_seg_serve(name, seg_rec, seg_extra)
+    trained = check_seg_train(name, seg_rec)
+    seg_launches = {net: served[net] + trained[net] for net in SEG_RECIPES}
+    launches = {k: launches[k] + sum(c[k] for c in seg_launches.values()) for k in KERNELS}
+    for k in KERNELS:  # every kernel ran on this path (the prologue in prnmg.mnist and prnmgseg)
+        check(sum(c[k] for c in seg_launches.values()) > 0, f"{k} never launched on the "
+              f"segmentation path")
+    seg_times = time_seg(name, seg_rec)
+
     # each kernel's bound over the pass its times sum: the serving forward
     # (conv3x3, maxpool2) or the training step (the other two)
     fwd_bounds = path_bounds(serve_shapes, TIME_BATCH)
     step_bounds = path_bounds(train_shapes, TIME_BATCH)
     bounds = {k: (fwd_bounds if PER_FORWARD[k] else step_bounds)[k] for k in KERNELS}
-    c_bounds = cifar_bounds(rec)
     micro, iters = CIFAR_RECIPES[CIFAR_TIMED][1:]
-    for net, units, bds, kms, kplain, klib in (
-            (f"R-MG-{DEPTH}", (f"batch-{TIME_BATCH} forward", f"batch-{TIME_BATCH} step"), bounds,
-             ms, plain_ms, library_ms),
-            (CIFAR_TIMED, (f"batch-{CIFAR_SERVE_BATCH} forward", f"{micro} x {iters} step"),
-             c_bounds, c_ms, c_plain_ms, c_library_ms)):
-        for k, (flops, nbytes, t_bound, by) in bds.items():
+    # net -> (its launches, units, ms, plain ms, library ms, bounds)
+    nets = {f"R-MG-{DEPTH}": (None, (f"batch-{TIME_BATCH} forward", f"batch-{TIME_BATCH} step"),
+                              ms, plain_ms, library_ms, bounds),
+            CIFAR_TIMED: (cifar_launches[CIFAR_TIMED], (f"batch-{CIFAR_SERVE_BATCH} forward",
+                                                        f"{micro} x {iters} step"),
+                          c_ms, c_plain_ms, c_library_ms, cifar_bounds(rec))}
+    for net, (n_ms, n_plain, n_lib, n_bounds) in seg_times.items():
+        _, micro, iters, batches = SEG_RECIPES[net]
+        nets[net] = (seg_launches[net], (f"batch-{batches[-1]} forward", f"{micro} x {iters} step"),
+                     n_ms, n_plain, n_lib, n_bounds)
+    for net, (_, units, kms, kplain, klib, bds) in nets.items():
+        for k in kms:
+            flops, nbytes, t_bound, by = bds[k]
             lib = "none" if klib[k] is None else f"{klib[k]:.3f} ms"
             phase("bounds", f"{net} {k} per {units[0] if PER_FORWARD[k] else units[1]}: "
                   f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB, bound {t_bound:.4f} ms (by "
                   f"{by}); kernel {kms[k]:.3f} ms ({t_bound / kms[k]:.0%} of the bound), plain "
                   f"{kplain[k]:.3f} ms, library {lib}")
-    # the top-level numbers are R-MG-34's; "cifar/prnmg" holds the same
-    # keys for the CIFAR path; launches count every main-path run
+    # the top-level numbers are R-MG-34's; under each other net's name the
+    # same keys for its path, for the kernels it launches; launches count
+    # every main-path run
     print(json.dumps({"kernels": [
         {"name": k, **KERNELS[k], "launches": launches[k], "max_abs_err": max_err[k],
          "ms": ms[k], "plain_ms": plain_ms[k], "bound_ms": bounds[k][2],
          "bound_by": bounds[k][3], "library_ms": library_ms[k],
-         CIFAR_TIMED: {"launches": cifar_launches[CIFAR_TIMED][k], "ms": c_ms[k],
-                       "plain_ms": c_plain_ms[k],
-                       "bound_ms": c_bounds[k][2], "bound_by": c_bounds[k][3],
-                       "library_ms": c_library_ms[k]}} for k in KERNELS]}), flush=True)
+         **{net: {"launches": n_launches[k], "ms": kms[k], "plain_ms": kplain[k],
+                  "bound_ms": bds[k][2], "bound_by": bds[k][3], "library_ms": klib[k]}
+            for net, (n_launches, _, kms, kplain, klib, bds) in nets.items()
+            if n_launches is not None and k in kms}} for k in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

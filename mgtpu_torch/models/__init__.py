@@ -1,16 +1,21 @@
 """Model registry of the port: ``-netType`` name -> NetSpec (the model,
-its input size, loss, LR rule and metrics). The CIFAR zoo and R-MG-18/34
-are ported; the mnist-cluttered nets and ``ilsvrc/prnmgseg`` are not
-yet."""
+its input and target shapes, loss, LR rule and metrics): R-MG-18/34 and
+PR-MG-30/52 (``ilsvrc/``), the CIFAR zoo (``cifar/``) and the
+cluttered-MNIST nets (``mnist-cluttered/``). Of the JAX package's zoo
+only the ``mnist-test`` and ``mnist-saliency`` harnesses, which run on
+top of its pipelines, are not here."""
 
 from __future__ import annotations
 
 from mgtpu_torch.models.base import NetOpts, NetSpec
 from mgtpu_torch.models.cifar import nmg, pnmg, prnmg, resnet, rnmg, vgg
+from mgtpu_torch.models.ilsvrc import prnmgseg
 from mgtpu_torch.models.ilsvrc import rnmg as ilsvrc_rnmg
+from mgtpu_torch.models.mnist_cluttered import pnmg_mnist, prnmg_mnist, unet, unmg
 
-_SPECS = {spec.name: spec for spec in (ilsvrc_rnmg.NET, nmg.NET, rnmg.NET, pnmg.NET, prnmg.NET,
-                                       resnet.NET, vgg.NET)}
+_SPECS = {spec.name: spec for spec in (ilsvrc_rnmg.NET, prnmgseg.NET, nmg.NET, rnmg.NET,
+                                       pnmg.NET, prnmg.NET, resnet.NET, vgg.NET, unet.NET,
+                                       unmg.NET, pnmg_mnist.NET, prnmg_mnist.NET)}
 
 
 def list_models() -> list[str]:
@@ -25,9 +30,14 @@ def get_spec(name: str) -> NetSpec:
     return _SPECS[name]
 
 
+def net_options(opt: NetOpts) -> NetOpts:
+    """``opt`` with what it leaves to its net filled in (the depth)."""
+    return get_spec(opt.netType).options(opt)
+
+
 def create_model(opt: NetOpts = NetOpts(), compute_dtype=None, device=None, generator=None):
     """The net ``opt`` names (default R-MG-34), its init drawn from
     ``generator`` (a CPU ``torch.Generator``), in eval mode (a trainer
     calls ``.train()``)."""
-    return get_spec(opt.netType).create_model(opt, compute_dtype=compute_dtype, device=device,
-                                              generator=generator)
+    return get_spec(opt.netType).create_model(net_options(opt), compute_dtype=compute_dtype,
+                                              device=device, generator=generator)

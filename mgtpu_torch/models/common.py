@@ -1,6 +1,5 @@
 """Shared model heads, single-grid blocks, the pyramid network wrapper and
-the multigrid assembly loops (counterpart of `mgtpu/models/common.py`).
-``SigmoidHead`` (the segmentation nets') is not ported yet."""
+the multigrid assembly loops (counterpart of `mgtpu/models/common.py`)."""
 
 from __future__ import annotations
 
@@ -14,22 +13,35 @@ from mgtpu_torch.ops.resample import avgpool, maxpool2_ceil
 
 
 class LogSoftmaxClassifier(nn.Module):
-    """The finest pyramid scale -> [AvgPool a x a] -> flatten (NHWC
-    order) -> Dense -> log-softmax, computed in f32."""
+    """Pyramid scale ``scale`` (0, the finest, by default; -1 the
+    coarsest) -> [AvgPool a x a] -> flatten (NHWC order) -> Dense ->
+    log-softmax, computed in f32."""
 
-    def __init__(self, c_in, n_classes, pool=0, compute_dtype=None, device=None,
+    def __init__(self, c_in, n_classes, pool=0, scale=0, compute_dtype=None, device=None,
                  generator=None):
         super().__init__()
-        self.pool = pool
+        self.pool, self.scale = pool, scale
         self.dense = Dense(c_in, n_classes, compute_dtype=compute_dtype,
                            device=device, generator=generator)
 
     def forward(self, pyr):
-        x = pyr[0]
+        x = pyr[self.scale]
         if self.pool:
             x = avgpool(x, self.pool, 1)
         y = self.dense(x.reshape(x.shape[0], -1))
         return torch.log_softmax(y.float(), dim=-1)
+
+
+class SigmoidHead(nn.Module):
+    """Pyramid scale ``scale`` -> sigmoid, computed in f32: the
+    segmentation nets' per-pixel probabilities."""
+
+    def __init__(self, scale=0):
+        super().__init__()
+        self.scale = scale
+
+    def forward(self, pyr):
+        return torch.sigmoid(pyr[self.scale].float())
 
 
 class FlatClassifier(nn.Module):
@@ -59,6 +71,8 @@ class ResBlock(nn.Module):
     a shortcut, then ReLU. The shortcut zero-pads channels when
     widening, is the identity at equal widths, and a 1x1 ConvBN when
     narrowing or with ``shortcut_type`` "C" (always)."""
+
+    jax_keys = {"c1": "conv1", "c2": "conv2", "sc": "shortcut"}
 
     def __init__(self, c_in, c_out, dropout=0.0, eps=1e-5, shortcut_type="",
                  compute_dtype=None, device=None, generator=None):
@@ -142,15 +156,16 @@ def build_residual_mg(blocks, n_layer, n_classes, dropouts=None, eps=1e-5, compu
     return MgNet(layers).eval()
 
 
-def build_pyramid_prefix(widths, n_layer, residual=False, eps=1e-3, compute_dtype=None,
+def build_pyramid_prefix(widths, n_layer, residual=False, eps=1e-3, c_in=3, compute_dtype=None,
                          device=None, generator=None) -> list:
     """The P-nets' progressive grid introduction: after the input
-    pyramid, ``n_layer`` layers on the coarsest grid alone (a ConvBN-ReLU
-    or a ResBlock), then ``n_layer`` mg layers on the two coarsest, ...,
-    then on all grids; finer grids pass through untouched."""
+    pyramid of a ``c_in``-channel image, ``n_layer`` layers on the
+    coarsest grid alone (a ConvBN-ReLU or a ResBlock), then ``n_layer``
+    mg layers on the two coarsest, ..., then on all grids; finer grids
+    pass through untouched."""
     kw = dict(compute_dtype=compute_dtype, device=device, generator=generator)
     n = len(widths)
-    layers = [MgConvInput(widths, eps=eps, **kw)]
+    layers = [MgConvInput(widths, c_in=c_in, eps=eps, **kw)]
     for n_grid in range(1, n + 1):
         for _ in range(n_layer):
             if n_grid == 1:

@@ -46,9 +46,10 @@ class IlsvrcRnmgNet(NetSpec):
     name = "ilsvrc/rnmg"
     image_size = 224
     dataset = "ilsvrc"
+    depth = 34
 
     def arguments(self, parser):
-        parser.add_argument("--depth", type=int, default=34, choices=sorted(CFG),
+        parser.add_argument("--depth", type=int, default=self.depth, choices=sorted(CFG),
                             help="network depth")
 
     def create_model(self, opt, compute_dtype=None, device=None, generator=None):

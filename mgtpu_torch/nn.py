@@ -65,6 +65,31 @@ class Conv(nn.Module):
         return y + self.b.to(y.dtype)
 
 
+class ConvTranspose(nn.Module):
+    """2x2/2 transposed conv (VALID) with a bias, NHWC/HWIO, as
+    ``jax.lax.conv_transpose`` computes it: input pixel (i, j) adds
+    x[i, j] @ w[1 - a, 1 - b] to output pixel (2i + a, 2j + b).
+    ``F.conv_transpose2d`` adds W[a, b] there, so the forward flips the
+    kernel in space first. Torch-default uniform init of weight and
+    bias, bound 1/sqrt(2*2*c_in). Runs the stock transposed conv on the
+    channels_last view, as the JAX package leaves it to XLA."""
+
+    def __init__(self, c_in, c_out, compute_dtype=None, device=None, generator=None):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        g = _generator(generator)
+        s = 1.0 / math.sqrt(4 * c_in)
+        w = (torch.rand((2, 2, c_in, c_out), generator=g) * 2 - 1) * s
+        b = (torch.rand((c_out,), generator=g) * 2 - 1) * s
+        self.w = nn.Parameter(w.to(device))
+        self.b = nn.Parameter(b.to(device))
+
+    def forward(self, x):
+        w = cast_to(self.w, self.compute_dtype).flip(0, 1).permute(2, 3, 0, 1)  # (Ci, Co, kh, kw)
+        y = nhwc(F.conv_transpose2d(nchw(cast_to(x, self.compute_dtype)), w, stride=2))
+        return y + self.b.to(y.dtype)
+
+
 def _bn_axes_n(x):
     axes = tuple(range(x.dim() - 1))  # all but the channels
     return axes, math.prod(x.shape[:-1])
@@ -346,6 +371,20 @@ class ConvBN(nn.Module):
         if bias is not None:  # no kernel launch took it
             y = y + bias.to(y.dtype)
         return y
+
+
+class UpConvBN(nn.Module):
+    """ConvTranspose 2x2/2 -> BN (eps 1e-3) -> ReLU. `mgtpu_torch.ops.fold`
+    folds the BN into the transposed conv."""
+
+    def __init__(self, c_in, c_out, compute_dtype=None, device=None, generator=None):
+        super().__init__()
+        self.conv = ConvTranspose(c_in, c_out, compute_dtype=compute_dtype, device=device,
+                                  generator=generator)
+        self.bn = BatchNorm(c_out, eps=1e-3, device=device)
+
+    def forward(self, x):
+        return torch.relu(self.bn(self.conv(x)))
 
 
 def _conv_up3(xp, ws, oh: int, ow: int):

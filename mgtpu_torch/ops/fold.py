@@ -4,8 +4,10 @@
     BN_eval(conv(x, W) + b) = conv(x, W * a) + ((b - mean) * a + beta)
     with a = gamma / sqrt(var + eps)        (per output channel)
 
-The port folds in place: each ConvBN's conv absorbs ``a`` and the BN
-drops its parameters and stats, which marks it folded (the identity).
+The port folds in place: each ConvBN's conv (and each UpConvBN's
+transposed conv: its HWIO weight has the output channel last too)
+absorbs ``a`` and the BN drops its parameters and stats, which marks it
+folded (the identity).
 """
 
 from __future__ import annotations
@@ -13,11 +15,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from mgtpu_torch.nn import ConvBN
+from mgtpu_torch.nn import ConvBN, UpConvBN
 
 
 @torch.no_grad()
-def _fold_convbn(layer: ConvBN) -> None:
+def _fold_convbn(layer: ConvBN | UpConvBN) -> None:
     bn, conv = layer.bn, layer.conv
     if bn.folded:
         return
@@ -32,9 +34,10 @@ def _fold_convbn(layer: ConvBN) -> None:
 
 
 def fold_batchnorm(model: nn.Module) -> nn.Module:
-    """Fold every ConvBN's BatchNorm into its conv, in place; returns
-    ``model``. Folding twice is a no-op. Eval/serving only."""
+    """Fold every ConvBN's and UpConvBN's BatchNorm into its conv, in
+    place; returns ``model``. Folding twice is a no-op. Eval/serving
+    only."""
     for m in model.modules():
-        if isinstance(m, ConvBN):
+        if isinstance(m, (ConvBN, UpConvBN)):
             _fold_convbn(m)
     return model

@@ -5,9 +5,6 @@ half the spatial extent of scale i. Only the fused-exchange formulation
 is ported: each exchange conv takes its scale's parts through
 `ConvBN.apply_parts` and the resample-concat is never built. Every block
 runs in eval mode (serving) and in train mode (the training step).
-``DropCoarsest``, ``MgUpConv``, ``MgPool`` mode "drop" and
-``MgResidual(final_relu=False)`` (the segmentation nets') are not
-ported yet.
 """
 
 from __future__ import annotations
@@ -18,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mgtpu_torch.nn import ConvBN, Dropout
+from mgtpu_torch.nn import ConvBN, Dropout, UpConvBN
 from mgtpu_torch.ops.cuda_conv import bn_relu_plain
 from mgtpu_torch.ops.resample import maxpool, maxpool2_ceil, avgpool, upsample_nearest2
 
@@ -66,12 +63,14 @@ def materialize_part(kind: str, xp, oh: int, ow: int):
 class MgConvInput(nn.Module):
     """Input pyramid stem: scale i = avgpool(2^i) of the image (taken
     progressively, each scale the 2x2 average of the one before) followed
-    by ConvBN-ReLU, a 3x3 conv of the 3-channel image on the kernel."""
+    by ConvBN-ReLU, a 3x3 conv of the ``c_in``-channel image on the
+    kernel."""
 
-    def __init__(self, widths, eps=1e-5, compute_dtype=None, device=None, generator=None):
+    def __init__(self, widths, c_in=3, eps=1e-5, compute_dtype=None, device=None,
+                 generator=None):
         super().__init__()
         self.convs = nn.ModuleList(
-            ConvBN(3, w, 3, relu=True, eps=eps, compute_dtype=compute_dtype, device=device,
+            ConvBN(c_in, w, 3, relu=True, eps=eps, compute_dtype=compute_dtype, device=device,
                    generator=generator)
             for w in widths)
         self.out_widths = list(widths)
@@ -110,13 +109,12 @@ class MgStem7x7(nn.Module):
 
 
 class MgConv(nn.Module):
-    """Plain multigrid conv layer: per scale, the exchange then
-    ConvBN-ReLU, through ``ConvBN.apply_parts``; ``dropout`` drops each
-    exchange part before the conv (P-NMG's placement, the only one a net
-    gives). The JAX layer's ``relu=False`` (the mnist nets') is not
-    ported yet."""
+    """Plain multigrid conv layer: per scale, the exchange then ConvBN and
+    (unless ``relu`` is False: the mnist nets' output layers) ReLU,
+    through ``ConvBN.apply_parts``; ``dropout`` drops each exchange part
+    before the conv (P-NMG's placement, the only one a net gives)."""
 
-    def __init__(self, in_widths, out_widths, kernels=None, eps=1e-5, dropout=0.0,
+    def __init__(self, in_widths, out_widths, kernels=None, relu=True, eps=1e-5, dropout=0.0,
                  compute_dtype=None, device=None, generator=None):
         super().__init__()
         n = len(in_widths)
@@ -125,7 +123,7 @@ class MgConv(nn.Module):
         ks = list(kernels) if kernels is not None else [3] * n
         mixed = pyramid_widths_after_exchange(in_widths)
         self.convs = nn.ModuleList(
-            ConvBN(mixed[i], out_widths[i], ks[i], relu=True, eps=eps, dropout=dropout,
+            ConvBN(mixed[i], out_widths[i], ks[i], relu=relu, eps=eps, dropout=dropout,
                    dropout_pos="before", compute_dtype=compute_dtype, device=device,
                    generator=generator)
             for i in range(n))
@@ -133,6 +131,18 @@ class MgConv(nn.Module):
 
     def forward(self, pyr):
         return tuple(conv.apply_parts(exchange_parts(pyr, i)) for i, conv in enumerate(self.convs))
+
+
+class DropCoarsest(nn.Module):
+    """Discard the coarsest grid without pooling: the mnist P-nets' grid
+    drop inside a layer."""
+
+    def __init__(self, widths):
+        super().__init__()
+        self.out_widths = list(widths)[:-1]
+
+    def forward(self, pyr):
+        return tuple(pyr[:-1])
 
 
 class TailOp(nn.Module):
@@ -165,22 +175,25 @@ class MgResidual(nn.Module):
 
         y = relu( shortcut(x) + ConvBN(xc( ConvBNReLU(xc(x)) )) )
 
-    with xc the exchange. Shortcut types: A zero-pads channels when
-    widening and is the identity otherwise; B uses a 1x1 ConvBN when the
-    widths differ; C always does. Narrowing under A also takes a 1x1
-    ConvBN. With ``dropout``, in train mode every part of each exchange
-    is materialized at fine resolution and dropped with its own mask
-    before its conv. The JAX layer's final_relu=False variant and its
-    materialized (non-fused) exchange are not ported."""
+    with xc the exchange, and without the outer ReLU when ``final_relu``
+    is False (prnmg.mnist's output layer). Shortcut types: A zero-pads
+    channels when widening and is the identity otherwise; B uses a 1x1
+    ConvBN when the widths differ; C always does. Narrowing under A also
+    takes a 1x1 ConvBN. With ``dropout``, in train mode every part of
+    each exchange is materialized at fine resolution and dropped with
+    its own mask before its conv. The JAX layer's materialized
+    (non-fused) exchange is not ported."""
 
     def __init__(self, in_widths, out_widths, kernels=None, eps=1e-5, dropout=0.0,
-                 shortcut_type="A", compute_dtype=None, device=None, generator=None):
+                 shortcut_type="A", final_relu=True, compute_dtype=None, device=None,
+                 generator=None):
         super().__init__()
         n = len(in_widths)
         if len(out_widths) != n:
             raise ValueError(f"{len(in_widths)} input scales, {len(out_widths)} output")
         ks = list(kernels) if kernels is not None else [3] * n
         self.in_widths, self.out_widths = list(in_widths), list(out_widths)
+        self.final_relu = final_relu
         kw = dict(compute_dtype=compute_dtype, device=device, generator=generator)
         mixed1 = pyramid_widths_after_exchange(in_widths)
         mixed2 = pyramid_widths_after_exchange(out_widths)
@@ -235,14 +248,16 @@ class MgResidual(nn.Module):
                 short = x
             else:  # zero-pad widen
                 short = F.pad(x, (0, cout - cin))
-            out.append(torch.relu(y + short.to(y.dtype)))
+            z = y + short.to(y.dtype)
+            out.append(torch.relu(z) if self.final_relu else z)
         return tuple(out)
 
 
 class MgPool(nn.Module):
     """Block transition: mode "plain" max-pools (2x2/2, ceil) every
     scale; mode "concat" pools scales 0..n-2 and concatenates the
-    untouched coarsest scale onto scale n-2, leaving n-1 scales."""
+    untouched coarsest scale onto scale n-2, leaving n-1 scales; mode
+    "drop" pools scales 0..n-2 and drops the coarsest."""
 
     def __init__(self, widths, mode="plain"):
         super().__init__()
@@ -251,15 +266,34 @@ class MgPool(nn.Module):
             if len(w) < 2:
                 raise ValueError("concat pooling needs at least two scales")
             self.out_widths = w[:-2] + [w[-2] + w[-1]]
+        elif mode == "drop":
+            self.out_widths = w[:-1]
         elif mode == "plain":
             self.out_widths = w
         else:
-            raise ValueError(f"MgPool mode {mode!r} is not ported (plain, concat)")
+            raise ValueError(f"MgPool mode {mode!r} is not plain, concat or drop")
         self.mode = mode
 
     def forward(self, pyr):
+        if self.mode == "plain":
+            return tuple(maxpool2_ceil(x) for x in pyr)
+        out = [maxpool2_ceil(x) for x in pyr[:-1]]
         if self.mode == "concat":
-            out = [maxpool2_ceil(x) for x in pyr[:-1]]
             out[-1] = torch.cat([out[-1], pyr[-1]], dim=-1)
-            return tuple(out)
-        return tuple(maxpool2_ceil(x) for x in pyr)
+        return tuple(out)
+
+
+class MgUpConv(nn.Module):
+    """Per scale, a 2x2/2 transposed conv, BN and ReLU (UpConvBN)."""
+
+    def __init__(self, in_widths, out_widths, compute_dtype=None, device=None, generator=None):
+        super().__init__()
+        if len(in_widths) != len(out_widths):
+            raise ValueError(f"{len(in_widths)} input scales, {len(out_widths)} output")
+        self.ups = nn.ModuleList(
+            UpConvBN(cin, cout, compute_dtype=compute_dtype, device=device, generator=generator)
+            for cin, cout in zip(in_widths, out_widths))
+        self.out_widths = list(out_widths)
+
+    def forward(self, pyr):
+        return tuple(up(x) for up, x in zip(self.ups, pyr, strict=True))

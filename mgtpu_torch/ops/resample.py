@@ -34,6 +34,15 @@ def maxpool2_ceil(x: torch.Tensor) -> torch.Tensor:
     return maxpool2(x, ties="first")
 
 
+def maxpool2_floor(x: torch.Tensor) -> torch.Tensor:
+    """2x2/2 max pool with floor semantics (the U-Net's pool): a last row
+    or column without a partner is dropped. That is ``maxpool2_ceil``
+    of the map cropped to even sides, so every shape goes to the
+    hand-written kernels on a CUDA tensor."""
+    h, w = x.shape[1:3]
+    return maxpool2_ceil(x[:, :h - h % 2, :w - w % 2].contiguous())
+
+
 def maxpool(x: torch.Tensor, k: int, s: int, pad: int = 0) -> torch.Tensor:
     """General max pool, floor semantics (the 3x3/2 pad-1 stem pool).
     Padding is -inf, as in the JAX ``reduce_window``."""

@@ -1,8 +1,11 @@
-"""Serve a ported net (R-MG-18/34 ``ilsvrc/rnmg``, or one of the CIFAR
-zoo: ``cifar/{nmg,rnmg,pnmg,prnmg,resnet,vgg}``) with the port: build the
-net, take weights from an mgtpu-ckpt or a seeded init, fold BatchNorm
-into the convs, cast the conv weights to the compute dtype, and answer
-``predict(images)`` with f32 log-probs.
+"""Serve a ported net (``models.list_models()``: R-MG-18/34
+``ilsvrc/rnmg``, PR-MG-30/52 ``ilsvrc/prnmgseg``, the CIFAR zoo
+``cifar/{nmg,rnmg,pnmg,prnmg,resnet,vgg}`` and the cluttered-MNIST nets
+``mnist-cluttered/{unet,unmg,pnmg.mnist,prnmg.mnist}``) with the port:
+build the net, take weights from an mgtpu-ckpt or a seeded init, fold
+BatchNorm into the convs (and the transposed convs), cast their weights
+to the compute dtype, and answer ``predict(images)`` with f32 log-probs
+(the classifiers) or f32 per-pixel probabilities (the mnist nets).
 
 The torch counterpart of the JAX serving path (`tools/export_model.py`
 folds BN and exports; `tools/serve_exported.py` runs the artifact;
@@ -11,14 +14,18 @@ folds BN and exports; `tools/serve_exported.py` runs the artifact;
 
     python -m mgtpu_torch.serve --random [--depth 34] [--batches 1 8 32] [--device cuda]
     python -m mgtpu_torch.serve --net cifar/vgg --nLayer 4 --random
+    python -m mgtpu_torch.serve --net ilsvrc/prnmgseg --depth 30 --shortcutType A --random
+    python -m mgtpu_torch.serve --net mnist-cluttered/unmg --dataset mnist-seg --random
     python -m mgtpu_torch.serve --ckpt run/model_90.ckpt
 
-The net's flags take the JAX package's names (``--depth`` for
-``ilsvrc/rnmg``; ``--nLayer``, ``--isDropout`` and ``--dataset`` for the
-CIFAR nets); the image size follows the net (224 px for ILSVRC, 32 for
-CIFAR), and a checkpoint names its net. Serves bf16. Prints one JSON
-line per batch size: output shape, top-1 of the first images, and the
-median latency of 5 calls on the named device.
+The net's flags take the JAX package's names (``--depth`` for the
+ILSVRC nets, ``--shortcutType`` for ``ilsvrc/prnmgseg``, ``--nLayer``
+and ``--isDropout`` where the net has them, ``--dataset``); the images
+follow the net (224x224x3 for ILSVRC, 32x32x3 for CIFAR, 64x64x1 for
+cluttered MNIST), and a checkpoint names its net. Serves bf16. Prints
+one JSON line per batch size: output shape, top-1 of the first images
+(a classifier) or the range of the probabilities (an mnist net), and
+the median latency of 5 calls on the named device.
 """
 
 from __future__ import annotations
@@ -31,18 +38,17 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mgtpu_torch.models import create_model, get_spec, list_models
+from mgtpu_torch.models import create_model, get_spec, list_models, net_options
 from mgtpu_torch.models.base import NetOpts
-from mgtpu_torch.nn import BatchNorm, Conv
+from mgtpu_torch.nn import BatchNorm, Conv, ConvTranspose
 from mgtpu_torch.ops.fold import fold_batchnorm
 from mgtpu_torch.utils.bridge import load_jax_tree, read_mgtpu_ckpt
 
 
 def image_shape(opt: NetOpts) -> tuple[int, int, int]:
     """The (H, W, C) NHWC images the net of ``opt`` takes: the recipes'
-    ``-imageCrop``."""
-    size = get_spec(opt.netType).image_size
-    return (size, size, 3)
+    ``-imageCrop``, and 3 channels or (cluttered MNIST) 1."""
+    return get_spec(opt.netType).image_shape
 
 
 @torch.no_grad()
@@ -60,7 +66,8 @@ def calibrate_batchnorm(model: torch.nn.Module, generator: torch.Generator,
     batch gives each BN at least 64 values a channel on the coarsest grid
     (size / 32): 2 images at 224 px, 64 at 32 px. Fewer leave the 1x1
     grids of the CIFAR nets with the moments of a handful of values,
-    which other images overshoot: log-probs reached -2e11 at batch 2."""
+    which other images overshoot: log-probs reached -2e11 at batch 2.
+    At 64 px it is 16 images."""
     if batch is None:
         batch = max(2, -(-64 // max(shape[0] // 32, 1) ** 2))
     bns = [m for m in model.modules() if isinstance(m, BatchNorm) and not m.folded]
@@ -84,18 +91,22 @@ def calibrate_batchnorm(model: torch.nn.Module, generator: torch.Generator,
 def read_checkpoint(path: str, opt: NetOpts) -> tuple[dict, NetOpts]:
     """An mgtpu-ckpt (see `read_mgtpu_ckpt`) and the options of the net
     it holds, from its ``meta`` (netType, dataset, nLayer, isDropout,
-    depth); what the meta does not name stays as in ``opt``."""
+    depth, shortcutType); what the meta does not name stays as in
+    ``opt`` where ``opt`` names the same net, and is the net's default
+    otherwise."""
     blob = read_mgtpu_ckpt(path)
-    meta = {**vars(opt), **blob["meta"]}
+    meta = blob["meta"]
     get_spec(meta["netType"])  # a net the port does not have raises here
+    if meta["netType"] == opt.netType:
+        meta = {**vars(opt), **meta}
     return blob, NetOpts.from_meta(meta)
 
 
 class Server:
-    """A ported net behind ``predict``: BN folded, conv weights in
-    ``compute_dtype`` (biases, the classifier's bias and the log-probs
-    stay f32), resident on ``device``. ``opt`` names the net (default
-    R-MG-34).
+    """A ported net behind ``predict``: BN folded, conv and transposed
+    conv weights in ``compute_dtype`` (biases, the classifier's bias and
+    the outputs stay f32), resident on ``device``. ``opt`` names the net
+    (default R-MG-34).
 
     ``ckpt`` is an mgtpu-ckpt written by the JAX trainer, which names
     its net; without it the weights come from ``seed`` (random, with
@@ -109,7 +120,7 @@ class Server:
         gen = torch.Generator().manual_seed(seed)
         if ckpt is not None:
             blob, opt = read_checkpoint(ckpt, opt)
-        self.opt, self.image_shape = opt, image_shape(opt)
+        self.opt, self.image_shape = net_options(opt), image_shape(opt)
         model = create_model(opt, compute_dtype=compute_dtype, generator=gen)
         if ckpt is not None:
             load_jax_tree(model, blob["params"], blob["stats"])
@@ -118,14 +129,15 @@ class Server:
         fold_batchnorm(model)
         with torch.no_grad():  # cast once, not on every call
             for m in model.modules():
-                if isinstance(m, Conv):
+                if isinstance(m, (Conv, ConvTranspose)):
                     m.w.data = m.w.data.to(compute_dtype)
         self.model = model.to(self.device).eval()
 
     @torch.inference_mode()
     def predict(self, images) -> torch.Tensor:
-        """images (B, H, W, 3) NHWC (numpy or torch; ``self.image_shape``)
-        -> log-probs (B, classes) f32, on ``self.device``."""
+        """images (B, H, W, C) NHWC (numpy or torch; ``self.image_shape``)
+        -> on ``self.device``, f32 log-probs (B, classes) of a classifier
+        or per-pixel probabilities (B, H, W, classes) of an mnist net."""
         x = torch.as_tensor(images).to(self.device, self.compute_dtype)
         if x.dim() != 4 or tuple(x.shape[1:]) != self.image_shape:
             raise ValueError(f"expected (B, {', '.join(map(str, self.image_shape))}) NHWC "
@@ -146,12 +158,14 @@ def add_net_arguments(ap: argparse.ArgumentParser, argv) -> None:
     net = ap.parse_known_args(argv)[0].net
     get_spec(net).arguments(ap)
     ap.add_argument("--dataset", default=None,
-                    help="cifar10 gives a CIFAR net 10 classes (default: 100)")
+                    help="cifar10 gives a CIFAR net 10 classes (default: 100); mnist-seg an "
+                         "mnist net 10 (default: 1; the net's recipe's dataset)")
 
 
 def parsed_net_opts(args) -> NetOpts:
     """The NetOpts of ``add_net_arguments``' flags."""
-    flags = {k: getattr(args, k) for k in ("depth", "nLayer", "isDropout") if hasattr(args, k)}
+    flags = {k: getattr(args, k) for k in ("depth", "nLayer", "isDropout", "shortcutType")
+             if hasattr(args, k)}
     return NetOpts(netType=args.net, dataset=args.dataset, **flags)
 
 
@@ -181,11 +195,13 @@ def main(argv=None) -> None:
             _sync(dev)
             lat.append(time.perf_counter() - t0)
         y = y.float().cpu()
+        # a classifier's log-probs (B, classes), or an mnist net's probabilities
+        fit = ({"top1_first": y[:5].argmax(-1).tolist()} if y.dim() == 2 else
+               {"prob_range": [float(y.min()), float(y.max())]})
         print(json.dumps({
             "net": label, "dtype": "bf16", "batch": b,
             "device": name, "out_shape": list(y.shape),
-            "finite": bool(torch.isfinite(y).all()),
-            "top1_first": y[:5].argmax(-1).tolist(),
+            "finite": bool(torch.isfinite(y).all()), **fit,
             "p50_latency_ms": float(np.median(lat)) * 1e3,
         }), flush=True)
 

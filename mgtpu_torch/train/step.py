@@ -5,13 +5,38 @@ over ``iter_size`` micro-batches, and takes one SGD step. BatchNorm
 running stats are updated in place by each micro-batch's forward, in
 order, as the JAX step threads them through its scan. The JAX step's
 ``remat``, ``zero1`` and ``bucket_sgd`` options are not ported.
+
+The step asks cuDNN (the stock convs and every conv's backward) for its
+deterministic algorithms while ``DETERMINISTIC_CUDNN`` is True, so that
+a step on the card is the same bit for bit every time it runs. With
+cuDNN's default choice the rounding changes from call to call, and a
+pre-activation that lies on a ReLU's edge lands on either side: in the
+f32 ``cifar/nmg`` step that ``chip_smoke.py`` holds to the CPU, one
+lies 5.9e-6 of its tensor's largest value from 0, and in 2 of 40 steps
+on an H100 it crossed, moving the whole update by 2.84%, as flipping its
+sign on the CPU does (``probe_cifar_step.py --replay``, ``--edge``).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from mgtpu_torch.train.optim import sgd_update
+
+
+DETERMINISTIC_CUDNN = True
+
+
+@contextlib.contextmanager
+def _cudnn_choice():
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = DETERMINISTIC_CUDNN
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
 
 
 def _global_norm(tensors) -> torch.Tensor:
@@ -41,16 +66,17 @@ def make_train_step(model, loss_fn, net, iter_size: int = 1, momentum: float = 0
 
     def train_step(opt_state, batch, lr, wd):
         model.train()
-        if iter_size == 1:
-            grads, metrics = grads_and_metrics(batch["x"], batch["y"])
-        else:
-            grads, ms = None, []
-            for k in range(iter_size):
-                g, m = grads_and_metrics(batch["x"][k], batch["y"][k])
-                grads = g if grads is None else [a + b for a, b in zip(grads, g)]
-                ms.append(m)
-            grads = [g / iter_size for g in grads]
-            metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+        with _cudnn_choice():
+            if iter_size == 1:
+                grads, metrics = grads_and_metrics(batch["x"], batch["y"])
+            else:
+                grads, ms = None, []
+                for k in range(iter_size):
+                    g, m = grads_and_metrics(batch["x"][k], batch["y"][k])
+                    grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+                    ms.append(m)
+                grads = [g / iter_size for g in grads]
+                metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
         if log_grad_norm:
             metrics["gradnorm"] = _global_norm(grads)
             old = [p.detach().clone() for p in params]

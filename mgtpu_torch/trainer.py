@@ -1,25 +1,29 @@
-"""Train a ported net (R-MG-18/34 ``ilsvrc/rnmg``, or one of the CIFAR
-zoo: ``cifar/{nmg,rnmg,pnmg,prnmg,resnet,vgg}``) with the port: f32
-master weights, conv operands in the compute dtype (bf16 by default),
-BatchNorm, log-softmax and loss in f32, SGD with momentum 0.9 and
-coupled weight decay. On a CUDA device every 3x3/s1 conv, every
-BN-ReLU-conv prologue and every 2x2 pool, forward and backward, runs the
-hand-written kernels.
+"""Train a ported net (any of ``models.list_models()``, as
+`mgtpu_torch.serve` lists them) with the port: f32 master weights, conv
+operands in the compute dtype (bf16 by default), BatchNorm, log-softmax
+or sigmoid, and the loss (NLL, or BCE for the mnist nets) in f32, SGD
+with momentum 0.9 and coupled weight decay. On a CUDA device every
+3x3/s1 conv, every BN-ReLU-conv prologue and every 2x2 pool, forward and
+backward, runs the hand-written kernels.
 
 Stands in for ``python -m mgtpu.main -netType <net> -data synthetic
 -train`` until the CLI is ported:
 
     python -m mgtpu_torch.trainer --random [--depth 34] [--batch 128] [--steps 3] [--device cuda]
     python -m mgtpu_torch.trainer --net cifar/prnmg --random --batch 64 --iterSize 2
+    python -m mgtpu_torch.trainer --net ilsvrc/prnmgseg --depth 30 --shortcutType A --random \
+        --batch 16 --iterSize 16
+    python -m mgtpu_torch.trainer --net mnist-cluttered/unmg --dataset mnist-seg --random --batch 64
     python -m mgtpu_torch.trainer --ckpt run/model_1.ckpt
 
 The net's flags take the JAX package's names, as in
 `mgtpu_torch.serve`; as the JAX CLI's ``-batchSize`` and ``-iterSize``,
 ``--batch`` is a micro-batch and a step takes ``--iterSize`` of them
-(``--batch 64 --iterSize 2``: 128 images a step). Trains on one fixed synthetic batch (normal images,
-uniform labels, from ``--seed``) at the epoch-1 rate of the net's LR
-rule, and prints one JSON line per step: the net's metrics and the
-step's wall time on the named device.
+(``--batch 64 --iterSize 2``: 128 images a step). Trains on one fixed
+synthetic batch (normal images and uniform labels, or {0, 1} targets of
+the output's shape for an mnist net, from ``--seed``) at the epoch-1
+rate of the net's LR rule, and prints one JSON line per step: the net's
+metrics and the step's wall time on the named device.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mgtpu_torch.models import create_model, get_spec
+from mgtpu_torch.models import create_model, get_spec, net_options
 from mgtpu_torch.models.base import NetOpts
 from mgtpu_torch.serve import add_net_arguments, image_shape, parsed_net_opts, read_checkpoint
 from mgtpu_torch.train.optim import sgd_init
@@ -59,7 +63,9 @@ class Trainer:
         blob = None
         if ckpt is not None:
             blob, opt = read_checkpoint(ckpt, opt)
-        self.opt, self.image_shape = opt, image_shape(opt)
+        self.opt, self.image_shape = net_options(opt), image_shape(opt)
+        self.net = get_spec(opt.netType)
+        self.target_shape = self.net.target_shape(opt)
         model = create_model(opt, compute_dtype=compute_dtype,
                              generator=torch.Generator().manual_seed(seed))
         if blob is not None:
@@ -69,32 +75,40 @@ class Trainer:
             self.opt_state = load_momentum(self.model, blob["opt_state"])
         else:
             self.opt_state = sgd_init(self.model.parameters())
-        self.net = get_spec(opt.netType)
         self._step = make_train_step(self.model, self.net.create_loss(opt), self.net,
                                      iter_size=iter_size)
 
     def step(self, images, labels, lr: float, wd: float) -> dict:
-        """One SGD step on images (B, H, W, 3) NHWC (``self.image_shape``)
-        and int labels (B,) (numpy or torch). Returns the metrics as 0-dim
-        f32 tensors on the device (no host sync)."""
+        """One SGD step on images (B, H, W, C) NHWC (``self.image_shape``)
+        and their targets (numpy or torch): int labels (B,) for a
+        classifier, f32 {0, 1} targets (B, *``self.target_shape``) of the
+        output's shape for an mnist net. Returns the metrics as 0-dim f32
+        tensors on the device (no host sync)."""
         x = torch.as_tensor(images).to(self.device, self.compute_dtype)
-        y = torch.as_tensor(labels).to(self.device, torch.int64)
+        dtype = torch.float32 if self.target_shape else torch.int64
+        y = torch.as_tensor(labels).to(self.device, dtype)
         shape = self.image_shape
-        if x.dim() != 4 or tuple(x.shape[1:]) != shape or y.shape != x.shape[:1]:
-            raise ValueError(f"expected (B, {', '.join(map(str, shape))}) NHWC images "
-                             f"and (B,) labels, got {tuple(x.shape)} and {tuple(y.shape)}")
+        if (x.dim() != 4 or tuple(x.shape[1:]) != shape
+                or tuple(y.shape) != (x.shape[0], *self.target_shape)):
+            raise ValueError(f"expected (B, {', '.join(map(str, shape))}) NHWC images and "
+                             f"(B, {', '.join(map(str, self.target_shape))}) targets, got "
+                             f"{tuple(x.shape)} and {tuple(y.shape)}")
         if self.iter_size > 1:
             x = x.reshape(self.iter_size, -1, *shape)
-            y = y.reshape(self.iter_size, -1)
+            y = y.reshape(self.iter_size, -1, *self.target_shape)
         return self._step(self.opt_state, {"x": x.contiguous(), "y": y}, lr, wd)
 
 
 def synthetic_batch(batch: int, seed: int, n_classes: int = 1000,
-                    shape: tuple[int, int, int] = (224, 224, 3)):
+                    shape: tuple[int, int, int] = (224, 224, 3), target_shape: tuple = ()):
     """Normal images of ``shape`` and uniform labels, as the JAX bench
-    makes them."""
+    makes them; with a ``target_shape`` (a net that takes dense
+    targets), f32 targets of that shape, each 0 or 1 with probability
+    1/2, as tests/test_zoo.py makes them."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((batch, *shape), dtype=np.float32)
+    if target_shape:
+        return x, (rng.random((batch, *target_shape)) > 0.5).astype(np.float32)
     return x, rng.integers(0, n_classes, batch)
 
 
@@ -117,7 +131,8 @@ def main(argv=None) -> None:
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     rule = trainer.net.train_rule(1, trainer.opt)
     x, y = synthetic_batch(args.batch * args.iterSize, args.seed + 1,
-                           trainer.net.n_classes(trainer.opt), trainer.image_shape)
+                           trainer.net.n_classes(trainer.opt), trainer.image_shape,
+                           trainer.target_shape)
     for i in range(args.steps):
         t0 = time.perf_counter()
         m = trainer.step(x, y, rule["lr"], rule["wd"])

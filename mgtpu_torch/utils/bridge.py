@@ -3,13 +3,13 @@
 ``load_jax_tree`` copies the JAX package's parameter and stats trees
 (nested dicts keyed '0', '1', ... with numpy or torch leaves: conv
 ``w`` HWIO and ``b``; BN ``scale``/``bias`` and stats ``mean``/``var``;
-empty dicts for folded BNs, identity shortcuts and layers, and pools)
-into a port
-module; ``export_jax_tree`` is its inverse. ``load_momentum`` and
-``export_momentum`` carry the SGD state: the JAX ``{"m": tree}`` with the
-parameter tree's structure, the port's ``{"m": [buffer per parameter]}``
-(`mgtpu_torch.train.optim`). ``read_mgtpu_ckpt`` reads an mgtpu-ckpt npz
-archive (a JSON ``__struct__`` plus arrays ``a0``, ``a1``, ...) with
+empty dicts for folded BNs, identity shortcuts and layers, pools and
+heads without parameters) into a port module; ``export_jax_tree`` is
+its inverse. A block with a ``jax_keys`` dict (JAX key -> attribute)
+maps each child that is not None under its key. ``load_momentum`` and ``export_momentum`` carry the SGD
+state: the JAX ``{"m": tree}`` with the parameter tree's structure, the
+port's ``{"m": [buffer per parameter]}`` (`mgtpu_torch.train.optim`).
+``read_mgtpu_ckpt`` reads an mgtpu-ckpt npz archive (a JSON ``__struct__`` plus arrays ``a0``, ``a1``, ...) with
 numpy alone; leaves come back as torch tensors, bf16 and fp8 ones in
 their real dtype.
 """
@@ -24,10 +24,10 @@ import torch
 from torch import nn
 
 from mgtpu_torch.models.common import (FlatClassifier, LogSoftmaxClassifier, MgNet, Pool2,
-                                       ResBlock)
-from mgtpu_torch.nn import BatchNorm, Conv, ConvBN, Dense, Sequential
-from mgtpu_torch.ops.mg import (MgConv, MgConvInput, MgPool, MgResidual, MgStem7x7, PerScale,
-                                TailOp)
+                                       SigmoidHead)
+from mgtpu_torch.nn import BatchNorm, Conv, ConvBN, ConvTranspose, Dense, Sequential, UpConvBN
+from mgtpu_torch.ops.mg import (DropCoarsest, MgConv, MgConvInput, MgPool, MgResidual,
+                                MgStem7x7, MgUpConv, PerScale, TailOp)
 
 CKPT_FORMAT = "mgtpu-ckpt"
 CKPT_VERSION = 1
@@ -61,11 +61,13 @@ def _live(m: nn.Module, path: str = "") -> tuple[dict, dict]:
         if m.b is None:
             return {"w": m.w}, {}
         return {"w": m.w, "b": m.b}, {}
+    if isinstance(m, ConvTranspose):
+        return {"w": m.w, "b": m.b}, {}
     if isinstance(m, BatchNorm):
         if m.folded:
             return {}, {}
         return {"scale": m.scale, "bias": m.bias}, {"mean": m.mean, "var": m.var}
-    if isinstance(m, ConvBN):
+    if isinstance(m, (ConvBN, UpConvBN)):
         pb, sb = _live(m.bn, path + ".bn")
         return {"conv": _live(m.conv, path + ".conv")[0], "bn": pb}, {"bn": sb}
     if isinstance(m, Dense):
@@ -76,15 +78,14 @@ def _live(m: nn.Module, path: str = "") -> tuple[dict, dict]:
         return _live(m.seq, path)
     if isinstance(m, TailOp):
         return _live(m.op, path)
-    if isinstance(m, (Sequential, PerScale, MgStem7x7, MgConvInput, MgConv)):
-        subs = m.layers if isinstance(m, (Sequential, PerScale)) else m.convs
+    if isinstance(m, (Sequential, PerScale, MgStem7x7, MgConvInput, MgConv, MgUpConv)):
+        subs = (m.layers if isinstance(m, (Sequential, PerScale))
+                else m.ups if isinstance(m, MgUpConv) else m.convs)
         trees = [_live(sub, f"{path}.{i}") for i, sub in enumerate(subs)]
         return ({str(i): t[0] for i, t in enumerate(trees)},
                 {str(i): t[1] for i, t in enumerate(trees)})
-    if isinstance(m, ResBlock):
-        subs = {"c1": m.conv1, "c2": m.conv2}
-        if m.shortcut is not None:
-            subs["sc"] = m.shortcut
+    if hasattr(m, "jax_keys"):  # a block that names its children's JAX keys
+        subs = {k: getattr(m, a) for k, a in m.jax_keys.items() if getattr(m, a) is not None}
         trees = {k: _live(sub, f"{path}.{k}") for k, sub in subs.items()}
         return {k: t[0] for k, t in trees.items()}, {k: t[1] for k, t in trees.items()}
     if isinstance(m, MgResidual):
@@ -99,7 +100,8 @@ def _live(m: nn.Module, path: str = "") -> tuple[dict, dict]:
             sc = _live(m.shortcuts[k], f"{path}.sc.{k}") if k in m.shortcuts else ({}, {})
             p["sc"][k], s["sc"][k] = sc
         return p, s
-    if isinstance(m, (MgPool, Pool2, nn.Identity)):  # Identity: PerScale's None
+    if isinstance(m, (MgPool, Pool2, DropCoarsest, SigmoidHead, nn.Identity)):
+        # Identity: PerScale's None
         return {}, {}
     raise TypeError(f"{path}: no JAX-tree mapping for {type(m).__name__}")
 

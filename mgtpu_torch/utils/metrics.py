@@ -13,3 +13,20 @@ def topk_accuracy(log_probs: torch.Tensor, labels: torch.Tensor, k: int = 1) -> 
         return (log_probs.argmax(dim=-1) == labels).float().mean()
     topk = log_probs.topk(k, dim=-1).indices
     return (topk == labels[:, None]).any(dim=-1).float().mean()
+
+
+def mnist_iu(probs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-sample mean IU over the classes present, at the threshold 0.5,
+    as a 0-dim f32 tensor: for sample i, IU_i = TP_i / (TP_i + mismatches_i)
+    over its whole (H, W, C) volume, divided by the number of classes
+    present in its target, averaged over the samples whose target has
+    any class. probs and targets (N, H, W, C)."""
+    pred = (probs >= 0.5).float()
+    t = targets.float()
+    axes = tuple(range(1, t.dim()))
+    tp = ((pred == 1) & (t == 1)).sum(dim=axes).float()
+    fp_fn = (pred != t).sum(dim=axes).float()
+    iu = tp / torch.clamp_min(tp + fp_fn, 1e-12)
+    n_class = (t == 1).flatten(1, -2).any(dim=1).sum(dim=-1).float()
+    per_sample = torch.where(n_class > 0, iu / torch.clamp_min(n_class, 1.0), 0.0)
+    return per_sample.sum() / torch.clamp_min((n_class > 0).float().sum(), 1.0)

@@ -377,3 +377,68 @@ def test_rmg18_train_step_launches_and_matches_cpu(dev):
                                 "maxpool2_bwd": 26}
     # f32 on both sides, summation order only
     torch.testing.assert_close(loss.cpu(), ref.detach(), rtol=1e-4, atol=0)
+
+
+# the shapes the segmentation slice brings (n, h, w, ci, co): the 1-channel
+# stems, pnmg.mnist's output conv (Co = 1; 10 on mnist-seg), prnmgseg's
+# narrow 7x7 and 14x14 grids, a 64 px map
+SEG_CONV_SHAPES = [(2, 64, 64, 1, 64), (2, 16, 16, 1, 16), (2, 64, 64, 64, 1),
+                   (2, 64, 64, 64, 10), (2, 7, 7, 8, 16), (2, 14, 14, 16, 32),
+                   (2, 7, 7, 32, 32), (2, 64, 64, 128, 64)]
+
+
+@pytest.mark.parametrize("shape", SEG_CONV_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_seg_shapes_match_plain(dev, shape, dtype, prologue):
+    """conv3x3 (and conv3x3_bn_relu_in) at the new shapes, through the
+    routed design, against the plain version in f32 on the same inputs:
+    bf16 within two roundings, f32 within summation order."""
+    n, h, w, ci, co = shape
+    x, wt, b = _conv_inputs(n, h, w, ci, co, dtype, dev, seed=40)
+    if prologue:
+        scale, shift = _bn(ci, dev, seed=41)
+        y, _ = _run("conv3x3_bn_relu_in", "routed", x, wt, lambda: conv3x3_bn_relu_in(
+            x, wt, b, scale, shift, with_stats=False))
+        ref, _ = conv3x3_plain(bn_relu_plain(x, scale, shift).float(), wt.float(), b,
+                               with_stats=False)
+    else:
+        y, _ = _run("conv3x3", "routed", x, wt, lambda: conv3x3(x, wt, b, with_stats=False))
+        ref, _ = conv3x3_plain(x.float(), wt.float(), b, with_stats=False)
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(y.float(), ref, rtol=rtol, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64, 64), (2, 64, 64, 128), (2, 16, 16, 512),
+                                   (2, 32, 32, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seg_pools_take_sm90_and_match_plain(dev, shape, dtype):
+    """The 64 px nets' pools go to the sm90 design and equal the plain
+    version, as does their backward under the first-tie rule."""
+    x = torch.from_numpy(np.maximum(np.random.default_rng(42).standard_normal(
+        shape, dtype=np.float32), 0)).to(dev, dtype)
+    assert _pool_route(x) == "sm90"
+    y = maxpool2(x)
+    assert torch.equal(y, maxpool2_plain(x))
+    g = torch.randn(y.shape, device=dev).to(dtype)
+    assert torch.equal(maxpool2_backward(x, y, g, "first"), maxpool2_bwd_plain(x, y, g, "first"))
+
+
+def test_unmg_forward_launches_and_matches_cpu(dev):
+    """mnist-cluttered/unmg's f32 forward on the card goes through the
+    kernels (25 conv3x3, 16 maxpool2 launches), its transposed convs and
+    1x1 convs through stock ops, and agrees with the plain CPU forward."""
+    from mgtpu_torch.models import NetOpts, create_model
+
+    model = create_model(NetOpts(netType="mnist-cluttered/unmg"),
+                         generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(43).standard_normal((2, 64, 64, 1),
+                                                                   dtype=np.float32))
+    with torch.inference_mode():
+        ref = model(x)
+        model.to(dev)
+        kernels.reset_launches()
+        got = model(x.to(dev)).cpu()
+    assert kernels.LAUNCHES == {"conv3x3": 25, "conv3x3_bn_relu_in": 0, "maxpool2": 16,
+                                "maxpool2_bwd": 0}
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)

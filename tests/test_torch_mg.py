@@ -112,8 +112,8 @@ def test_pool_matches_jax(mode, hws):
 
 
 def test_pool_refuses_unported_modes():
-    with pytest.raises(ValueError, match="not ported"):
-        tmg.MgPool([4, 3], "drop")
+    with pytest.raises(ValueError, match="not plain, concat or drop"):
+        tmg.MgPool([4, 3], "avg")
     with pytest.raises(ValueError, match="two scales"):
         tmg.MgPool([4], "concat")
 

@@ -51,7 +51,7 @@ def test_param_count(depth, n):
 
 def test_registry():
     with pytest.raises(KeyError, match="not yet ported"):
-        get_spec("mnist-cluttered/unmg")
+        get_spec("mnist-cluttered/mnist-test")
 
 
 @pytest.fixture(scope="module")

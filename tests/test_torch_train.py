@@ -257,6 +257,31 @@ def test_narrow_train_step_iter_size_2_matches_jax(narrow):
     _assert_step_matches(model, opt, metrics, narrow.res2)
 
 
+def test_train_step_asks_cudnn_for_deterministic_algorithms():
+    """The step's forward and backward run with cuDNN's deterministic
+    algorithms, and the caller's setting comes back after it."""
+    seen = []
+
+    class Probe(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            seen.append(("forward", torch.backends.cudnn.deterministic))
+            return x.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            seen.append(("backward", torch.backends.cudnn.deterministic))
+            return g
+
+    model = torch.nn.Linear(4, 3)
+    net = types.SimpleNamespace(train_metrics=lambda out, y, loss: {"loss": loss})
+    step = make_train_step(model, lambda out, y: Probe.apply(out).square().mean(), net)
+    torch.backends.cudnn.deterministic = False
+    step(sgd_init(list(model.parameters())), {"x": torch.ones(2, 4), "y": None}, 0.1, 0.0)
+    assert seen == [("forward", True), ("backward", True)]
+    assert torch.backends.cudnn.deterministic is False
+
+
 def test_narrow_eval_step_matches_jax(narrow):
     model, _ = _port(narrow)
     metrics, out = make_eval_step(model, NET.create_loss(None), NET)(
