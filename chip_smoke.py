@@ -10,8 +10,9 @@ requests through `mgtpu_torch.serve.Server` (each of those nets, BN
 folded, bf16, seeded random weights), takes a few training steps
 through `mgtpu_torch.trainer.Trainer` (the same nets, bf16, SGD), checks that
 every path went through the kernels and agrees with the port's plain
-CPU path in f32, and times the kernels, the serving forward and the
-training step with CUDA events. Phases:
+CPU path in f32, times the kernels, the serving forward and the
+training step with CUDA events, and runs two recipes through the run
+loop, `mgtpu_torch.main`. Phases:
 
   1 device   the card, and its name and power limit from nvidia-smi
   2 build    nvcc over mgtpu_torch/csrc/*.cu, bound with ctypes
@@ -111,12 +112,30 @@ training step with CUDA events. Phases:
              interleaved, with the card's busy share from a profile, and
              each kernel at its shapes beside its plain version and one
              PyTorch call
+ 21 recipe   the run loop: R-MG-34's recipe (scripts/ilsvrc/rnmg.sh, 64 x
+             4 at 224 px, 10 thread donkeys) through mgtpu_torch.main in
+             bf16, its epoch cut to 3 iterations and its synthetic set to
+             64 images: finite metric lines, exactly 3 x 4 x PER_STEP +
+             PER_FORWARD a test batch launches, model_1.ckpt read back
+             equal to the live model and momentum; the epoch's img/s and
+             Data: share, the data layer's own rate, the card's busy
+             share of one profiled step; a second call resumes from the
+             checkpoint and runs the ten-crop test pass (PER_FORWARD a
+             batch)
+ 22 harness  unmg's recipe (mnist-seg, 64 a step, f32) through
+             mgtpu_torch.main, 3 iterations and the test pass, with its
+             pinned launches; then, where h5py is installed,
+             mnist-cluttered/mnist-test -retrain on its checkpoint: the
+             same test loss and meanIU within 1e-5 and NHWC predictions
+             in testOutput_1.h5 (the card's machine has no h5py: there
+             tests/test_torch_cli.py holds the chain on the CPU)
 
 Any failed check exits non-zero. The second-to-last line of stdout is
 one JSON object with the kernels: ``launches`` sums each kernel's
 launches over the main-path runs (phase 5's serving forwards, phase
 10's training steps, phases 13 and 14's bf16 forwards and steps of
-the CIFAR nets and phases 18 and 19's of the others), ``max_abs_err``
+the CIFAR nets, phases 18 and 19's of the others and phases 21 and
+22's runs of the CLI), ``max_abs_err``
 is its largest error against its plain version (phases 3, 4, 7, 8, 12,
 17), and ``ms`` / ``plain_ms`` /
 ``library_ms`` are the summed times of its launches (through the design
@@ -137,12 +156,19 @@ The last line is
 
 from __future__ import annotations
 
+import contextlib
+import importlib.util
+import io
 import itertools
 import json
+import re
+import shutil
 import statistics
 import subprocess
+import tempfile
 import time
 from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -225,10 +251,11 @@ def phase(name: str, msg: str) -> None:
     print(f"[{name} {time.perf_counter() - T0:.0f}s] {msg}", flush=True)
 
 
-def record_kernel_shapes(train: bool, opt: NetOpts = RMG34):
+def record_kernel_shapes(train: bool, opt: NetOpts = RMG34, fold: bool = True):
     """One f32 pass of the net ``opt`` names (R-MG-34 by default) at batch
     1 on the CPU (the plain path), recording the input shapes of every
-    kernel entry point it calls: the serving forward (BN folded), or a
+    kernel entry point it calls: the serving forward (BN folded; with
+    ``fold`` False the run loop's eval forward, BN unfolded), or a
     training forward and backward (one micro-batch). Returns {kernel:
     Counter of shapes}."""
     shapes = {k: Counter() for k in PER_STEP}
@@ -250,7 +277,8 @@ def record_kernel_shapes(train: bool, opt: NetOpts = RMG34):
 
     # the serving forward's net as Server builds it (BN folded), without
     # its calibration: the calls do not depend on the weights
-    model = create_model(opt).train() if train else fold_batchnorm(create_model(opt))
+    model = create_model(opt)
+    model = model.train() if train else fold_batchnorm(model) if fold else model
     for key in hooks:
         setattr(*key, recording(key))
     try:
@@ -1591,6 +1619,219 @@ def time_seg(name, rec) -> dict:
     return out
 
 
+# 21-22: the run loop, `python -m mgtpu_torch.main`, driven in process
+# through its main() (the function `python -m` runs) with a recipe's argv
+RMG34_RECIPE = "scripts/ilsvrc/rnmg.sh"
+SEG_RECIPE = "scripts/mnist-cluttered/unmg.sh"
+# the recipes' epochs cut to 3 iterations, the synthetic sets to sizes
+# whose test split (a quarter) fills one batch
+RECIPE_CUT = ["-nEpochs", "2", "-epochSize", "3", "-stopAfter", "1"]
+RMG34_SYNTH, SEG_SYNTH = 64, 128
+ITER_LINE = re.compile(r"Epoch: \[(\d+)\]\[(\d+)/(\d+)\]\tRun:([0-9.]+)s lr:(\S+) "
+                       r"Data:([0-9.]+)s (.*)")
+EPOCH_LINE = re.compile(r"Epoch: \[(\d+)\]\[(TRAINING|TESTING)\] Total Time\(s\): ([0-9.]+) (.*)")
+
+
+def recipe_argv(path):
+    """The `python -m mgtpu.main ...` argv of a recipe under scripts/, its
+    ${DATA_PREFIX:-synthetic} resolved and the trailing "$@" dropped (as
+    tests/test_scripts.py extracts it; the script is not run)."""
+    body = (Path(__file__).resolve().parent / path).read_text()
+    m = re.search(r"python -m mgtpu\.main(.*)", body, re.S)
+    check(m is not None, f"{path}: no mgtpu.main invocation")
+    txt = re.sub(r"\$\{DATA_PREFIX:-([^}]*)\}", r"\1", m.group(1).replace("\\\n", " "))
+    return [t for t in txt.split() if t != '"$@"']
+
+
+def run_main(argv):
+    """mgtpu_torch.main.main(argv) with the kernels' counts set to 0 just
+    before: (the Session, its stdout, the launches it made, wall s)."""
+    from mgtpu_torch.main import main as cli_main
+
+    buf = io.StringIO()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        sess = cli_main(argv)
+    wall = time.perf_counter() - t0
+    return sess, buf.getvalue(), dict(kernels.LAUNCHES), wall
+
+
+def metric_lines(out, what):
+    """The per-iteration and epoch lines of a run's output, each checked
+    to hold finite numbers only: ({(epoch, it): (run s, data s, metrics)},
+    {(epoch, TRAINING|TESTING): (total s, metrics)})."""
+    iters, epochs = {}, {}
+    for line in out.splitlines():
+        m, e = ITER_LINE.search(line), EPOCH_LINE.search(line)
+        if m:
+            vals = dict(kv.split(":") for kv in m.group(7).split())
+            iters[(int(m.group(1)), int(m.group(2)))] = (float(m.group(4)), float(m.group(6)),
+                                                       {k: float(v) for k, v in vals.items()})
+        elif e:
+            vals = dict(kv.split(":") for kv in e.group(4).split())
+            epochs[(int(e.group(1)), e.group(2))] = (float(e.group(3)),
+                                                     {k: float(v) for k, v in vals.items()})
+    for key, (*_, vals) in list(iters.items()) + list(epochs.items()):
+        check(vals and all(np.isfinite(v) for v in vals.values()),
+              f"{what} {key}: metrics {vals}")
+    return iters, epochs
+
+
+def expected_launches(per_micro, micros, per_forward, forwards) -> dict:
+    return {k: micros * per_micro[k] + forwards * per_forward[k] for k in KERNELS}
+
+
+def check_recipe(name) -> dict:
+    """21: R-MG-34's recipe (scripts/ilsvrc/rnmg.sh: 64 x 4 at 224 px, 10
+    thread donkeys, full width) through mgtpu_torch.main in bf16: one
+    epoch of 3 iterations and the test pass, each batch through the
+    kernels (4 x PER_STEP a step, PER_FORWARD a test forward: the
+    unfolded eval forward makes the serving forward's calls), the
+    checkpoint read back equal to the live model and momentum; then a
+    second call resumes from it and runs the ten-crop test pass. Prints
+    the epoch's img/s, the Data: share of its wall time and the card's
+    busy share of one step. Returns the launches of both calls."""
+    from mgtpu_torch.data.prefetch import DonkeyPool, _exec_spec
+    from mgtpu_torch.utils.bridge import export_momentum
+    from mgtpu_torch.utils.checkpoint import load_checkpoint
+
+    cache = tempfile.mkdtemp(prefix="chip_smoke_rmg34_")
+    recipe = recipe_argv(RMG34_RECIPE)
+    argv = recipe + ["-dtype", "bfloat16", *RECIPE_CUT, "-synthSize", str(RMG34_SYNTH),
+                     "-cache", cache]
+    sess, out, got, wall = run_main(argv)
+    opt = sess.opt
+    micro, iters, n = opt.batchSize, opt.iterSize, opt.epochSize
+    n_test = -(-sess.loaders["test"].size() // micro)
+    want = expected_launches(PER_STEP, n * iters, PER_FORWARD, n_test)
+    check(got == want, f"{RMG34_RECIPE}: launches {got}, expected {want} ({n} steps of "
+          f"{iters} x {micro}, {n_test} test forwards)")
+    lines, epochs = metric_lines(out, RMG34_RECIPE)
+    check(sorted(lines) == [(1, i + 1) for i in range(n)] and (1, "TESTING") in epochs,
+          f"{RMG34_RECIPE}: lines {sorted(lines)}, epochs {sorted(epochs)}")
+    train_s = epochs[(1, "TRAINING")][0]
+    data_s = sum(d for _, d, _ in lines.values())
+    phase("recipe", f"{RMG34_RECIPE} ({' '.join(argv[len(recipe):])}): R-MG-{opt.depth} "
+          f"{micro} x {iters} bf16 on {name}, {opt.nDonkeys} {opt.donkeyMode} donkeys, in "
+          f"{wall:.1f} s: " + "; ".join(
+              f"it {i}: Run {r:.3f} s Data {d:.3f} s loss {v['loss']:.4f}"
+              for (_, i), (r, d, v) in sorted(lines.items())))
+    phase("recipe", f"epoch 1: {train_s:.2f} s = {n * micro * iters / train_s:.1f} img/s, "
+          f"Data: {data_s:.2f} s ({data_s / train_s:.0%} of the epoch's wall time); test "
+          f"{sess.loaders['test'].size()} images in {epochs[(1, 'TESTING')][0]:.2f} s, "
+          f"{fmt(epochs[(1, 'TESTING')][1])}; launches {got} = {n} x {iters} x PER_STEP + "
+          f"{n_test} x PER_FORWARD")
+
+    path = Path(opt.save) / "model_1.ckpt"
+    blob = load_checkpoint(str(path))
+    params, stats = export_jax_tree(sess.model)
+    for key, live in (("params", params), ("stats", stats),
+                      ("opt_state", export_momentum(sess.model, sess.opt_state))):
+        a, b = flat(blob[key]), flat(live)
+        check(len(a) == len(b) and all(torch.equal(x, torch.from_numpy(y)) for x, y in zip(a, b)),
+              f"{path}: {key} differ from the live model's")
+    phase("recipe", f"{path.name} ({path.stat().st_size / 1e6:.1f} MB) read back: parameters, "
+          f"BN stats and momentum equal the live model's, epoch {blob['epoch']}, meta "
+          f"{blob['meta']}")
+
+    # the data layer alone: the recipe's donkeys making nDonkeys batches at
+    # once, against the step's rate (it 3's Run: above)
+    pool = DonkeyPool(opt.nDonkeys, mode=opt.donkeyMode, opt=opt, loaders=sess.loaders)
+    t0 = time.perf_counter()
+    try:
+        made = sum(1 for _ in pool.imap_specs(("gen", "train", micro, 9, 1000 * i, iters)
+                                              for i in range(opt.nDonkeys)))
+    finally:
+        pool.shutdown()
+    rate = made * micro * iters / (time.perf_counter() - t0)
+    phase("recipe", f"the data layer alone: {opt.nDonkeys} {opt.donkeyMode} donkeys made {made} "
+          f"batches of {micro} x {iters} at {rate:.1f} img/s; the step's rate at it {n}: "
+          f"{micro * iters / lines[(1, n)][0]:.1f} img/s")
+
+    # the card's busy share of one more step on a batch of this recipe
+    seed = opt.manualSeed * 1_000_003 + 7
+    batch = sess.to_device(_exec_spec(sess.loaders, ("gen", "train", micro, 1, seed, iters)))
+    lr = sess.lr_wd()
+    busy = device_busy_ms(lambda: float(sess.train_step(sess.opt_state, batch, lr["lr"],
+                                                        lr["wd"])["loss"]))
+    phase("recipe", f"one {micro} x {iters} step, profiled: " + (
+        "no device time in the trace (not measured)" if busy is None else
+        f"card busy {busy[0]:.1f} ms of {busy[1]:.1f} ms wall ({busy[0] / busy[1]:.0%})"))
+    del sess, batch
+
+    argv2 = [a for a in recipe if a != "-train"] + [
+        "-dtype", "bfloat16", "-nEpochs", "2", "-epochNumber", "2", "-retrain", str(path),
+        "-tenCrop", "-synthSize", str(RMG34_SYNTH), "-cache", cache]
+    sess, out2, got2, wall2 = run_main(argv2)
+    want2 = expected_launches(PER_STEP, 0, PER_FORWARD, n_test)
+    check(f"=> resumed from {path} (epoch 1)" in out2, f"no resume line in {out2[-500:]}")
+    check(got2 == want2, f"ten-crop test: launches {got2}, expected {want2}")
+    lines2, epochs2 = metric_lines(out2, "ten-crop test")
+    check(not lines2 and list(epochs2) == [(2, "TESTING")], f"ten-crop run: {sorted(epochs2)}")
+    phase("recipe", f"resumed from {path.name} with -tenCrop -test, in {wall2:.1f} s: "
+          f"{sess.loaders['test'].size()} images x 10 crops in {epochs2[(2, 'TESTING')][0]:.2f} "
+          f"s, {fmt(epochs2[(2, 'TESTING')][1])}; launches {got2}")
+    del sess
+    shutil.rmtree(cache)
+    return {k: got[k] + got2[k] for k in KERNELS}
+
+
+def check_harness_chain(name) -> dict:
+    """22: mnist-cluttered/unmg's recipe (scripts/mnist-cluttered/unmg.sh,
+    mnist-seg, 64 a step, f32) trained 3 iterations and tested through
+    mgtpu_torch.main, each batch through the kernels; then, where h5py is
+    installed, mnist-cluttered/mnist-test -retrain on its checkpoint: the
+    same test loss and meanIU within 1e-5, and NHWC predictions in
+    testOutput_1.h5. Returns the launches."""
+    net = "mnist-cluttered/unmg"
+    cache = tempfile.mkdtemp(prefix="chip_smoke_unmg_")
+    recipe = recipe_argv(SEG_RECIPE)
+    sess, out, got, wall = run_main(recipe + [*RECIPE_CUT, "-synthSize", str(SEG_SYNTH),
+                                              "-cache", cache])
+    opt = sess.opt
+    n_test = -(-sess.loaders["test"].size() // opt.batchSize)
+    want = expected_launches(SEG_PER_MICRO[net], opt.epochSize, SEG_PER_FORWARD[net], n_test)
+    check(got == want, f"{SEG_RECIPE}: launches {got}, expected {want}")
+    lines, epochs = metric_lines(out, SEG_RECIPE)
+    test = epochs[(1, "TESTING")][1]
+    phase("harness", f"{SEG_RECIPE} cut to {opt.epochSize} iterations, f32 on {name}, in "
+          f"{wall:.1f} s: losses " + ", ".join(f"{v['loss']:.4f}" for _, _, v in lines.values())
+          + f"; test {fmt(test)}; launches {got}")
+    ckpt = Path(opt.save) / "model_1.ckpt"
+    del sess
+    launches = got
+    if importlib.util.find_spec("h5py") is None:
+        phase("harness", "mnist-test not run: this machine has no h5py, which the test "
+              "pass's dump needs (the chain is held on the CPU by tests/test_torch_cli.py)")
+    else:
+        import h5py
+
+        argv = [a for a in recipe if a not in ("-train", "-netType", net)] + [
+            "-netType", "mnist-cluttered/mnist-test", "-nEpochs", "1", "-retrain", str(ckpt),
+            "-synthSize", str(SEG_SYNTH), "-cache", cache]
+        sess, out2, got2, wall2 = run_main(argv)
+        _, epochs2 = metric_lines(out2, "mnist-test")
+        again = epochs2[(1, "TESTING")][1]
+        check(all(abs(again[k] - test[k]) <= 1e-5 for k in ("avg.loss", "avg.meanIU")),
+              f"mnist-test {fmt(again)} vs the training run's test {fmt(test)}")
+        with h5py.File(Path(sess.opt.save) / "testOutput_1.h5", "r") as f:
+            shape = f["prediction"].shape
+        check(shape == (sess.loaders["test"].size(), 64, 64, 10),
+              f"prediction {shape}, expected NHWC (N, 64, 64, 10)")
+        phase("harness", f"mnist-test -retrain {ckpt.name} in {wall2:.1f} s: {fmt(again)} "
+              f"(the training run's test: {fmt(test)}), NHWC prediction {shape}")
+        launches = {k: got[k] + got2[k] for k in KERNELS}
+        del sess
+    shutil.rmtree(cache)
+    return launches
+
+
+def fmt(metrics) -> str:
+    return ", ".join(f"{k} {v:.5f}" for k, v in metrics.items())
+
+
+
 def main() -> None:
     # 1 device
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: this smoke run "
@@ -1749,6 +1990,12 @@ def main() -> None:
         check(sum(c[k] for c in seg_launches.values()) > 0, f"{k} never launched on the "
               f"segmentation path")
     seg_times = time_seg(name, seg_rec)
+
+    # 21-22 the run loop: a recipe through mgtpu_torch.main
+    t0 = time.perf_counter()
+    cli_launches = {"R-MG-34 recipe": check_recipe(name), "harness": check_harness_chain(name)}
+    launches = {k: launches[k] + sum(c[k] for c in cli_launches.values()) for k in KERNELS}
+    phase("recipe", f"phases 21-22 took {time.perf_counter() - t0:.1f} s")
 
     # each kernel's bound over the pass its times sum: the serving forward
     # (conv3x3, maxpool2) or the training step (the other two)

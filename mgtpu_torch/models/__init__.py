@@ -1,9 +1,10 @@
 """Model registry of the port: ``-netType`` name -> NetSpec (the model,
 its input and target shapes, loss, LR rule and metrics): R-MG-18/34 and
 PR-MG-30/52 (``ilsvrc/``), the CIFAR zoo (``cifar/``) and the
-cluttered-MNIST nets (``mnist-cluttered/``). Of the JAX package's zoo
-only the ``mnist-test`` and ``mnist-saliency`` harnesses, which run on
-top of its pipelines, are not here."""
+cluttered-MNIST nets and the ``mnist-test`` harness
+(``mnist-cluttered/``). Of the JAX package's zoo only the
+``mnist-saliency`` harness, which runs on the saliency pipeline, is not
+here (ROADMAP Queue 1 item 6)."""
 
 from __future__ import annotations
 
@@ -11,11 +12,12 @@ from mgtpu_torch.models.base import NetOpts, NetSpec
 from mgtpu_torch.models.cifar import nmg, pnmg, prnmg, resnet, rnmg, vgg
 from mgtpu_torch.models.ilsvrc import prnmgseg
 from mgtpu_torch.models.ilsvrc import rnmg as ilsvrc_rnmg
-from mgtpu_torch.models.mnist_cluttered import pnmg_mnist, prnmg_mnist, unet, unmg
+from mgtpu_torch.models.mnist_cluttered import mnist_test, pnmg_mnist, prnmg_mnist, unet, unmg
 
 _SPECS = {spec.name: spec for spec in (ilsvrc_rnmg.NET, prnmgseg.NET, nmg.NET, rnmg.NET,
                                        pnmg.NET, prnmg.NET, resnet.NET, vgg.NET, unet.NET,
-                                       unmg.NET, pnmg_mnist.NET, prnmg_mnist.NET)}
+                                       unmg.NET, pnmg_mnist.NET, prnmg_mnist.NET,
+                                       mnist_test.NET)}
 
 
 def list_models() -> list[str]:

@@ -66,6 +66,7 @@ class NetOpts:
     dataset: Optional[str] = None
     nEpochs: int = 20
     shortcutType: str = "B"
+    retrain: Optional[str] = None  # the checkpoint a harness (mnist-test) rebuilds its net from
 
     @classmethod
     def from_meta(cls, meta: dict) -> "NetOpts":
@@ -76,9 +77,9 @@ class NetOpts:
 
 
 class NetSpec:
-    """The subset of the JAX NetSpec that serving and training need:
-    the model, its input and target shapes, the loss, the LR rule and
-    the metrics. The default is a CIFAR classifier: 32x32x3 images, int
+    """The JAX NetSpec as serving, training and the run loop use it: the
+    model, its input and target shapes, the loss, the LR rule, the
+    metrics and the outputs a test pass stores. The default is a CIFAR classifier: 32x32x3 images, int
     labels, NLL loss, loss and top-1 metrics."""
 
     name = "base"
@@ -126,3 +127,11 @@ class NetSpec:
 
     def test_metrics(self, outputs, labels, loss):
         return self.train_metrics(outputs, labels, loss)
+
+    def eval_metrics(self, outputs, labels, loss):
+        return self.test_metrics(outputs, labels, loss)
+
+    def stored_outputs(self, outputs) -> Dict[str, torch.Tensor]:
+        """Outputs the test pass accumulates and dumps to
+        testOutput_<epoch>.h5 (none by default)."""
+        return {}

@@ -20,6 +20,7 @@ sign on the CPU does (``probe_cifar_step.py --replay``, ``--edge``).
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 
@@ -91,14 +92,36 @@ def make_train_step(model, loss_fn, net, iter_size: int = 1, momentum: float = 0
     return train_step
 
 
-def make_eval_step(model, loss_fn, net):
+def make_eval_step(model, loss_fn, net, mode: str = "test"):
     """Returns eval_step(batch) -> (metrics, outputs): eval mode (BN
-    running stats, no dropout), no gradients."""
+    running stats, no dropout), no gradients; the net's test metrics, or
+    with ``mode`` "eval" its eval metrics."""
+    metrics_fn = net.test_metrics if mode == "test" else net.eval_metrics
 
     @torch.no_grad()
     def eval_step(batch):
         model.eval()
         out = model(batch["x"])
-        return net.test_metrics(out, batch["y"], loss_fn(out, batch["y"])), out
+        return metrics_fn(out, batch["y"], loss_fn(out, batch["y"])), out
+
+    return eval_step
+
+
+def make_tencrop_eval_step(model, loss_fn, net, mode: str = "test"):
+    """10-crop evaluation: batch x is (N, 10, H, W, C); one forward of all
+    N * 10 crops, the class probabilities averaged over the crops, and
+    the loss and metrics on the log of that mean, in f32 (logsumexp over
+    the crops - log 10: exp() alone underflows for confident log-probs).
+    Returns eval_step(batch) -> (metrics, log-mean outputs (N, classes))."""
+    metrics_fn = net.test_metrics if mode == "test" else net.eval_metrics
+
+    @torch.no_grad()
+    def eval_step(batch):
+        model.eval()
+        x, y = batch["x"], batch["y"]
+        n, k = x.shape[0], x.shape[1]
+        out = model(x.reshape(n * k, *x.shape[2:])).float().reshape(n, k, -1)
+        log_mean = torch.logsumexp(out, dim=1) - math.log(k)
+        return metrics_fn(log_mean, y, loss_fn(log_mean, y)), log_mean
 
     return eval_step

@@ -6,8 +6,9 @@ with momentum 0.9 and coupled weight decay. On a CUDA device every
 3x3/s1 conv, every BN-ReLU-conv prologue and every 2x2 pool, forward and
 backward, runs the hand-written kernels.
 
-Stands in for ``python -m mgtpu.main -netType <net> -data synthetic
--train`` until the CLI is ported:
+A quick way to step a net on the card; the recipes run through
+``python -m mgtpu_torch.main`` (the JAX CLI's flags, its data layer and
+epochs):
 
     python -m mgtpu_torch.trainer --random [--depth 34] [--batch 128] [--steps 3] [--device cuda]
     python -m mgtpu_torch.trainer --net cifar/prnmg --random --batch 64 --iterSize 2

@@ -30,3 +30,15 @@ def mnist_iu(probs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     n_class = (t == 1).flatten(1, -2).any(dim=1).sum(dim=-1).float()
     per_sample = torch.where(n_class > 0, iu / torch.clamp_min(n_class, 1.0), 0.0)
     return per_sample.sum() / torch.clamp_min((n_class > 0).float().sum(), 1.0)
+
+
+def seg_mean_iu_mean_acc(probs: torch.Tensor, targets: torch.Tensor, threshold: float = 0.5):
+    """Per-class counts for the offline segmentation metrics
+    (`tools/seg_metrics.py`): IU_c = TP_c / (TP_c + FP_c + FN_c) and
+    Acc_c = TP_c / (TP_c + FP_c), each averaged over all C classes by the
+    caller. probs and targets (N, H, W, C); returns the sums (tp, fp, fn),
+    each (C,) f32, so a caller can add them up over batches."""
+    pred = (probs >= threshold).float()
+    t = targets.float()
+    axes = tuple(range(t.dim() - 1))
+    return (pred * t).sum(dim=axes), (pred * (1 - t)).sum(dim=axes), ((1 - pred) * t).sum(dim=axes)

@@ -1,0 +1,226 @@
+"""Two-stage option parsing (counterpart of `mgtpu/utils/opts.py`, the
+rebuild of the reference's `opts.lua`): global flags first, then the
+selected net's flags (its NetSpec's ``arguments``, which register them
+as ``--flag``; here they take the JAX CLI's single dash), and the run
+dir is derived from the non-default flag string + timestamp, so every
+run directory is self-describing. The flags, defaults and run-dir string
+are the JAX package's; the port adds ``-device``.
+
+A flag whose function the port does not have yet is refused with the
+ROADMAP item that ports it (:data:`REFUSED`): none is silently
+ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from typing import Optional, Sequence
+
+PARALLEL = "ROADMAP Queue 1 item 4 (parallel/mesh.py)"
+QUANT = "ROADMAP Queue 1 item 5 (ops/quant.py)"
+REMAT = "ROADMAP Queue 1 item 3 (the train-step options)"
+SALIENCY = "ROADMAP Queue 1 item 6 (the saliency pipeline)"
+# flag -> (is it asked for, given the parsed options; what ports it)
+REFUSED = {
+    "-spatial": (lambda o: o.spatial > 1, PARALLEL),
+    "-tensor": (lambda o: o.tensor > 1, PARALLEL),
+    "-zero1": (lambda o: o.zero1, PARALLEL),
+    "-multihost": (lambda o: o.multihost, PARALLEL),
+    "-int8": (lambda o: o.int8, QUANT),
+    "-int8Calib": (lambda o: o.int8Calib != 0, QUANT),
+    "-remat": (lambda o: o.remat, REMAT),
+    "-pipeline": (lambda o: o.pipeline != "standard", SALIENCY),
+    "-saliencyBatch": (lambda o: o.saliencyBatch != 4, SALIENCY),
+    "-saliencyDumpStack": (lambda o: o.saliencyDumpStack != 1, SALIENCY),
+    "-allowPickleCkpt": (lambda o: o.allowPickleCkpt,
+                         "no item: the port reads mgtpu-ckpt npz archives only and never "
+                         "unpickles"),
+}
+SALIENCY_NET = "mnist-cluttered/mnist-saliency"
+
+
+class _SingleDash:
+    """The parser as a NetSpec's ``arguments`` sees it: ``--flag`` names
+    are registered as the JAX CLI's ``-flag``."""
+
+    def __init__(self, parser: argparse.ArgumentParser):
+        self._parser = parser
+
+    def add_argument(self, *names, **kw):
+        return self._parser.add_argument(*(n[1:] if n.startswith("--") else n for n in names),
+                                         **kw)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="mgtpu_torch training script", allow_abbrev=False
+    )
+    # ------------- General options ---------------------
+    p.add_argument("-cache", default="checkpoint/", help="save/log dir root")
+    p.add_argument("-data", default="/path/to/dataset/folder", help="dataset folder, or 'synthetic'")
+    # ------------- Data options ------------------------
+    p.add_argument("-manualSeed", type=int, default=2)
+    p.add_argument("-GPU", type=int, default=1, help="kept for CLI parity (unused)")
+    p.add_argument("-nGPU", type=int, default=1,
+                   help="number of devices in the data-parallel mesh (0 = all); the "
+                        "port drives one device")
+    p.add_argument("-nDonkeys", type=int, default=2, help="data loading threads (0 = sync)")
+    p.add_argument("-imageSize", type=int, default=256)
+    p.add_argument("-imageCrop", type=int, default=224)
+    p.add_argument("-colorspace", default="bgr", choices=["gray", "rgb", "bgr"])
+    p.add_argument("-dataAug", default="default", help="default | affine | rotate")
+    # ------------- Training options --------------------
+    p.add_argument("-nEpochs", type=int, default=20)
+    p.add_argument("-epochSize", type=int, default=10000, help="iterations per epoch")
+    p.add_argument("-epochNumber", type=int, default=1, help="epoch to start from (restarts)")
+    p.add_argument("-batchSize", type=int, default=128)
+    p.add_argument("-iterSize", type=int, default=1, help="micro-batches per optim step")
+    # ------------- Testing/Eval options ----------------
+    p.add_argument("-nEpochsTest", type=int, default=1)
+    p.add_argument("-nEpochsEval", type=int, default=1)
+    p.add_argument("-nEpochsSave", type=int, default=1)
+    p.add_argument("-tenCrop", action="store_true",
+                   help="10-crop testing for ilsvrc (latent in the reference)")
+    # ------------- Optimization options ----------------
+    p.add_argument("-LR", type=float, default=0.0, help="overrides the model trainRule if set")
+    p.add_argument("-momentum", type=float, default=0.9)
+    p.add_argument("-weightDecay", type=float, default=5e-4)
+    # ------------- Model options -----------------------
+    p.add_argument("-netType", default="alexnet")
+    p.add_argument("-dataset", default="ilsvrc")
+    p.add_argument("-retrain", default="none", help="checkpoint to resume from")
+    p.add_argument("-allowPickleCkpt", action="store_true",
+                   help="refused: the port never unpickles")
+    # ------------- Run options -------------------------
+    p.add_argument("-train", action="store_true")
+    p.add_argument("-eval", action="store_true")
+    p.add_argument("-test", action="store_true")
+    p.add_argument("-pipeline", default="standard",
+                   help=f"standard (saliency is not ported yet: {SALIENCY})")
+    p.add_argument("-saliencyBatch", type=int, default=4,
+                   help=f"saliency pipeline; not ported yet: {SALIENCY}")
+    p.add_argument("-saliencyDumpStack", type=int, default=1,
+                   help=f"saliency pipeline; not ported yet: {SALIENCY}")
+    # ------------- Additions of the JAX package ---------
+    p.add_argument("-dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="compute dtype for conv/matmul")
+    p.add_argument("-hostCast", type=int, default=1, choices=[0, 1],
+                   help="1 (default): cast input batches to the compute "
+                        "dtype on the host before device transfer — "
+                        "halves H2D bytes under -dtype bfloat16 (the "
+                        "first conv casts its input anyway). 0: transfer "
+                        "float32 and cast on device")
+    p.add_argument("-synthSize", type=int, default=2000, help="synthetic dataset size")
+    p.add_argument("-synthDisjoint", action="store_true",
+                   help="synthetic data: perturb each split's class "
+                        "prototypes independently so held-out accuracy "
+                        "measures generalization, not memorization "
+                        "(mgtpu/data/cifar.py)")
+    p.add_argument("-resetMomentum", action="store_true",
+                   help="zero SGD momentum at each epoch start — the "
+                        "reference rebuilt optimState every epoch "
+                        "(train.lua:48-55); default keeps momentum "
+                        "(documented improvement)")
+    p.add_argument("-remat", action="store_true",
+                   help=f"activation rematerialization; not ported yet: {REMAT}")
+    p.add_argument("-int8", action="store_true",
+                   help=f"int8 inference; not ported yet: {QUANT}")
+    p.add_argument("-int8Calib", type=int, default=0,
+                   help=f"int8 static scales; not ported yet: {QUANT}")
+    p.add_argument("-donkeyMode", default="thread", choices=["thread", "process"],
+                   help="donkey pool concurrency: threads share loaders "
+                        "under the GIL; processes rebuild loaders per "
+                        "worker (the reference's per-donkey-state model; "
+                        "use for decode-heavy datasets like ilsvrc)")
+    p.add_argument("-profile", default="", metavar="DIR",
+                   help="capture a torch.profiler trace of train iterations "
+                        "2..9 of the first epoch into DIR, as a Chrome "
+                        "trace (chrome://tracing, Perfetto)")
+    p.add_argument("-spatial", type=int, default=1,
+                   help=f"spatial parallelism; not ported yet: {PARALLEL}")
+    p.add_argument("-tensor", type=int, default=1,
+                   help=f"tensor parallelism; not ported yet: {PARALLEL}")
+    p.add_argument("-zero1", action="store_true",
+                   help=f"ZeRO-1 momentum sharding; not ported yet: {PARALLEL}")
+    p.add_argument("-logGradNorm", action="store_true",
+                   help="add per-iteration training diagnostics to the "
+                        "metric stream: global grad L2 norm (pre-weight-"
+                        "decay), global param L2 norm after the update, "
+                        "and the max |param update| of the step — the "
+                        "instrumentation for chasing loss spikes / "
+                        "effective-LR blowups (opt-in: three extra "
+                        "reductions per step)")
+    p.add_argument("-synthClasses", type=int, default=1000, help="synthetic ilsvrc classes")
+    p.add_argument("-stopAfter", type=int, default=0,
+                   help="exit cleanly after this epoch without changing "
+                        "-nEpochs (which the LR schedules read): bounded "
+                        "partial runs, chained by tools/soak_chain.py "
+                        "through -retrain/-epochNumber resume")
+    p.add_argument("-multihost", action="store_true",
+                   help=f"multi-host runs; not ported yet: {PARALLEL}")
+    p.add_argument("-split", type=int, default=0,
+                   help="ilsvrc: split a single directory-per-class tree "
+                        "N%%/(100-N)%% into train/test (0 = expect "
+                        "pre-split train/ + val/ dirs)")
+    p.add_argument("-evalSplit", type=int, default=0,
+                   help="hold out N samples per class from the TRAIN set "
+                        "as a validation split feeding -eval (seeded by "
+                        "-manualSeed; classification datasets — the mnist "
+                        "tasks carry a real valid split already). 0 keeps "
+                        "the reference behavior (-eval falls back to the "
+                        "test split with a warning)")
+    # ------------- The port's own --------------------
+    p.add_argument("-device", default="cuda",
+                   help="torch device to run on (cpu runs the kernels' plain "
+                        "versions, for tests); not part of the run dir or "
+                        "the checkpoint meta")
+    return p
+
+
+def parse(argv: Optional[Sequence[str]] = None):
+    import sys
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    parser = build_parser()
+
+    # stage 2: net-contributed flags (opts.lua:56-73)
+    net_type = ""
+    for i, a in enumerate(argv):
+        if a == "-netType" and i + 1 < len(argv):
+            net_type = argv[i + 1]
+        elif a.startswith("-netType="):  # argparse's '=' form
+            net_type = a.split("=", 1)[1]
+    if net_type == SALIENCY_NET:
+        raise SystemExit(f"-netType {SALIENCY_NET} is not ported yet: {SALIENCY}")
+    if net_type:
+        from mgtpu_torch.models import get_spec
+
+        get_spec(net_type).arguments(_SingleDash(parser))
+
+    opt = parser.parse_args(argv)
+    if not (opt.train or opt.eval or opt.test):
+        parser.error("Must specify at least one running scheme: train, eval or test.")
+    for flag, (asked, item) in REFUSED.items():
+        if asked(opt):
+            raise SystemExit(f"{flag} {getattr(opt, flag[1:])} is not ported yet: {item}")
+
+    # run dir: cache/<dataset>/<flag-string>/<date> (opts.lua:79-88)
+    defaults = {a.dest: a.default for a in parser._actions}
+    skip = {"netType", "retrain", "cache", "data", "help", "device"}
+    parts = []
+    for k in sorted(vars(opt)):
+        if k in skip or k not in defaults:
+            continue
+        v = getattr(opt, k)
+        if v != defaults.get(k) and "/" not in str(v):
+            parts.append(f"{k}={v}")
+    flag_str = ",".join(parts) if parts else "default"
+    # dots instead of the reference's ':' (opts.lua:87 os.date); a
+    # sub-second suffix keeps same-second launches apart
+    stamp = time.strftime("%a%b%d%H.%M.%S%Y").replace(" ", "")
+    stamp += f".{int(time.time() * 1e6) % 1_000_000:06d}"
+    opt.save = os.path.join(opt.cache, opt.dataset, opt.netType.replace("/", "_"),
+                            flag_str, stamp)
+    return opt

@@ -11,7 +11,9 @@ counts against), and against operands the sm90 design does not take.
 import pytest
 import torch
 
-from chip_smoke import PER_FORWARD, PER_STEP, misaligned, predicted_routes, record_kernel_shapes
+from chip_smoke import (PER_FORWARD, PER_STEP, SEG_PER_FORWARD, misaligned, predicted_routes,
+                        record_kernel_shapes)
+from mgtpu_torch.models.base import NetOpts
 from mgtpu_torch.ops.cuda_conv import _route
 
 # the four largest shapes (H, W, Ci, Co): 24-29 GFLOP each at batch 128
@@ -67,6 +69,22 @@ def test_route_counts_per_pass(recorded):
         ("conv3x3", "sm90"): 44, ("conv3x3", "tile"): 32,
         ("conv3x3_bn_relu_in", "sm90"): 26, ("conv3x3_bn_relu_in", "tile"): 10,
         ("maxpool2", "sm90"): 46, ("maxpool2", "simple"): 0}
+
+
+@pytest.mark.parametrize("net", ["ilsvrc/rnmg", "mnist-cluttered/unmg"])
+def test_eval_forward_makes_the_serving_calls(recorded, net):
+    """The run loop's test forward (BN not folded, eval mode) makes the
+    serving forward's kernel calls at the same shapes: chip_smoke.py holds
+    the launches of a recipe's test pass to PER_FORWARD / SEG_PER_FORWARD
+    a batch."""
+    if net == "ilsvrc/rnmg":
+        got, want, serve = record_kernel_shapes(False, fold=False), PER_FORWARD, recorded["serve"]
+    else:
+        opt = NetOpts(netType=net, dataset="mnist-seg")
+        got, want = record_kernel_shapes(False, opt, fold=False), SEG_PER_FORWARD[net]
+        serve = record_kernel_shapes(False, opt)
+    assert {k: sum(c.values()) for k, c in got.items()} == want
+    assert got == serve
 
 
 @pytest.mark.parametrize("case", ["f32", "f32_wide", "x_misaligned", "w_misaligned",

@@ -1,0 +1,75 @@
+"""The port's option parser (`mgtpu_torch/utils/opts.py`) against the JAX
+package's (`mgtpu/utils/opts.py`): every recipe under scripts/ parses to
+the same values, key by key, and to the same run-dir flag string; what
+the port does not have yet is refused with the ROADMAP item that ports
+it. Exact comparisons (parsed values, no arithmetic)."""
+
+import os
+
+import pytest
+
+from mgtpu.utils import opts as jax_opts
+from mgtpu_torch.utils import opts
+from test_scripts import SCRIPTS, recipe_argv
+
+SALIENCY = [p for p in SCRIPTS if "mnist-saliency" in p]
+RUNNABLE = [p for p in SCRIPTS if p not in SALIENCY]
+
+
+def _flag_string(opt):
+    """The run dir without its time stamp: cache/dataset/net/flags."""
+    return os.path.dirname(opt.save)
+
+
+@pytest.mark.parametrize("path", RUNNABLE, ids=[os.path.basename(p) for p in RUNNABLE])
+@pytest.mark.parametrize("extra", [[], ["-dtype", "bfloat16", "-nEpochs", "2", "-tenCrop",
+                                        "-retrain", "model_1.ckpt", "-epochNumber", "2"]],
+                         ids=["recipe", "recipe+flags"])
+def test_recipe_parses_to_the_jax_values(path, extra):
+    argv = recipe_argv(path) + extra
+    ref, got = jax_opts.parse(argv), opts.parse(argv)
+    want = {k: v for k, v in vars(ref).items() if k not in ("compute_dtype", "save")}
+    have = {k: v for k, v in vars(got).items() if k not in ("device", "save")}
+    assert have == want
+    assert got.device == "cuda"
+    assert _flag_string(got) == _flag_string(ref)
+    # -device is left out of the run dir
+    assert _flag_string(opts.parse(argv + ["-device", "cpu"])) == _flag_string(ref)
+
+
+@pytest.mark.parametrize("path", SALIENCY, ids=[os.path.basename(p) for p in SALIENCY])
+def test_saliency_recipe_is_refused(path):
+    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 6"):
+        opts.parse(recipe_argv(path))
+
+
+BASE = ["-netType", "cifar/nmg", "-dataset", "cifar100-whitened", "-train"]
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["-spatial", "2"], "item 4"),
+    (["-tensor", "2"], "item 4"),
+    (["-zero1"], "item 4"),
+    (["-multihost"], "item 4"),
+    (["-int8"], "item 5"),
+    (["-int8Calib", "8"], "item 5"),
+    (["-remat"], "item 3"),
+    (["-pipeline", "saliency"], "item 6"),
+    (["-saliencyBatch", "8"], "item 6"),
+    (["-saliencyDumpStack", "0"], "item 6"),
+    (["-allowPickleCkpt"], "never unpickles"),
+], ids=lambda v: v[0] if isinstance(v, list) else None)
+def test_unported_flag_is_refused(flags, item):
+    with pytest.raises(SystemExit, match=item):
+        opts.parse(BASE + flags)
+    jax_opts.parse(BASE + flags)  # the JAX CLI takes it
+
+
+def test_net_flags_take_a_single_dash():
+    opt = opts.parse(["-netType", "ilsvrc/prnmgseg", "-depth", "52", "-shortcutType", "C",
+                      "-test"])
+    assert (opt.depth, opt.shortcutType) == (52, "C")
+    assert opts.parse(["-netType", "cifar/pnmg", "-nLayer", "2", "-isDropout",
+                       "-test"]).isDropout
+    with pytest.raises(SystemExit):  # the JAX CLI's error: no running scheme
+        opts.parse(["-netType", "cifar/nmg"])

@@ -51,7 +51,7 @@ def test_param_count(depth, n):
 
 def test_registry():
     with pytest.raises(KeyError, match="not yet ported"):
-        get_spec("mnist-cluttered/mnist-test")
+        get_spec("mnist-cluttered/mnist-saliency")
 
 
 @pytest.fixture(scope="module")
@@ -189,13 +189,15 @@ def test_read_mgtpu_ckpt_refuses_other_files(tmp_path):
         read_mgtpu_ckpt(str(path))
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(tmp_path):
     """Import every module of the port, run a small multigrid net on the
-    CPU, and serve and train a CIFAR net (cifar/prnmg with dropout) in a
-    fresh interpreter: neither JAX nor the JAX package gets imported."""
+    CPU, serve and train a CIFAR net (cifar/prnmg with dropout), and run
+    the CLI's train and test loop on a small net in a fresh interpreter:
+    neither JAX nor the JAX package gets imported."""
     code = textwrap.dedent("""
         import sys, numpy as np, torch
         import mgtpu_torch.serve, mgtpu_torch.kernels, mgtpu_torch.trainer
+        import mgtpu_torch.main, mgtpu_torch.pipelines.standard, mgtpu_torch.data
         from mgtpu_torch.models import NetOpts
         from mgtpu_torch.models.common import LogSoftmaxClassifier, MgNet
         from mgtpu_torch.ops.fold import fold_batchnorm
@@ -213,7 +215,36 @@ def test_port_never_imports_jax():
         assert y.shape == (2, 100) and bool(torch.isfinite(y).all())
         tr = mgtpu_torch.trainer.Trainer(opt, device="cpu", compute_dtype=torch.float32)
         assert np.isfinite(float(tr.step(x, np.array([1, 2]), 0.01, 5e-4)["loss"]))
+        sess = mgtpu_torch.main.main(["-netType", "mnist-cluttered/unet", "-dataset", "mnist-sca",
+                                      "-data", "synthetic", "-synthSize", "8", "-batchSize", "4",
+                                      "-nEpochs", "1", "-epochSize", "1", "-cache", sys.argv[1],
+                                      "-device", "cpu", "-train", "-test"])
+        assert sess.epoch == 1
         bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "mgtpu", "ml_dtypes"))
+        assert not bad, bad
+        print("ok")
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip().endswith("ok"), r.stdout + r.stderr
+
+
+def test_data_layer_imports_no_torch():
+    """The data layer and the native loader import neither torch nor jax
+    (process-mode donkeys import them and must not initialise CUDA), nor
+    PIL until a loader needs it; the synthetic ILSVRC set needs none of
+    them."""
+    code = textwrap.dedent("""
+        import sys
+        import mgtpu_torch.data, mgtpu_torch.native, mgtpu_torch.data.prefetch
+        from mgtpu_torch.data import get_loaders
+        from types import SimpleNamespace
+        opt = SimpleNamespace(dataset="ilsvrc", data="synthetic", synthSize=8, synthClasses=10)
+        x, y = get_loaders(opt)["train"].gen_inputs(2, 1, 0)
+        assert x.shape == (2, 224, 224, 3), x.shape
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("torch", "jax", "jaxlib", "mgtpu", "ml_dtypes", "PIL"))
         assert not bad, bad
         print("ok")
     """)
