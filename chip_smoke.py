@@ -5,14 +5,16 @@
 
 Builds the port's CUDA kernels from `mgtpu_torch/csrc/`, holds each one
 against its plain PyTorch version at the shapes R-MG-34, the six CIFAR
-nets, the four cluttered-MNIST nets and PR-MG-30 give it, serves a few
+nets, the four cluttered-MNIST nets and PR-MG-30 give it (and the int8
+conv at the int8 forwards' shapes), serves a few
 requests through `mgtpu_torch.serve.Server` (each of those nets, BN
 folded, bf16, seeded random weights), takes a few training steps
 through `mgtpu_torch.trainer.Trainer` (the same nets, bf16, SGD), checks that
 every path went through the kernels and agrees with the port's plain
 CPU path in f32, times the kernels, the serving forward and the
-training step with CUDA events, and runs two recipes through the run
-loop, `mgtpu_torch.main`. Phases:
+training step with CUDA events, runs two recipes through the run
+loop, `mgtpu_torch.main`, and serves R-MG-34, cifar/prnmg and unmg under
+int8 (`Server(int8=True)`, `-test -int8`). Phases:
 
   1 device   the card, and its name and power limit from nvidia-smi
   2 build    nvcc over mgtpu_torch/csrc/*.cu, bound with ctypes
@@ -129,6 +131,36 @@ loop, `mgtpu_torch.main`. Phases:
              same test loss and meanIU within 1e-5 and NHWC predictions
              in testOutput_1.h5 (the card's machine has no h5py: there
              tests/test_torch_cli.py holds the chain on the CPU)
+ 23 conv_i8  the int8 conv kernel vs conv_i8_plain at every (shape, k,
+             stride, pad, weight slice) the int8 serving forwards of
+             R-MG-34 (batches 1 and 128), cifar/prnmg (128) and unmg (64)
+             give it, recorded on the CPU and held to the pins
+             (I8_PER_FORWARD): the int32 sums and the fused f32 and bf16
+             dequants equal bit for bit, full-range int8 operands, the
+             batch-1 cases also with x off a 16-byte boundary
+ 24 i8 serve each of those nets served under int8 through Server (BN
+             folded, then quantized; bf16) at those batches with static
+             scales (I8_CALIB batches) and, R-MG-34, dynamic ones:
+             outputs checked, the pinned launches per forward (conv_i8
+             once a conv part, the pools as in the float forward, no 3x3
+             conv kernel), the distance from the bf16 forward of the same
+             weights (prnmg and unmg: one median time of each, int8 and
+             bf16, interleaved); the f32 int8 forward on the card vs the plain CPU
+             one with the same frozen scales (1e-5 of the scale or three
+             times the CPU's own change under images moved by 1e-6)
+ 25 i8 run loop  cifar/nmg trained 2 x 4 iterations and tested in f32
+             through mgtpu_torch.main, then its checkpoint re-tested
+             with -test -int8 -int8Calib 2 and -test -int8: the
+             "==> int8:" lines, the test loss within 5% of the float one,
+             the unfolded int8 forward's launches per test and
+             calibration forward
+ 26 i8 times R-MG-34's int8 (static) and bf16 serving forwards at batch
+             128 and 1, and the dynamic int8 one at 128, interleaved (7
+             windows), with the card's busy
+             share from a profile; conv_i8 at each shape of the batch-128
+             int8 forward beside its plain version and, a different
+             function, the bf16 conv3x3 kernel (3x3/s1 shapes) and
+             cuDNN's bf16 conv; its bound at the int8 peak
 
 Any failed check exits non-zero. The second-to-last line of stdout is
 one JSON object with the kernels: ``launches`` sums each kernel's
@@ -150,6 +182,12 @@ own), its times and bounds per batch-128 forward or 64 x 2 step (phase
 15); under each net of phases 16-20 that launches it, the same numbers
 for that net (its launches in phases 18 and 19, its times and bounds per
 forward at its largest serving batch or per training step, phase 20).
+The last entry is ``conv_i8``: its launches in phases 24 and 25, its
+largest error (phase 23: 0, the comparisons are exact), its time, its
+plain version's and its bound per batch-128 int8 R-MG-34 forward (phase
+26), ``library_ms`` null (no PyTorch call computes an int8 conv on
+CUDA), and, a different function at the same shapes, the bf16 conv3x3
+kernel's and cuDNN's bf16 times.
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -177,10 +215,11 @@ import torch.nn.functional as F
 from mgtpu_torch import kernels
 from mgtpu_torch.models import create_model, get_spec
 from mgtpu_torch.models.base import NetOpts, imagenet_rule
-from mgtpu_torch.ops import cuda_conv, cuda_pool
+from mgtpu_torch.ops import cuda_conv, cuda_conv_i8, cuda_pool
 from mgtpu_torch.ops.cuda_conv import (bn_relu_plain, conv3x3, conv3x3_bn_relu_in,
                                        conv3x3_bn_relu_in_plain, conv3x3_plain)
 from mgtpu_torch.ops.fold import fold_batchnorm
+from mgtpu_torch.ops.quant import quantize_model
 from mgtpu_torch.ops.cuda_pool import (maxpool2, maxpool2_backward, maxpool2_bwd_plain,
                                        maxpool2_plain)
 from mgtpu_torch.ops.resample import nchw
@@ -193,10 +232,12 @@ RMG34 = NetOpts(depth=DEPTH)
 IMAGE_SHAPE = image_shape(RMG34)
 # launches per R-MG-34 serving forward (one per 3x3 same/down part; every
 # maxpool2_ceil of the exchange and the MgPools)
-PER_FORWARD = {"conv3x3": 112, "conv3x3_bn_relu_in": 0, "maxpool2": 46, "maxpool2_bwd": 0}
+PER_FORWARD = {"conv3x3": 112, "conv3x3_bn_relu_in": 0, "maxpool2": 46, "maxpool2_bwd": 0,
+               "conv_i8": 0}
 # launches per training step: stage 2's 36 same-scale parts take the
 # prologue kernel instead of conv3x3; every pool is differentiated once
-PER_STEP = {"conv3x3": 76, "conv3x3_bn_relu_in": 36, "maxpool2": 46, "maxpool2_bwd": 46}
+PER_STEP = {"conv3x3": 76, "conv3x3_bn_relu_in": 36, "maxpool2": 46, "maxpool2_bwd": 46,
+            "conv_i8": 0}
 # the (H, W, C) at which R-MG-34 pools, in either pass
 RMG34_POOLS = [(14, 14, 16), (14, 14, 32), (14, 14, 64), (14, 14, 128), (14, 14, 256),
                (28, 28, 32), (28, 28, 64), (28, 28, 128), (56, 56, 64)]
@@ -251,20 +292,30 @@ def phase(name: str, msg: str) -> None:
     print(f"[{name} {time.perf_counter() - T0:.0f}s] {msg}", flush=True)
 
 
-def record_kernel_shapes(train: bool, opt: NetOpts = RMG34, fold: bool = True):
+def i8_key(x8, w8, stride, pad, *args, **kw):
+    """A conv_i8 call's recorded shape: (H, W, Ci, Co, k, stride, pad,
+    Ci of the whole weight, the slice's first input channel)."""
+    k, co = w8.shape[0], w8.shape[3]
+    return (*x8.shape[1:], co, k, stride, pad, w8.stride(1) // co, w8.storage_offset() // co)
+
+
+def record_kernel_shapes(train: bool, opt: NetOpts = RMG34, fold: bool = True,
+                         int8: bool = False):
     """One f32 pass of the net ``opt`` names (R-MG-34 by default) at batch
     1 on the CPU (the plain path), recording the input shapes of every
     kernel entry point it calls: the serving forward (BN folded; with
-    ``fold`` False the run loop's eval forward, BN unfolded), or a
-    training forward and backward (one micro-batch). Returns {kernel:
-    Counter of shapes}."""
+    ``fold`` False the run loop's eval forward, BN unfolded; with
+    ``int8`` quantized after the fold, as Server does), or a training
+    forward and backward (one micro-batch). Returns {kernel: Counter of
+    shapes}."""
     shapes = {k: Counter() for k in PER_STEP}
     hooks = {(cuda_conv, "conv3x3_forward"): ("conv3x3", lambda x, *a, **kw: (
                  x.shape[1], x.shape[2], x.shape[3], a[0].shape[3])),
              (cuda_conv, "conv3x3_bn_relu_in_forward"): ("conv3x3_bn_relu_in", lambda x, *a, **kw: (
                  x.shape[1], x.shape[2], x.shape[3], a[0].shape[3])),
              (cuda_pool, "maxpool2_forward"): ("maxpool2", lambda x, *a: tuple(x.shape[1:])),
-             (cuda_pool, "maxpool2_backward"): ("maxpool2_bwd", lambda x, *a: tuple(x.shape[1:]))}
+             (cuda_pool, "maxpool2_backward"): ("maxpool2_bwd", lambda x, *a: tuple(x.shape[1:])),
+             (cuda_conv_i8, "conv_i8"): ("conv_i8", i8_key)}
     originals = {key: getattr(*key) for key in hooks}
 
     def recording(key):
@@ -279,6 +330,8 @@ def record_kernel_shapes(train: bool, opt: NetOpts = RMG34, fold: bool = True):
     # its calibration: the calls do not depend on the weights
     model = create_model(opt)
     model = model.train() if train else fold_batchnorm(model) if fold else model
+    if int8:
+        quantize_model(model)
     for key in hooks:
         setattr(*key, recording(key))
     try:
@@ -922,9 +975,9 @@ CIFAR_RECIPES = {"cifar/nmg": (2, 128, 1), "cifar/rnmg": (3, 64, 2), "cifar/pnmg
 CIFAR_TIMED = "cifar/prnmg"  # runs every op of the slice and all four kernels
 
 
-def launch_counts(conv, prologue, pool, pool_bwd) -> dict:
+def launch_counts(conv, prologue, pool, pool_bwd, conv_i8=0) -> dict:
     return {"conv3x3": conv, "conv3x3_bn_relu_in": prologue, "maxpool2": pool,
-            "maxpool2_bwd": pool_bwd}
+            "maxpool2_bwd": pool_bwd, "conv_i8": conv_i8}
 
 
 # launches per serving forward (BN folded) and per training micro-batch
@@ -1679,7 +1732,7 @@ def metric_lines(out, what):
 
 
 def expected_launches(per_micro, micros, per_forward, forwards) -> dict:
-    return {k: micros * per_micro[k] + forwards * per_forward[k] for k in KERNELS}
+    return {k: micros * per_micro[k] + forwards * per_forward[k] for k in per_micro}
 
 
 def check_recipe(name) -> dict:
@@ -1825,6 +1878,331 @@ def check_harness_chain(name) -> dict:
         del sess
     shutil.rmtree(cache)
     return launches
+
+
+# ------------------------------------------------- int8 serving (phases 23-26)
+
+# each net served under int8 (BN folded, then quantized, as Server does) at
+# its serving batches: R-MG-34, cifar/prnmg and unmg at their recipes
+I8_SERVE = {"ilsvrc/rnmg": (RMG34, (1, 128)),
+            "cifar/prnmg": (cifar_opts("cifar/prnmg"), (CIFAR_SERVE_BATCH,)),
+            "mnist-cluttered/unmg": (SEG_RECIPES["mnist-cluttered/unmg"][0], (64,))}
+# launches per int8 serving forward: one conv_i8 per quantized conv part
+# (the 3x3 down, same and up parts, the 1x1 shortcuts and heads, the 7x7
+# stems); the pools as in the float forward; no 3x3 conv kernel
+I8_PER_FORWARD = {"ilsvrc/rnmg": launch_counts(0, 0, 46, 0, 155),
+                  "cifar/prnmg": launch_counts(0, 0, 32, 0, 77),
+                  "mnist-cluttered/unmg": launch_counts(0, 0, 16, 0, 40)}
+# calibration batches of the static scales (Server's, CALIB_BATCH images each)
+I8_CALIB = 2
+KERNELS_I8 = {"conv_i8": dict(route="cuda", source="mgtpu_torch/csrc/conv_i8.cu",
+                              replaces="mgtpu/ops/quant.py:139")}
+# the H100 SXM's published dense int8 tensor-core peak (NVIDIA's data sheet)
+PEAK_INT8_OPS = 1979e12
+# the run loop under -int8: tests/test_int8.py's contract (a float run's
+# checkpoint re-tested under int8, loss within 5%), f32 as there
+I8_RUN = ["-netType", "cifar/nmg", "-dataset", "cifar100-whitened", "-data", "synthetic",
+          "-synthSize", "64", "-batchSize", "16", "-imageSize", "36", "-imageCrop", "32",
+          "-nGPU", "1", "-nDonkeys", "0"]
+I8_LOSS_RTOL = 0.05
+
+
+def record_i8() -> dict:
+    """{net: the int8 serving forward's kernel calls}, recorded on the CPU
+    and held to the pins."""
+    rec = {}
+    for net, (opt, _) in I8_SERVE.items():
+        rec[net] = record_kernel_shapes(False, opt, int8=True)
+        got = {k: sum(c.values()) for k, c in rec[net].items()}
+        check(got == I8_PER_FORWARD[net], f"{net}: the CPU int8 forward made kernel calls "
+              f"{got}, expected {I8_PER_FORWARD[net]}")
+    return rec
+
+
+def i8_work(key, batch, itemsize=2):
+    """(operations, bytes) of one conv_i8 launch at a recorded shape and
+    ``batch``, its output in ``itemsize`` bytes: multiply-adds (2 each)
+    on the taps inside the image; x and w read once (int8), v (f32) read
+    and y written once."""
+    h, w, ci, co, k, stride, pad = key[:7]
+    oh, ow = cuda_conv_i8.out_size(h, k, stride, pad), cuda_conv_i8.out_size(w, k, stride, pad)
+
+    def taps(n, m):  # in-image taps summed over the m outputs along a side of n
+        return sum(sum(0 <= o * stride - pad + t < n for t in range(k)) for o in range(m))
+
+    nbytes = batch * h * w * ci + k * k * ci * co + 4 * co + itemsize * batch * oh * ow * co
+    return 2 * batch * taps(h, oh) * taps(w, ow) * ci * co, nbytes
+
+
+def i8_bounds(shapes, batch):
+    """(operations, bytes, bound ms, bound_by) of a forward's conv_i8
+    launches at ``batch``: each launch's larger of operations over the
+    int8 peak and bytes over HBM's, summed."""
+    ops = nbytes = ms = ops_ms = 0
+    for key, count in shapes.items():
+        f, b = i8_work(key, batch)
+        t_ops, t_bytes = f / PEAK_INT8_OPS * 1e3, b / PEAK_HBM_BYTES * 1e3
+        ops, nbytes, ms = ops + count * f, nbytes + count * b, ms + count * max(t_ops, t_bytes)
+        ops_ms += count * t_ops * (t_ops > t_bytes)
+    return ops, nbytes, ms, "operations" if ms and 2 * ops_ms >= ms else "bytes"
+
+
+def i8_operands(key, batch, seed):
+    """Full-range int8 x (batch, H, W, Ci) and the weight slice the key
+    names (a view of a (k, k, Ci total, Co) weight at its input channel),
+    and a dequant vector v (Co,) f32, on the card."""
+    h, w, ci, co, k, _, _, ci_total, ofs = key
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x8 = torch.randint(-127, 128, (batch, h, w, ci), generator=g, device="cuda").to(torch.int8)
+    wide = torch.randint(-127, 128, (k, k, ci_total, co), generator=g, device="cuda")
+    v = 1e-4 + 1e-3 * torch.rand(co, generator=g, device="cuda")
+    return x8, wide.to(torch.int8)[:, :, ofs:ofs + ci], v
+
+
+def check_conv_i8(cases, max_err) -> int:
+    """23: conv_i8 vs conv_i8_plain at each (recorded shape, batch): the
+    int32 sums equal, and the fused dequant in f32 and bf16 equal its
+    plain formula bit for bit (the plain conv in float64 on the card is
+    exact; the epilogue rounds as torch does). Each batch-1 case also
+    with x off a 16-byte boundary (the byte-load path). Returns the
+    number of cases."""
+    n = 0
+    for i, (key, batch) in enumerate(sorted(cases)):
+        x8, w8, v = i8_operands(key, batch, seed=i)
+        stride, pad = key[5], key[6]
+        ref = cuda_conv_i8.conv_i8_plain(x8, w8, stride, pad)
+        xs = [x8] + ([misaligned(x8)] if batch == 1 else [])
+        for xi in xs:
+            before = kernels.LAUNCHES["conv_i8"]
+            outs = [(torch.int32, cuda_conv_i8.conv_i8(xi, w8, stride, pad))]
+            outs += [(dt, cuda_conv_i8.conv_i8(xi, w8, stride, pad, v, dt))
+                     for dt in (torch.float32, torch.bfloat16)]
+            check(kernels.LAUNCHES["conv_i8"] - before == 3, f"conv_i8 {key}: launched "
+                  f"{kernels.LAUNCHES['conv_i8'] - before} times for 3 calls")
+            for dt, y in outs:
+                want = ref if dt == torch.int32 else (ref.float() * v).to(dt)
+                err = (y.double() - want.double()).abs().max().item()
+                check(y.dtype == dt and y.shape == want.shape and torch.equal(y, want),
+                      f"conv_i8 {batch}x{key} -> {dt}, x aligned={xi is x8}: max abs err "
+                      f"{err:.3g} against the plain version")
+                max_err["conv_i8"] = max(max_err["conv_i8"], err)
+                n += 1
+    torch.cuda.synchronize()
+    return n
+
+
+def i8_images(net, batch, seed):
+    return np.random.default_rng(seed).standard_normal((batch, *get_spec(net).image_shape),
+                                                       dtype=np.float32)
+
+
+def check_i8_serve(name) -> dict:
+    """24: each net served under int8 (BN folded, quantized, bf16) through
+    Server at its serving batches, with static scales (I8_CALIB batches)
+    and, R-MG-34, dynamic ones: outputs checked, the pinned launches per
+    forward; its distance from the bf16 forward of the same weights (and,
+    but R-MG-34, one median time of each at the largest batch); the
+    f32 int8 forward on the card vs the plain CPU int8 forward (the same
+    frozen scales) within 1e-5 of the outputs' scale: conv_i8 is exact and
+    the layers around it (quantize, nearest upsample, dequant, bias, pools)
+    compute the same f32 values on both sides, so a quantize step that
+    flips on one side only (e.g. a divide done as a multiply by the
+    reciprocal) shows far above it. Returns {net: Counter of the serving
+    forwards' launches}."""
+    launches = {net: Counter() for net in I8_SERVE}
+    for net, (opt, batches) in I8_SERVE.items():
+        float_server = Server(opt, seed=0, device="cuda", compute_dtype=torch.bfloat16)
+        for calib in (I8_CALIB, 0) if net == "ilsvrc/rnmg" else (I8_CALIB,):
+            mode = f"static ({calib} batches)" if calib else "dynamic"
+            t0 = time.perf_counter()
+            server = Server(opt, seed=0, device="cuda", compute_dtype=torch.bfloat16, int8=True,
+                            int8_calib=calib)
+            built = time.perf_counter() - t0
+            for batch in batches:
+                x = i8_images(net, batch, seed=11)
+                kernels.reset_launches()
+                y = server.predict(x)
+                got = dict(kernels.LAUNCHES)
+                torch.cuda.synchronize()
+                check(got == I8_PER_FORWARD[net], f"{net} int8 {mode} batch {batch}: launches "
+                      f"{got}, expected {I8_PER_FORWARD[net]}")
+                output_checks(f"{net} int8 {mode} batch {batch}", y, batch, opt)
+                launches[net].update(got)
+                y_bf16 = float_server.predict(x)
+                d = (y - y_bf16).abs().max().item()
+                agree = (f"; top-1 agrees on {int((y.argmax(-1) == y_bf16.argmax(-1)).sum())}/"
+                         f"{batch}" if y.dim() == 2 else "")
+                phase("i8 serve", f"{get_spec(net).describe(opt)} int8 {mode}, BN folded, bf16, "
+                      f"batch {batch} on {name} (built in {built:.1f} s): {tuple(y.shape)} "
+                      f"finite f32 outputs in range; launches {got}; against the bf16 forward "
+                      f"of the same weights: max abs {d:.4g} (scale "
+                      f"{y_bf16.abs().max().item():.4g}){agree}")
+            if net != "ilsvrc/rnmg":  # one median each (R-MG-34's times: phase 26)
+                images = torch.from_numpy(i8_images(net, batches[-1], seed=12)).cuda()
+                (t8, sp8), (t16, sp16) = interleaved_ms(
+                    [lambda: server.predict(images), lambda: float_server.predict(images)])
+                phase("i8 serve", f"{net} int8 {mode} forward at batch {batches[-1]}: {t8:.3f} "
+                      f"ms (median of 5 interleaved windows, spread {sp8:.1%}), the bf16 "
+                      f"forward {t16:.3f} ms (spread {sp16:.1%}) on {name}")
+            xs = i8_images(net, 2, seed=13)
+            gpu = Server(opt, seed=0, device="cuda", compute_dtype=torch.float32, int8=True,
+                         int8_calib=calib)
+            cpu = Server(opt, seed=0, device="cpu", compute_dtype=torch.float32, int8=True)
+            for m_cpu, m_gpu in zip(cpu.model.modules(), gpu.model.modules()):
+                if getattr(m_gpu, "quantized", False) and m_gpu.sx is not None:
+                    m_cpu.sx = m_gpu.sx.cpu()  # the card's frozen scales
+            y_gpu = gpu.predict(xs).cpu()
+            y_cpu = cpu.predict(xs)
+            err, scale = (y_gpu - y_cpu).abs().max().item(), y_cpu.abs().max().item()
+            limit = 1e-5 * scale
+            check(err <= limit, f"{net} int8 {mode} f32 forward: card vs CPU max abs err "
+                  f"{err:.3g} (bound {limit:.3g}: 1e-5 x the scale {scale:.4g})")
+            phase("i8 serve", f"{net} int8 {mode} f32 forward on the card vs the plain CPU "
+                  f"forward: max abs err {err:.3g} (bound {limit:.3g}: 1e-5 x {scale:.4g})")
+            del server, gpu, cpu
+        del float_server
+    return launches
+
+
+def check_i8_run_loop(name) -> dict:
+    """25: the run loop under int8: cifar/nmg trains 2 epochs of 4
+    iterations and tests in f32 (-train -test), then its checkpoint is
+    re-tested with -test -int8 -int8Calib 2 and with -test -int8 (dynamic):
+    the "==> int8:" lines, the test loss within 5% of the float one
+    (tests/test_int8.py's contract), and per test or calibration forward
+    the unfolded int8 forward's launches. Returns the launches of the two
+    int8 runs."""
+    from mgtpu_torch.pipelines.standard import net_opts
+
+    cache = tempfile.mkdtemp(prefix="chip_smoke_int8_")
+    sess, out, _, wall = run_main(I8_RUN + ["-cache", cache, "-nEpochs", "2", "-epochSize", "4",
+                                            "-train", "-test"])
+    fp_loss = metric_lines(out, "int8 run loop float")[1][(2, "TESTING")][1]["avg.loss"]
+    ckpt = str(Path(sess.opt.save) / "model_2.ckpt")
+    per = {k: sum(c.values()) for k, c in record_kernel_shapes(
+        False, net_opts(sess.opt), fold=False, int8=True).items()}
+    n_test = -(-sess.loaders["test"].size() // sess.opt.batchSize)
+    phase("i8 run loop", f"cifar/nmg f32 -train -test (2 x 4 iterations of 16) on {name} in "
+          f"{wall:.1f} s: test avg.loss {fp_loss:.5f}; {ckpt.rsplit('/', 1)[-1]}")
+    total = Counter()
+    for calib in (2, 0):
+        argv = (I8_RUN + ["-cache", cache, "-nEpochs", "1", "-retrain", ckpt, "-test", "-int8"]
+                + (["-int8Calib", str(calib)] if calib else []))
+        sess8, out8, got, wall8 = run_main(argv)
+        loss = metric_lines(out8, "int8 run loop")[1][(1, "TESTING")][1]["avg.loss"]
+        want = {k: (n_test + calib) * v for k, v in per.items()}
+        check(got == want, f"-int8 -int8Calib {calib}: launches {got}, expected {want} "
+              f"({n_test} test and {calib} calibration forwards)")
+        check("==> int8: conv kernels quantized" in out8
+              and ("calibrated over 2 batches" in out8) == bool(calib),
+              f"-int8 -int8Calib {calib}: the int8 lines missing from\n{out8[-2000:]}")
+        check(abs(loss - fp_loss) <= I8_LOSS_RTOL * abs(fp_loss),
+              f"-int8 -int8Calib {calib}: test loss {loss} vs float {fp_loss}")
+        total.update(got)
+        phase("i8 run loop", f"-retrain {Path(ckpt).name} {' '.join(argv[argv.index('-test'):])} "
+              f"in {wall8:.1f} s: "
+              f"test avg.loss {loss:.5f} ({loss / fp_loss - 1:+.2%} of the float loss; bound "
+              f"{I8_LOSS_RTOL:.0%}); launches {got}")
+    del sess, sess8
+    shutil.rmtree(cache)
+    return dict(total)
+
+
+def time_i8(name, shapes):
+    """26: R-MG-34's int8 (static) and bf16 serving forwards at batch 128
+    and 1 and its dynamic-scale int8 forward at batch 128, interleaved in
+    one call (host included), with the card's busy
+    time of one profiled call of each; then conv_i8 at each shape of the
+    int8 forward at batch 128 (bf16 out) beside its plain version and,
+    as a different function (bf16 operands), the conv3x3 kernel at the
+    3x3/s1 shapes and cuDNN's bf16 conv at every shape. Returns
+    ({kernel time, plain, conv3x3 bf16, cuDNN bf16}: ms per forward)."""
+    server8 = Server(RMG34, seed=0, device="cuda", compute_dtype=torch.bfloat16, int8=True,
+                     int8_calib=I8_CALIB)
+    dynamic = Server(RMG34, seed=0, device="cuda", compute_dtype=torch.bfloat16, int8=True)
+    server16 = Server(RMG34, seed=0, device="cuda", compute_dtype=torch.bfloat16)
+    images = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (TIME_BATCH, *IMAGE_SHAPE), dtype=np.float32)).cuda()
+    fns = {f"int8 forward {TIME_BATCH}": lambda: server8.predict(images),
+           f"bf16 forward {TIME_BATCH}": lambda: server16.predict(images),
+           f"int8 dynamic forward {TIME_BATCH}": lambda: dynamic.predict(images),
+           "int8 forward 1": lambda: server8.predict(images[:1]),
+           "bf16 forward 1": lambda: server16.predict(images[:1])}
+    res = dict(zip(fns, interleaved_ms(list(fns.values()), windows=7, min_reps=3)))
+    for what, (t, sp) in res.items():
+        phase("i8 times", f"R-MG-{DEPTH} {what}: {t:.3f} ms (median of 7 interleaved windows, "
+              f"spread {sp:.1%}) = {int(what.rsplit(' ', 1)[1]) / t * 1e3:.1f} img/s on {name}")
+    for what, fn in fns.items():
+        busy = device_busy_ms(fn)
+        phase("i8 times", f"R-MG-{DEPTH} {what}, profiled: " + (
+            "no device time in the trace (not measured)" if busy is None else
+            f"card busy {busy[0]:.3f} ms a call, {busy[1]:.3f} ms wall under the profiler; "
+            f"against the median above the card is idle {1 - busy[0] / res[what][0]:.0%}"))
+    del server8, dynamic, server16, images
+    ms = dict.fromkeys(("kernel", "plain", "conv3x3", "cudnn"), 0.0)
+    for i, (key, count) in enumerate(sorted(shapes.items())):
+        h, w, ci, co, k, stride, pad = key[:7]
+        x8, w8, v = i8_operands(key, TIME_BATCH, seed=900 + i)
+        xb = torch.randn((TIME_BATCH, h, w, ci), device="cuda").to(torch.bfloat16)
+        wb = (torch.randn((k, k, key[7], co), device="cuda") / (k * ci ** 0.5)).to(
+            torch.bfloat16)[:, :, key[8]:key[8] + ci]
+        w_lib = wb.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        b = torch.zeros(co, device="cuda")
+        kfns = {"kernel": lambda: cuda_conv_i8.conv_i8(x8, w8, stride, pad, v, torch.bfloat16),
+                "plain": lambda: cuda_conv_i8.conv_i8_plain(x8, w8, stride, pad, v,
+                                                            torch.bfloat16),
+                "cudnn": lambda: F.conv2d(nchw(xb), w_lib, stride=stride, padding=pad)}
+        if (k, stride, pad) == (3, 1, 1):
+            kfns["conv3x3"] = lambda: conv3x3(xb, wb, b, with_stats=False)
+        kres = dict(zip(kfns, device_ms(list(kfns.values()), windows=3)))
+        for kk, (t, _) in kres.items():
+            ms[kk] += count * t
+        ops = i8_work(key, TIME_BATCH)[0]
+        phase("i8 times", f"conv_i8 {TIME_BATCH}x{h}x{w}x{ci}->{co} k{k}/s{stride}/p{pad} "
+              f"(x{count}/forward; {ops / 1e9:.1f} GOP): " + ", ".join(
+                  f"{kk} {t:.4f} ms ({ops / t / 1e9:.1f} TOP/s, spread {sp:.1%})"
+                  for kk, (t, sp) in kres.items()))
+    return ms
+
+
+def time_i8_1x1(i8_rec) -> dict:
+    """26: the int8 serving forwards' 1x1/s1 launches are plain s8 x s8 ->
+    s32 GEMMs, which torch._int_mm computes in one call (R-MG-34 has none).
+    At each such shape that _int_mm takes (more than 16 rows; K and N
+    multiples of 8), conv_i8 with its int32 out beside _int_mm, checked
+    equal once. Returns {net: {launches covered, kernel ms, _int_mm ms
+    (per forward), launches not covered}} for the nets that have them."""
+    out = {}
+    for net, (_, batches) in I8_SERVE.items():
+        batch, shapes = batches[-1], i8_rec[net]["conv_i8"]
+        ones = {key: n for key, n in sorted(shapes.items()) if tuple(key[4:7]) == (1, 1, 0)}
+        if not ones:
+            continue
+        res = {"launches": 0, "ms": 0.0, "library_ms": 0.0, "not_covered": 0}
+        for i, (key, count) in enumerate(ones.items()):
+            h, w, ci, co = key[:4]
+            if batch * h * w <= 16 or ci % 8 or co % 8:
+                res["not_covered"] += count
+                continue
+            x8, w8, _ = i8_operands(key, batch, seed=950 + i)
+            x2, w2 = x8.view(-1, ci), w8.reshape(ci, co)
+            check(torch.equal(torch._int_mm(x2, w2).view(batch, h, w, co),
+                              cuda_conv_i8.conv_i8(x8, w8, 1, 0)),
+                  f"{net}: torch._int_mm and conv_i8 disagree at the 1x1 shape {key}")
+            (t, sp), (tl, spl) = device_ms([lambda: cuda_conv_i8.conv_i8(x8, w8, 1, 0),
+                                            lambda: torch._int_mm(x2, w2)], windows=3)
+            res["launches"] += count
+            res["ms"] += count * t
+            res["library_ms"] += count * tl
+            phase("i8 times", f"{net} conv_i8 1x1 {batch}x{h}x{w}x{ci}->{co} (x{count}/forward), "
+                  f"int32 out: kernel {t:.4f} ms (spread {sp:.1%}), torch._int_mm {tl:.4f} ms "
+                  f"(spread {spl:.1%})")
+        phase("i8 times", f"{net} conv_i8 at its 1x1/s1 launches per batch-{batch} forward: "
+              f"{res['launches']} that _int_mm takes, kernel {res['ms']:.4f} ms, torch._int_mm "
+              f"{res['library_ms']:.4f} ms; {res['not_covered']} it refuses (N or K not a "
+              f"multiple of 8)")
+        out[net] = res
+    return out
 
 
 def fmt(metrics) -> str:
@@ -1997,6 +2375,36 @@ def main() -> None:
     launches = {k: launches[k] + sum(c[k] for c in cli_launches.values()) for k in KERNELS}
     phase("recipe", f"phases 21-22 took {time.perf_counter() - t0:.1f} s")
 
+    # 23-26 int8 serving
+    t0 = time.perf_counter()
+    i8_rec = record_i8()
+    max_err["conv_i8"] = 0.0
+    cases = {(key, batch) for net, (_, batches) in I8_SERVE.items()
+             for key in i8_rec[net]["conv_i8"] for batch in batches}
+    n_cases = check_conv_i8(cases, max_err)
+    phase("conv_i8", f"{n_cases} cases at {len(cases)} shapes and batches (R-MG-34's int8 "
+          f"forward at batches 1 and 128, cifar/prnmg's at 128, unmg's at 64; weight slices "
+          f"as the exchange passes them; the batch-1 ones also with x off a 16-byte "
+          f"boundary): int32 sums and f32 and bf16 dequants equal the plain version bit for "
+          f"bit (max abs err {max_err['conv_i8']:.3g})")
+    i8_served = check_i8_serve(name)
+    i8_cli = check_i8_run_loop(name)
+    i8_launches = (sum(c["conv_i8"] for c in i8_served.values()) + i8_cli["conv_i8"])
+    check(i8_launches > 0 and all(c["conv3x3"] == 0 for c in i8_served.values()),
+          f"int8 launches: served {i8_served}, run loop {i8_cli}")
+    i8_ms = time_i8(name, i8_rec["ilsvrc/rnmg"]["conv_i8"])
+    i8_bound = i8_bounds(i8_rec["ilsvrc/rnmg"]["conv_i8"], TIME_BATCH)
+    phase("bounds", f"R-MG-{DEPTH} conv_i8 per batch-{TIME_BATCH} int8 forward: "
+          f"{i8_bound[0] / 1e9:.1f} GOP, {i8_bound[1] / 1e6:.1f} MB, bound {i8_bound[2]:.4f} ms "
+          f"(by {i8_bound[3]}; {PEAK_INT8_OPS / 1e12:.0f} TOP/s int8, "
+          f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s); kernel {i8_ms['kernel']:.3f} ms "
+          f"({i8_bound[2] / i8_ms['kernel']:.0%} of the bound), plain {i8_ms['plain']:.3f} ms, "
+          f"one PyTorch call none; a different function (bf16 operands) at the same shapes: "
+          f"the conv3x3 kernel at the 3x3/s1 ones {i8_ms['conv3x3']:.3f} ms, cuDNN bf16 at "
+          f"all {i8_ms['cudnn']:.3f} ms")
+    i8_1x1 = time_i8_1x1(i8_rec)
+    phase("i8 times", f"phases 23-26 took {time.perf_counter() - t0:.1f} s")
+
     # each kernel's bound over the pass its times sum: the serving forward
     # (conv3x3, maxpool2) or the training step (the other two)
     fwd_bounds = path_bounds(serve_shapes, TIME_BATCH)
@@ -2031,7 +2439,12 @@ def main() -> None:
          **{net: {"launches": n_launches[k], "ms": kms[k], "plain_ms": kplain[k],
                   "bound_ms": bds[k][2], "bound_by": bds[k][3], "library_ms": klib[k]}
             for net, (n_launches, _, kms, kplain, klib, bds) in nets.items()
-            if n_launches is not None and k in kms}} for k in KERNELS]}), flush=True)
+            if n_launches is not None and k in kms}} for k in KERNELS]
+        + [{"name": "conv_i8", **KERNELS_I8["conv_i8"], "launches": i8_launches,
+            "max_abs_err": max_err["conv_i8"], "ms": i8_ms["kernel"], "plain_ms": i8_ms["plain"],
+            "bound_ms": i8_bound[2], "bound_by": i8_bound[3], "library_ms": None,
+            "bf16_conv3x3_ms": i8_ms["conv3x3"], "bf16_cudnn_ms": i8_ms["cudnn"],
+            "int32_1x1": i8_1x1}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -38,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: dict[str, int] = {"conv3x3": 0, "conv3x3_bn_relu_in": 0, "maxpool2": 0,
-                            "maxpool2_bwd": 0}
+                            "maxpool2_bwd": 0, "conv_i8": 0}
 # (kernel, design) -> launches since the last reset_launches(), for the
 # kernels with two designs: the convs' (mgtpu_torch/ops/cuda_conv.py::_route)
 # and the pool forward's (mgtpu_torch/ops/cuda_pool.py::_route)
@@ -68,6 +68,8 @@ _SIGNATURES = {
     "mg_maxpool2_sm90": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, y, g, dx, n, h, w, c, first_only, is_bf16, stream
     "mg_maxpool2_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, w, v, y, n, h, w, ci, co, k, stride, pad, w_tap_stride, out_kind, stream
+    "mg_conv_i8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L, _I, _P),
 }
 
 

@@ -24,7 +24,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mgtpu_torch.ops import cuda_conv_i8
 from mgtpu_torch.ops.cuda_conv import bn_relu_plain, conv3x3, conv3x3_bn_relu_in
+from mgtpu_torch.ops.quant import quantize_act, record_scale
 from mgtpu_torch.ops.resample import nchw, nhwc, upsample_nearest2
 
 
@@ -43,10 +45,34 @@ def conv2d_nhwc(x, w, stride: int = 1, pad: int = 0):
     return nhwc(F.conv2d(nchw(x), w.permute(3, 2, 0, 1), stride=stride, padding=pad))
 
 
+def _int8_part(conv, slot: int, xp, w8, kind: str = "same", oh=None, ow=None):
+    """One input of a quantized conv, as the JAX layers compute it: the
+    raw part (no compute-dtype cast first) quantized with slot ``slot``'s
+    static scale, or a dynamic one reported to a running calibration; an
+    "up" part quantized at coarse resolution and its int8 values
+    nearest-upsampled (nearest only copies values, so this equals
+    quantizing the upsampled part); then one `conv_i8` launch against
+    ``w8`` (the weight or its input-channel slice) dequantized to the
+    compute dtype in its epilogue."""
+    sx_cal = conv.sx
+    x8, sx = quantize_act(xp, None if sx_cal is None else sx_cal[slot])
+    if sx_cal is None:
+        record_scale(conv, slot, sx)
+    if kind == "up":
+        x8 = upsample_nearest2(x8, oh, ow)
+    return cuda_conv_i8.conv_i8(x8, w8, conv.stride, conv.pad, sx * conv.scale,
+                                conv.compute_dtype or torch.float32)
+
+
 class Conv(nn.Module):
     """2D convolution with a bias, NHWC/HWIO, MSR (fan-out) init: std =
-    sqrt(2 / (k*k*c_out)), zero bias. The int8 serving branch of the
-    JAX layer is not ported."""
+    sqrt(2 / (k*k*c_out)), zero bias. `mgtpu_torch.ops.quant.quantize_model`
+    can replace the f32 weight ``w`` by the int8 buffers ``w8`` and
+    ``scale`` (and, once calibrated, ``sx``: one static activation scale
+    a slot); quantized, it runs the int8 path (`_int8_part`, slot 0) and
+    adds the bias in the compute dtype."""
+
+    calibration = None  # the calibration pass running on this conv, if any
 
     def __init__(self, c_in, c_out, k=3, stride=1, pad=None, compute_dtype=None,
                  device=None, generator=None):
@@ -60,9 +86,25 @@ class Conv(nn.Module):
         self.b = nn.Parameter(torch.zeros(c_out, device=device))
 
     def forward(self, x):
-        y = conv2d_nhwc(cast_to(x, self.compute_dtype),
-                        cast_to(self.w, self.compute_dtype), self.stride, self.pad)
+        if self.quantized:
+            y = _int8_part(self, 0, x, self.w8)
+        else:
+            y = conv2d_nhwc(cast_to(x, self.compute_dtype),
+                            cast_to(self.w, self.compute_dtype), self.stride, self.pad)
         return y + self.b.to(y.dtype)
+
+    @property
+    def quantized(self) -> bool:
+        return "w8" in self._buffers
+
+    def set_quantized(self, w8: torch.Tensor, scale: torch.Tensor) -> None:
+        """Drop the f32 weight for its int8 form, or replace the int8 form
+        (dynamic scales until calibrated)."""
+        if not self.quantized:
+            del self.w
+        self.register_buffer("w8", w8)
+        self.register_buffer("scale", scale)
+        self.register_buffer("sx", None)
 
 
 class ConvTranspose(nn.Module):
@@ -323,6 +365,8 @@ class ConvBN(nn.Module):
         from mgtpu_torch.ops.mg import materialize_part
 
         conv = self.conv
+        if conv.quantized:
+            return self._int8_parts(parts)
         dt = conv.compute_dtype
         w = cast_to(conv.w, dt)  # cast once; each part takes a view of its slice
         is3x3 = self.k == 3 and conv.stride == 1 and conv.pad == 1
@@ -371,6 +415,33 @@ class ConvBN(nn.Module):
         if bias is not None:  # no kernel launch took it
             y = y + bias.to(y.dtype)
         return y
+
+    def _int8_parts(self, parts):
+        """`conv_parts` of a quantized conv, as the JAX layer's int8 branch
+        computes it: slot i is part i; each part is quantized with its own
+        scale against its slice of ``w8`` (int32 sums of slices add up to
+        the sums of the concat), an un-normalized part first materialized
+        with `bn_relu_plain`; the dequantized parts are summed in the
+        compute dtype in part order, then the bias is added. Dropout does
+        not apply: the int8 path serves only."""
+        conv = self.conv
+        oh = ow = None
+        for kind, xp in parts:
+            if kind != "up":
+                xr = xp[0] if isinstance(xp, tuple) else xp
+                oh, ow = xr.shape[1], xr.shape[2]
+        y = None
+        ofs = 0
+        for slot, (kind, xp) in enumerate(parts):
+            if isinstance(xp, tuple):  # un-normalized: (y_raw, scale, shift)
+                xp = bn_relu_plain(*xp)
+            c = xp.shape[-1]
+            yy = _int8_part(conv, slot, xp, conv.w8[:, :, ofs:ofs + c], kind, oh, ow)
+            ofs += c
+            y = yy if y is None else y + yy
+        if ofs != conv.w8.shape[2]:
+            raise ValueError(f"parts carry {ofs} channels, the conv takes {conv.w8.shape[2]}")
+        return y + conv.b.to(y.dtype)
 
 
 class UpConvBN(nn.Module):

@@ -7,7 +7,9 @@
 The port folds in place: each ConvBN's conv (and each UpConvBN's
 transposed conv: its HWIO weight has the output channel last too)
 absorbs ``a`` and the BN drops its parameters and stats, which marks it
-folded (the identity).
+folded (the identity). A quantized conv (`mgtpu_torch.ops.quant`) folds
+as the JAX package's does: its per-channel dequant ``scale`` absorbs
+``a``; ``w8`` and the activation scales ``sx`` stay as they are.
 """
 
 from __future__ import annotations
@@ -29,7 +31,10 @@ def _fold_convbn(layer: ConvBN | UpConvBN) -> None:
                          "the BN offset (beta - mean*a)")
     a = bn.scale * torch.rsqrt(bn.var + bn.eps)
     conv.b.copy_(bn.bias + (conv.b - bn.mean) * a)
-    conv.w.mul_(a)  # HWIO: the output channel is the last axis
+    if getattr(conv, "quantized", False):  # a Conv; ConvTranspose stays float
+        conv.scale.mul_(a)
+    else:
+        conv.w.mul_(a)  # HWIO: the output channel is the last axis
     bn.drop_folded()
 
 

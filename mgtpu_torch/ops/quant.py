@@ -1,0 +1,139 @@
+"""Post-training int8 quantization for serving (counterpart of
+`mgtpu/ops/quant.py`).
+
+The scheme is the JAX package's, detail for detail:
+  - weights: per-output-channel symmetric int8,
+    ``scale[co] = max(max|w[..., co]| / 127, 1e-12)`` and
+    ``w8 = clip(round(w / scale), -127, 127)`` (round half to even);
+  - activations: per-tensor symmetric int8 over the whole tensor, the
+    batch included, computed from each conv input on the fly (dynamic),
+    or frozen by :func:`calibrate` as the largest such scale over a few
+    batches (static, ``sx``);
+  - the conv sums int8 x int8 in int32 and is dequantized to the compute
+    dtype, ``cast(float(acc) * (sx * scale))``; bias, BN and ReLU run on
+    that unchanged.
+
+:func:`quantize_model` turns, in place, every conv of the model whose
+kernel is not 2x2 (the U-Nets' transposed-conv upsamplers stay float) into
+a quantized one: its f32 weight gives way to the buffers ``w8`` (int8,
+HWIO), ``scale`` (f32, (Co,)) and, once calibrated, ``sx`` (f32, one
+scale a slot). A slot is one input of the conv: a plain conv has one;
+`ConvBN.conv_parts` numbers its exchange parts in their order (down,
+same, up). The layers of `mgtpu_torch.nn` branch on ``conv.quantized``;
+their conv is `mgtpu_torch.ops.cuda_conv_i8.conv_i8` with its dequant
+epilogue, which launches the int8 kernel on a CUDA tensor or raises.
+"""
+
+from __future__ import annotations
+
+import functools
+import itertools
+
+import torch
+from torch import nn
+
+from mgtpu_torch.ops.cuda_conv_i8 import conv_i8, conv_i8_plain  # noqa: F401 (re-exported)
+
+
+@functools.cache
+def _127(device: torch.device) -> torch.Tensor:
+    """127 as an f32 tensor on ``device``. Dividing by it divides: torch on
+    CUDA multiplies by the reciprocal when the divisor is a host scalar,
+    which can differ from x / 127 in the last bit."""
+    return torch.full((), 127.0, device=device)
+
+
+def quantize_kernel(w: torch.Tensor) -> dict:
+    """Per-output-channel symmetric int8 of an HWIO kernel:
+    ``{"w8": int8 (k, k, ci, co), "scale": f32 (co,)}``, bit for bit the
+    JAX package's."""
+    w = w.detach().float()
+    scale = torch.clamp_min(w.abs().amax(dim=(0, 1, 2)) / _127(w.device), 1e-12)
+    w8 = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return {"w8": w8, "scale": scale}
+
+
+def quantize_act(x: torch.Tensor, sx: torch.Tensor | None = None):
+    """Per-tensor symmetric int8 of ``x``: (x8, sx). Without ``sx`` (a
+    0-d f32 tensor, a calibrated static scale) the scale is the absmax of
+    the whole tensor, the batch included, over 127. ``x`` goes to f32
+    before the divide."""
+    xf = x.float()
+    if sx is None:
+        sx = torch.clamp_min(xf.abs().amax() / _127(x.device), 1e-12)
+    x8 = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+    return x8, sx
+
+
+# --- calibration (static activation scales) -------------------------------
+class _Collector:
+    """The largest dynamic scale each (conv, slot) reported during one
+    calibration pass. Each quantized conv of the model holds it as its
+    ``calibration`` while the pass runs."""
+
+    def __init__(self):
+        self.maxima: dict[nn.Module, dict[int, float]] = {}
+
+    def record(self, conv: nn.Module, slot: int, sx: torch.Tensor) -> None:
+        slots = self.maxima.setdefault(conv, {})
+        val = float(sx)
+        if slot not in slots or val > slots[slot]:
+            slots[slot] = val
+
+
+def record_scale(conv: nn.Module, slot: int, sx: torch.Tensor) -> None:
+    """The layers' hook: report one dynamic activation scale. A no-op
+    unless a calibration pass is running on ``conv``."""
+    if conv.calibration is not None:
+        conv.calibration.record(conv, slot, sx)
+
+
+@torch.no_grad()
+def calibrate(model: nn.Module, batches) -> nn.Module:
+    """Run ``batches`` (NHWC arrays or tensors, taken as they are: no cast)
+    through the quantized ``model`` in eval mode, recording every conv
+    input's dynamic scale, and freeze the largest over all batches into
+    each conv's ``sx``, slot by slot. Stale ``sx`` are dropped first (a
+    frozen scale suppresses the recording). Raises RuntimeError on a
+    pass nested in another, and AssertionError (the JAX package's
+    error, raised explicitly here) where the slots a conv recorded are
+    not 0..n-1, which no scale vector can index. Returns ``model``."""
+    convs = [m for m in model.modules() if getattr(m, "quantized", False)]
+    if any(c.calibration is not None for c in convs):
+        raise RuntimeError("nested calibration passes")
+    for c in convs:
+        c.sx = None
+    device = next(itertools.chain(model.parameters(), model.buffers())).device
+    col = _Collector()
+    was_training = model.training
+    model.eval()
+    for c in convs:
+        c.calibration = col
+    try:
+        for x in batches:
+            model(torch.as_tensor(x).to(device))
+    finally:
+        for c in convs:
+            c.calibration = None
+        model.train(was_training)
+    for conv, slots in col.maxima.items():
+        n = max(slots) + 1
+        if sorted(slots) != list(range(n)):
+            raise AssertionError(f"non-contiguous calibration slots {sorted(slots)}")
+        conv.sx = torch.tensor([max(slots[i], 1e-12) for i in range(n)], dtype=torch.float32,
+                               device=conv.w8.device)
+    return model
+
+
+def quantize_model(model: nn.Module) -> nn.Module:
+    """Quantize, in place, the kernel of every `Conv` of ``model`` whose
+    kernel is not 2x2 (the JAX package's ``quantize_params`` rule, which
+    keeps the U-Nets' 2x2 transposed-conv upsamplers float: the port's
+    `ConvTranspose` is 2x2 only and never quantized). Quantizing twice is
+    a no-op. Returns ``model``."""
+    from mgtpu_torch.nn import Conv
+
+    for m in model.modules():
+        if isinstance(m, Conv) and m.k != 2 and not m.quantized:
+            m.set_quantized(**quantize_kernel(m.w))
+    return model

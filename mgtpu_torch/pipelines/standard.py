@@ -13,6 +13,7 @@ shape (`train.lua:184-199`).
 from __future__ import annotations
 
 import os
+import sys
 import time
 from dataclasses import fields
 from typing import Dict
@@ -44,6 +45,60 @@ def host_cast_inputs(batch: dict, dtype) -> dict:
     if dtype is not None and x.dtype == torch.float32:
         x = x.to(dtype)
     return {"x": x, "y": torch.from_numpy(np.ascontiguousarray(batch["y"]))}
+
+
+def calib_window(i: int, batch_size: int, size: int):
+    """1-based inclusive index window(s) of the i-th int8 calibration
+    batch of a loader without ``sample``: consecutive disjoint windows,
+    wrapping when the split runs out. One or two (lo, hi) segments that
+    always hold min(batch_size, size) samples, so every calibration
+    forward sees one batch shape (the JAX package's ``calib_window``)."""
+    bs = min(batch_size, size)
+    start = (i * bs) % size  # 0-based
+    if start + bs <= size:
+        return [(start + 1, start + bs)]
+    return [(start + 1, size), (1, bs - (size - start))]
+
+
+def calibration_batches(loaders: dict, opt) -> list:
+    """``opt.int8Calib`` NHWC f32 batches of ``opt.batchSize`` from the
+    first of the train, eval and test splits, as the JAX Session draws
+    them: ``sample`` with the generator seeded ``manualSeed * 7919 + 13``
+    where the loader has it, else distinct windows (`calib_window`);
+    ten-crop stacks flattened to images."""
+    src = next(loaders[k] for k in ("train", "eval", "test") if k in loaders)
+    rng = np.random.default_rng(opt.manualSeed * 7919 + 13)
+    batches = []
+    for i in range(opt.int8Calib):
+        if hasattr(src, "sample"):
+            x, _ = src.sample(opt.batchSize, rng)
+        else:
+            parts = [src.get(lo, hi)[0] for lo, hi in calib_window(i, opt.batchSize, src.size())]
+            x = parts[0] if len(parts) == 1 else np.concatenate(parts)
+        if x.ndim > 4:
+            x = x.reshape((-1,) + x.shape[-3:])
+        batches.append(x)
+    return batches
+
+
+def quantize_session_model(model, loaders: dict, opt) -> None:
+    """``-int8``: quantize ``model`` in place (`mgtpu_torch.ops.quant`) and,
+    with ``-int8Calib N``, freeze static activation scales over N
+    calibration batches; print the JAX Session's lines."""
+    from mgtpu_torch.ops.quant import calibrate, quantize_model
+
+    quantize_model(model)
+    if opt.int8Calib > 0:
+        calibrate(model, calibration_batches(loaders, opt))
+        print(f"==> int8: conv kernels quantized; activation "
+              f"scales calibrated over {opt.int8Calib} batches (static)")
+    else:  # the JAX Session's line word for word, so the two logs compare
+        print("==> int8: conv kernels quantized (per-channel "
+              "weights, dynamic per-tensor activations, int32 "
+              "MXU accumulation)")
+        print("WARNING: dynamic activation scales take an absmax reduction of every "
+              "conv input before its quantize; add -int8Calib N to freeze static "
+              "scales", file=sys.stderr)
 
 
 class Session:
@@ -82,6 +137,8 @@ class Session:
         self.opt_state = (load_momentum(self.model, momentum) if momentum is not None
                           else sgd_init(self.model.parameters()))
         self.loaders = get_loaders(opt)
+        if opt.int8:  # after the resume, before the steps (opts refuses -train)
+            quantize_session_model(self.model, self.loaders, opt)
         self.meta = model_meta(opt)
         self.pool = DonkeyPool(opt.nDonkeys, mode=opt.donkeyMode, opt=opt, loaders=self.loaders)
         self.epoch = opt.epochNumber
@@ -92,7 +149,9 @@ class Session:
         mk_eval = make_tencrop_eval_step if opt.tenCrop else make_eval_step
         self.test_step = mk_eval(self.model, self.loss_fn, self.net, "test")
         self.eval_step = mk_eval(self.model, self.loss_fn, self.net, "eval")
-        self.cast_dtype = self.compute_dtype if opt.hostCast else None
+        # int8 quantizes the raw input, with no compute-dtype cast: a host
+        # cast would round the images the scales were calibrated without
+        self.cast_dtype = self.compute_dtype if opt.hostCast and not opt.int8 else None
         self._loggers: Dict[str, EpochLogger] = {}
 
     def to_device(self, batch: dict) -> dict:

@@ -22,10 +22,16 @@ The net's flags take the JAX package's names (``--depth`` for the
 ILSVRC nets, ``--shortcutType`` for ``ilsvrc/prnmgseg``, ``--nLayer``
 and ``--isDropout`` where the net has them, ``--dataset``); the images
 follow the net (224x224x3 for ILSVRC, 32x32x3 for CIFAR, 64x64x1 for
-cluttered MNIST), and a checkpoint names its net. Serves bf16. Prints
-one JSON line per batch size: output shape, top-1 of the first images
-(a classifier) or the range of the probabilities (an mnist net), and
-the median latency of 5 calls on the named device.
+cluttered MNIST), and a checkpoint names its net. Serves bf16; with
+``--int8`` the convs are quantized after the fold (`ops/quant.py`:
+int8 kernels and activations, the `conv_i8` kernel on the card), with
+static activation scales calibrated over ``--int8Calib N`` batches of
+seeded images, or dynamic ones (N = 0). Prints one JSON line per batch
+size: output shape, top-1 of the first images (a classifier) or the
+range of the probabilities (an mnist net), and the median latency of 5
+calls on the named device.
+
+    python -m mgtpu_torch.serve --random --int8 --int8Calib 2 --batches 1 128
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from mgtpu_torch.models import create_model, get_spec, list_models, net_options
 from mgtpu_torch.models.base import NetOpts
 from mgtpu_torch.nn import BatchNorm, Conv, ConvTranspose
 from mgtpu_torch.ops.fold import fold_batchnorm
+from mgtpu_torch.ops.quant import calibrate, quantize_model
 from mgtpu_torch.utils.bridge import load_jax_tree, read_mgtpu_ckpt
 
 
@@ -102,6 +109,10 @@ def read_checkpoint(path: str, opt: NetOpts) -> tuple[dict, NetOpts]:
     return blob, NetOpts.from_meta(meta)
 
 
+# images a batch of the int8 calibration (tools/bench_serving.py's)
+CALIB_BATCH = 8
+
+
 class Server:
     """A ported net behind ``predict``: BN folded, conv and transposed
     conv weights in ``compute_dtype`` (biases, the classifier's bias and
@@ -110,13 +121,22 @@ class Server:
 
     ``ckpt`` is an mgtpu-ckpt written by the JAX trainer, which names
     its net; without it the weights come from ``seed`` (random, with
-    calibrated BatchNorms, for smoke tests and timing)."""
+    calibrated BatchNorms, for smoke tests and timing).
+
+    ``int8``: after the fold, every conv whose kernel is not 2x2 is
+    quantized (`mgtpu_torch.ops.quant`, the order of
+    `tools/export_model.py`), its activation scales calibrated over
+    ``int8_calib`` batches of ``CALIB_BATCH`` seeded normal images
+    (static) or, with 0, computed per call (dynamic); images go in as
+    f32, since the int8 path quantizes the raw input."""
 
     def __init__(self, opt: NetOpts = NetOpts(), ckpt: Optional[str] = None, seed: int = 0,
                  device: str | torch.device = "cuda",
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16, int8: bool = False,
+                 int8_calib: int = 0):
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
+        self.int8 = int8
         gen = torch.Generator().manual_seed(seed)
         if ckpt is not None:
             blob, opt = read_checkpoint(ckpt, opt)
@@ -127,18 +147,26 @@ class Server:
         else:
             calibrate_batchnorm(model, gen, self.image_shape)
         fold_batchnorm(model)
+        if int8:
+            quantize_model(model)
         with torch.no_grad():  # cast once, not on every call
             for m in model.modules():
-                if isinstance(m, (Conv, ConvTranspose)):
+                if isinstance(m, (Conv, ConvTranspose)) and not getattr(m, "quantized", False):
                     m.w.data = m.w.data.to(compute_dtype)
         self.model = model.to(self.device).eval()
+        if int8 and int8_calib:
+            rng = np.random.default_rng(seed)
+            calibrate(self.model, [rng.standard_normal((CALIB_BATCH, *self.image_shape),
+                                                       dtype=np.float32)
+                                   for _ in range(int8_calib)])
 
     @torch.inference_mode()
     def predict(self, images) -> torch.Tensor:
         """images (B, H, W, C) NHWC (numpy or torch; ``self.image_shape``)
         -> on ``self.device``, f32 log-probs (B, classes) of a classifier
         or per-pixel probabilities (B, H, W, classes) of an mnist net."""
-        x = torch.as_tensor(images).to(self.device, self.compute_dtype)
+        x = torch.as_tensor(images).to(self.device,
+                                       torch.float32 if self.int8 else self.compute_dtype)
         if x.dim() != 4 or tuple(x.shape[1:]) != self.image_shape:
             raise ValueError(f"expected (B, {', '.join(map(str, self.image_shape))}) NHWC "
                              f"images, got {tuple(x.shape)}")
@@ -177,9 +205,15 @@ def main(argv=None) -> None:
     add_net_arguments(ap, argv)
     ap.add_argument("--batches", type=int, nargs="+", default=[1, 8, 32])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--int8", action="store_true",
+                    help="serve int8-quantized convs (after the BN fold)")
+    ap.add_argument("--int8Calib", type=int, default=0, metavar="N",
+                    help="with --int8: static activation scales from N batches of "
+                         f"{CALIB_BATCH} seeded images (0: dynamic scales)")
     args = ap.parse_args(argv)
 
-    server = Server(parsed_net_opts(args), ckpt=args.ckpt, device=args.device)
+    server = Server(parsed_net_opts(args), ckpt=args.ckpt, device=args.device, int8=args.int8,
+                    int8_calib=args.int8Calib if args.int8 else 0)
     dev = server.device
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     label = get_spec(server.opt.netType).describe(server.opt)
@@ -199,7 +233,8 @@ def main(argv=None) -> None:
         fit = ({"top1_first": y[:5].argmax(-1).tolist()} if y.dim() == 2 else
                {"prob_range": [float(y.min()), float(y.max())]})
         print(json.dumps({
-            "net": label, "dtype": "bf16", "batch": b,
+            "net": label, "dtype": ("int8-static" if args.int8Calib else "int8-dynamic")
+            if args.int8 else "bf16", "batch": b,
             "device": name, "out_shape": list(y.shape),
             "finite": bool(torch.isfinite(y).all()), **fit,
             "p50_latency_ms": float(np.median(lat)) * 1e3,

@@ -4,8 +4,9 @@
 (nested dicts keyed '0', '1', ... with numpy or torch leaves: conv
 ``w`` HWIO and ``b``; BN ``scale``/``bias`` and stats ``mean``/``var``;
 empty dicts for folded BNs, identity shortcuts and layers, pools and
-heads without parameters) into a port module; ``export_jax_tree`` is
-its inverse. A block with a ``jax_keys`` dict (JAX key -> attribute)
+heads without parameters; a quantized conv's ``w`` is the dict
+``{"w8", "scale"[, "sx"]}`` of `mgtpu.ops.quant`) into a port module;
+``export_jax_tree`` is its inverse. A block with a ``jax_keys`` dict (JAX key -> attribute)
 maps each child that is not None under its key. ``load_momentum`` and ``export_momentum`` carry the SGD
 state: the JAX ``{"m": tree}`` with the parameter tree's structure, the
 port's ``{"m": [buffer per parameter]}`` (`mgtpu_torch.train.optim`).
@@ -45,13 +46,28 @@ def _expect_keys(tree: dict, keys: set, path: str) -> None:
         raise KeyError(f"{path or '<root>'}: tree keys {sorted(tree)} != expected {sorted(keys)}")
 
 
+def _tensor(value) -> torch.Tensor:
+    # np.array copies: a numpy view of a JAX array is read-only
+    return value if isinstance(value, torch.Tensor) else torch.from_numpy(np.array(value))
+
+
 @torch.no_grad()
 def _copy(dst: torch.Tensor, value, path: str) -> None:
-    # np.array copies: a numpy view of a JAX array is read-only
-    src = value if isinstance(value, torch.Tensor) else torch.from_numpy(np.array(value))
+    src = _tensor(value)
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(f"{path}: shape {tuple(src.shape)} != {tuple(dst.shape)}")
     dst.copy_(src)
+
+
+def _kernel(conv: Conv):
+    """A conv's kernel leaf: its weight, or, quantized, the JAX package's
+    ``{"w8", "scale"[, "sx"]}`` dict of its buffers."""
+    if not conv.quantized:
+        return conv.w
+    q = {"w8": conv.w8, "scale": conv.scale}
+    if conv.sx is not None:
+        q["sx"] = conv.sx
+    return q
 
 
 def _live(m: nn.Module, path: str = "") -> tuple[dict, dict]:
@@ -59,8 +75,8 @@ def _live(m: nn.Module, path: str = "") -> tuple[dict, dict]:
     own parameters and buffers as leaves."""
     if isinstance(m, Conv):
         if m.b is None:
-            return {"w": m.w}, {}
-        return {"w": m.w, "b": m.b}, {}
+            return {"w": _kernel(m)}, {}
+        return {"w": _kernel(m), "b": m.b}, {}
     if isinstance(m, ConvTranspose):
         return {"w": m.w, "b": m.b}, {}
     if isinstance(m, BatchNorm):
@@ -120,9 +136,10 @@ def _zip(live, tree, fn, path: str = "") -> None:
         _expect_keys(tree, set(live), path)
         for k, v in live.items():
             _zip(v, tree[k], fn, f"{path}.{k}")
-    elif isinstance(tree, dict):  # e.g. an int8 conv's {"w8", "scale", ...}
-        raise NotImplementedError(f"{path}: the tree holds {sorted(tree)}, the port one "
-                                  f"array (int8-quantized convs are not ported)")
+    elif isinstance(tree, dict):
+        raise KeyError(f"{path}: the tree holds {sorted(tree)} where the port holds one "
+                       f"array (a quantized kernel goes only onto a Conv of kernel size "
+                       f"other than 2)")
     else:
         fn(live, tree, path)
 
@@ -160,24 +177,47 @@ def load_momentum(model: nn.Module, opt_tree: dict) -> dict:
     return {"m": [m[id(p)] for p in model.parameters()]}
 
 
+def _quantize_from(conv: Conv, q: dict, path: str) -> None:
+    """Quantize ``conv`` (again, if it is) with the tree's int8 kernel
+    ``q = {"w8", "scale"[, "sx"]}``: its buffers are the tree's arrays."""
+    kernel = conv.w8 if conv.quantized else conv.w
+    w8, scale = _tensor(q["w8"]), _tensor(q["scale"])
+    if tuple(w8.shape) != tuple(kernel.shape) or tuple(scale.shape) != (kernel.shape[3],):
+        raise ValueError(f"{path}: w8 {tuple(w8.shape)} and scale {tuple(scale.shape)} "
+                         f"for a {tuple(kernel.shape)} kernel")
+    conv.set_quantized(w8.to(kernel.device, torch.int8), scale.to(kernel.device, torch.float32))
+    if "sx" in q:
+        conv.sx = _tensor(q["sx"]).to(kernel.device, torch.float32)
+
+
 def load_jax_tree(model: nn.Module, params: dict, stats: dict) -> nn.Module:
     """Copy a JAX (params, stats) tree into ``model`` in place (values
     are cast to each parameter's dtype and device); returns ``model``.
     A BN whose tree is an empty dict (folded in the JAX package) is
-    folded in the port too. Raises on any key, shape or structure
-    mismatch."""
+    folded in the port too, and a conv whose kernel is quantized there
+    (``{"w8", "scale"[, "sx"]}``, on a kernel that is not 2x2) is
+    quantized here (`mgtpu_torch.ops.quant`). Raises on any key, shape
+    or structure mismatch."""
     bns = {id(m.scale): m for m in model.modules()
            if isinstance(m, BatchNorm) and not m.folded}
+    convs = {id(m.w8 if m.quantized else m.w): m for m in model.modules()
+             if isinstance(m, Conv) and m.k != 2}
 
-    def fold_marked(live, tree):
-        if tree == {} and "scale" in live:
+    def mark(live, tree, path=""):
+        if not isinstance(tree, dict):
+            return
+        if not tree and id(live.get("scale")) in bns:
             bns[id(live["scale"])].drop_folded()
-        elif isinstance(tree, dict):
-            for k in live.keys() & tree.keys():
-                if isinstance(live[k], dict):
-                    fold_marked(live[k], tree[k])
+        for k in live.keys() & tree.keys():
+            lv, tv = live[k], tree[k]
+            if k == "w" and isinstance(tv, dict) and "w8" in tv:
+                conv = convs.get(id(lv["w8"] if isinstance(lv, dict) else lv))
+                if conv is not None:  # else the copy below raises on the structure
+                    _quantize_from(conv, tv, f"{path}.w")
+            elif isinstance(lv, dict):
+                mark(lv, tv, f"{path}.{k}")
 
-    fold_marked(_live(model)[0], params)
+    mark(_live(model)[0], params)
     p, s = _live(model)
     _zip(p, params, _copy)
     _zip(s, stats, _copy)

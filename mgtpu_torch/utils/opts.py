@@ -8,7 +8,9 @@ are the JAX package's; the port adds ``-device``.
 
 A flag whose function the port does not have yet is refused with the
 ROADMAP item that ports it (:data:`REFUSED`): none is silently
-ignored.
+ignored. ``-int8`` with ``-train`` stops the run as the JAX Session does
+(int8 is an inference-only path); ``-int8Calib`` without ``-int8`` is
+ignored, as the JAX Session ignores it.
 """
 
 from __future__ import annotations
@@ -19,7 +21,6 @@ import time
 from typing import Optional, Sequence
 
 PARALLEL = "ROADMAP Queue 1 item 4 (parallel/mesh.py)"
-QUANT = "ROADMAP Queue 1 item 5 (ops/quant.py)"
 REMAT = "ROADMAP Queue 1 item 3 (the train-step options)"
 SALIENCY = "ROADMAP Queue 1 item 6 (the saliency pipeline)"
 # flag -> (is it asked for, given the parsed options; what ports it)
@@ -28,8 +29,6 @@ REFUSED = {
     "-tensor": (lambda o: o.tensor > 1, PARALLEL),
     "-zero1": (lambda o: o.zero1, PARALLEL),
     "-multihost": (lambda o: o.multihost, PARALLEL),
-    "-int8": (lambda o: o.int8, QUANT),
-    "-int8Calib": (lambda o: o.int8Calib != 0, QUANT),
     "-remat": (lambda o: o.remat, REMAT),
     "-pipeline": (lambda o: o.pipeline != "standard", SALIENCY),
     "-saliencyBatch": (lambda o: o.saliencyBatch != 4, SALIENCY),
@@ -126,9 +125,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-remat", action="store_true",
                    help=f"activation rematerialization; not ported yet: {REMAT}")
     p.add_argument("-int8", action="store_true",
-                   help=f"int8 inference; not ported yet: {QUANT}")
+                   help="post-training int8 inference: per-output-channel int8 conv "
+                        "kernels, per-tensor int8 activations, int32 sums on the "
+                        "card's int8 tensor cores (mgtpu_torch/ops/quant.py); an "
+                        "inference-only path, refused with -train")
     p.add_argument("-int8Calib", type=int, default=0,
-                   help=f"int8 static scales; not ported yet: {QUANT}")
+                   help="with -int8: freeze static activation scales, the largest "
+                        "absmax over N batches drawn from the first of the train, "
+                        "eval and test splits (0 = dynamic per-tensor scales, one "
+                        "extra reduction per conv input)")
     p.add_argument("-donkeyMode", default="thread", choices=["thread", "process"],
                    help="donkey pool concurrency: threads share loaders "
                         "under the GIL; processes rebuild loaders per "
@@ -205,6 +210,8 @@ def parse(argv: Optional[Sequence[str]] = None):
     for flag, (asked, item) in REFUSED.items():
         if asked(opt):
             raise SystemExit(f"{flag} {getattr(opt, flag[1:])} is not ported yet: {item}")
+    if opt.int8 and opt.train:  # the JAX Session's check, in its words
+        raise SystemExit("-int8 is an inference-only path; drop -train")
 
     # run dir: cache/<dataset>/<flag-string>/<date> (opts.lua:79-88)
     defaults = {a.dest: a.default for a in parser._actions}

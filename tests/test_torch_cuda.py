@@ -286,7 +286,7 @@ def test_rmg18_forward_launches_and_matches_cpu(dev):
         kernels.reset_launches()
         got = model(x.to(dev)).cpu()
     assert kernels.LAUNCHES == {"conv3x3": 56, "conv3x3_bn_relu_in": 0, "maxpool2": 26,
-                                "maxpool2_bwd": 0}
+                                "maxpool2_bwd": 0, "conv_i8": 0}
     # f32 on both sides; the deep random-init net amplifies the
     # summation-order differences, so the bound is relative
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
@@ -374,7 +374,7 @@ def test_rmg18_train_step_launches_and_matches_cpu(dev):
     loss = nll_loss(model(x.to(dev)), y.to(dev))
     loss.backward()
     assert kernels.LAUNCHES == {"conv3x3": 38, "conv3x3_bn_relu_in": 18, "maxpool2": 26,
-                                "maxpool2_bwd": 26}
+                                "maxpool2_bwd": 26, "conv_i8": 0}
     # f32 on both sides, summation order only
     torch.testing.assert_close(loss.cpu(), ref.detach(), rtol=1e-4, atol=0)
 
@@ -440,5 +440,80 @@ def test_unmg_forward_launches_and_matches_cpu(dev):
         kernels.reset_launches()
         got = model(x.to(dev)).cpu()
     assert kernels.LAUNCHES == {"conv3x3": 25, "conv3x3_bn_relu_in": 0, "maxpool2": 16,
-                                "maxpool2_bwd": 0}
+                                "maxpool2_bwd": 0, "conv_i8": 0}
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+
+
+# (n, h, w, ci, co, k, stride, pad, ci_total, ofs): the 3x3 bulk (Ci a
+# multiple of 16: 16-byte loads), the 7x7/2 stems on 3 and 1 channels,
+# the 1x1 heads (Co = 10, 1), strided 1x1 and 3x3, Ci of one and a half
+# chunks (24), a weight slice at input channel 3, tails of both tiles
+CONV_I8_SHAPES = [(2, 14, 14, 64, 64, 3, 1, 1, 64, 0), (1, 56, 56, 16, 32, 3, 1, 1, 48, 16),
+                  (2, 35, 33, 3, 16, 7, 2, 3, 3, 0), (2, 64, 64, 1, 8, 7, 2, 3, 1, 0),
+                  (3, 8, 8, 64, 10, 1, 1, 0, 64, 0), (1, 9, 7, 24, 1, 1, 2, 0, 27, 3),
+                  (2, 9, 11, 24, 130, 3, 2, 1, 27, 3), (1, 7, 7, 512, 512, 3, 1, 1, 768, 256)]
+
+
+@pytest.mark.parametrize("shape", CONV_I8_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_conv_i8_is_bit_exact(dev, shape):
+    """conv_i8 equals its plain version exactly: the int32 sums, and the
+    fused f32 and bf16 dequants bit for bit, x aligned (16-byte loads
+    where Ci % 16 == 0) and 4 bytes off a 16-byte boundary (byte loads);
+    one launch a call."""
+    from mgtpu_torch.ops.cuda_conv_i8 import conv_i8, conv_i8_plain
+
+    n, h, w, ci, co, k, stride, pad, ci_total, ofs = shape
+    g = torch.Generator(device=dev).manual_seed(7)
+    x8 = torch.randint(-127, 128, (n, h, w, ci), generator=g, device=dev).to(torch.int8)
+    w8 = torch.randint(-127, 128, (k, k, ci_total, co), generator=g,
+                       device=dev).to(torch.int8)[:, :, ofs:ofs + ci]
+    v = 1e-4 + 1e-3 * torch.rand(co, generator=g, device=dev)
+    ref = conv_i8_plain(x8, w8, stride, pad)
+    for x in (x8, misaligned(x8)):
+        kernels.reset_launches()
+        assert torch.equal(conv_i8(x, w8, stride, pad), ref)
+        for dtype in (torch.float32, torch.bfloat16):
+            got = conv_i8(x, w8, stride, pad, v, dtype)
+            assert got.dtype == dtype
+            assert torch.equal(got, conv_i8_plain(x8, w8, stride, pad, v, dtype))
+        assert kernels.LAUNCHES["conv_i8"] == 3
+
+
+def test_conv_i8_refuses_what_it_does_not_take(dev):
+    from mgtpu_torch.ops.cuda_conv_i8 import conv_i8
+
+    x8 = torch.zeros((1, 4, 4, 8), dtype=torch.int8, device=dev)
+    w8 = torch.zeros((3, 3, 8, 4), dtype=torch.int8, device=dev)
+    with pytest.raises(TypeError, match="int8"):
+        conv_i8(x8.float(), w8, 1, 1)
+    with pytest.raises(ValueError, match="not an HWIO input-channel slice"):
+        conv_i8(x8, w8.transpose(2, 3).contiguous().transpose(2, 3), 1, 1)
+    with pytest.raises(ValueError, match="contiguous f32"):
+        conv_i8(x8, w8, 1, 1, torch.ones(5, device=dev), torch.float32)
+    with pytest.raises(ValueError, match="leave no output"):
+        conv_i8(x8, torch.zeros((7, 7, 8, 4), dtype=torch.int8, device=dev), 1, 0)
+
+
+def test_int8_server_launches_conv_i8_per_part(dev):
+    """An int8 R-MG-18 served on the card launches conv_i8 once a conv
+    part and no 3x3 conv kernel, and its f32 forward gives the CPU's with
+    the same frozen scales (both sides: the same quantized activations,
+    int32 sums and dequants; bound 1e-5 of the scale, chip_smoke.py's
+    rule, which a quantize step flipped on one side exceeds)."""
+    from chip_smoke import record_kernel_shapes
+    from mgtpu_torch.models import NetOpts
+    from mgtpu_torch.serve import Server
+
+    opt = NetOpts(depth=18)
+    per = {k: sum(c.values()) for k, c in record_kernel_shapes(False, opt, int8=True).items()}
+    gpu = Server(opt, device=dev, compute_dtype=torch.float32, int8=True, int8_calib=1)
+    cpu = Server(opt, device="cpu", compute_dtype=torch.float32, int8=True)
+    for a, b in zip(cpu.model.modules(), gpu.model.modules()):
+        if getattr(b, "quantized", False):
+            a.sx = b.sx.cpu()
+    x = np.random.default_rng(44).standard_normal((2, 224, 224, 3), dtype=np.float32)
+    kernels.reset_launches()
+    got = gpu.predict(x).cpu()
+    assert kernels.LAUNCHES == per and per["conv3x3"] == 0 and per["conv_i8"] > 0
+    ref = cpu.predict(x)
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()

@@ -2,7 +2,8 @@
 package's (`mgtpu/utils/opts.py`): every recipe under scripts/ parses to
 the same values, key by key, and to the same run-dir flag string; what
 the port does not have yet is refused with the ROADMAP item that ports
-it. Exact comparisons (parsed values, no arithmetic)."""
+it; the int8 flags follow the JAX Session's rules. Exact comparisons
+(parsed values, no arithmetic)."""
 
 import os
 
@@ -51,8 +52,6 @@ BASE = ["-netType", "cifar/nmg", "-dataset", "cifar100-whitened", "-train"]
     (["-tensor", "2"], "item 4"),
     (["-zero1"], "item 4"),
     (["-multihost"], "item 4"),
-    (["-int8"], "item 5"),
-    (["-int8Calib", "8"], "item 5"),
     (["-remat"], "item 3"),
     (["-pipeline", "saliency"], "item 6"),
     (["-saliencyBatch", "8"], "item 6"),
@@ -63,6 +62,28 @@ def test_unported_flag_is_refused(flags, item):
     with pytest.raises(SystemExit, match=item):
         opts.parse(BASE + flags)
     jax_opts.parse(BASE + flags)  # the JAX CLI takes it
+
+
+TEST = ["-netType", "cifar/nmg", "-dataset", "cifar100-whitened", "-test"]
+
+
+@pytest.mark.parametrize("flags", [["-int8"], ["-int8", "-int8Calib", "8"], ["-int8Calib", "8"]],
+                         ids=["-int8", "-int8Calib", "-int8Calib-alone"])
+def test_int8_flags_parse_to_the_jax_values(flags):
+    """-int8 and -int8Calib parse to the JAX values and run dir; without
+    -int8, -int8Calib is parsed and ignored, as the JAX Session ignores
+    it (the Session quantizes only under -int8)."""
+    ref, got = jax_opts.parse(TEST + flags), opts.parse(TEST + flags)
+    assert (got.int8, got.int8Calib) == (ref.int8, ref.int8Calib)
+    assert _flag_string(got) == _flag_string(ref)
+
+
+def test_int8_with_train_is_refused_in_the_jax_words():
+    """The JAX Session stops -train -int8 ("-int8 is an inference-only
+    path; drop -train"); the port stops it at parsing, in those words."""
+    with pytest.raises(SystemExit, match="-int8 is an inference-only path; drop -train"):
+        opts.parse(BASE + ["-int8"])
+    jax_opts.parse(BASE + ["-int8"])  # the JAX parser takes it; its Session refuses
 
 
 def test_net_flags_take_a_single_dash():
