@@ -14,7 +14,8 @@ every path went through the kernels and agrees with the port's plain
 CPU path in f32, times the kernels, the serving forward and the
 training step with CUDA events, runs two recipes through the run
 loop, `mgtpu_torch.main`, and serves R-MG-34, cifar/prnmg and unmg under
-int8 (`Server(int8=True)`, `-test -int8`). Phases:
+int8 (`Server(int8=True)`, `-test -int8`) through the int8 conv and the
+activation quantizer kernels. Phases:
 
   1 device   the card, and its name and power limit from nvidia-smi
   2 build    nvcc over mgtpu_torch/csrc/*.cu, bound with ctypes
@@ -135,32 +136,48 @@ int8 (`Server(int8=True)`, `-test -int8`). Phases:
              stride, pad, weight slice) the int8 serving forwards of
              R-MG-34 (batches 1 and 128), cifar/prnmg (128) and unmg (64)
              give it, recorded on the CPU and held to the pins
-             (I8_PER_FORWARD): the int32 sums and the fused f32 and bf16
-             dequants equal bit for bit, full-range int8 operands, the
-             batch-1 cases also with x off a 16-byte boundary
+             (I8_PER_FORWARD, I8_ROUTES): through the design
+             cuda_conv_i8._route picks (sm90: TMA + wgmma s8 for the 3x3/s1
+             parts with channels and offsets multiples of 16; simple: the
+             rest) and, at the sm90 shapes, through the simple design too;
+             each epilogue variant of I8_VARIANTS (int32 sums; f32 and bf16
+             dequants with the scale read on the card; with the part sum,
+             the bias and the ReLU) equal bit for bit, full-range int8
+             operands, the batch-1 cases also with x off a 16-byte boundary
  24 i8 serve each of those nets served under int8 through Server (BN
              folded, then quantized; bf16) at those batches with static
              scales (I8_CALIB batches) and, R-MG-34, dynamic ones:
-             outputs checked, the pinned launches per forward (conv_i8
-             once a conv part, the pools as in the float forward, no 3x3
-             conv kernel), the distance from the bf16 forward of the same
-             weights (prnmg and unmg: one median time of each, int8 and
-             bf16, interleaved); the f32 int8 forward on the card vs the plain CPU
-             one with the same frozen scales (1e-5 of the scale or three
-             times the CPU's own change under images moved by 1e-6)
+             outputs checked, the pinned launches per forward (quant_i8
+             and conv_i8 once a conv part, quant_i8 twice with dynamic
+             scales; the pools as in the float forward; no 3x3 conv
+             kernel) and conv_i8's pinned designs; a second forward in
+             which every quantizer call is held to quantize_act's torch
+             ops (and the nearest upsample) on the same activation on the
+             card, int8 values and scales equal; the distance from the
+             bf16 forward of the same weights (prnmg and unmg: one median
+             time of each, int8 and bf16, interleaved); the f32 int8
+             forward on the card vs the plain CPU one with the same frozen
+             scales (1e-5 of the scale)
  25 i8 run loop  cifar/nmg trained 2 x 4 iterations and tested in f32
              through mgtpu_torch.main, then its checkpoint re-tested
              with -test -int8 -int8Calib 2 and -test -int8: the
              "==> int8:" lines, the test loss within 5% of the float one,
              the unfolded int8 forward's launches per test and
              calibration forward
- 26 i8 times R-MG-34's int8 (static) and bf16 serving forwards at batch
-             128 and 1, and the dynamic int8 one at 128, interleaved (7
-             windows), with the card's busy
-             share from a profile; conv_i8 at each shape of the batch-128
-             int8 forward beside its plain version and, a different
-             function, the bf16 conv3x3 kernel (3x3/s1 shapes) and
-             cuDNN's bf16 conv; its bound at the int8 peak
+ 26 i8 times R-MG-34's int8 (static and dynamic scales) and bf16
+             serving forwards at batch 128 and 1, interleaved (7
+             windows), with the card's busy time from a profile (the sum
+             of its kernels' device times, beside key_averages' sum, which
+             counts a kernel a torch op launched twice)
+             and, for the int8 forward at 128, its busy time by kernel
+             name (top 10) and its kernels per forward; conv_i8 at each
+             shape of the batch-128 int8 forward through its design and,
+             at the sm90 shapes, the simple design, beside its plain
+             version and, a different function, the bf16 conv3x3 kernel
+             (3x3/s1 shapes) and cuDNN's bf16 conv; its bound at the int8
+             peak; quant_i8 at each quantizer shape of that forward beside
+             its plain torch ops and, a different function on an f32 copy,
+             torch.quantize_per_tensor; its bound at HBM's rate
 
 Any failed check exits non-zero. The second-to-last line of stdout is
 one JSON object with the kernels: ``launches`` sums each kernel's
@@ -182,12 +199,15 @@ own), its times and bounds per batch-128 forward or 64 x 2 step (phase
 15); under each net of phases 16-20 that launches it, the same numbers
 for that net (its launches in phases 18 and 19, its times and bounds per
 forward at its largest serving batch or per training step, phase 20).
-The last entry is ``conv_i8``: its launches in phases 24 and 25, its
-largest error (phase 23: 0, the comparisons are exact), its time, its
-plain version's and its bound per batch-128 int8 R-MG-34 forward (phase
-26), ``library_ms`` null (no PyTorch call computes an int8 conv on
-CUDA), and, a different function at the same shapes, the bf16 conv3x3
-kernel's and cuDNN's bf16 times.
+The last two entries are ``conv_i8`` and ``quant_i8``: their launches in
+phases 24 and 25, their largest error (phase 23 and phase 24's
+quantizer checks: 0, the comparisons are exact), their time, their
+plain version's and their bound per batch-128 int8 R-MG-34 forward
+(phase 26), ``library_ms`` null (no PyTorch call computes an int8 conv
+on CUDA, or this quantizer), and for ``conv_i8`` its time by design and
+the simple design's at every shape, and, a different function at the
+same shapes, the bf16 conv3x3 kernel's and cuDNN's bf16 times; for
+``quant_i8`` torch.quantize_per_tensor's (a different function).
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -219,6 +239,7 @@ from mgtpu_torch.ops import cuda_conv, cuda_conv_i8, cuda_pool
 from mgtpu_torch.ops.cuda_conv import (bn_relu_plain, conv3x3, conv3x3_bn_relu_in,
                                        conv3x3_bn_relu_in_plain, conv3x3_plain)
 from mgtpu_torch.ops.fold import fold_batchnorm
+from mgtpu_torch.ops import quant
 from mgtpu_torch.ops.quant import quantize_model
 from mgtpu_torch.ops.cuda_pool import (maxpool2, maxpool2_backward, maxpool2_bwd_plain,
                                        maxpool2_plain)
@@ -233,11 +254,11 @@ IMAGE_SHAPE = image_shape(RMG34)
 # launches per R-MG-34 serving forward (one per 3x3 same/down part; every
 # maxpool2_ceil of the exchange and the MgPools)
 PER_FORWARD = {"conv3x3": 112, "conv3x3_bn_relu_in": 0, "maxpool2": 46, "maxpool2_bwd": 0,
-               "conv_i8": 0}
+               "conv_i8": 0, "quant_i8": 0}
 # launches per training step: stage 2's 36 same-scale parts take the
 # prologue kernel instead of conv3x3; every pool is differentiated once
 PER_STEP = {"conv3x3": 76, "conv3x3_bn_relu_in": 36, "maxpool2": 46, "maxpool2_bwd": 46,
-            "conv_i8": 0}
+            "conv_i8": 0, "quant_i8": 0}
 # the (H, W, C) at which R-MG-34 pools, in either pass
 RMG34_POOLS = [(14, 14, 16), (14, 14, 32), (14, 14, 64), (14, 14, 128), (14, 14, 256),
                (28, 28, 32), (28, 28, 64), (28, 28, 128), (56, 56, 64)]
@@ -292,11 +313,19 @@ def phase(name: str, msg: str) -> None:
     print(f"[{name} {time.perf_counter() - T0:.0f}s] {msg}", flush=True)
 
 
-def i8_key(x8, w8, stride, pad, *args, **kw):
+def i8_key(x8, w8, stride, pad, *args, y_in=None, bias=None, **kw):
     """A conv_i8 call's recorded shape: (H, W, Ci, Co, k, stride, pad,
-    Ci of the whole weight, the slice's first input channel)."""
+    Ci of the whole weight, the slice's first input channel, whether it
+    takes a part sum, whether it takes the bias)."""
     k, co = w8.shape[0], w8.shape[3]
-    return (*x8.shape[1:], co, k, stride, pad, w8.stride(1) // co, w8.storage_offset() // co)
+    return (*x8.shape[1:], co, k, stride, pad, w8.stride(1) // co, w8.storage_offset() // co,
+            y_in is not None, bias is not None)
+
+
+def quant_key(x, sx=None, up=None):
+    """A quant_i8 call's recorded shape: (H, W, C of the input, the
+    output's (OH, OW))."""
+    return (*x.shape[1:], *(x.shape[1:3] if up is None else up))
 
 
 def record_kernel_shapes(train: bool, opt: NetOpts = RMG34, fold: bool = True,
@@ -315,7 +344,8 @@ def record_kernel_shapes(train: bool, opt: NetOpts = RMG34, fold: bool = True,
                  x.shape[1], x.shape[2], x.shape[3], a[0].shape[3])),
              (cuda_pool, "maxpool2_forward"): ("maxpool2", lambda x, *a: tuple(x.shape[1:])),
              (cuda_pool, "maxpool2_backward"): ("maxpool2_bwd", lambda x, *a: tuple(x.shape[1:])),
-             (cuda_conv_i8, "conv_i8"): ("conv_i8", i8_key)}
+             (cuda_conv_i8, "conv_i8"): ("conv_i8", i8_key),
+             (quant, "quant_i8"): ("quant_i8", quant_key)}
     originals = {key: getattr(*key) for key in hooks}
 
     def recording(key):
@@ -975,9 +1005,9 @@ CIFAR_RECIPES = {"cifar/nmg": (2, 128, 1), "cifar/rnmg": (3, 64, 2), "cifar/pnmg
 CIFAR_TIMED = "cifar/prnmg"  # runs every op of the slice and all four kernels
 
 
-def launch_counts(conv, prologue, pool, pool_bwd, conv_i8=0) -> dict:
+def launch_counts(conv, prologue, pool, pool_bwd, conv_i8=0, quant_i8=0) -> dict:
     return {"conv3x3": conv, "conv3x3_bn_relu_in": prologue, "maxpool2": pool,
-            "maxpool2_bwd": pool_bwd, "conv_i8": conv_i8}
+            "maxpool2_bwd": pool_bwd, "conv_i8": conv_i8, "quant_i8": quant_i8}
 
 
 # launches per serving forward (BN folded) and per training micro-batch
@@ -1221,23 +1251,66 @@ def interleaved_ms(fns, windows=5, min_reps=1):
     return [(statistics.median(p), (max(p) - min(p)) / statistics.median(p)) for p in per]
 
 
-def device_busy_ms(fn):
-    """The card's busy time of one call of fn (the sum of its kernels'
-    device times in a torch.profiler trace) and the wall time of the same
-    call, or None where the trace holds no device time. One call: the
-    trace of a step holds tens of thousands of events, and with three
-    calls phase 20 took 169 s (the log's timestamps), most of it reading
-    the traces of prnmg.mnist and prnmgseg."""
-    from torch.profiler import ProfilerActivity, profile
+# the port's kernels as the profiler names them (their launches are counted)
+PORT_KERNEL_NAMES = ("conv3x3", "maxpool2", "conv_i8", "quant_kernel", "absmax_kernel")
+
+
+def profile_kernels(fn, tries=3):
+    """One profiled call of fn: (the card's busy ms, the sum of the device
+    times of the kernels and copies it ran; {kernel name: (launches,
+    ms)}; the call's wall ms under the profiler; the sum of
+    key_averages()' self device times, which counts a kernel launched
+    by a torch op twice: as itself and on the host event that launched
+    it; the port's kernel launches in the trace; those the counters
+    saw). A trace could miss a call's first kernels (measured: 17 of the
+    356 launches of an int8 forward, in every try, late in this script's
+    run): an untimed call runs inside the trace first, and the timed
+    call's kernels are those inside its annotation's range on the card's
+    timeline. The call is profiled again, up to ``tries`` times, until
+    the trace holds every launch of the port's kernels that the counters
+    saw. Two calls a trace: the trace of a step holds tens of thousands
+    of events, and with three calls phase 20 took 169 s (the log's
+    timestamps), most of it reading the traces of prnmg.mnist and
+    prnmgseg."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            with record_function("profiled call"):
+                before = sum(kernels.LAUNCHES.values())
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                counted = sum(kernels.LAUNCHES.values()) - before
+        events = prof.events()
+        # the annotation's range on the card: from its first kernel to its last
+        span = [e.time_range for e in events
+                if e.name == "profiled call" and e.device_type == DeviceType.CUDA]
+        by_name = {}
+        for e in events:
+            if (e.device_type == DeviceType.CUDA and e.name != "profiled call" and span
+                    and span[0].start <= e.time_range.start and e.time_range.end <= span[0].end):
+                n, t = by_name.get(e.name, (0, 0.0))
+                by_name[e.name] = (n + 1, t + e.device_time_total / 1e3)
+        seen = sum(n for k, (n, _) in by_name.items() if any(p in k for p in PORT_KERNEL_NAMES))
+        if seen >= counted:
+            break
+    both = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.key != "profiled call") / 1e3 / 2  # two calls in the trace
+    return sum(t for _, t in by_name.values()), by_name, wall, both, seen, counted
+
+
+def device_busy_ms(fn):
+    """The card's busy time of one call of fn (profile_kernels) and the
+    wall time of the same call, or None where the trace holds no device
+    time."""
+    busy, _, wall, _, _, _ = profile_kernels(fn)
     return (busy, wall) if busy > 0 else None
 
 
@@ -1887,16 +1960,27 @@ def check_harness_chain(name) -> dict:
 I8_SERVE = {"ilsvrc/rnmg": (RMG34, (1, 128)),
             "cifar/prnmg": (cifar_opts("cifar/prnmg"), (CIFAR_SERVE_BATCH,)),
             "mnist-cluttered/unmg": (SEG_RECIPES["mnist-cluttered/unmg"][0], (64,))}
-# launches per int8 serving forward: one conv_i8 per quantized conv part
-# (the 3x3 down, same and up parts, the 1x1 shortcuts and heads, the 7x7
-# stems); the pools as in the float forward; no 3x3 conv kernel
-I8_PER_FORWARD = {"ilsvrc/rnmg": launch_counts(0, 0, 46, 0, 155),
-                  "cifar/prnmg": launch_counts(0, 0, 32, 0, 77),
-                  "mnist-cluttered/unmg": launch_counts(0, 0, 16, 0, 40)}
+# launches per int8 serving forward with static scales: one quant_i8 and
+# one conv_i8 per quantized conv part (the 3x3 down, same and up parts,
+# the 1x1 shortcuts and heads, the 7x7 stems); the pools as in the float
+# forward; no 3x3 conv kernel (i8_pins: dynamic scales add an absmax
+# launch of quant_i8 a part)
+I8_PER_FORWARD = {"ilsvrc/rnmg": launch_counts(0, 0, 46, 0, 155, 155),
+                  "cifar/prnmg": launch_counts(0, 0, 32, 0, 77, 77),
+                  "mnist-cluttered/unmg": launch_counts(0, 0, 16, 0, 40, 40)}
+# conv_i8's designs per int8 forward (cuda_conv_i8._route): sm90 takes
+# the 3x3/s1 parts whose channel counts and weight offsets are multiples
+# of 16; simple the 7x7/2 and 3x3 stems on 3 and 1 channels, the 1x1
+# shortcuts and heads
+I8_ROUTES = {"ilsvrc/rnmg": {"sm90": 152, "simple": 3},
+             "cifar/prnmg": {"sm90": 66, "simple": 11},
+             "mnist-cluttered/unmg": {"sm90": 30, "simple": 10}}
 # calibration batches of the static scales (Server's, CALIB_BATCH images each)
 I8_CALIB = 2
 KERNELS_I8 = {"conv_i8": dict(route="cuda", source="mgtpu_torch/csrc/conv_i8.cu",
-                              replaces="mgtpu/ops/quant.py:139")}
+                              replaces="mgtpu/ops/quant.py:139"),
+              "quant_i8": dict(route="cuda", source="mgtpu_torch/csrc/quant_i8.cu",
+                               replaces="mgtpu/ops/quant.py:60")}
 # the H100 SXM's published dense int8 tensor-core peak (NVIDIA's data sheet)
 PEAK_INT8_OPS = 1979e12
 # the run loop under -int8: tests/test_int8.py's contract (a float run's
@@ -1905,32 +1989,69 @@ I8_RUN = ["-netType", "cifar/nmg", "-dataset", "cifar100-whitened", "-data", "sy
           "-synthSize", "64", "-batchSize", "16", "-imageSize", "36", "-imageCrop", "32",
           "-nGPU", "1", "-nDonkeys", "0"]
 I8_LOSS_RTOL = 0.05
+# conv_i8's epilogue variants phase 23 holds each design to: (output
+# dtype, operands): the int32 sums; the dequant alone; with the part sum,
+# the bias and the ReLU; with the bias alone
+I8_VARIANTS = [(torch.int32, ()), (torch.float32, ("sx",)), (torch.bfloat16, ("sx",)),
+               (torch.float32, ("sx", "y_in", "bias", "relu")),
+               (torch.bfloat16, ("sx", "y_in", "bias", "relu")), (torch.bfloat16, ("sx", "bias"))]
+
+
+def i8_pins(net, dynamic=False) -> dict:
+    """The launches of one int8 forward of ``net``: I8_PER_FORWARD, with
+    two quant_i8 launches a part under dynamic scales."""
+    pins = dict(I8_PER_FORWARD[net])
+    pins["quant_i8"] *= 2 if dynamic else 1
+    return pins
+
+
+def i8_routes(shapes) -> dict:
+    """{design: launches} that cuda_conv_i8._route gives an int8 forward's
+    recorded conv_i8 calls: stand-in CPU tensors of their shapes (the
+    weight a slice of its conv's weight, with its packed copy; on the
+    card the quantized parts and the buffers are 16-byte aligned as
+    these are)."""
+    got = {"sm90": 0, "simple": 0}
+    for key, count in shapes.items():
+        h, w, ci, co, k, stride, pad, ci_total, ofs = key[:9]
+        x8 = torch.empty((1, h, w, ci), dtype=torch.int8)
+        w8 = torch.empty((k, k, ci_total, co), dtype=torch.int8)[:, :, ofs:ofs + ci]
+        wk = torch.empty((co, k * k * ci_total), dtype=torch.int8)
+        got[cuda_conv_i8._route(x8, w8, stride, pad, wk)] += count
+    return got
 
 
 def record_i8() -> dict:
     """{net: the int8 serving forward's kernel calls}, recorded on the CPU
-    and held to the pins."""
+    and held to the pins (the calls, and conv_i8's predicted designs)."""
     rec = {}
     for net, (opt, _) in I8_SERVE.items():
         rec[net] = record_kernel_shapes(False, opt, int8=True)
         got = {k: sum(c.values()) for k, c in rec[net].items()}
         check(got == I8_PER_FORWARD[net], f"{net}: the CPU int8 forward made kernel calls "
               f"{got}, expected {I8_PER_FORWARD[net]}")
+        routes = i8_routes(rec[net]["conv_i8"])
+        check(routes == I8_ROUTES[net], f"{net}: conv_i8 designs {routes}, pinned "
+              f"{I8_ROUTES[net]}")
     return rec
 
 
 def i8_work(key, batch, itemsize=2):
     """(operations, bytes) of one conv_i8 launch at a recorded shape and
     ``batch``, its output in ``itemsize`` bytes: multiply-adds (2 each)
-    on the taps inside the image; x and w read once (int8), v (f32) read
+    on the taps inside the image; x and w read once (int8), sx and v (f32)
+    read, the part sum y_in and the bias read where the launch takes them,
     and y written once."""
     h, w, ci, co, k, stride, pad = key[:7]
+    has_in, has_bias = key[9:11]
     oh, ow = cuda_conv_i8.out_size(h, k, stride, pad), cuda_conv_i8.out_size(w, k, stride, pad)
 
     def taps(n, m):  # in-image taps summed over the m outputs along a side of n
         return sum(sum(0 <= o * stride - pad + t < n for t in range(k)) for o in range(m))
 
-    nbytes = batch * h * w * ci + k * k * ci * co + 4 * co + itemsize * batch * oh * ow * co
+    out = batch * oh * ow * co
+    nbytes = (batch * h * w * ci + k * k * ci * co + 4 + 4 * co + 4 * co * has_bias
+              + itemsize * out * (1 + has_in))
     return 2 * batch * taps(h, oh) * taps(w, ow) * ci * co, nbytes
 
 
@@ -1947,48 +2068,114 @@ def i8_bounds(shapes, batch):
     return ops, nbytes, ms, "operations" if ms and 2 * ops_ms >= ms else "bytes"
 
 
+def quant_dtype(key):
+    """The dtype the bf16 int8 forward quantizes a recorded part in: the
+    stems' 3-channel images are f32, every other part bf16."""
+    return torch.float32 if key[2] == 3 else torch.bfloat16
+
+
+def quant_bytes(key, batch):
+    """Bytes one quant_i8 launch must move: the input read once, the
+    int8 output (upsampled for an "up" part) written once."""
+    h, w, c, oh, ow = key
+    return batch * c * (h * w * quant_dtype(key).itemsize + oh * ow)
+
+
 def i8_operands(key, batch, seed):
-    """Full-range int8 x (batch, H, W, Ci) and the weight slice the key
-    names (a view of a (k, k, Ci total, Co) weight at its input channel),
-    and a dequant vector v (Co,) f32, on the card."""
-    h, w, ci, co, k, _, _, ci_total, ofs = key
+    """Full-range int8 x (batch, H, W, Ci), the weight slice the key
+    names (a view of a (k, k, Ci total, Co) weight at its input channel)
+    with that weight's packed copy, a dequant vector v (Co,) f32 and an
+    activation scale sx (0-d f32), on the card."""
+    h, w, ci, co, k, _, _, ci_total, ofs = key[:9]
     g = torch.Generator(device="cuda").manual_seed(seed)
     x8 = torch.randint(-127, 128, (batch, h, w, ci), generator=g, device="cuda").to(torch.int8)
-    wide = torch.randint(-127, 128, (k, k, ci_total, co), generator=g, device="cuda")
+    wide = torch.randint(-127, 128, (k, k, ci_total, co), generator=g, device="cuda").to(
+        torch.int8)
     v = 1e-4 + 1e-3 * torch.rand(co, generator=g, device="cuda")
-    return x8, wide.to(torch.int8)[:, :, ofs:ofs + ci], v
+    sx = 0.5 + torch.rand((), generator=g, device="cuda")
+    return x8, wide[:, :, ofs:ofs + ci], cuda_conv_i8.pack_weight(wide), v, sx
 
 
-def check_conv_i8(cases, max_err) -> int:
-    """23: conv_i8 vs conv_i8_plain at each (recorded shape, batch): the
-    int32 sums equal, and the fused dequant in f32 and bf16 equal its
-    plain formula bit for bit (the plain conv in float64 on the card is
-    exact; the epilogue rounds as torch does). Each batch-1 case also
-    with x off a 16-byte boundary (the byte-load path). Returns the
-    number of cases."""
-    n = 0
+def check_conv_i8(cases, max_err) -> Counter:
+    """23: conv_i8 vs conv_i8_plain at each (recorded shape, batch),
+    through the design _route picks and, where that is sm90, through the
+    simple design too; the batch-1 cases also with x off a 16-byte
+    boundary (the simple design's byte loads). Each epilogue variant of
+    I8_VARIANTS: the int32 sums, and the f32 and bf16 epilogues equal the
+    plain version's bit for bit (the plain conv in float64 on the card is
+    exact; the epilogue rounds as torch does). Returns the cases by
+    design."""
+    designs = Counter()
     for i, (key, batch) in enumerate(sorted(cases)):
-        x8, w8, v = i8_operands(key, batch, seed=i)
+        x8, w8, wk, v, sx = i8_operands(key, batch, seed=i)
         stride, pad = key[5], key[6]
-        ref = cuda_conv_i8.conv_i8_plain(x8, w8, stride, pad)
-        xs = [x8] + ([misaligned(x8)] if batch == 1 else [])
-        for xi in xs:
-            before = kernels.LAUNCHES["conv_i8"]
-            outs = [(torch.int32, cuda_conv_i8.conv_i8(xi, w8, stride, pad))]
-            outs += [(dt, cuda_conv_i8.conv_i8(xi, w8, stride, pad, v, dt))
-                     for dt in (torch.float32, torch.bfloat16)]
-            check(kernels.LAUNCHES["conv_i8"] - before == 3, f"conv_i8 {key}: launched "
-                  f"{kernels.LAUNCHES['conv_i8'] - before} times for 3 calls")
-            for dt, y in outs:
-                want = ref if dt == torch.int32 else (ref.float() * v).to(dt)
+        acc = cuda_conv_i8.conv_i8_plain(x8, w8, stride, pad)
+        g = torch.Generator(device="cuda").manual_seed(10_000 + i)
+        bias = torch.randn(w8.shape[3], generator=g, device="cuda")
+        y0 = torch.randn(acc.shape, generator=g, device="cuda")
+        route = cuda_conv_i8._route(x8, w8, stride, pad, wk)
+        runs = [(route, x8, lambda xi, **kw: cuda_conv_i8.conv_i8(xi, w8, stride, pad, wk=wk,
+                                                                  **kw))]
+        if route == "sm90":
+            runs.append(("simple", x8, lambda xi, **kw: cuda_conv_i8._simple_forward(
+                xi, w8, stride, pad, **kw)))
+        if batch == 1:
+            runs.append(("simple", misaligned(x8), runs[0][2]))
+        for design, xi, fn in runs:
+            for dt, ops in I8_VARIANTS:
+                kw = {} if dt == torch.int32 else {"v": v, "dtype": dt, "sx": sx}
+                if "bias" in ops:
+                    kw["bias"] = bias
+                if "relu" in ops:
+                    kw["relu"] = True
+                want = acc if dt == torch.int32 else cuda_conv_i8.epilogue_plain(
+                    acc, v, dt, sx=sx, y_in=y0.to(dt) if "y_in" in ops else None,
+                    bias=kw.get("bias"), relu=kw.get("relu", False))
+                if "y_in" in ops:
+                    kw["y_in"] = y0.to(dt)
+                before = dict(kernels.ROUTES)
+                y = fn(xi, **kw)
+                check(routes_since(before) == {r: int(r == ("conv_i8", design))
+                                               for r in kernels.ROUTES},
+                      f"conv_i8 {batch}x{key}: designs {routes_since(before)}, expected {design}")
                 err = (y.double() - want.double()).abs().max().item()
                 check(y.dtype == dt and y.shape == want.shape and torch.equal(y, want),
-                      f"conv_i8 {batch}x{key} -> {dt}, x aligned={xi is x8}: max abs err "
-                      f"{err:.3g} against the plain version")
+                      f"conv_i8 {batch}x{key} -> {dt} {ops} through {design}, x aligned="
+                      f"{xi is x8}: max abs err {err:.3g} against the plain version")
                 max_err["conv_i8"] = max(max_err["conv_i8"], err)
-                n += 1
+                designs[design] += 1
     torch.cuda.synchronize()
-    return n
+    return designs
+
+
+@contextlib.contextmanager
+def checked_quant(stats):
+    """Within: every quant.quant_i8 call (the layers' quantizer) also runs
+    its plain version, quant_i8_plain (quantize_act's torch ops and the
+    nearest upsample), on the same input on the card, and ``stats``
+    counts the calls, the elements, and those whose int8 value or scale
+    differ, and keeps the largest difference of an int8 value."""
+    original = quant.quant_i8
+
+    def fn(x, sx=None, up=None):
+        x8, s = original(x, sx, up)
+        ref8, ref_s = quant.quant_i8_plain(x, sx, up)
+        stats["calls"] += 1
+        stats["dynamic"] += sx is None
+        stats["elements"] += x8.numel()
+        same = x8.shape == ref8.shape
+        stats["bad_values"] += int((x8 != ref8).sum()) if same else x8.numel()
+        if same and x8.numel():
+            diff = int((x8.int() - ref8.int()).abs().max())
+            stats["max_abs_err"] = max(stats["max_abs_err"], diff)
+        stats["bad_scales"] += int(not torch.equal(s.reshape(()), ref_s.reshape(())))
+        return x8, s
+
+    quant.quant_i8 = fn
+    try:
+        yield stats
+    finally:
+        quant.quant_i8 = original
 
 
 def i8_images(net, batch, seed):
@@ -1996,24 +2183,29 @@ def i8_images(net, batch, seed):
                                                        dtype=np.float32)
 
 
-def check_i8_serve(name) -> dict:
+def check_i8_serve(name) -> tuple[dict, Counter]:
     """24: each net served under int8 (BN folded, quantized, bf16) through
     Server at its serving batches, with static scales (I8_CALIB batches)
-    and, R-MG-34, dynamic ones: outputs checked, the pinned launches per
-    forward; its distance from the bf16 forward of the same weights (and,
-    but R-MG-34, one median time of each at the largest batch); the
-    f32 int8 forward on the card vs the plain CPU int8 forward (the same
-    frozen scales) within 1e-5 of the outputs' scale: conv_i8 is exact and
-    the layers around it (quantize, nearest upsample, dequant, bias, pools)
-    compute the same f32 values on both sides, so a quantize step that
-    flips on one side only (e.g. a divide done as a multiply by the
-    reciprocal) shows far above it. Returns {net: Counter of the serving
-    forwards' launches}."""
+    and, R-MG-34, dynamic ones: outputs checked, the pinned launches and
+    conv_i8 designs per forward; a second forward in which every quantizer
+    call is held to its plain torch ops on the same activation on the card
+    (checked_quant: int8 values and scales equal); its distance from the
+    bf16 forward of the same weights (and, but R-MG-34, one median time
+    of each at the largest batch); the f32 int8 forward on the card vs
+    the plain CPU int8 forward (the same frozen scales) within 1e-5 of the
+    outputs' scale: conv_i8 and quant_i8 are exact and the layers around
+    them (pools, BN-free heads) compute the same f32 values on both sides,
+    so a quantize step that flips on one side only (e.g. a divide done as
+    a multiply by the reciprocal) shows far above it. Returns ({net:
+    Counter of the serving forwards' launches}, the quantizer checks)."""
     launches = {net: Counter() for net in I8_SERVE}
+    qstats = Counter()
     for net, (opt, batches) in I8_SERVE.items():
         float_server = Server(opt, seed=0, device="cuda", compute_dtype=torch.bfloat16)
         for calib in (I8_CALIB, 0) if net == "ilsvrc/rnmg" else (I8_CALIB,):
             mode = f"static ({calib} batches)" if calib else "dynamic"
+            pins = i8_pins(net, dynamic=not calib)
+            routes_pin = {("conv_i8", d): n for d, n in I8_ROUTES[net].items()}
             t0 = time.perf_counter()
             server = Server(opt, seed=0, device="cuda", compute_dtype=torch.bfloat16, int8=True,
                             int8_calib=calib)
@@ -2022,20 +2214,33 @@ def check_i8_serve(name) -> dict:
                 x = i8_images(net, batch, seed=11)
                 kernels.reset_launches()
                 y = server.predict(x)
-                got = dict(kernels.LAUNCHES)
+                got, routes = dict(kernels.LAUNCHES), dict(kernels.ROUTES)
                 torch.cuda.synchronize()
-                check(got == I8_PER_FORWARD[net], f"{net} int8 {mode} batch {batch}: launches "
-                      f"{got}, expected {I8_PER_FORWARD[net]}")
+                check(got == pins, f"{net} int8 {mode} batch {batch}: launches {got}, expected "
+                      f"{pins}")
+                got_routes = {r: n for r, n in routes.items() if r[0] == "conv_i8"}
+                check(got_routes == routes_pin, f"{net} int8 {mode} batch {batch}: conv_i8 "
+                      f"designs {got_routes}, pinned {routes_pin}")
                 output_checks(f"{net} int8 {mode} batch {batch}", y, batch, opt)
                 launches[net].update(got)
+                before = Counter(qstats)
+                with checked_quant(qstats):
+                    y_again = server.predict(x)
+                torch.cuda.synchronize()
+                check(torch.equal(y_again, y), f"{net} int8 {mode} batch {batch}: a second "
+                      f"forward differs from the first")
                 y_bf16 = float_server.predict(x)
                 d = (y - y_bf16).abs().max().item()
                 agree = (f"; top-1 agrees on {int((y.argmax(-1) == y_bf16.argmax(-1)).sum())}/"
                          f"{batch}" if y.dim() == 2 else "")
+                q = qstats - before
                 phase("i8 serve", f"{get_spec(net).describe(opt)} int8 {mode}, BN folded, bf16, "
                       f"batch {batch} on {name} (built in {built:.1f} s): {tuple(y.shape)} "
-                      f"finite f32 outputs in range; launches {got}; against the bf16 forward "
-                      f"of the same weights: max abs {d:.4g} (scale "
+                      f"finite f32 outputs in range; launches {got}, conv_i8 designs "
+                      f"{I8_ROUTES[net]}; quantizer vs its plain torch ops at the forward's "
+                      f"activations: {q['calls']} calls, {q['elements']} int8 values, "
+                      f"{q['bad_values']} differ, {q['bad_scales']} scales differ; against the "
+                      f"bf16 forward of the same weights: max abs {d:.4g} (scale "
                       f"{y_bf16.abs().max().item():.4g}){agree}")
             if net != "ilsvrc/rnmg":  # one median each (R-MG-34's times: phase 26)
                 images = torch.from_numpy(i8_images(net, batches[-1], seed=12)).cuda()
@@ -2051,7 +2256,8 @@ def check_i8_serve(name) -> dict:
             for m_cpu, m_gpu in zip(cpu.model.modules(), gpu.model.modules()):
                 if getattr(m_gpu, "quantized", False) and m_gpu.sx is not None:
                     m_cpu.sx = m_gpu.sx.cpu()  # the card's frozen scales
-            y_gpu = gpu.predict(xs).cpu()
+            with checked_quant(qstats):
+                y_gpu = gpu.predict(xs).cpu()
             y_cpu = cpu.predict(xs)
             err, scale = (y_gpu - y_cpu).abs().max().item(), y_cpu.abs().max().item()
             limit = 1e-5 * scale
@@ -2061,7 +2267,9 @@ def check_i8_serve(name) -> dict:
                   f"forward: max abs err {err:.3g} (bound {limit:.3g}: 1e-5 x {scale:.4g})")
             del server, gpu, cpu
         del float_server
-    return launches
+    check(qstats["calls"] > 0 and qstats["bad_values"] == 0 and qstats["bad_scales"] == 0,
+          f"quant_i8 vs its plain torch ops at the int8 forwards' activations: {dict(qstats)}")
+    return launches, qstats
 
 
 def check_i8_run_loop(name) -> dict:
@@ -2070,8 +2278,9 @@ def check_i8_run_loop(name) -> dict:
     re-tested with -test -int8 -int8Calib 2 and with -test -int8 (dynamic):
     the "==> int8:" lines, the test loss within 5% of the float one
     (tests/test_int8.py's contract), and per test or calibration forward
-    the unfolded int8 forward's launches. Returns the launches of the two
-    int8 runs."""
+    the unfolded int8 forward's launches (a calibration forward and a
+    dynamic one take two quant_i8 launches a part). Returns the launches
+    of the two int8 runs."""
     from mgtpu_torch.pipelines.standard import net_opts
 
     cache = tempfile.mkdtemp(prefix="chip_smoke_int8_")
@@ -2091,6 +2300,9 @@ def check_i8_run_loop(name) -> dict:
         sess8, out8, got, wall8 = run_main(argv)
         loss = metric_lines(out8, "int8 run loop")[1][(1, "TESTING")][1]["avg.loss"]
         want = {k: (n_test + calib) * v for k, v in per.items()}
+        # dynamic-scale forwards (calibration's, or all without it) take
+        # two quant_i8 launches a part, static ones one
+        want["quant_i8"] = per["quant_i8"] * (n_test + 2 * calib if calib else 2 * n_test)
         check(got == want, f"-int8 -int8Calib {calib}: launches {got}, expected {want} "
               f"({n_test} test and {calib} calibration forwards)")
         check("==> int8: conv kernels quantized" in out8
@@ -2108,15 +2320,22 @@ def check_i8_run_loop(name) -> dict:
     return dict(total)
 
 
-def time_i8(name, shapes):
-    """26: R-MG-34's int8 (static) and bf16 serving forwards at batch 128
-    and 1 and its dynamic-scale int8 forward at batch 128, interleaved in
-    one call (host included), with the card's busy
-    time of one profiled call of each; then conv_i8 at each shape of the
-    int8 forward at batch 128 (bf16 out) beside its plain version and,
-    as a different function (bf16 operands), the conv3x3 kernel at the
-    3x3/s1 shapes and cuDNN's bf16 conv at every shape. Returns
-    ({kernel time, plain, conv3x3 bf16, cuDNN bf16}: ms per forward)."""
+def time_i8(name, shapes, qshapes):
+    """26: R-MG-34's int8 (static and dynamic scales) and bf16 serving
+    forwards at batch 128 and 1, interleaved in one call (host included),
+    with the card's busy time of one profiled
+    call of each, and for the int8 static forward at 128 its kernels by
+    name (top 10) and count; then conv_i8 at each shape of the int8
+    forward at batch 128 (bf16 out, the epilogue operands its launch
+    there takes) through its design and, at the sm90 shapes, through the
+    simple design, beside its plain version and, as a different function
+    (bf16 operands), the conv3x3 kernel at the 3x3/s1 shapes and cuDNN's
+    bf16 conv at every shape; then quant_i8 at each of the forward's
+    quantizer shapes (static scale; bf16 parts, f32 stem images) beside
+    its plain torch ops and, a different function on an f32 copy,
+    torch.quantize_per_tensor (qint8). Returns ms per forward: {conv_i8
+    by design and in total, simple design at all, plain, conv3x3 bf16,
+    cuDNN bf16, quant_i8, its plain ops, quantize_per_tensor}."""
     server8 = Server(RMG34, seed=0, device="cuda", compute_dtype=torch.bfloat16, int8=True,
                      int8_calib=I8_CALIB)
     dynamic = Server(RMG34, seed=0, device="cuda", compute_dtype=torch.bfloat16, int8=True)
@@ -2127,41 +2346,91 @@ def time_i8(name, shapes):
            f"bf16 forward {TIME_BATCH}": lambda: server16.predict(images),
            f"int8 dynamic forward {TIME_BATCH}": lambda: dynamic.predict(images),
            "int8 forward 1": lambda: server8.predict(images[:1]),
-           "bf16 forward 1": lambda: server16.predict(images[:1])}
+           "bf16 forward 1": lambda: server16.predict(images[:1]),
+           "int8 dynamic forward 1": lambda: dynamic.predict(images[:1])}
     res = dict(zip(fns, interleaved_ms(list(fns.values()), windows=7, min_reps=3)))
     for what, (t, sp) in res.items():
         phase("i8 times", f"R-MG-{DEPTH} {what}: {t:.3f} ms (median of 7 interleaved windows, "
               f"spread {sp:.1%}) = {int(what.rsplit(' ', 1)[1]) / t * 1e3:.1f} img/s on {name}")
     for what, fn in fns.items():
-        busy = device_busy_ms(fn)
+        busy, by_name, wall, both, seen, counted = profile_kernels(fn)
+        launched = sum(n for n, _ in by_name.values())
         phase("i8 times", f"R-MG-{DEPTH} {what}, profiled: " + (
-            "no device time in the trace (not measured)" if busy is None else
-            f"card busy {busy[0]:.3f} ms a call, {busy[1]:.3f} ms wall under the profiler; "
-            f"against the median above the card is idle {1 - busy[0] / res[what][0]:.0%}"))
+            "no device time in the trace (not measured)" if not busy else
+            f"card busy {busy:.3f} ms a call in {launched} kernels and copies, {wall:.3f} ms "
+            f"wall under the profiler (against the median above the card is idle "
+            f"{1 - busy / res[what][0]:.0%}); the trace holds {seen} of the {counted} launches "
+            f"of the port's kernels the counters saw; key_averages' self device times, which "
+            f"count a kernel a torch op launched twice, sum to {both:.3f}"))
+        if busy and what == f"int8 forward {TIME_BATCH}":
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+            phase("i8 times", f"R-MG-{DEPTH} {what}, busy time by kernel (top 10 of "
+                  f"{len(by_name)} names): " + "; ".join(
+                      f"{k[:60]} x{n} {t:.3f} ms" for k, (n, t) in top))
     del server8, dynamic, server16, images
-    ms = dict.fromkeys(("kernel", "plain", "conv3x3", "cudnn"), 0.0)
+    ms = dict.fromkeys(("kernel", "sm90", "simple", "simple_all", "plain", "conv3x3", "cudnn",
+                        "quant_i8", "quant_plain", "quantize_per_tensor"), 0.0)
     for i, (key, count) in enumerate(sorted(shapes.items())):
         h, w, ci, co, k, stride, pad = key[:7]
-        x8, w8, v = i8_operands(key, TIME_BATCH, seed=900 + i)
+        x8, w8, wk, v, sx = i8_operands(key, TIME_BATCH, seed=900 + i)
+        oh, ow = cuda_conv_i8.out_size(h, k, stride, pad), cuda_conv_i8.out_size(w, k, stride, pad)
+        y_in = (torch.zeros((TIME_BATCH, oh, ow, co), dtype=torch.bfloat16, device="cuda")
+                if key[9] else None)
+        bias = torch.zeros(co, device="cuda") if key[10] else None
+        epi = dict(v=v, dtype=torch.bfloat16, sx=sx, y_in=y_in, bias=bias)
         xb = torch.randn((TIME_BATCH, h, w, ci), device="cuda").to(torch.bfloat16)
         wb = (torch.randn((k, k, key[7], co), device="cuda") / (k * ci ** 0.5)).to(
             torch.bfloat16)[:, :, key[8]:key[8] + ci]
         w_lib = wb.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         b = torch.zeros(co, device="cuda")
-        kfns = {"kernel": lambda: cuda_conv_i8.conv_i8(x8, w8, stride, pad, v, torch.bfloat16),
-                "plain": lambda: cuda_conv_i8.conv_i8_plain(x8, w8, stride, pad, v,
-                                                            torch.bfloat16),
+        route = cuda_conv_i8._route(x8, w8, stride, pad, wk)
+        kfns = {route: lambda: cuda_conv_i8.conv_i8(x8, w8, stride, pad, wk=wk, **epi),
+                "plain": lambda: cuda_conv_i8.conv_i8_plain(
+                    x8, w8, stride, pad, v, torch.bfloat16, sx=sx,
+                    y_in=None if y_in is None else y_in.clone(), bias=bias),
                 "cudnn": lambda: F.conv2d(nchw(xb), w_lib, stride=stride, padding=pad)}
+        if route == "sm90":
+            kfns["simple_all"] = lambda: cuda_conv_i8._simple_forward(x8, w8, stride, pad, **epi)
         if (k, stride, pad) == (3, 1, 1):
             kfns["conv3x3"] = lambda: conv3x3(xb, wb, b, with_stats=False)
         kres = dict(zip(kfns, device_ms(list(kfns.values()), windows=3)))
         for kk, (t, _) in kres.items():
             ms[kk] += count * t
+        ms["kernel"] += count * kres[route][0]
+        if route == "simple":
+            ms["simple_all"] += count * kres[route][0]
         ops = i8_work(key, TIME_BATCH)[0]
         phase("i8 times", f"conv_i8 {TIME_BATCH}x{h}x{w}x{ci}->{co} k{k}/s{stride}/p{pad} "
               f"(x{count}/forward; {ops / 1e9:.1f} GOP): " + ", ".join(
                   f"{kk} {t:.4f} ms ({ops / t / 1e9:.1f} TOP/s, spread {sp:.1%})"
                   for kk, (t, sp) in kres.items()))
+    for i, (key, count) in enumerate(sorted(qshapes.items())):
+        h, w, c, oh, ow = key
+        up = None if (oh, ow) == (h, w) else (oh, ow)
+        g = torch.Generator(device="cuda").manual_seed(960 + i)
+        x = torch.randn((TIME_BATCH, h, w, c), generator=g, device="cuda").to(quant_dtype(key))
+        xf = x.float()
+        sx = torch.full((), 0.05, device="cuda")
+        qfns = {"quant_i8": lambda: quant.quant_i8(x, sx, up),
+                "quant_plain": lambda: quant.quant_i8_plain(x, sx, up)}
+        if ms["quantize_per_tensor"] is not None:
+            try:  # a yardstick only: where this build refuses it, not measured
+                torch.quantize_per_tensor(xf, 0.05, 0, torch.qint8)
+                qfns["quantize_per_tensor"] = lambda: torch.quantize_per_tensor(
+                    xf, 0.05, 0, torch.qint8)
+            except RuntimeError as err:
+                phase("i8 times", f"torch.quantize_per_tensor on the card: {err}"[:300])
+                ms["quantize_per_tensor"] = None
+        check(torch.equal(qfns["quant_i8"]()[0], qfns["quant_plain"]()[0]),
+              f"quant_i8 at batch {TIME_BATCH} x {key} differs from its plain version")
+        qres = dict(zip(qfns, device_ms(list(qfns.values()), windows=3)))
+        for kk, (t, _) in qres.items():
+            ms[kk] += count * t
+        nbytes = quant_bytes(key, TIME_BATCH)
+        phase("i8 times", f"quant_i8 {TIME_BATCH}x{h}x{w}x{c} -> {oh}x{ow} "
+              f"{str(x.dtype)[6:]} (x{count}/forward; {nbytes / 1e6:.1f} MB): " + ", ".join(
+                  f"{kk} {t:.4f} ms ({nbytes / t / 1e6:.0f} GB/s, spread {sp:.1%})"
+                  for kk, (t, sp) in qres.items()))
     return ms
 
 
@@ -2184,7 +2453,7 @@ def time_i8_1x1(i8_rec) -> dict:
             if batch * h * w <= 16 or ci % 8 or co % 8:
                 res["not_covered"] += count
                 continue
-            x8, w8, _ = i8_operands(key, batch, seed=950 + i)
+            x8, w8, _, _, _ = i8_operands(key, batch, seed=950 + i)
             x2, w2 = x8.view(-1, ci), w8.reshape(ci, co)
             check(torch.equal(torch._int_mm(x2, w2).view(batch, h, w, co),
                               cuda_conv_i8.conv_i8(x8, w8, 1, 0)),
@@ -2231,9 +2500,12 @@ def main() -> None:
     kernels.library()
     phase("build", f"{so.name}: nvcc {nvcc_s:.1f} s, built and loaded in "
           f"{time.perf_counter() - t0:.1f} s")
-    for line in log.splitlines():
+    entry = ""
+    for line in log.splitlines():  # ptxas -v: each kernel's name, then its resources
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line.strip()
         if "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
-            phase("build", line.strip())
+            phase("build", f"{entry}: {line.strip()}")
 
     serve_shapes, train_shapes = record_kernel_shapes(False), record_kernel_shapes(True)
     for what, shapes, want in (("serving forward", serve_shapes, PER_FORWARD),
@@ -2379,29 +2651,48 @@ def main() -> None:
     t0 = time.perf_counter()
     i8_rec = record_i8()
     max_err["conv_i8"] = 0.0
-    cases = {(key, batch) for net, (_, batches) in I8_SERVE.items()
+    cases = {(key[:9], batch) for net, (_, batches) in I8_SERVE.items()
              for key in i8_rec[net]["conv_i8"] for batch in batches}
-    n_cases = check_conv_i8(cases, max_err)
-    phase("conv_i8", f"{n_cases} cases at {len(cases)} shapes and batches (R-MG-34's int8 "
-          f"forward at batches 1 and 128, cifar/prnmg's at 128, unmg's at 64; weight slices "
-          f"as the exchange passes them; the batch-1 ones also with x off a 16-byte "
-          f"boundary): int32 sums and f32 and bf16 dequants equal the plain version bit for "
-          f"bit (max abs err {max_err['conv_i8']:.3g})")
-    i8_served = check_i8_serve(name)
-    i8_cli = check_i8_run_loop(name)
-    i8_launches = (sum(c["conv_i8"] for c in i8_served.values()) + i8_cli["conv_i8"])
-    check(i8_launches > 0 and all(c["conv3x3"] == 0 for c in i8_served.values()),
+    designs = check_conv_i8(cases, max_err)
+    phase("conv_i8", f"{sum(designs.values())} cases ({dict(designs)} by design) at "
+          f"{len(cases)} shapes and batches (R-MG-34's int8 forward at batches 1 and 128, "
+          f"cifar/prnmg's at 128, unmg's at 64; weight slices as the exchange passes them; each "
+          f"through its design and, where that is sm90, the simple design; the batch-1 ones "
+          f"also with x off a 16-byte boundary; {len(I8_VARIANTS)} epilogue variants each): "
+          f"int32 sums and f32 and bf16 epilogues equal the plain version bit for bit (max abs "
+          f"err {max_err['conv_i8']:.3g})")
+    (i8_served, qstats), i8_cli = check_i8_serve(name), check_i8_run_loop(name)
+    i8_launches = {k: sum(c[k] for c in i8_served.values()) + i8_cli[k]
+                   for k in ("conv_i8", "quant_i8")}
+    check(all(i8_launches.values()) and all(c["conv3x3"] == 0 for c in i8_served.values()),
           f"int8 launches: served {i8_served}, run loop {i8_cli}")
-    i8_ms = time_i8(name, i8_rec["ilsvrc/rnmg"]["conv_i8"])
-    i8_bound = i8_bounds(i8_rec["ilsvrc/rnmg"]["conv_i8"], TIME_BATCH)
+    phase("quant_i8", f"{qstats['calls']} calls ({qstats['dynamic']} with a dynamic scale) "
+          f"of the quantizer in phase 24's int8 forwards held to quantize_act's torch ops (and "
+          f"the nearest upsample) on the same activations on the card: {qstats['elements']} "
+          f"int8 values, {qstats['bad_values']} differ; {qstats['bad_scales']} scales differ")
+    rmg_i8 = i8_rec["ilsvrc/rnmg"]
+    i8_ms = time_i8(name, rmg_i8["conv_i8"], rmg_i8["quant_i8"])
+    i8_bound = i8_bounds(rmg_i8["conv_i8"], TIME_BATCH)
+    q_bytes = sum(count * quant_bytes(key, TIME_BATCH) for key, count in rmg_i8["quant_i8"].items())
+    q_bound = q_bytes / PEAK_HBM_BYTES * 1e3
     phase("bounds", f"R-MG-{DEPTH} conv_i8 per batch-{TIME_BATCH} int8 forward: "
           f"{i8_bound[0] / 1e9:.1f} GOP, {i8_bound[1] / 1e6:.1f} MB, bound {i8_bound[2]:.4f} ms "
           f"(by {i8_bound[3]}; {PEAK_INT8_OPS / 1e12:.0f} TOP/s int8, "
           f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s); kernel {i8_ms['kernel']:.3f} ms "
-          f"({i8_bound[2] / i8_ms['kernel']:.0%} of the bound), plain {i8_ms['plain']:.3f} ms, "
-          f"one PyTorch call none; a different function (bf16 operands) at the same shapes: "
-          f"the conv3x3 kernel at the 3x3/s1 ones {i8_ms['conv3x3']:.3f} ms, cuDNN bf16 at "
-          f"all {i8_ms['cudnn']:.3f} ms")
+          f"({i8_bound[2] / i8_ms['kernel']:.0%} of the bound: sm90 {i8_ms['sm90']:.3f} ms at "
+          f"{I8_ROUTES['ilsvrc/rnmg']['sm90']} launches, simple {i8_ms['simple']:.3f} ms at "
+          f"{I8_ROUTES['ilsvrc/rnmg']['simple']}; the simple design at all "
+          f"{i8_ms['simple_all']:.3f} ms), plain {i8_ms['plain']:.3f} ms, one PyTorch call none; "
+          f"a different function (bf16 operands) at the same shapes: the conv3x3 kernel at the "
+          f"3x3/s1 ones {i8_ms['conv3x3']:.3f} ms, cuDNN bf16 at all {i8_ms['cudnn']:.3f} ms")
+    qpt = i8_ms["quantize_per_tensor"]
+    phase("bounds", f"R-MG-{DEPTH} quant_i8 per batch-{TIME_BATCH} int8 forward (static "
+          f"scales, {sum(rmg_i8['quant_i8'].values())} launches): {q_bytes / 1e6:.1f} MB, bound "
+          f"{q_bound:.4f} ms (bytes); kernel {i8_ms['quant_i8']:.3f} ms "
+          f"({q_bound / i8_ms['quant_i8']:.0%} of the bound), plain torch ops "
+          f"{i8_ms['quant_plain']:.3f} ms; a different function (qint8, no upsample, an f32 "
+          f"input): torch.quantize_per_tensor "
+          + ("not measured" if qpt is None else f"{qpt:.3f} ms"))
     i8_1x1 = time_i8_1x1(i8_rec)
     phase("i8 times", f"phases 23-26 took {time.perf_counter() - t0:.1f} s")
 
@@ -2440,11 +2731,16 @@ def main() -> None:
                   "bound_ms": bds[k][2], "bound_by": bds[k][3], "library_ms": klib[k]}
             for net, (n_launches, _, kms, kplain, klib, bds) in nets.items()
             if n_launches is not None and k in kms}} for k in KERNELS]
-        + [{"name": "conv_i8", **KERNELS_I8["conv_i8"], "launches": i8_launches,
+        + [{"name": "conv_i8", **KERNELS_I8["conv_i8"], "launches": i8_launches["conv_i8"],
             "max_abs_err": max_err["conv_i8"], "ms": i8_ms["kernel"], "plain_ms": i8_ms["plain"],
             "bound_ms": i8_bound[2], "bound_by": i8_bound[3], "library_ms": None,
-            "bf16_conv3x3_ms": i8_ms["conv3x3"], "bf16_cudnn_ms": i8_ms["cudnn"],
-            "int32_1x1": i8_1x1}]}), flush=True)
+            "sm90_ms": i8_ms["sm90"], "simple_ms": i8_ms["simple"],
+            "simple_design_at_all_ms": i8_ms["simple_all"], "bf16_conv3x3_ms": i8_ms["conv3x3"],
+            "bf16_cudnn_ms": i8_ms["cudnn"], "int32_1x1": i8_1x1},
+           {"name": "quant_i8", **KERNELS_I8["quant_i8"], "launches": i8_launches["quant_i8"],
+            "max_abs_err": float(qstats["max_abs_err"]), "ms": i8_ms["quant_i8"],
+            "plain_ms": i8_ms["quant_plain"], "bound_ms": q_bound, "bound_by": "bytes",
+            "library_ms": None, "quantize_per_tensor_ms": qpt}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -479,27 +479,7 @@ struct Cfg {
   }
 };
 
-using namespace mg_async;  // saddr, the mbarrier helpers (bar_wait traps)
-
-__device__ __forceinline__ void load_im2col(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c, int w, int h, int n, uint16_t dw,
-                                            uint16_t dh) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(w), "r"(h), "r"(n), "h"(dw),
-      "h"(dh)
-      : "memory");
-}
-
-__device__ __forceinline__ void load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                        int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
+using namespace mg_async;  // the mbarrier (bar_wait traps), TMA, wgmma and register helpers
 
 __device__ __forceinline__ void store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
   asm volatile(
@@ -519,49 +499,6 @@ __device__ __forceinline__ void store_wait_read() {
 __device__ __forceinline__ void store_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
-// order this thread's generic-proxy shared-memory writes before later
-// async-proxy accesses (wgmma reads, TMA stores and loads)
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
-}
-
-template <int R>
-__device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
-}
-template <int R>
-__device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
-}
-
-// wgmma shared-memory matrix descriptor for a 128-byte-swizzled tile:
-// start address, leading and stride byte offsets (16-byte units)
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
-         (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void mma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void mma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void mma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// keep the compiler from moving accumulator accesses across the async
-// products
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // d += A (K-major, from shared memory) * B (MN-major, from shared memory):
 // one m64nBNk16 bf16 product with f32 accumulators
 template <int BN>
@@ -815,29 +752,6 @@ conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
       for (int i = tid - 128; i < 2 * Co; i += 256) atomicAdd(stats + i, ssum[i]);
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-using EncodeIm2col = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const int*, const int*,
-                                  cuuint32_t, cuuint32_t, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// a driver function through the runtime, so the library needs no -lcuda
-void* driver_fn(const char* name) {
-  void* fn = nullptr;
-  cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-  const cudaError_t err = cudaGetDriverEntryPointByVersion(name, &fn, 12000, cudaEnableDefault,
-                                                           &found);
-#else
-  const cudaError_t err = cudaGetDriverEntryPoint(name, &fn, cudaEnableDefault, &found);
-#endif
-  return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? fn : nullptr;
 }
 
 // 128-wide tiles where Co allows them and they fill the card at least as

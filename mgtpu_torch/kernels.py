@@ -37,14 +37,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel name -> launches since the last reset_launches()
+# (quant_i8 counts both of its entry points: the quantize and, for a
+# dynamic scale, the absmax before it)
 LAUNCHES: dict[str, int] = {"conv3x3": 0, "conv3x3_bn_relu_in": 0, "maxpool2": 0,
-                            "maxpool2_bwd": 0, "conv_i8": 0}
+                            "maxpool2_bwd": 0, "conv_i8": 0, "quant_i8": 0}
 # (kernel, design) -> launches since the last reset_launches(), for the
-# kernels with two designs: the convs' (mgtpu_torch/ops/cuda_conv.py::_route)
-# and the pool forward's (mgtpu_torch/ops/cuda_pool.py::_route)
+# kernels with two designs: the convs' (mgtpu_torch/ops/cuda_conv.py::_route),
+# the pool forward's (mgtpu_torch/ops/cuda_pool.py::_route) and the int8
+# conv's (mgtpu_torch/ops/cuda_conv_i8.py::_route)
 ROUTES: dict[tuple[str, str], int] = {
     **{(k, r): 0 for k in ("conv3x3", "conv3x3_bn_relu_in") for r in ("sm90", "tile")},
-    **{("maxpool2", r): 0 for r in ("sm90", "simple")}}
+    **{(k, r): 0 for k in ("maxpool2", "conv_i8") for r in ("sm90", "simple")}}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,8 +71,16 @@ _SIGNATURES = {
     "mg_maxpool2_sm90": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, y, g, dx, n, h, w, c, first_only, is_bf16, stream
     "mg_maxpool2_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    # x, w, v, y, n, h, w, ci, co, k, stride, pad, w_tap_stride, out_kind, stream
-    "mg_conv_i8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L, _I, _P),
+    # x, w, sx, scale, y_in, bias, y, n, h, w, ci, co, k, stride, pad,
+    # w_tap_stride, out_kind, relu, stream
+    "mg_conv_i8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L, _I, _I, _P),
+    # the sm90 design: the same arguments (w the packed K-major weight)
+    "mg_conv_i8_sm90": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L, _I, _I,
+                        _P),
+    # x, sx, absmax, sx_out, y, n, h, w, c, oh, ow, up, is_bf16, stream
+    "mg_quant_i8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, absmax, n, is_bf16, stream
+    "mg_absmax": (_P, _P, _L, _I, _P),
 }
 
 

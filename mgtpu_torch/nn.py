@@ -24,9 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mgtpu_torch.ops import cuda_conv_i8
+from mgtpu_torch.ops import cuda_conv_i8, quant
 from mgtpu_torch.ops.cuda_conv import bn_relu_plain, conv3x3, conv3x3_bn_relu_in
-from mgtpu_torch.ops.quant import quantize_act, record_scale
 from mgtpu_torch.ops.resample import nchw, nhwc, upsample_nearest2
 
 
@@ -45,23 +44,28 @@ def conv2d_nhwc(x, w, stride: int = 1, pad: int = 0):
     return nhwc(F.conv2d(nchw(x), w.permute(3, 2, 0, 1), stride=stride, padding=pad))
 
 
-def _int8_part(conv, slot: int, xp, w8, kind: str = "same", oh=None, ow=None):
+def _int8_part(conv, slot: int, xp, w8, kind: str = "same", oh=None, ow=None, y_in=None,
+               bias=None, relu=False):
     """One input of a quantized conv, as the JAX layers compute it: the
     raw part (no compute-dtype cast first) quantized with slot ``slot``'s
     static scale, or a dynamic one reported to a running calibration; an
     "up" part quantized at coarse resolution and its int8 values
     nearest-upsampled (nearest only copies values, so this equals
-    quantizing the upsampled part); then one `conv_i8` launch against
-    ``w8`` (the weight or its input-channel slice) dequantized to the
-    compute dtype in its epilogue."""
+    quantizing the upsampled part): one `quant.quant_i8` call. Then one
+    `conv_i8` launch against ``w8`` (the weight or its input-channel
+    slice; the sm90 design reads its packed copy ``conv.wk``) whose
+    epilogue dequantizes to the compute dtype with ``sx * conv.scale``,
+    adds the result into the running part sum ``y_in`` and adds ``bias``
+    [and applies the ReLU]: the torch sequence of the JAX layers, rounded
+    where it rounds."""
     sx_cal = conv.sx
-    x8, sx = quantize_act(xp, None if sx_cal is None else sx_cal[slot])
+    x8, sx = quant.quant_i8(xp, None if sx_cal is None else sx_cal[slot],
+                            (oh, ow) if kind == "up" else None)
     if sx_cal is None:
-        record_scale(conv, slot, sx)
-    if kind == "up":
-        x8 = upsample_nearest2(x8, oh, ow)
-    return cuda_conv_i8.conv_i8(x8, w8, conv.stride, conv.pad, sx * conv.scale,
-                                conv.compute_dtype or torch.float32)
+        quant.record_scale(conv, slot, sx)
+    return cuda_conv_i8.conv_i8(x8, w8, conv.stride, conv.pad, conv.scale,
+                                conv.compute_dtype or torch.float32, sx=sx, y_in=y_in,
+                                bias=bias, relu=relu, wk=conv.wk)
 
 
 class Conv(nn.Module):
@@ -69,8 +73,10 @@ class Conv(nn.Module):
     sqrt(2 / (k*k*c_out)), zero bias. `mgtpu_torch.ops.quant.quantize_model`
     can replace the f32 weight ``w`` by the int8 buffers ``w8`` and
     ``scale`` (and, once calibrated, ``sx``: one static activation scale
-    a slot); quantized, it runs the int8 path (`_int8_part`, slot 0) and
-    adds the bias in the compute dtype."""
+    a slot) and the non-persistent ``wk``, ``w8`` packed K-major for the
+    int8 kernel's sm90 design; quantized, it runs the int8 path
+    (`_int8_part`, slot 0), whose conv launch adds the bias in the
+    compute dtype."""
 
     calibration = None  # the calibration pass running on this conv, if any
 
@@ -87,10 +93,9 @@ class Conv(nn.Module):
 
     def forward(self, x):
         if self.quantized:
-            y = _int8_part(self, 0, x, self.w8)
-        else:
-            y = conv2d_nhwc(cast_to(x, self.compute_dtype),
-                            cast_to(self.w, self.compute_dtype), self.stride, self.pad)
+            return _int8_part(self, 0, x, self.w8, bias=self.b)
+        y = conv2d_nhwc(cast_to(x, self.compute_dtype),
+                        cast_to(self.w, self.compute_dtype), self.stride, self.pad)
         return y + self.b.to(y.dtype)
 
     @property
@@ -99,10 +104,13 @@ class Conv(nn.Module):
 
     def set_quantized(self, w8: torch.Tensor, scale: torch.Tensor) -> None:
         """Drop the f32 weight for its int8 form, or replace the int8 form
-        (dynamic scales until calibrated)."""
+        (dynamic scales until calibrated). The K-major copy ``wk`` is
+        packed from ``w8`` here, each time: this is the one way to set
+        ``w8`` (the bridge and `quantize_model` call it)."""
         if not self.quantized:
             del self.w
         self.register_buffer("w8", w8)
+        self.register_buffer("wk", cuda_conv_i8.pack_weight(w8), persistent=False)
         self.register_buffer("scale", scale)
         self.register_buffer("sx", None)
 
@@ -333,7 +341,11 @@ class ConvBN(nn.Module):
 
     def apply_parts(self, parts):
         """Fused-exchange path: conv of the channel concat of ``parts``
-        (see `conv_parts`), then BN [and ReLU] [and dropout]."""
+        (see `conv_parts`), then BN [and ReLU] [and dropout]. A quantized
+        conv in eval mode whose BN is folded (the identity there, as
+        dropout is) takes its ReLU in the last `conv_i8` launch."""
+        if self.conv.quantized and self.bn.folded and not self.training:
+            return self._int8_parts(parts, relu=self.relu)
         return self._tail(self.conv_parts(parts))
 
     def conv_parts(self, parts):
@@ -416,14 +428,16 @@ class ConvBN(nn.Module):
             y = y + bias.to(y.dtype)
         return y
 
-    def _int8_parts(self, parts):
+    def _int8_parts(self, parts, relu=False):
         """`conv_parts` of a quantized conv, as the JAX layer's int8 branch
         computes it: slot i is part i; each part is quantized with its own
         scale against its slice of ``w8`` (int32 sums of slices add up to
         the sums of the concat), an un-normalized part first materialized
         with `bn_relu_plain`; the dequantized parts are summed in the
-        compute dtype in part order, then the bias is added. Dropout does
-        not apply: the int8 path serves only."""
+        compute dtype in part order, then the bias is added [and the
+        ReLU applied]: each part's `conv_i8` launch adds into the sum, the
+        last one adds the bias. Dropout does not apply: the int8 path
+        serves only."""
         conv = self.conv
         oh = ow = None
         for kind, xp in parts:
@@ -436,12 +450,13 @@ class ConvBN(nn.Module):
             if isinstance(xp, tuple):  # un-normalized: (y_raw, scale, shift)
                 xp = bn_relu_plain(*xp)
             c = xp.shape[-1]
-            yy = _int8_part(conv, slot, xp, conv.w8[:, :, ofs:ofs + c], kind, oh, ow)
+            last = slot == len(parts) - 1
+            y = _int8_part(conv, slot, xp, conv.w8[:, :, ofs:ofs + c], kind, oh, ow, y_in=y,
+                           bias=conv.b if last else None, relu=relu and last)
             ofs += c
-            y = yy if y is None else y + yy
         if ofs != conv.w8.shape[2]:
             raise ValueError(f"parts carry {ofs} channels, the conv takes {conv.w8.shape[2]}")
-        return y + conv.b.to(y.dtype)
+        return y
 
 
 class UpConvBN(nn.Module):

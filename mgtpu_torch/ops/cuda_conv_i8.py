@@ -1,19 +1,28 @@
-"""int8 x int8 -> int32 NHWC convolutions: the CUDA kernel's wrappers and
-their plain versions.
+"""int8 x int8 -> int32 NHWC convolutions with the int8 layers' epilogue:
+the CUDA kernel's wrappers and their plain versions.
 
 The JAX package's int8 serving conv, `mgtpu/ops/quant.py::conv_i8`, is
 ``lax.conv_general_dilated`` on int8 NHWC/HWIO operands with an int32
-result, which XLA lowers; it calls no Pallas kernel. PyTorch has no int8
-convolution on CUDA, so the port has its own kernel,
-`mgtpu_torch/csrc/conv_i8.cu` (``mg_conv_i8``: an implicit GEMM on the
-int8 tensor cores), with an optional fused dequant epilogue, which the
-int8 layers of `mgtpu_torch.nn` use: ``cast(float(acc) * v[co])`` in
-f32 or bf16.
-CPU tensors take the plain versions; CUDA tensors launch the kernel or
-raise. There is one design, so the kernel counts no route.
+result, which XLA lowers and fuses with the dequant, the part sums and
+the bias of `mgtpu/nn.py`'s int8 branch; it calls no Pallas kernel.
+PyTorch has no int8 convolution on CUDA and runs eagerly, so the port has
+its own kernel, `mgtpu_torch/csrc/conv_i8.cu`, whose epilogue does that
+fusion: the int32 sums, or in f32 or bf16
+
+    y = relu?([y_in +] cast(float(acc) * (sx * v)) [+ cast(bias)])
+
+each step rounded as torch rounds it (the plain version is that torch
+sequence). Two designs, ``sm90`` (TMA + wgmma s8, 3x3/s1/p1 parts with
+channel counts and offsets multiples of 16, reading the weight from its
+K-major copy, :func:`pack_weight`) and ``simple`` (everything else, from
+the HWIO weight); :func:`_route` picks one from shape and alignment
+alone, and counts in ``kernels.ROUTES[("conv_i8", design)]``. CPU tensors
+take the plain version; CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -30,22 +39,81 @@ def out_size(n: int, k: int, stride: int, pad: int) -> int:
     return (n + 2 * pad - k) // stride + 1
 
 
-def conv_i8_plain(x8, w8, stride: int, pad: int, v=None, dtype=torch.int32):
+def pack_weight(w8: torch.Tensor) -> torch.Tensor:
+    """A (k, k, Ci, Co) HWIO weight as the K-major (Co, k*k*Ci) matrix the
+    ``sm90`` design reads (wgmma takes 8-bit operands K-major only): row
+    co holds slot ``tap * Ci + c`` = w8[tap // k, tap % k, c, co]."""
+    k, _, ci, co = w8.shape
+    return w8.permute(3, 0, 1, 2).reshape(co, k * k * ci).contiguous()
+
+
+def _slice(w8) -> tuple[int, int]:
+    """(Ci of the whole weight, the slice's first input channel) of an
+    HWIO input-channel slice of a weight whose storage starts at its
+    element 0 (a conv's ``w8`` buffer)."""
+    co = w8.shape[3]
+    return w8.stride(1) // co, w8.storage_offset() // co
+
+
+def conv_i8_plain(x8, w8, stride: int, pad: int, v=None, dtype=torch.int32, *, sx=None,
+                  y_in=None, bias=None, relu=False):
     """``F.conv2d`` in float64 on the int8 values, converted to int32.
     Exact: every product is at most 127^2 and every sum (at most 7*7*512
     taps of them here) far below 2^53, so no order of summation rounds.
     The round before the conversion only guards against a library
     algorithm that is not a plain sum of products. With ``v`` (Co,) f32,
-    the dequant ``cast(float(acc) * v, dtype)``: the JAX layers'
-    ``(acc.astype(f32) * (sx * scale)).astype(dtype)``."""
+    the int8 layers' sequence in ``dtype`` (the JAX layers'
+    ``(acc.astype(f32) * (sx * scale)).astype(dtype)``, then the part sum
+    and the bias in the compute dtype): ``(acc.float() * (sx * v))`` cast,
+    added into ``y_in`` (in place, as the kernel does), ``+ bias.to(dtype)``
+    and ReLU (:func:`epilogue_plain`). ``sx`` is a 0-d f32 tensor; without it the dequant vector is
+    ``v`` itself."""
     y = F.conv2d(nchw(x8).double(), w8.permute(3, 2, 0, 1).double(), stride=stride,
                  padding=pad)
     acc = nhwc(y.round()).to(torch.int32)
-    return acc if v is None else (acc.float() * v).to(dtype)
+    if v is None:
+        return acc
+    return epilogue_plain(acc, v, dtype, sx=sx, y_in=y_in, bias=bias, relu=relu)
 
 
-def _check(x8, w8, stride, pad, v=None):
-    """Raise unless the CUDA kernel takes these operands."""
+def epilogue_plain(acc, v, dtype, *, sx=None, y_in=None, bias=None, relu=False):
+    """The epilogue of `conv_i8_plain` on its int32 sums ``acc``; with
+    ``y_in`` the result is ``y_in`` itself, as the kernel's (each in-place
+    op rounds as its out-of-place form)."""
+    y = (acc.float() * (v if sx is None else sx * v)).to(dtype)
+    if y_in is not None:
+        y = y_in.add_(y)
+    if bias is not None:
+        y.add_(bias.to(dtype))
+    return y.relu_() if relu else y
+
+
+def _route(x8, w8, stride: int, pad: int, wk=None) -> str:
+    """The design a CUDA launch of these operands takes: "sm90" (TMA and
+    wgmma) for a 3x3/s1/p1 conv with Ci and Co multiples of 16, the
+    K-major weight's row (``wk``'s Ci total, or Ci where no ``wk`` is
+    given and the slice is packed on its own) and the slice's offset in
+    it multiples of 16 (TMA's 16-byte strides and base) and x on a
+    16-byte boundary; "simple" for everything else. A fixed function of
+    shape and alignment: a launch on either route that fails raises."""
+    k, ci, co = w8.shape[0], x8.shape[3], w8.shape[3]
+    ci_total, ofs = _slice(w8) if wk is not None else (ci, 0)
+    if ((k, stride, pad) == (3, 1, 1) and ci % 16 == 0 and co % 16 == 0 and ci_total % 16 == 0
+            and ofs % 16 == 0 and x8.data_ptr() % 16 == 0):
+        return "sm90"
+    return "simple"
+
+
+@functools.cache
+def _one(device: torch.device) -> torch.Tensor:
+    """1.0 f32 on ``device``: the sx of a dequant given as ``v`` alone
+    (1.0 * v is v, bit for bit)."""
+    return torch.ones((), device=device)
+
+
+def _check(x8, w8, stride, pad, v, dtype, sx, y_in, bias, wk):
+    """Raise unless the CUDA kernel takes these operands. Returns the
+    output's shape."""
     if x8.device.type != "cuda":
         raise ValueError(f"conv_i8: unsupported device {x8.device}")
     if x8.dtype != torch.int8 or w8.dtype != torch.int8:
@@ -59,41 +127,93 @@ def _check(x8, w8, stride, pad, v=None):
     k, co = w8.shape[0], w8.shape[3]
     # rows of (ci, co) contiguous per tap; taps evenly spaced: a dense HWIO
     # weight or its slice along the input channels
-    if not (w8.stride(3) == 1 and w8.stride(2) == co and w8.stride(0) == k * w8.stride(1)):
+    s0, s1, s2, s3 = w8.stride()
+    if not (s3 == 1 and s2 == co and s0 == k * s1):
         raise ValueError(f"conv_i8: w strides {w8.stride()} are not an HWIO input-channel slice")
-    if stride < 1 or pad < 0 or min(out_size(h, k, stride, pad), out_size(w, k, stride, pad)) < 1:
+    oh, ow = out_size(h, k, stride, pad), out_size(w, k, stride, pad)
+    if stride < 1 or pad < 0 or min(oh, ow) < 1:
         raise ValueError(f"conv_i8: stride {stride}, pad {pad} and a {k}x{k} kernel leave no "
                          f"output of a {h}x{w} map")
-    if v is not None and (v.dtype != torch.float32 or v.shape != (co,) or not v.is_contiguous()):
-        raise ValueError(f"conv_i8: v must be a contiguous f32 ({co},) tensor, got "
-                         f"{tuple(v.shape)} {v.dtype}")
-    if any(t.device != x8.device for t in (w8, *(() if v is None else (v,)))):
+    dev = x8.device
+    for name, t in (("v", v), ("bias", bias)):
+        if t is not None and (t.dtype != torch.float32 or t.shape != (co,)
+                              or not t.is_contiguous() or t.device != dev):
+            raise ValueError(f"conv_i8: {name} must be a contiguous f32 ({co},) tensor on "
+                             f"{dev}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if sx is not None and (sx.dtype != torch.float32 or sx.numel() != 1 or sx.device != dev):
+        raise ValueError(f"conv_i8: sx must be one f32 on {dev}, got {tuple(sx.shape)} "
+                         f"{sx.dtype} on {sx.device}")
+    shape = (n, oh, ow, co)
+    if y_in is not None and (y_in.dtype != dtype or y_in.shape != shape
+                             or not y_in.is_contiguous() or y_in.device != dev):
+        raise ValueError(f"conv_i8: y_in must be a contiguous {dtype} {shape} tensor on {dev}, "
+                         f"got {tuple(y_in.shape)} {y_in.dtype} on {y_in.device}")
+    if wk is not None:
+        ci_total, ofs = s1 // co, w8.storage_offset() // co
+        if (wk.dtype != torch.int8 or wk.shape != (co, k * k * ci_total)
+                or not wk.is_contiguous() or ofs + ci > ci_total or wk.device != dev):
+            raise ValueError(f"conv_i8: wk {tuple(wk.shape)} {wk.dtype} is not the packed "
+                             f"({co}, {k * k * ci_total}) int8 weight of this slice on {dev}")
+    if w8.device != dev:
         raise ValueError("conv_i8: all operands must be on one device")
+    return shape
 
 
-def _launch(x8, w8, stride, pad, v, out_dtype):
+def _launch(x8, w8, stride, pad, v, dtype, sx, y_in, bias, relu, wk, route, shape):
     n, h, w, ci = x8.shape
     k, co = w8.shape[0], w8.shape[3]
-    y = torch.empty((n, out_size(h, k, stride, pad), out_size(w, k, stride, pad), co),
-                    dtype=out_dtype, device=x8.device)
-    if y.numel():
-        kernels.launch("conv_i8", "mg_conv_i8", x8.device, x8.data_ptr(), w8.data_ptr(),
-                       0 if v is None else v.data_ptr(), y.data_ptr(), n, h, w, ci, co, k, stride,
-                       pad, w8.stride(1), _OUT_KINDS[out_dtype])
+    y = y_in if y_in is not None else torch.empty(shape, dtype=dtype, device=x8.device)
+    if not y.numel():
+        return y
+    if route == "sm90":
+        if wk is None:  # the slice packed on its own
+            wk, (ci_total, ofs) = pack_weight(w8), (ci, 0)
+        else:
+            ci_total, ofs = _slice(w8)
+        w_ptr, tap_stride = wk.data_ptr() + ofs, ci_total
+    else:
+        w_ptr, tap_stride = w8.data_ptr(), w8.stride(1)
+    deq = v is not None
+    sx_ptr = (_one(x8.device) if sx is None else sx).data_ptr() if deq else 0
+    kernels.launch("conv_i8", "mg_conv_i8" + ("_sm90" if route == "sm90" else ""), x8.device,
+                   x8.data_ptr(), w_ptr, sx_ptr, v.data_ptr() if deq else 0,
+                   0 if y_in is None else y_in.data_ptr(), 0 if bias is None else bias.data_ptr(),
+                   y.data_ptr(), n, h, w, ci, co, k, stride, pad, tap_stride, _OUT_KINDS[dtype],
+                   int(relu), route=route)
     return y
 
 
-def conv_i8(x8, w8, stride: int, pad: int, v=None, dtype=torch.int32):
+def conv_i8(x8, w8, stride: int, pad: int, v=None, dtype=torch.int32, *, sx=None, y_in=None,
+            bias=None, relu=False, wk=None):
     """x8 (N, H, W, Ci) int8 NHWC, w8 (k, k, Ci, Co) int8 HWIO (or its
     slice along Ci) -> (N, OH, OW, Co) int32 sums of the conv with
     ``stride`` and zero padding ``pad``; with ``v`` (Co,) f32 and
-    ``dtype`` f32 or bf16, their dequant ``cast(float(acc) * v, dtype)``
-    in the same launch (the kernel's epilogue rounds as the plain
-    version does: the two are equal bit for bit). CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
+    ``dtype`` f32 or bf16, the epilogue in the same launch: the dequant
+    ``cast(float(acc) * (sx * v), dtype)`` (``sx`` a 0-d f32 tensor, the
+    activation scale; without it ``v`` alone), added into the running
+    part sum ``y_in`` (which takes the result: the output is ``y_in``
+    itself), plus ``bias`` (Co,) f32 rounded to ``dtype``, then ReLU.
+    ``wk`` is :func:`pack_weight` of the whole weight ``w8`` slices (its
+    ``sm90`` operand; without it the slice is packed per call). The kernel
+    rounds each step as the plain version does: the two are equal bit for
+    bit. CPU tensors take the plain version; CUDA tensors launch the
+    kernel (the design :func:`_route` picks) or raise."""
     if (v is None) != (dtype == torch.int32) or dtype not in _OUT_KINDS:
         raise TypeError(f"conv_i8: out dtype {dtype} with v {'absent' if v is None else 'given'}")
+    if v is None and (sx is not None or y_in is not None or bias is not None or relu):
+        raise TypeError("conv_i8: sx, y_in, bias and relu need a dequantized output (v)")
     if x8.device.type == "cpu":
-        return conv_i8_plain(x8, w8, stride, pad, v, dtype)
-    _check(x8, w8, stride, pad, v)
-    return _launch(x8, w8, stride, pad, v, dtype)
+        return conv_i8_plain(x8, w8, stride, pad, v, dtype, sx=sx, y_in=y_in, bias=bias,
+                             relu=relu)
+    shape = _check(x8, w8, stride, pad, v, dtype, sx, y_in, bias, wk)
+    return _launch(x8, w8, stride, pad, v, dtype, sx, y_in, bias, relu, wk,
+                   _route(x8, w8, stride, pad, wk), shape)
+
+
+def _simple_forward(x8, w8, stride: int, pad: int, v=None, dtype=torch.int32, *, sx=None,
+                    y_in=None, bias=None, relu=False):
+    """`conv_i8` on a CUDA tensor through the simple design at any shape
+    (for comparisons: the main path takes the design :func:`_route`
+    picks)."""
+    shape = _check(x8, w8, stride, pad, v, dtype, sx, y_in, bias, None)
+    return _launch(x8, w8, stride, pad, v, dtype, sx, y_in, bias, relu, None, "simple", shape)

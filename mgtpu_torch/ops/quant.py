@@ -19,9 +19,12 @@ a quantized one: its f32 weight gives way to the buffers ``w8`` (int8,
 HWIO), ``scale`` (f32, (Co,)) and, once calibrated, ``sx`` (f32, one
 scale a slot). A slot is one input of the conv: a plain conv has one;
 `ConvBN.conv_parts` numbers its exchange parts in their order (down,
-same, up). The layers of `mgtpu_torch.nn` branch on ``conv.quantized``;
-their conv is `mgtpu_torch.ops.cuda_conv_i8.conv_i8` with its dequant
-epilogue, which launches the int8 kernel on a CUDA tensor or raises.
+same, up). The layers of `mgtpu_torch.nn` branch on ``conv.quantized``:
+each conv part is one :func:`quant_i8` (the activation quantizer, one
+kernel launch with a static scale) and one
+`mgtpu_torch.ops.cuda_conv_i8.conv_i8` launch whose epilogue
+dequantizes, adds the part sum and, on a conv's last part, the bias; on
+a CUDA tensor both launch their kernels or raise.
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ import itertools
 import torch
 from torch import nn
 
+from mgtpu_torch import kernels
 from mgtpu_torch.ops.cuda_conv_i8 import conv_i8, conv_i8_plain  # noqa: F401 (re-exported)
+from mgtpu_torch.ops.resample import upsample_nearest2
 
 
 @functools.cache
@@ -63,6 +68,54 @@ def quantize_act(x: torch.Tensor, sx: torch.Tensor | None = None):
         sx = torch.clamp_min(xf.abs().amax() / _127(x.device), 1e-12)
     x8 = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
     return x8, sx
+
+
+def quant_i8_plain(x: torch.Tensor, sx: torch.Tensor | None = None, up=None):
+    """:func:`quantize_act`, then for an exchange's "up" part (``up`` =
+    (oh, ow)) the nearest 2x upsample of the int8 values cropped to
+    (oh, ow): the JAX layers' int8 "up" part (quantized at coarse
+    resolution; nearest upsampling commutes with the quantize)."""
+    x8, sx = quantize_act(x, sx)
+    return (x8 if up is None else upsample_nearest2(x8, *up)), sx
+
+
+def quant_i8(x: torch.Tensor, sx: torch.Tensor | None = None, up=None):
+    """:func:`quant_i8_plain` in one pass: (x8, sx). On a CUDA tensor the
+    `mgtpu_torch/csrc/quant_i8.cu` kernels: with a static ``sx`` (a 0-d
+    f32 tensor on the card) one ``mg_quant_i8`` launch; without, a
+    dynamic scale, ``mg_absmax`` (the |x| max into a zeroed f32) then
+    ``mg_quant_i8``, which computes ``sx`` from it as `quantize_act`
+    does and returns it as a 0-d tensor on the card (no synchronisation).
+    Both launches count as ``quant_i8``. ``x`` is a contiguous NHWC f32
+    or bf16 tensor. Bit-equal to the plain version; a NaN quantizes to 0
+    on both. CPU tensors take the plain version; CUDA tensors launch the
+    kernels or raise."""
+    if x.device.type == "cpu":
+        return quant_i8_plain(x, sx, up)
+    if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"quant_i8: needs a contiguous NHWC f32 or bf16 x, got "
+                         f"{tuple(x.shape)} {x.dtype} strides {x.stride()}")
+    n, h, w, c = x.shape
+    oh, ow = (h, w) if up is None else up
+    if not x.numel() or (up is not None and not (0 < oh <= 2 * h and 0 < ow <= 2 * w)):
+        raise ValueError(f"quant_i8: input {tuple(x.shape)}, up {up}")
+    if sx is not None and (sx.dtype != torch.float32 or sx.numel() != 1
+                           or sx.device != x.device):
+        raise ValueError(f"quant_i8: sx must be one f32 on {x.device}, got "
+                         f"{tuple(sx.shape)} {sx.dtype} on {sx.device}")
+    x8 = torch.empty((n, oh, ow, c), dtype=torch.int8, device=x.device)
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    shape = (n, h, w, c, oh, ow, int(up is not None), is_bf16)
+    if sx is not None:
+        kernels.launch("quant_i8", "mg_quant_i8", x.device, x.data_ptr(), sx.data_ptr(), 0, 0,
+                       x8.data_ptr(), *shape)
+        return x8, sx
+    scales = torch.empty(2, device=x.device)  # the absmax, then sx
+    kernels.launch("quant_i8", "mg_absmax", x.device, x.data_ptr(), scales.data_ptr(), x.numel(),
+                   is_bf16)
+    kernels.launch("quant_i8", "mg_quant_i8", x.device, x.data_ptr(), 0, scales.data_ptr(),
+                   scales.data_ptr() + 4, x8.data_ptr(), *shape)
+    return x8, scales[1]
 
 
 # --- calibration (static activation scales) -------------------------------

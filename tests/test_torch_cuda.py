@@ -286,7 +286,7 @@ def test_rmg18_forward_launches_and_matches_cpu(dev):
         kernels.reset_launches()
         got = model(x.to(dev)).cpu()
     assert kernels.LAUNCHES == {"conv3x3": 56, "conv3x3_bn_relu_in": 0, "maxpool2": 26,
-                                "maxpool2_bwd": 0, "conv_i8": 0}
+                                "maxpool2_bwd": 0, "conv_i8": 0, "quant_i8": 0}
     # f32 on both sides; the deep random-init net amplifies the
     # summation-order differences, so the bound is relative
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
@@ -374,7 +374,7 @@ def test_rmg18_train_step_launches_and_matches_cpu(dev):
     loss = nll_loss(model(x.to(dev)), y.to(dev))
     loss.backward()
     assert kernels.LAUNCHES == {"conv3x3": 38, "conv3x3_bn_relu_in": 18, "maxpool2": 26,
-                                "maxpool2_bwd": 26, "conv_i8": 0}
+                                "maxpool2_bwd": 26, "conv_i8": 0, "quant_i8": 0}
     # f32 on both sides, summation order only
     torch.testing.assert_close(loss.cpu(), ref.detach(), rtol=1e-4, atol=0)
 
@@ -440,47 +440,92 @@ def test_unmg_forward_launches_and_matches_cpu(dev):
         kernels.reset_launches()
         got = model(x.to(dev)).cpu()
     assert kernels.LAUNCHES == {"conv3x3": 25, "conv3x3_bn_relu_in": 0, "maxpool2": 16,
-                                "maxpool2_bwd": 0, "conv_i8": 0}
+                                "maxpool2_bwd": 0, "conv_i8": 0, "quant_i8": 0}
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
 
 
 # (n, h, w, ci, co, k, stride, pad, ci_total, ofs): the 3x3 bulk (Ci a
 # multiple of 16: 16-byte loads), the 7x7/2 stems on 3 and 1 channels,
 # the 1x1 heads (Co = 10, 1), strided 1x1 and 3x3, Ci of one and a half
-# chunks (24), a weight slice at input channel 3, tails of both tiles
+# chunks (24), a weight slice at input channel 3, tails of both tiles;
+# the 3x3/s1 ones with channels and offsets multiples of 16 take sm90:
+# Ci 16 (a zero-filled 32-byte box), 32, 64, 96, 128, 384 and 512 (channel
+# boxes of 32, 64 and 128 bytes), Co 16 to 512 (tiles of 32, 64, 128), M
+# not a multiple of 128
 CONV_I8_SHAPES = [(2, 14, 14, 64, 64, 3, 1, 1, 64, 0), (1, 56, 56, 16, 32, 3, 1, 1, 48, 16),
                   (2, 35, 33, 3, 16, 7, 2, 3, 3, 0), (2, 64, 64, 1, 8, 7, 2, 3, 1, 0),
                   (3, 8, 8, 64, 10, 1, 1, 0, 64, 0), (1, 9, 7, 24, 1, 1, 2, 0, 27, 3),
-                  (2, 9, 11, 24, 130, 3, 2, 1, 27, 3), (1, 7, 7, 512, 512, 3, 1, 1, 768, 256)]
+                  (2, 9, 11, 24, 130, 3, 2, 1, 27, 3), (1, 7, 7, 512, 512, 3, 1, 1, 768, 256),
+                  (3, 14, 14, 16, 16, 3, 1, 1, 48, 32), (2, 7, 7, 96, 128, 3, 1, 1, 224, 128),
+                  (4, 28, 28, 128, 128, 3, 1, 1, 192, 0), (2, 7, 7, 384, 512, 3, 1, 1, 384, 0),
+                  (5, 9, 13, 32, 48, 3, 1, 1, 96, 64)]
+
+
+def _i8_operands(shape, dev, seed=7):
+    from mgtpu_torch.ops.cuda_conv_i8 import pack_weight
+
+    n, h, w, ci, co, k, stride, pad, ci_total, ofs = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x8 = torch.randint(-127, 128, (n, h, w, ci), generator=g, device=dev).to(torch.int8)
+    wide = torch.randint(-127, 128, (k, k, ci_total, co), generator=g, device=dev).to(torch.int8)
+    v = 1e-4 + 1e-3 * torch.rand(co, generator=g, device=dev)
+    return x8, wide[:, :, ofs:ofs + ci], pack_weight(wide), v, stride, pad
 
 
 @pytest.mark.parametrize("shape", CONV_I8_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_conv_i8_is_bit_exact(dev, shape):
     """conv_i8 equals its plain version exactly: the int32 sums, and the
-    fused f32 and bf16 dequants bit for bit, x aligned (16-byte loads
-    where Ci % 16 == 0) and 4 bytes off a 16-byte boundary (byte loads);
-    one launch a call."""
-    from mgtpu_torch.ops.cuda_conv_i8 import conv_i8, conv_i8_plain
+    fused f32 and bf16 dequants bit for bit, x aligned (the design _route
+    picks: sm90 where it takes the shape) and 4 bytes off a 16-byte
+    boundary (the simple design's byte loads); one launch a call."""
+    from mgtpu_torch.ops.cuda_conv_i8 import _route, conv_i8, conv_i8_plain
 
-    n, h, w, ci, co, k, stride, pad, ci_total, ofs = shape
-    g = torch.Generator(device=dev).manual_seed(7)
-    x8 = torch.randint(-127, 128, (n, h, w, ci), generator=g, device=dev).to(torch.int8)
-    w8 = torch.randint(-127, 128, (k, k, ci_total, co), generator=g,
-                       device=dev).to(torch.int8)[:, :, ofs:ofs + ci]
-    v = 1e-4 + 1e-3 * torch.rand(co, generator=g, device=dev)
+    x8, w8, wk, v, stride, pad = _i8_operands(shape, dev)
     ref = conv_i8_plain(x8, w8, stride, pad)
     for x in (x8, misaligned(x8)):
         kernels.reset_launches()
-        assert torch.equal(conv_i8(x, w8, stride, pad), ref)
+        assert torch.equal(conv_i8(x, w8, stride, pad, wk=wk), ref)
         for dtype in (torch.float32, torch.bfloat16):
-            got = conv_i8(x, w8, stride, pad, v, dtype)
+            got = conv_i8(x, w8, stride, pad, v, dtype, wk=wk)
             assert got.dtype == dtype
             assert torch.equal(got, conv_i8_plain(x8, w8, stride, pad, v, dtype))
-        assert kernels.LAUNCHES["conv_i8"] == 3
+        design = _route(x, w8, stride, pad, wk)
+        assert kernels.LAUNCHES["conv_i8"] == 3 and kernels.ROUTES[("conv_i8", design)] == 3
+    sm90 = shape[5:8] == (3, 1, 1) and all(c % 16 == 0 for c in (shape[3], shape[4], *shape[8:]))
+    assert _route(x8, w8, stride, pad, wk) == ("sm90" if sm90 else "simple")
+
+
+@pytest.mark.parametrize("shape", CONV_I8_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_i8_epilogues_equal_plain_through_both_designs(dev, shape, dtype):
+    """Each epilogue variant (the scale sx read on the card; the running
+    part sum y_in, written in place; the bias rounded to the output type;
+    the ReLU) through the routed design and the simple design, against
+    the plain version's torch sequence: equal bit for bit, also with the
+    slice packed per call (no wk)."""
+    from mgtpu_torch.ops.cuda_conv_i8 import _simple_forward, conv_i8, conv_i8_plain
+
+    x8, w8, wk, v, stride, pad = _i8_operands(shape, dev, seed=8)
+    g = torch.Generator(device=dev).manual_seed(9)
+    sx = 0.5 + torch.rand((), generator=g, device=dev)
+    bias = torch.randn(w8.shape[3], generator=g, device=dev)
+    y0 = torch.randn(conv_i8_plain(x8, w8, stride, pad).shape, generator=g, device=dev).to(dtype)
+    for kw in ({"sx": sx}, {"sx": sx, "bias": bias}, {"sx": sx, "y_in": y0, "relu": True},
+               {"sx": sx, "y_in": y0, "bias": bias, "relu": True}):
+        want = conv_i8_plain(x8, w8, stride, pad, v, dtype,
+                             **{k: a.clone() if k == "y_in" else a for k, a in kw.items()})
+        for fn in (lambda **a: conv_i8(x8, w8, stride, pad, v, dtype, wk=wk, **a),
+                   lambda **a: conv_i8(x8, w8, stride, pad, v, dtype, **a),
+                   lambda **a: _simple_forward(x8, w8, stride, pad, v, dtype, **a)):
+            y_in = kw["y_in"].clone() if "y_in" in kw else None
+            got = fn(**{**kw, "y_in": y_in})
+            assert got.dtype == dtype and torch.equal(got, want)
+            if y_in is not None:
+                assert got.data_ptr() == y_in.data_ptr()  # the sum is updated in place
 
 
 def test_conv_i8_refuses_what_it_does_not_take(dev):
-    from mgtpu_torch.ops.cuda_conv_i8 import conv_i8
+    from mgtpu_torch.ops.cuda_conv_i8 import _check, _launch, conv_i8, pack_weight
 
     x8 = torch.zeros((1, 4, 4, 8), dtype=torch.int8, device=dev)
     w8 = torch.zeros((3, 3, 8, 4), dtype=torch.int8, device=dev)
@@ -492,6 +537,91 @@ def test_conv_i8_refuses_what_it_does_not_take(dev):
         conv_i8(x8, w8, 1, 1, torch.ones(5, device=dev), torch.float32)
     with pytest.raises(ValueError, match="leave no output"):
         conv_i8(x8, torch.zeros((7, 7, 8, 4), dtype=torch.int8, device=dev), 1, 0)
+    with pytest.raises(TypeError, match="need a dequantized output"):
+        conv_i8(x8, w8, 1, 1, bias=torch.zeros(4, device=dev))
+    with pytest.raises(ValueError, match="y_in must be"):
+        conv_i8(x8, w8, 1, 1, torch.ones(4, device=dev), torch.float32,
+                y_in=torch.zeros((1, 4, 4, 4), dtype=torch.bfloat16, device=dev))
+    with pytest.raises(ValueError, match="packed"):
+        conv_i8(x8, w8, 1, 1, wk=pack_weight(w8)[:, :9])
+    # the sm90 design refuses what _route never gives it: a 7x7 kernel, Ci = 8
+    for x, w in ((torch.zeros((1, 9, 9, 16), dtype=torch.int8, device=dev),
+                  torch.zeros((7, 7, 16, 16), dtype=torch.int8, device=dev)), (x8, w8)):
+        shape = _check(x, w, 1, 1, None, torch.int32, None, None, None, None)
+        with pytest.raises(RuntimeError, match="mg_conv_i8_sm90"):
+            _launch(x, w, 1, 1, None, torch.int32, None, None, None, False, None, "sm90", shape)
+
+
+# (n, h, w, c, up): R-MG-34's part widths, 16-channel groups and not (c
+# = 3, 24), "up" parts with even and odd crops
+QUANT_SHAPES = [(2, 7, 7, 512, None), (2, 14, 14, 16, (28, 28)), (3, 7, 7, 32, (13, 14)),
+                (2, 56, 56, 3, None), (1, 5, 6, 24, (9, 12)), (2, 1, 1, 64, (2, 2)),
+                (2, 28, 28, 128, None)]
+
+
+def _quant_input(n, h, w, c, dtype, dev, seed=0):
+    """Values spread over the scale's steps, with exact .5 ties, +-0,
+    +-inf and values past +-127 steps."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = 40 * torch.randn((n, h, w, c), generator=g, device=dev)
+    flat = x.view(-1)
+    specials = torch.tensor([0.5, 1.5, 2.5, -2.5, 0.0, -0.0, float("inf"), float("-inf"),
+                             1e4, -1e4, 126.5, -127.5], device=dev)
+    flat[:specials.numel()] = specials[:flat.numel()]
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("shape", QUANT_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["static", "dynamic"])
+def test_quant_i8_is_bit_exact(dev, shape, dtype, mode):
+    """quant_i8 equals quantize_act's torch ops (and the nearest upsample
+    of an "up" part) on the card bit for bit: ties to even, +-inf and
+    values past +-127*sx clipped, 0 for +-0; the dynamic scale (with an
+    inf in the tensor, inf/127: every finite value 0) equal too; one
+    launch (static) or two (dynamic) a call. A finite dynamic case takes
+    the tensor without its infinities."""
+    from mgtpu_torch.ops.quant import quant_i8, quant_i8_plain
+
+    n, h, w, c, up = shape
+    x = _quant_input(n, h, w, c, dtype, dev)
+    for xi in ((x,) if mode == "static" else (x, x.float().nan_to_num(posinf=0, neginf=0).to(dtype))):
+        sx = torch.full((), 1.0, device=dev) if mode == "static" else None
+        kernels.reset_launches()
+        x8, s = quant_i8(xi, sx, up)
+        ref8, ref_s = quant_i8_plain(xi, sx, up)
+        assert kernels.LAUNCHES["quant_i8"] == (1 if mode == "static" else 2)
+        assert x8.dtype == torch.int8 and torch.equal(x8, ref8)
+        assert torch.equal(s.reshape(()), ref_s.reshape(()))
+
+
+def test_quant_i8_nan_gives_zero(dev):
+    """A NaN quantizes to 0 on both sides; under a dynamic scale it makes
+    the scale NaN and every value 0, as the torch ops do."""
+    from mgtpu_torch.ops.quant import quant_i8, quant_i8_plain
+
+    x = _quant_input(1, 4, 4, 32, torch.float32, dev)
+    x[0, 1, 1, 5] = float("nan")
+    for sx in (torch.full((), 0.5, device=dev), None):
+        x8, s = quant_i8(x, sx)
+        ref8, ref_s = quant_i8_plain(x, sx)
+        assert torch.equal(x8, ref8) and int(x8[0, 1, 1, 5]) == 0
+        assert torch.equal(s.isnan(), ref_s.isnan())
+    assert not x8.any()
+
+
+def test_quant_i8_refuses(dev):
+    from mgtpu_torch.ops.quant import quant_i8
+
+    x = torch.zeros((1, 4, 4, 16), device=dev)
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        quant_i8(x.transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        quant_i8(x.half())
+    with pytest.raises(ValueError, match="up"):
+        quant_i8(x, None, (9, 8))
+    with pytest.raises(ValueError, match="one f32"):
+        quant_i8(x, torch.ones(2, device=dev))
 
 
 def test_int8_server_launches_conv_i8_per_part(dev):

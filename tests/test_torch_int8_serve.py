@@ -130,13 +130,16 @@ def _calls(shapes):
 
 @pytest.mark.parametrize("net", sorted(I8_PER_FORWARD))
 def test_int8_forward_launches_are_pinned(net):
-    """One int8 serving forward (BN folded, quantized) calls conv_i8 once
-    a quantized conv part and neither 3x3 conv kernel; it pools as the
+    """One int8 serving forward (BN folded, quantized) calls quant_i8 and
+    conv_i8 once a quantized conv part and neither 3x3 conv kernel; it pools as the
     float forward does. The run loop's order (quantize the unfolded net)
     makes the same calls at the same shapes."""
     opt = I8_SERVE[net][0]
     got = record_kernel_shapes(False, opt, int8=True)
     assert _calls(got) == I8_PER_FORWARD[net]
+    # one quantizer call a conv part (one launch with static scales, two
+    # with dynamic ones: chip_smoke.i8_pins)
+    assert I8_PER_FORWARD[net]["quant_i8"] == I8_PER_FORWARD[net]["conv_i8"]
     assert record_kernel_shapes(False, opt, fold=False, int8=True) == got
     floats = _calls(record_kernel_shapes(False, opt))
     assert floats["conv_i8"] == 0 and floats["maxpool2"] == I8_PER_FORWARD[net]["maxpool2"]
