@@ -54,22 +54,30 @@ activation quantizer kernels. Phases:
              and with_stats on and off, some shifts positive (the halo);
              at the shapes routed to sm90 also with exact zeros in the
              border rows and columns of x
-  8 maxpool2_bwd  kernel vs maxpool2_bwd_plain, exact, both tie rules, at
-             the training step's shapes and odd sizes; ties at zero and
-             at positive values, NaN, all -inf windows
+  8 maxpool2_bwd  the group design (one launch for a multigrid layer's
+             pools) vs maxpool2_bwd_plain member by member, exact, both
+             tie rules, at every group the training step forms and at
+             edge groups (odd sizes, lane widths 1 and 16 bytes in one
+             launch, a member off a 16-byte boundary, MAX_MEMBERS + 1
+             members), each member also through the simple design; ties
+             at zero and at positive values, NaN, all -inf windows
   9 grads    the conv3x3, conv3x3_bn_relu_in and maxpool2 autograd
              Functions vs autograd of their plain versions, f32, no TF32
  10 train    4 steps of R-MG-34 bf16 at batch 32 on one fixed batch: the
              loss stays finite and falls; exactly 76 conv3x3, 36
-             conv3x3_bn_relu_in, 46 maxpool2 and 46 maxpool2_bwd launches
-             per step, the convs and pools through the predicted designs;
+             conv3x3_bn_relu_in, 46 maxpool2 and 29 maxpool2_bwd launches
+             per step (the 46 pools' backward in 29 groups), the convs,
+             pools and pool backwards through the predicted designs;
              one f32 step on the card vs the plain CPU step
  11 times    the training step in images/s at batch 128 bf16; each new
              kernel's summed time per step vs its plain version (and the
-             tile design's, as in phase 6); the pool backward on rotated
-             inputs as in phase 6, beside aten's
-             max_pool2d_with_indices_backward (indices made outside the
-             timed calls: not quite the same function)
+             tile design's, as in phase 6); the pool backward at each
+             group of the step on rotated inputs as in phase 6, the group
+             design beside the simple one summed over the members, the
+             plain version and aten's max_pool2d_with_indices_backward
+             (indices made outside the timed calls: not quite the same
+             function); each backward design's split into a fixed cost a
+             launch and a rate, beside an empty kernel's
  12 cifar kernels  the six CIFAR nets (nmg, rnmg, pnmg, prnmg, resnet, vgg)
              at their recipes' depths: their kernel calls recorded on the
              CPU and held to the pinned counts; each kernel vs its plain
@@ -193,7 +201,8 @@ function (null where there is none) in one batch-128 bf16 serving
 forward (conv3x3, maxpool2) or training step (conv3x3_bn_relu_in,
 maxpool2_bwd). ``bound_ms`` is the least time the card could take for
 the same launches (:func:`path_bounds`), ``bound_by`` which bound sets
-most of it. Under the key "cifar/prnmg" each kernel has the same
+most of it. ``maxpool2_bwd`` names its ``design`` (group) and gives the
+simple design's time for the same pools (``simple_ms``). Under the key "cifar/prnmg" each kernel has the same
 numbers for cifar/prnmg: its launches in phases 13 and 14 (cifar/prnmg's
 own), its times and bounds per batch-128 forward or 64 x 2 step (phase
 15); under each net of phases 16-20 that launches it, the same numbers
@@ -241,7 +250,7 @@ from mgtpu_torch.ops.cuda_conv import (bn_relu_plain, conv3x3, conv3x3_bn_relu_i
 from mgtpu_torch.ops.fold import fold_batchnorm
 from mgtpu_torch.ops import quant
 from mgtpu_torch.ops.quant import quantize_model
-from mgtpu_torch.ops.cuda_pool import (maxpool2, maxpool2_backward, maxpool2_bwd_plain,
+from mgtpu_torch.ops.cuda_pool import (maxpool2, maxpool2_backward_group, maxpool2_bwd_plain,
                                        maxpool2_plain)
 from mgtpu_torch.ops.resample import nchw
 from mgtpu_torch.serve import Server, image_shape
@@ -256,8 +265,10 @@ IMAGE_SHAPE = image_shape(RMG34)
 PER_FORWARD = {"conv3x3": 112, "conv3x3_bn_relu_in": 0, "maxpool2": 46, "maxpool2_bwd": 0,
                "conv_i8": 0, "quant_i8": 0}
 # launches per training step: stage 2's 36 same-scale parts take the
-# prologue kernel instead of conv3x3; every pool is differentiated once
-PER_STEP = {"conv3x3": 76, "conv3x3_bn_relu_in": 36, "maxpool2": 46, "maxpool2_bwd": 46,
+# prologue kernel instead of conv3x3; every pool is differentiated once,
+# the pools of one multigrid layer (an exchange's down parts, an MgPool's
+# scales) in one grouped launch: 46 pools in 29 launches
+PER_STEP = {"conv3x3": 76, "conv3x3_bn_relu_in": 36, "maxpool2": 46, "maxpool2_bwd": 29,
             "conv_i8": 0, "quant_i8": 0}
 # the (H, W, C) at which R-MG-34 pools, in either pass
 RMG34_POOLS = [(14, 14, 16), (14, 14, 32), (14, 14, 64), (14, 14, 128), (14, 14, 256),
@@ -270,7 +281,8 @@ KERNELS = {
     "maxpool2": dict(route="cuda", source="mgtpu_torch/csrc/maxpool2.cu",
                      replaces="mgtpu/ops/pallas_pool.py:63"),
     "maxpool2_bwd": dict(route="cuda", source="mgtpu_torch/csrc/maxpool2.cu",
-                         replaces="mgtpu/ops/pallas_pool.py:84"),
+                         replaces="mgtpu/ops/pallas_pool.py:84",
+                         design="group: one launch for a multigrid layer's pools"),
 }
 CHECK_BATCH, TIME_BATCH = 8, 128
 # the H100 SXM's published peaks (NVIDIA's data sheet): dense bf16 on the
@@ -328,6 +340,15 @@ def quant_key(x, sx=None, up=None):
     return (*x.shape[1:], *(x.shape[1:3] if up is None else up))
 
 
+def pool_group_keys(xs, ys, gs, *a) -> list:
+    """The launches of a maxpool2_backward_group call on the card, each as
+    the (H, W, C) of its members: the members with a cotangent and
+    elements, MAX_MEMBERS a launch."""
+    shapes = [tuple(x.shape[1:]) for x, g in zip(xs, gs) if g is not None and x.numel()]
+    return [tuple(shapes[i:i + cuda_pool.MAX_MEMBERS])
+            for i in range(0, len(shapes), cuda_pool.MAX_MEMBERS)]
+
+
 def record_kernel_shapes(train: bool, opt: NetOpts = RMG34, fold: bool = True,
                          int8: bool = False):
     """One f32 pass of the net ``opt`` names (R-MG-34 by default) at batch
@@ -336,23 +357,25 @@ def record_kernel_shapes(train: bool, opt: NetOpts = RMG34, fold: bool = True,
     ``fold`` False the run loop's eval forward, BN unfolded; with
     ``int8`` quantized after the fold, as Server does), or a training
     forward and backward (one micro-batch). Returns {kernel: Counter of
-    shapes}."""
+    shapes}; a pool backward's shape is its group's: the (H, W, C) of
+    each member it launches for, in order (pool_group_keys)."""
     shapes = {k: Counter() for k in PER_STEP}
-    hooks = {(cuda_conv, "conv3x3_forward"): ("conv3x3", lambda x, *a, **kw: (
-                 x.shape[1], x.shape[2], x.shape[3], a[0].shape[3])),
-             (cuda_conv, "conv3x3_bn_relu_in_forward"): ("conv3x3_bn_relu_in", lambda x, *a, **kw: (
-                 x.shape[1], x.shape[2], x.shape[3], a[0].shape[3])),
-             (cuda_pool, "maxpool2_forward"): ("maxpool2", lambda x, *a: tuple(x.shape[1:])),
-             (cuda_pool, "maxpool2_backward"): ("maxpool2_bwd", lambda x, *a: tuple(x.shape[1:])),
-             (cuda_conv_i8, "conv_i8"): ("conv_i8", i8_key),
-             (quant, "quant_i8"): ("quant_i8", quant_key)}
+    one = lambda key: lambda *a, **kw: [key(*a, **kw)]  # noqa: E731
+    hooks = {(cuda_conv, "conv3x3_forward"): ("conv3x3", one(lambda x, *a, **kw: (
+                 x.shape[1], x.shape[2], x.shape[3], a[0].shape[3]))),
+             (cuda_conv, "conv3x3_bn_relu_in_forward"): ("conv3x3_bn_relu_in", one(
+                 lambda x, *a, **kw: (x.shape[1], x.shape[2], x.shape[3], a[0].shape[3]))),
+             (cuda_pool, "maxpool2_forward"): ("maxpool2", one(lambda x, *a: tuple(x.shape[1:]))),
+             (cuda_pool, "maxpool2_backward_group"): ("maxpool2_bwd", pool_group_keys),
+             (cuda_conv_i8, "conv_i8"): ("conv_i8", one(i8_key)),
+             (quant, "quant_i8"): ("quant_i8", one(quant_key))}
     originals = {key: getattr(*key) for key in hooks}
 
     def recording(key):
-        name, shape_of = hooks[key]
+        name, shapes_of = hooks[key]
 
         def fn(*a, **kw):
-            shapes[name][shape_of(*a, **kw)] += 1
+            shapes[name].update(shapes_of(*a, **kw))
             return originals[key](*a, **kw)
         return fn
 
@@ -382,7 +405,8 @@ def predicted_routes(shapes) -> dict:
     cuda_pool._route give one pass's recorded conv and pool calls in
     bf16: stand-in CPU tensors of their shapes (on the card the
     activations and the weight slices, which start at a multiple of Co
-    elements, are 16-byte aligned as they are)."""
+    elements, are 16-byte aligned as they are); the pool backward's
+    recorded launches all take the group design."""
     got = dict.fromkeys(kernels.ROUTES, 0)
     for kernel in ("conv3x3", "conv3x3_bn_relu_in"):
         for (h, w, ci, co), count in shapes[kernel].items():
@@ -391,6 +415,7 @@ def predicted_routes(shapes) -> dict:
             got[(kernel, cuda_conv._route(x, wt))] += count
     for shape, count in shapes["maxpool2"].items():
         got[("maxpool2", cuda_pool._route(torch.empty((1, *shape), dtype=torch.bfloat16)))] += count
+    got[("maxpool2_bwd", "group")] = sum(shapes["maxpool2_bwd"].values())
     return got
 
 
@@ -401,7 +426,8 @@ def kernel_work(kernel, shape, batch, itemsize=2):
     the image: along H, 3H - 2 of the 3H taps (the first and the last
     row each miss one to the zero padding), and as many along W. A pool's
     comparisons are not counted (no peak rate of the card is theirs, and
-    they are far below its bytes)."""
+    they are far below its bytes). A pool backward's shape is a group's:
+    the (H, W, C) of each member of one launch."""
     if kernel.startswith("conv3x3"):
         h, w, ci, co = shape
         px = batch * h * w
@@ -410,11 +436,16 @@ def kernel_work(kernel, shape, batch, itemsize=2):
         if kernel == "conv3x3_bn_relu_in":
             nbytes += 8 * ci
         return 2 * batch * (3 * h - 2) * (3 * w - 2) * ci * co, nbytes
+    if kernel == "maxpool2_bwd":  # a group: x, y, g in and dx out, for each member
+        return 0, sum(2 * itemsize * sum(pool_elements(m, batch)) for m in shape)
+    x_el, y_el = pool_elements(shape, batch)
+    return 0, itemsize * (x_el + y_el)
+
+
+def pool_elements(shape, batch):
+    """(x's elements, y's) of a pool of (H, W, C) at `batch`"""
     h, w, c = shape
-    x_el, y_el = batch * h * w * c, batch * -(-h // 2) * -(-w // 2) * c
-    if kernel == "maxpool2":
-        return 0, itemsize * (x_el + y_el)
-    return 0, itemsize * (2 * x_el + 2 * y_el)  # maxpool2_bwd: x, y, g in; dx out
+    return batch * h * w * c, batch * -(-h // 2) * -(-w // 2) * c
 
 
 def bound(flops, nbytes):
@@ -737,10 +768,7 @@ def time_pool(pool_shapes, ms, plain_ms, library_ms) -> None:
     # cost plus its bytes at a rate, and the card's floor for any launch
     empty = device_ms([lambda: torch.cuda._sleep(0)])[0][0]
     for d, pts in points.items():
-        slope, fixed = np.polyfit([b for b, _ in pts], [t for _, t in pts], 1)
-        phase("times", f"maxpool2 {d}: {fixed * 1e3:.2f} us a launch + its bytes at "
-              f"{1e-9 / slope:.2f} TB/s (least squares over the {len(pts)} shapes); an empty "
-              f"kernel (torch.cuda._sleep(0)) takes {empty * 1e3:.2f} us back to back")
+        launch_split(f"maxpool2 {d}", pts, empty)
 
 
 def check_prologue(cases, max_err, what="", both=False) -> None:
@@ -804,29 +832,66 @@ def check_prologue(cases, max_err, what="", both=False) -> None:
           f"{worst[torch.float32]:.2f} in f32)")
 
 
-def check_pool_bwd(shapes, max_err, what="") -> None:
-    """8: maxpool2_bwd vs maxpool2_bwd_plain at each NHWC shape. Both
-    select g or 0 per element, so they must be equal, under either tie
-    rule."""
-    n_cases = 0
-    for k, shape in enumerate(shapes):
+def pool_bwd_case(shapes, dtype, seed, ties):
+    """Inputs of one group of pool backwards on the card: per member
+    (N, H, W, C) of ``shapes``, x (pool_input), y = its pool, g in x's
+    type."""
+    xs = [pool_input(shape, dtype, seed=seed + j, ties=ties) for j, shape in enumerate(shapes)]
+    ys = [maxpool2_plain(x) for x in xs]
+    gs = [torch.randn(y.shape, device="cuda").to(dtype) for y in ys]
+    return xs, ys, gs
+
+
+def check_pool_bwd(groups, max_err, what="") -> None:
+    """8: maxpool2_backward_group vs maxpool2_bwd_plain, member by member,
+    for each group of NHWC shapes (a multigrid layer's pools, as the
+    training steps form them, and groups of the edge cases: odd sizes,
+    lane widths 1 and 16 bytes in one group, a member off a 16-byte
+    boundary, more members than one launch takes). Each group takes
+    ceil(members / MAX_MEMBERS) launches of the group design; each member
+    also goes through the simple design alone. Both select g or 0 per
+    element, so they must be equal, under either tie rule."""
+    n_cases = n_launches = 0
+    for k, shapes in enumerate(groups):
         for dtype in (torch.bfloat16, torch.float32):
             for ties in (False, True):
-                x = pool_input(shape, dtype, seed=200 + k, ties=ties)
-                y = maxpool2_plain(x)
-                g = torch.randn(y.shape, device="cuda")
+                xs, ys, gs = pool_bwd_case(shapes, dtype, 200 + 10 * k, ties)
+                if k % 3 == 2:  # every third group: its first member's x off 16 bytes
+                    xs[0] = misaligned(xs[0])
                 for rule in ("all", "first"):
-                    dx = maxpool2_backward(x, y, g, rule)
-                    ref = maxpool2_bwd_plain(x, y, g, rule)
-                    torch.cuda.synchronize()
-                    err = (dx.float() - ref.float()).abs().max().item()
-                    max_err["maxpool2_bwd"] = max(max_err["maxpool2_bwd"], err)
-                    check(dx.dtype == dtype and bool(torch.equal(dx, ref)),
-                          f"maxpool2_bwd {shape} {dtype} ties={rule}: differs from the plain "
-                          f"version (max abs err {err:.3g})")
-                    n_cases += 1
-    phase("maxpool2_bwd", f"{what}{n_cases} cases at {len(shapes)} shapes (bf16 and f32, both "
-          f"tie rules; ties at 0 and > 0, NaN, all -inf windows): equal to the plain version")
+                    before = dict(kernels.ROUTES)
+                    dxs = maxpool2_backward_group(xs, ys, gs, rule)
+                    want = -(-len(shapes) // cuda_pool.MAX_MEMBERS)
+                    check(routes_since(before) == {r: want * (r == ("maxpool2_bwd", "group"))
+                                                   for r in kernels.ROUTES},
+                          f"maxpool2_bwd group {shapes}: launched {routes_since(before)}, "
+                          f"expected {want} through group")
+                    n_launches += want
+                    for x, y, g, dx in zip(xs, ys, gs, dxs):
+                        ref = maxpool2_bwd_plain(x, y, g, rule)
+                        simple = cuda_pool._simple_backward(x, y, g, rule)
+                        torch.cuda.synchronize()
+                        err = (dx.float() - ref.float()).abs().max().item()
+                        max_err["maxpool2_bwd"] = max(max_err["maxpool2_bwd"], err)
+                        check(dx.dtype == dtype and torch.equal(dx, ref) and torch.equal(simple, ref),
+                              f"maxpool2_bwd {tuple(x.shape)} in group {shapes} {dtype} "
+                              f"ties={rule}: the group or the simple design differs from the "
+                              f"plain version (max abs err {err:.3g})")
+                        n_cases += 1
+    phase("maxpool2_bwd", f"{what}{n_cases} members in {len(groups)} groups, {n_launches} "
+          f"group launches (bf16 and f32, both tie rules; ties at 0 and > 0, NaN, all -inf "
+          f"windows; every third group with a member off 16 bytes): the group and the simple "
+          f"design equal to the plain version")
+
+
+def edge_groups() -> list:
+    """The pool backward's edge groups: each of the first four edge shapes
+    alone (odd sizes, C of 3, 130 and 4: one-element lanes), the four
+    together (lane widths 1 and 16 bytes in one launch), and
+    MAX_MEMBERS + 1 members (two launches)."""
+    edges = POOL_EDGE_SHAPES[:4]
+    many = [(2, 4 + j, 6 + j, 8 * (j + 1)) for j in range(cuda_pool.MAX_MEMBERS + 1)]
+    return [(shape,) for shape in edges] + [tuple(edges), tuple(many)]
 
 
 def check_grads() -> None:
@@ -937,10 +1002,96 @@ def flat(tree):
     return [tree]
 
 
-def time_train(name, train_shapes, ms, plain_ms, tile_ms, library_ms) -> None:
+def pool_bwd_operands(shape, seed):
+    """One member's bf16 inputs for timing, (x, y, g, first-tie indices):
+    ReLU-like x with ties; aten's backward starts from the indices, made
+    here, outside the timed calls."""
+    x = pool_input(shape, torch.bfloat16, seed, ties=True)
+    y = maxpool2_plain(x)
+    g = torch.randn(y.shape, device="cuda").to(torch.bfloat16)
+    return x, y, g, F.max_pool2d(nchw(x), 2, 2, ceil_mode=True, return_indices=True)[1]
+
+
+def members(flat):
+    """(xs, ys, gs, idxs) of a flat tuple of pool_bwd_operands"""
+    return flat[0::4], flat[1::4], flat[2::4], flat[3::4]
+
+
+POOL_BWD_FNS = {
+    "group": lambda xs, ys, gs, ids: maxpool2_backward_group(xs, ys, gs, "first"),
+    "simple": lambda xs, ys, gs, ids: [cuda_pool._simple_backward(x, y, g, "first")
+                                       for x, y, g in zip(xs, ys, gs)],
+    "plain": lambda xs, ys, gs, ids: [maxpool2_bwd_plain(x, y, g, "first")
+                                      for x, y, g in zip(xs, ys, gs)],
+    "library": lambda xs, ys, gs, ids: [torch.ops.aten.max_pool2d_with_indices_backward(
+        nchw(g), nchw(x), [2, 2], [2, 2], [0, 0], [1, 1], True, i)
+        for x, g, i in zip(xs, gs, ids)]}
+
+
+def time_pool_bwd(groups, batch, per, seed, unit, windows=5, split=False) -> dict:
+    """The pool backward at each distinct group of a pass (``groups``: the
+    recorded Counter, launches a micro-batch), at ``batch`` in bf16 under
+    the first-tie rule, cold (each call on the next of the group's copies,
+    COLD_BYTES in all), in turns: the group design (one launch), the
+    simple design summed over the members, the plain version and aten's
+    max_pool2d_with_indices_backward a member (not quite the same
+    function). After a check at this size that the group equals the
+    plain version. Returns {design: ms summed over the pass's launches,
+    ``per`` micro-batches}. With ``split``, also each member shape alone
+    through both designs, and each design's time as a fixed cost a launch
+    plus its bytes at a rate (least squares), beside an empty kernel's."""
+    sums = dict.fromkeys(POOL_BWD_FNS, 0.0)
+    points = {"group": [], "simple": []}  # (bytes, ms) of one launch
+    for k, (key, count) in enumerate(sorted(groups.items())):
+        flat = [t for j, shape in enumerate(key)
+                for t in pool_bwd_operands((batch, *shape), seed + 10 * k + j)]
+        xs, ys, gs, _ = members(flat)
+        for dx, x, y, g in zip(maxpool2_backward_group(xs, ys, gs, "first"), xs, ys, gs):
+            check(torch.equal(dx, maxpool2_bwd_plain(x, y, g, "first")),
+                  f"maxpool2_bwd group {key} at batch {batch}: differs from the plain version")
+        sets = cold_copies(flat)
+        fns = {d: rotating(lambda *f, fn=fn: fn(*members(f)), sets)
+               for d, fn in POOL_BWD_FNS.items()}
+        res = dict(zip(fns, device_ms(list(fns.values()), windows)))
+        nbytes = kernel_work("maxpool2_bwd", key, batch)[1]
+        t_bound = bound(0, nbytes)[0]
+        for d in sums:
+            sums[d] += per * count * res[d][0]
+        points["group"].append((nbytes, res["group"][0]))
+        phase("times", f"maxpool2_bwd {batch}x{' + '.join('x'.join(map(str, m)) for m in key)} "
+              f"(x{per * count}/{unit}; {nbytes / 1e6:.2f} MB, bound {t_bound * 1e3:.2f} us; "
+              f"{len(sets)} rotated input sets): " + ", ".join(
+                  f"{d} {t:.4f} ms ({t_bound / t:.0%} of the bound, spread {sp:.1%})"
+                  for d, (t, sp) in res.items()))
+    if split:
+        shapes = sorted({m for key in groups for m in key})
+        for k, shape in enumerate(shapes):
+            sets = cold_copies(list(pool_bwd_operands((batch, *shape), seed + 500 + k)))
+            res = device_ms([rotating(lambda *f, d=d: POOL_BWD_FNS[d](*members(f)), sets)
+                             for d in points], windows)
+            nbytes = kernel_work("maxpool2_bwd", (shape,), batch)[1]
+            for d, (t, _) in zip(points, res):
+                points[d].append((nbytes, t))
+        empty = device_ms([lambda: torch.cuda._sleep(0)])[0][0]
+        for d, pts in points.items():
+            launch_split(f"maxpool2_bwd {d}", pts, empty)
+    return sums
+
+
+def launch_split(what, points, empty) -> None:
+    """A design's time a launch as a fixed cost plus its bytes at a rate:
+    the least-squares line through its (bytes, ms) points."""
+    slope, fixed = np.polyfit([b for b, _ in points], [t for _, t in points], 1)
+    phase("times", f"{what}: {fixed * 1e3:.2f} us a launch + its bytes at {1e-9 / slope:.2f} "
+          f"TB/s (least squares over {len(points)} launches); an empty kernel "
+          f"(torch.cuda._sleep(0)) takes {empty * 1e3:.2f} us back to back")
+
+
+def time_train(name, train_shapes, ms, plain_ms, tile_ms, library_ms, simple_ms) -> None:
     """11: the training step and the two kernels it adds, at batch 128
     bf16; the pool backward on rotated inputs (cold L2), as the forward
-    in phase 6."""
+    in phase 6, each group of the step through both designs
+    (time_pool_bwd, with the fixed-cost split)."""
     torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(RMG34, seed=0, device="cuda", compute_dtype=torch.bfloat16)
     x, y = synthetic_batch(TIME_BATCH, seed=4)
@@ -964,37 +1115,19 @@ def time_train(name, train_shapes, ms, plain_ms, tile_ms, library_ms) -> None:
                                                           with_stats=False)
         time_conv("conv3x3_bn_relu_in", (h, w, ci, co), count, "step", fns, ms, plain_ms, tile_ms,
                   library_ms)
-    bound_ms = 0.0
-    for k, ((h, w, c), count) in enumerate(sorted(train_shapes["maxpool2_bwd"].items())):
-        x = pool_input((TIME_BATCH, h, w, c), torch.bfloat16, seed=500 + k, ties=True)
-        y = maxpool2_plain(x)
-        g = torch.randn(y.shape, device="cuda").to(torch.bfloat16)
-        # aten's backward starts from the first-tie indices, made here,
-        # outside the timed calls: not quite the same function
-        idx = F.max_pool2d(nchw(x), 2, 2, ceil_mode=True, return_indices=True)[1]
-        sets = cold_copies([x, y, g, idx])
-        res = dict(zip(("kernel", "plain", "aten"), device_ms([
-            rotating(lambda x, y, g, i: maxpool2_backward(x, y, g, "first"), sets),
-            rotating(lambda x, y, g, i: maxpool2_bwd_plain(x, y, g, "first"), sets),
-            rotating(lambda x, y, g, i: torch.ops.aten.max_pool2d_with_indices_backward(
-                nchw(g), nchw(x), [2, 2], [2, 2], [0, 0], [1, 1], True, i), sets)])))
-        nbytes = kernel_work("maxpool2_bwd", (h, w, c), TIME_BATCH)[1]
-        t_bound = bound(0, nbytes)[0]
-        ms["maxpool2_bwd"] += count * res["kernel"][0]
-        plain_ms["maxpool2_bwd"] += count * res["plain"][0]
-        library_ms["maxpool2_bwd"] += count * res["aten"][0]
-        bound_ms += count * t_bound
-        phase("times", f"maxpool2_bwd {TIME_BATCH}x{h}x{w}x{c} (x{count}/step; "
-              f"{nbytes / 1e6:.1f} MB, bound {t_bound:.4f} ms; {len(sets)} rotated inputs): "
-              + ", ".join(f"{d} {t:.4f} ms ({nbytes / t / 1e6:.0f} GB/s, {t_bound / t:.0%} of the "
-                          f"bound, spread {sp:.1%})" for d, (t, sp) in res.items()))
+    pool = time_pool_bwd(train_shapes["maxpool2_bwd"], TIME_BATCH, 1, 500, "step", split=True)
+    ms["maxpool2_bwd"], plain_ms["maxpool2_bwd"] = pool["group"], pool["plain"]
+    library_ms["maxpool2_bwd"], simple_ms["maxpool2_bwd"] = pool["library"], pool["simple"]
+    bound_ms = path_bounds(train_shapes, TIME_BATCH)["maxpool2_bwd"][2]
     phase("times", f"conv3x3_bn_relu_in per batch-{TIME_BATCH} training step: kernel "
           f"{ms['conv3x3_bn_relu_in']:.3f} ms (the tile design alone "
           f"{tile_ms['conv3x3_bn_relu_in']:.3f} ms), plain {plain_ms['conv3x3_bn_relu_in']:.3f} ms")
-    phase("times", f"maxpool2_bwd per batch-{TIME_BATCH} training step, cold L2: kernel "
-          f"{ms['maxpool2_bwd']:.3f} ms ({bound_ms / ms['maxpool2_bwd']:.0%} of its "
-          f"{bound_ms:.4f} ms bound), plain {plain_ms['maxpool2_bwd']:.3f} ms, aten's "
-          f"max_pool2d_with_indices_backward {library_ms['maxpool2_bwd']:.3f} ms")
+    phase("times", f"maxpool2_bwd per batch-{TIME_BATCH} training step, cold L2: group "
+          f"{ms['maxpool2_bwd']:.3f} ms in {PER_STEP['maxpool2_bwd']} launches "
+          f"({bound_ms / ms['maxpool2_bwd']:.0%} of its {bound_ms:.4f} ms bound), simple "
+          f"{simple_ms['maxpool2_bwd']:.3f} ms in {PER_STEP['maxpool2']}, plain "
+          f"{plain_ms['maxpool2_bwd']:.3f} ms, aten's max_pool2d_with_indices_backward "
+          f"{library_ms['maxpool2_bwd']:.3f} ms")
 
 # ------------------------------------------------------------ the CIFAR zoo
 
@@ -1022,11 +1155,14 @@ CIFAR_PER_FORWARD = {
     "cifar/nmg": launch_counts(36, 0, 28, 0), "cifar/rnmg": launch_counts(117, 0, 66, 0),
     "cifar/pnmg": launch_counts(72, 0, 42, 0), "cifar/prnmg": launch_counts(49, 0, 32, 0),
     "cifar/resnet": launch_counts(41, 0, 5, 0), "cifar/vgg": launch_counts(20, 0, 5, 0)}
+# (the pool backward one launch a layer's group of pools: nmg's 28 pools
+# in 14 launches, rnmg's 66 in 35, pnmg's 42 in 23, prnmg's 32 in 17; the
+# single-grid resnet and vgg pool one array a launch)
 CIFAR_PER_MICRO = {
-    "cifar/nmg": launch_counts(36, 0, 28, 28), "cifar/rnmg": launch_counts(81, 36, 66, 66),
-    "cifar/pnmg": launch_counts(72, 0, 42, 42), "cifar/prnmg": launch_counts(35, 14, 32, 32),
+    "cifar/nmg": launch_counts(36, 0, 28, 14), "cifar/rnmg": launch_counts(81, 36, 66, 35),
+    "cifar/pnmg": launch_counts(72, 0, 42, 23), "cifar/prnmg": launch_counts(35, 14, 32, 17),
     "cifar/resnet": launch_counts(41, 0, 5, 5), "cifar/vgg": launch_counts(20, 0, 5, 5)}
-PRNMG_DROPOUT_PER_MICRO = launch_counts(58, 5, 32, 32)
+PRNMG_DROPOUT_PER_MICRO = launch_counts(58, 5, 32, 17)
 CIFAR_SERVE_BATCH = 128
 CIFAR_IMAGE = (32, 32, 3)
 # the check steps' rate: a hundredth of the epoch-1 rate (0.1 under both
@@ -1082,7 +1218,7 @@ def check_cifar_kernels(rec, max_err) -> None:
             conv |= {(shape, batch) for shape in shapes["conv3x3"]}
             pool |= {(batch, *shape) for shape in shapes["maxpool2"]}
         pro |= {(shape, micro) for shape in train["conv3x3_bn_relu_in"]}
-        pool_bwd |= {(micro, *shape) for shape in train["maxpool2_bwd"]}
+        pool_bwd |= {tuple((micro, *shape) for shape in key) for key in train["maxpool2_bwd"]}
     check_conv(sorted(conv), max_err, "CIFAR: ", slices=True)
     check_pool(sorted(pool), max_err, "CIFAR: ")
     check_prologue(sorted(pro), max_err, "CIFAR: ")
@@ -1339,8 +1475,11 @@ def time_kernels(label, serve, train, serve_batch, micro, iters, seed=600, alter
     call of the same function (cuDNN's conv, F.max_pool2d, aten's pool
     backward) and, with ``alternatives``, the tile design (conv) or the
     simple one (pool) where the routed design is sm90; each the median of
-    ``windows`` windows. Returns ({kernel: ms}, {kernel: plain ms},
-    {kernel: library ms}) per forward (conv3x3, maxpool2) or per step
+    ``windows`` windows; the pool backward by group (time_pool_bwd:
+    the group design, the simple one summed over the members, the plain
+    version, aten's; with ``alternatives`` the fixed-cost split). Returns
+    ({kernel: ms}, {kernel: plain ms}, {kernel: library ms}, {"maxpool2_bwd":
+    the simple design's ms}) per forward (conv3x3, maxpool2) or per step
     (the other two); a kernel the net does not launch is left out."""
     ms, plain_ms = dict.fromkeys(KERNELS, 0.0), dict.fromkeys(KERNELS, 0.0)
     alt_ms, library_ms = dict.fromkeys(KERNELS, 0.0), dict.fromkeys(KERNELS, 0.0)
@@ -1368,53 +1507,41 @@ def time_kernels(label, serve, train, serve_batch, micro, iters, seed=600, alter
                                                            with_stats=False)
         time_conv("conv3x3_bn_relu_in", (h, w, ci, co), iters * count, "step", cfns, ms,
                   plain_ms, alt_ms, library_ms, micro, windows)
-    for kname, shapes, batch, per in (("maxpool2", serve["maxpool2"], serve_batch, 1),
-                                      ("maxpool2_bwd", train["maxpool2_bwd"], micro, iters)):
-        for k, ((h, w, c), count) in enumerate(sorted(shapes.items())):
-            xp = pool_input((batch, h, w, c), torch.bfloat16, seed=seed + 200 + k,
-                            ties=kname != "maxpool2")
-            if kname == "maxpool2":
-                route = cuda_pool._route(xp)
-                sets = cold_copies([xp])
-                pfns = {route: rotating(maxpool2, sets),
-                        "plain": rotating(maxpool2_plain, sets),
-                        "library": rotating(lambda t: F.max_pool2d(nchw(t), 2, 2, ceil_mode=True),
-                                            sets)}
-                if route == "sm90" and alternatives:
-                    pfns["simple"] = rotating(cuda_pool._simple_forward, sets)
-            else:
-                yp = maxpool2_plain(xp)
-                g = torch.randn(yp.shape, device="cuda").to(torch.bfloat16)
-                idx = F.max_pool2d(nchw(xp), 2, 2, ceil_mode=True, return_indices=True)[1]
-                sets = cold_copies([xp, yp, g, idx])
-                pfns = {"kernel": rotating(lambda a, b, c, i: maxpool2_backward(a, b, c, "first"),
-                                           sets),
-                        "plain": rotating(lambda a, b, c, i: maxpool2_bwd_plain(a, b, c, "first"),
-                                          sets),
-                        "library": rotating(
-                            lambda a, b, c, i: torch.ops.aten.max_pool2d_with_indices_backward(
-                                nchw(c), nchw(a), [2, 2], [2, 2], [0, 0], [1, 1], True, i), sets)}
-            pres = dict(zip(pfns, device_ms(list(pfns.values()), windows)))
-            names = list(pfns)
-            nbytes = kernel_work(kname, (h, w, c), batch)[1]
-            ms[kname] += per * count * pres[names[0]][0]
-            plain_ms[kname] += per * count * pres["plain"][0]
-            library_ms[kname] += per * count * pres["library"][0]
-            phase("times", f"{kname} {batch}x{h}x{w}x{c} (x{per * count}/"
-                  f"{'forward' if per == 1 else 'step'}; {nbytes / 1e6:.2f} MB, bound "
-                  f"{bound(0, nbytes)[0] * 1e3:.2f} us; cold inputs): " + ", ".join(
-                      f"{d} {t:.4f} ms (spread {sp:.1%})" for d, (t, sp) in pres.items()))
+    for k, ((h, w, c), count) in enumerate(sorted(serve["maxpool2"].items())):
+        xp = pool_input((serve_batch, h, w, c), torch.bfloat16, seed=seed + 200 + k)
+        route = cuda_pool._route(xp)
+        sets = cold_copies([xp])
+        pfns = {route: rotating(maxpool2, sets),
+                "plain": rotating(maxpool2_plain, sets),
+                "library": rotating(lambda t: F.max_pool2d(nchw(t), 2, 2, ceil_mode=True), sets)}
+        if route == "sm90" and alternatives:
+            pfns["simple"] = rotating(cuda_pool._simple_forward, sets)
+        pres = dict(zip(pfns, device_ms(list(pfns.values()), windows)))
+        nbytes = kernel_work("maxpool2", (h, w, c), serve_batch)[1]
+        ms["maxpool2"] += count * pres[route][0]
+        plain_ms["maxpool2"] += count * pres["plain"][0]
+        library_ms["maxpool2"] += count * pres["library"][0]
+        phase("times", f"maxpool2 {serve_batch}x{h}x{w}x{c} (x{count}/forward; "
+              f"{nbytes / 1e6:.2f} MB, bound {bound(0, nbytes)[0] * 1e3:.2f} us; cold inputs): "
+              + ", ".join(f"{d} {t:.4f} ms (spread {sp:.1%})" for d, (t, sp) in pres.items()))
+    if train["maxpool2_bwd"]:
+        pool = time_pool_bwd(train["maxpool2_bwd"], micro, iters, seed + 300, "step", windows,
+                             split=alternatives)
+        ms["maxpool2_bwd"], plain_ms["maxpool2_bwd"] = pool["group"], pool["plain"]
+        library_ms["maxpool2_bwd"], alt_ms["maxpool2_bwd"] = pool["library"], pool["simple"]
     used = [k for k in KERNELS if (serve if k in ("conv3x3", "maxpool2") else train)[k]]
     for k in used:
         unit = (f"batch-{serve_batch} forward" if k in ("conv3x3", "maxpool2")
                 else f"{micro} x {iters} step")
         lib = "none" if library_ms[k] is None else f"{library_ms[k]:.3f} ms"
         alt = (f", the tile design alone {alt_ms[k]:.3f} ms"
-               if k.startswith("conv") and alternatives else "")
+               if k.startswith("conv") and alternatives else
+               f" (group design), the simple design {alt_ms[k]:.3f} ms" if k == "maxpool2_bwd"
+               else "")
         phase("times", f"{label} {k} per {unit}: kernel {ms[k]:.3f} ms{alt}, plain "
               f"{plain_ms[k]:.3f} ms, one PyTorch call {lib}")
     return ({k: ms[k] for k in used}, {k: plain_ms[k] for k in used},
-            {k: library_ms[k] for k in used})
+            {k: library_ms[k] for k in used}, {"maxpool2_bwd": alt_ms["maxpool2_bwd"]})
 
 
 def time_cifar(name, rec):
@@ -1499,12 +1626,18 @@ SEG_PER_FORWARD = {
     "mnist-cluttered/pnmg.mnist": launch_counts(50, 0, 18, 0),
     "mnist-cluttered/prnmg.mnist": launch_counts(94, 0, 36, 0),
     "ilsvrc/prnmgseg": launch_counts(148, 0, 60, 0)}
+# (the pool backward one launch a layer's group: unmg's 13 differentiated
+# pools in 8 launches, pnmg.mnist's 15 in 7, prnmg.mnist's 33 in 15,
+# prnmgseg's 58 in 24. prnmgseg's is one more pool than one launch a pool
+# differentiated (57): in its last layer one pool of a group reaches the
+# loss, so autograd walks the whole group's inputs, and a conv Function on
+# the way turns the unread scale's missing cotangent into zeros)
 SEG_PER_MICRO = {
     "mnist-cluttered/unet": launch_counts(7, 0, 3, 3),
-    "mnist-cluttered/unmg": launch_counts(25, 0, 16, 13),
-    "mnist-cluttered/pnmg.mnist": launch_counts(50, 0, 18, 15),
-    "mnist-cluttered/prnmg.mnist": launch_counts(68, 26, 36, 33),
-    "ilsvrc/prnmgseg": launch_counts(106, 42, 60, 57)}
+    "mnist-cluttered/unmg": launch_counts(25, 0, 16, 8),
+    "mnist-cluttered/pnmg.mnist": launch_counts(50, 0, 18, 7),
+    "mnist-cluttered/prnmg.mnist": launch_counts(68, 26, 36, 15),
+    "ilsvrc/prnmgseg": launch_counts(106, 42, 60, 24)}
 PRNMGSEG52_PER_FORWARD = launch_counts(278, 0, 114, 0)
 # the check steps' rate: the mnist nets' epoch-1 rate (0.1 under both
 # their rules), at which their f32 losses fall from the first step on the
@@ -1559,7 +1692,7 @@ def check_seg_kernels(rec, extra, max_err) -> None:
             conv |= {(shape, batch) for shape in shapes["conv3x3"]}
             pool |= {(batch, *shape) for shape in shapes["maxpool2"]}
         pro |= {(shape, micro) for shape in train["conv3x3_bn_relu_in"]}
-        pool_bwd |= {(micro, *shape) for shape in train["maxpool2_bwd"]}
+        pool_bwd |= {tuple((micro, *shape) for shape in key) for key in train["maxpool2_bwd"]}
     check({ci for (_, _, ci, _), _ in conv} >= {1} and {co for (*_, co), _ in conv} >= {1, 10},
           "the seg shapes lack Ci = 1 or Co = 1, 10")
     check_conv(sorted(conv), max_err, "seg: ", slices=True, both=True)
@@ -2582,6 +2715,7 @@ def main() -> None:
     ms = dict.fromkeys(KERNELS, 0.0)
     plain_ms = dict.fromkeys(KERNELS, 0.0)
     tile_ms = dict.fromkeys(KERNELS, 0.0)  # the same launches, all through the tile design
+    simple_ms = {"maxpool2_bwd": 0.0}  # the pool backward's launches through the simple design
     # one PyTorch call of the same function; conv3x3_bn_relu_in has none
     library_ms = {k: None if k == "conv3x3_bn_relu_in" else 0.0 for k in KERNELS}
     for k, ((h, w, ci, co), count) in enumerate(sorted(conv_shapes.items())):
@@ -2611,12 +2745,12 @@ def main() -> None:
 
     check_prologue([(shape, CHECK_BATCH) for shape in train_shapes["conv3x3_bn_relu_in"]],
                    max_err)
-    check_pool_bwd([(CHECK_BATCH, *shape) for shape in sorted(train_shapes["maxpool2_bwd"])]
-                   + POOL_EDGE_SHAPES[:4], max_err)
+    check_pool_bwd([tuple((CHECK_BATCH, *shape) for shape in key)
+                    for key in sorted(train_shapes["maxpool2_bwd"])] + edge_groups(), max_err)
     check_grads()
     train_launches = check_train(name, train_routes)
     launches = {k: launches[k] + train_launches[k] for k in KERNELS}
-    time_train(name, train_shapes, ms, plain_ms, tile_ms, library_ms)
+    time_train(name, train_shapes, ms, plain_ms, tile_ms, library_ms, simple_ms)
 
     # 12-15 the CIFAR zoo
     rec = record_cifar()
@@ -2627,7 +2761,7 @@ def main() -> None:
     for k in KERNELS:  # every kernel ran on the CIFAR path (the prologue in rnmg and prnmg)
         check(sum(c[k] for c in cifar_launches.values()) > 0, f"{k} never launched on the "
               f"CIFAR path")
-    c_ms, c_plain_ms, c_library_ms = time_cifar(name, rec)
+    c_ms, c_plain_ms, c_library_ms, c_simple_ms = time_cifar(name, rec)
 
     # 16-20 the segmentation nets and PR-MG
     seg_rec, seg_extra = record_seg()
@@ -2702,24 +2836,27 @@ def main() -> None:
     step_bounds = path_bounds(train_shapes, TIME_BATCH)
     bounds = {k: (fwd_bounds if PER_FORWARD[k] else step_bounds)[k] for k in KERNELS}
     micro, iters = CIFAR_RECIPES[CIFAR_TIMED][1:]
-    # net -> (its launches, units, ms, plain ms, library ms, bounds)
+    # net -> (its launches, units, ms, plain ms, library ms, the pool
+    # backward's simple-design ms, bounds)
     nets = {f"R-MG-{DEPTH}": (None, (f"batch-{TIME_BATCH} forward", f"batch-{TIME_BATCH} step"),
-                              ms, plain_ms, library_ms, bounds),
+                              ms, plain_ms, library_ms, simple_ms, bounds),
             CIFAR_TIMED: (cifar_launches[CIFAR_TIMED], (f"batch-{CIFAR_SERVE_BATCH} forward",
                                                         f"{micro} x {iters} step"),
-                          c_ms, c_plain_ms, c_library_ms, cifar_bounds(rec))}
-    for net, (n_ms, n_plain, n_lib, n_bounds) in seg_times.items():
+                          c_ms, c_plain_ms, c_library_ms, c_simple_ms, cifar_bounds(rec))}
+    for net, (n_ms, n_plain, n_lib, n_simple, n_bounds) in seg_times.items():
         _, micro, iters, batches = SEG_RECIPES[net]
         nets[net] = (seg_launches[net], (f"batch-{batches[-1]} forward", f"{micro} x {iters} step"),
-                     n_ms, n_plain, n_lib, n_bounds)
-    for net, (_, units, kms, kplain, klib, bds) in nets.items():
+                     n_ms, n_plain, n_lib, n_simple, n_bounds)
+    for net, (_, units, kms, kplain, klib, ksimple, bds) in nets.items():
         for k in kms:
             flops, nbytes, t_bound, by = bds[k]
             lib = "none" if klib[k] is None else f"{klib[k]:.3f} ms"
+            simple = (f" (group design; the simple design {ksimple[k]:.3f} ms)"
+                      if k == "maxpool2_bwd" else "")
             phase("bounds", f"{net} {k} per {units[0] if PER_FORWARD[k] else units[1]}: "
                   f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB, bound {t_bound:.4f} ms (by "
-                  f"{by}); kernel {kms[k]:.3f} ms ({t_bound / kms[k]:.0%} of the bound), plain "
-                  f"{kplain[k]:.3f} ms, library {lib}")
+                  f"{by}); kernel {kms[k]:.3f} ms{simple} ({t_bound / kms[k]:.0%} of the bound), "
+                  f"plain {kplain[k]:.3f} ms, library {lib}")
     # the top-level numbers are R-MG-34's; under each other net's name the
     # same keys for its path, for the kernels it launches; launches count
     # every main-path run
@@ -2727,9 +2864,11 @@ def main() -> None:
         {"name": k, **KERNELS[k], "launches": launches[k], "max_abs_err": max_err[k],
          "ms": ms[k], "plain_ms": plain_ms[k], "bound_ms": bounds[k][2],
          "bound_by": bounds[k][3], "library_ms": library_ms[k],
+         **({"simple_ms": simple_ms[k]} if k in simple_ms else {}),
          **{net: {"launches": n_launches[k], "ms": kms[k], "plain_ms": kplain[k],
-                  "bound_ms": bds[k][2], "bound_by": bds[k][3], "library_ms": klib[k]}
-            for net, (n_launches, _, kms, kplain, klib, bds) in nets.items()
+                  "bound_ms": bds[k][2], "bound_by": bds[k][3], "library_ms": klib[k],
+                  **({"simple_ms": ksimple[k]} if k in ksimple else {})}
+            for net, (n_launches, _, kms, kplain, klib, ksimple, bds) in nets.items()
             if n_launches is not None and k in kms}} for k in KERNELS]
         + [{"name": "conv_i8", **KERNELS_I8["conv_i8"], "launches": i8_launches["conv_i8"],
             "max_abs_err": max_err["conv_i8"], "ms": i8_ms["kernel"], "plain_ms": i8_ms["plain"],

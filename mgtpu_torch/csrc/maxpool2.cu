@@ -27,8 +27,8 @@
 //          is bound by instruction issue, at under a third of the
 //          bandwidth on R-MG-34's large shapes.
 //
-// Backward. Replaces: mgtpu/ops/pallas_pool.py::_pool_bwd (body
-// _bwd_kernel), with two tie rules for a window whose max several
+// Backward. Replaces: mgtpu/ops/pallas_pool.py::_pool_bwd (lines 81-99,
+// body _bwd_kernel), with two tie rules for a window whose max several
 // elements share:
 //   all   (first_only = 0): dx = (x == y[window]) ? g[window] : 0, the
 //         Pallas kernel's rule; every tied element gets the cotangent,
@@ -43,19 +43,32 @@
 //         parameter gradients.
 // A NaN never compares equal, so a window whose max is NaN passes
 // nothing under either rule. Ceil mode comes for free: a clipped edge
-// window just holds fewer elements.
+// window just holds fewer elements. g comes in x's type (the wrapper
+// casts it), and every dx element is written, so dx needs no memset.
 //
 // Bound on this card: device-memory bandwidth. Per input element one
 // read of x and one write of dx, plus a quarter-size read each of y
-// and g: 2.5 elements moved per input element, no arithmetic.
-//
-// Design: one thread per V consecutive channels of one pooled pixel,
-// with V * sizeof(T) = 16 bytes when C % V == 0 and all four pointers
-// are 16-byte aligned (every shape of R-MG-34), else V = 1. The thread
-// reads y and g once, walks its window's (up to) four input pixels in
-// row-major order, and writes each one's dx: so the first-tie rule
-// needs no second pass, and every dx element is written (no memset).
-// Loads and stores are 16 bytes a thread, contiguous along C.
+// and g: 2.5 elements moved per input element, no arithmetic
+// (chip_smoke.py::kernel_work). Two designs compute it:
+//   group  (mg_maxpool2_bwd_group; section "group" below): the design
+//          the port runs. One launch serves up to MAX_MEMBERS tensors:
+//          the pools of one multigrid layer, which share a tie rule and
+//          a dtype and whose cotangents reach autograd together. What
+//          it attacks is the fixed cost of a launch, not bandwidth: on an
+//          H100 at ~3.5 us a launch (an empty kernel alone ~1.9 us) the
+//          small pools of the CIFAR nets and PR-MG-30 (32-256 KB
+//          tensors) cannot reach half their bound one launch a tensor,
+//          while the large ones already stream near the card's rate;
+//   simple (mg_maxpool2_bwd): the first design, one launch a tensor,
+//          kept to hold the group design against and to time it
+//          (cuda_pool.py::_simple_backward). One thread per V
+//          consecutive channels of one pooled pixel, with V * sizeof(T)
+//          = 16 bytes when C % V == 0 and all four pointers are 16-byte
+//          aligned, else V = 1; 64-bit index math, a grid-stride loop.
+// Both read y and g once per lane, walk the window's (up to) four input
+// pixels in row-major order and write each one's dx, so the first-tie
+// rule needs no second pass; loads and stores are V elements a thread,
+// contiguous along C. Bit-exact in bf16 and f32: dx is g or 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -382,6 +395,232 @@ int launch(const void* x, void* y, int n, int h, int w, int c, int k, int grid, 
 
 }  // namespace sm90
 
+// The group design of the backward: one launch for the pools of a
+// multigrid layer.
+//
+// The member table. The wrapper (cuda_pool.py::_group_plan) fills one
+// Table a launch and it travels by value as a __grid_constant__ kernel
+// parameter: no device allocation, no host-to-device copy. Member j has
+// items[j] work items, one per lane of one pooled pixel: V = 16/sizeof(T)
+// channels where C*sizeof(T) % 16 == 0 and its four pointers are 16-byte
+// aligned (vec = 1), else one channel (vec = 0), so lane widths may differ
+// within a group. An item's index is its lane's index in y and g, item =
+// ((n*OH + oh)*OW + ow)*lanes + lane.
+//
+// Work. A tile is per_thread * THREADS consecutive items of one member;
+// tile0[j] is the prefix sum of the earlier members' tiles, so a block
+// finds the member of its tile by a scan of at most MAX_MEMBERS prefix
+// sums, and a tile never straddles two members (the lane width and the
+// shape are uniform over a block). Blocks walk the tiles blockIdx.x,
+// + gridDim.x, ...; the wrapper sizes the grid from the card's SMs, so a
+// group of tiny members still spreads over the SMs (per_thread 1) and a
+// large one runs in one resident wave (per_thread MAX_ITEMS). Index
+// math is 32-bit: the wrapper refuses a member whose x has 2^31 lanes or
+// more, and launch_group() checks the table again.
+//
+// Loads before stores. Thread t of a tile takes items base + k*THREADS
+// (k < per_thread; a warp's lanes are contiguous in y, g and each window
+// corner of x) and issues every load of them first, y, g and up to four
+// x lanes an item, with the streaming hint (ld.global.cs: each byte is
+// read once), then computes and stores dx. The selection runs on 32-bit
+// words (two bf16 a word) with the first-tie flags as bits of one
+// register, so two items' 48 words stay in registers. No bulk-copy ring:
+// the streaming part already runs near the card's rate one thread a lane.
+namespace group {
+
+constexpr int MAX_MEMBERS = 8;
+constexpr int THREADS = 256;
+constexpr int MAX_ITEMS = 2;
+// blocks an SM: the launch bounds leave a thread 128 registers, so that
+// two items' loads (48 words) stay in registers (at 3 blocks, 85
+// registers, the bf16 kernels spilled and a batch-128 R-MG-34 step's
+// pool backward took 0.886 ms against 0.769 at 2 on an H100 SXM at
+// 700 W: probe_pool_bwd.py); the wrapper sizes the grid to this many
+// blocks an SM (cuda_pool.py::GROUP_BLOCKS_PER_SM)
+constexpr int MIN_BLOCKS = 2;
+
+// one tensor of the group; field order and types are mirrored by
+// cuda_pool.py::_Member
+struct Member {
+  const void* x;
+  const void* y;
+  const void* g;
+  void* dx;
+  int n, h, w, c;  // x's shape (NHWC); y, g (n, oh, ow, c); dx like x
+  int oh, ow;
+  int lanes;  // lanes a pixel: c / V, or c where vec is 0
+  int vec;    // 1: a lane is V = 16/sizeof(T) channels; 0: one channel
+  int items;  // n * oh * ow * lanes
+  int tile0;  // the member's first tile
+};
+
+// mirrored by cuda_pool.py::_Table
+struct Table {
+  Member m[MAX_MEMBERS];
+  int count;       // members, 1..MAX_MEMBERS
+  int tiles;       // every member's tiles
+  int per_thread;  // items a thread in a tile, 1..MAX_ITEMS
+};
+
+// A lane as L 32-bit words: a 16-byte lane is 4 words (4 f32 or 8 bf16
+// values, the low half of a word first); a one-element lane 1 word (a
+// bf16 value in its low half).
+template <int L>
+struct Lane {
+  uint32_t w[L];
+};
+
+template <bool BF16, int L>
+struct Io {
+  static constexpr int BYTES = L == 4 ? 16 : BF16 ? 2 : 4;
+  // lane i of base, read once: the streaming hint
+  __device__ static __forceinline__ Lane<L> load(const void* base, uint32_t i) {
+    const char* p = static_cast<const char*>(base) + (size_t)i * BYTES;
+    Lane<L> r;
+    if constexpr (L == 4) {
+      const uint4 u = __ldcs(reinterpret_cast<const uint4*>(p));
+      r.w[0] = u.x, r.w[1] = u.y, r.w[2] = u.z, r.w[3] = u.w;
+    } else if constexpr (BF16) {
+      r.w[0] = __ldcs(reinterpret_cast<const unsigned short*>(p));
+    } else {
+      r.w[0] = __ldcs(reinterpret_cast<const unsigned*>(p));
+    }
+    return r;
+  }
+  __device__ static __forceinline__ void store(void* base, uint32_t i, const Lane<L>& v) {
+    char* p = static_cast<char*>(base) + (size_t)i * BYTES;
+    if constexpr (L == 4)
+      *reinterpret_cast<uint4*>(p) = make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]);
+    else if constexpr (BF16)
+      *reinterpret_cast<unsigned short*>(p) = (unsigned short)v.w[0];
+    else
+      *reinterpret_cast<unsigned*>(p) = v.w[0];
+  }
+};
+
+// One word of a corner's dx: each element g where x equals y as a float
+// (NaN never does; -0 equals 0) and, under FIRST, no earlier corner of the
+// window took it (bit `bit` of `taken`, and bit + 1 for a word's high
+// bf16), else +0.
+template <bool BF16, bool FIRST>
+__device__ __forceinline__ uint32_t select_word(uint32_t x, uint32_t y, uint32_t g,
+                                                uint32_t& taken, int bit) {
+  if constexpr (BF16) {
+    bool lo = __uint_as_float(x << 16) == __uint_as_float(y << 16);
+    bool hi = __uint_as_float(x & 0xffff0000u) == __uint_as_float(y & 0xffff0000u);
+    if constexpr (FIRST) {
+      lo = lo && !(taken >> bit & 1u);
+      hi = hi && !(taken >> (bit + 1) & 1u);
+      taken |= (uint32_t)lo << bit | (uint32_t)hi << (bit + 1);
+    }
+    return (lo ? g & 0xffffu : 0u) | (hi ? g & 0xffff0000u : 0u);
+  } else {
+    bool hit = __uint_as_float(x) == __uint_as_float(y);
+    if constexpr (FIRST) {
+      hit = hit && !(taken >> bit & 1u);
+      taken |= (uint32_t)hit << bit;
+    }
+    return hit ? g : 0u;
+  }
+}
+
+// the items of one tile that thread threadIdx.x owns: base + k*THREADS
+template <bool BF16, int L, bool FIRST>
+__device__ __forceinline__ void tile(const Member& m, uint32_t base, int per_thread) {
+  using IO = Io<BF16, L>;
+  const uint32_t lanes = m.lanes, row = (uint32_t)m.w * lanes;  // x lanes a row
+  Lane<L> yv[MAX_ITEMS], gv[MAX_ITEMS], xv[MAX_ITEMS][4];
+  uint32_t x0[MAX_ITEMS];
+  bool ok[MAX_ITEMS], right[MAX_ITEMS], down[MAX_ITEMS];
+#pragma unroll
+  for (int k = 0; k < MAX_ITEMS; ++k) {
+    const uint32_t item = base + k * THREADS;
+    ok[k] = k < per_thread && item < (uint32_t)m.items;
+    right[k] = down[k] = false;
+    x0[k] = 0;
+    if (ok[k]) {
+      const uint32_t lane = item % lanes;
+      uint32_t t = item / lanes;
+      const uint32_t ow = t % m.ow;
+      t /= m.ow;
+      const uint32_t oh = t % m.oh, n = t / m.oh;
+      x0[k] = ((n * m.h + 2 * oh) * m.w + 2 * ow) * lanes + lane;
+      right[k] = 2 * ow + 1 < (uint32_t)m.w;
+      down[k] = 2 * oh + 1 < (uint32_t)m.h;
+      yv[k] = IO::load(m.y, item);
+      gv[k] = IO::load(m.g, item);
+      xv[k][0] = IO::load(m.x, x0[k]);
+      if (right[k]) xv[k][1] = IO::load(m.x, x0[k] + lanes);
+      if (down[k]) xv[k][2] = IO::load(m.x, x0[k] + row);
+      if (right[k] && down[k]) xv[k][3] = IO::load(m.x, x0[k] + row + lanes);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < MAX_ITEMS; ++k) {
+    if (!ok[k]) continue;
+    uint32_t taken = 0;
+#pragma unroll
+    for (int corner = 0; corner < 4; ++corner) {  // row-major window order
+      const bool a = corner >= 2, b = corner % 2;
+      if ((b && !right[k]) || (a && !down[k])) continue;  // clipped edge window
+      Lane<L> out;
+#pragma unroll
+      for (int i = 0; i < L; ++i)
+        out.w[i] = select_word<BF16, FIRST>(xv[k][corner].w[i], yv[k].w[i], gv[k].w[i], taken,
+                                            BF16 ? 2 * i : i);
+      IO::store(m.dx, x0[k] + (a ? row : 0) + (b ? lanes : 0), out);
+    }
+  }
+}
+
+template <bool BF16, bool FIRST>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+maxpool2_bwd_group_kernel(const __grid_constant__ Table t) {
+  for (int tl = blockIdx.x; tl < t.tiles; tl += gridDim.x) {
+    int j = 0;
+#pragma unroll
+    for (int k = 1; k < MAX_MEMBERS; ++k)
+      if (k < t.count && tl >= t.m[k].tile0) j = k;
+    const Member& m = t.m[j];
+    const uint32_t base = (uint32_t)(tl - m.tile0) * (uint32_t)(t.per_thread * THREADS) + threadIdx.x;
+    if (m.vec)
+      tile<BF16, 4, FIRST>(m, base, t.per_thread);
+    else
+      tile<BF16, 1, FIRST>(m, base, t.per_thread);
+  }
+}
+
+// the launches the wrapper plans; anything else is refused
+bool valid(const Table& t, int grid, int elem_bytes) {
+  if (t.count < 1 || t.count > MAX_MEMBERS || t.per_thread < 1 || t.per_thread > MAX_ITEMS ||
+      grid < 1)
+    return false;
+  const long long tile_items = (long long)t.per_thread * THREADS;
+  long long tiles = 0;
+  for (int j = 0; j < t.count; ++j) {
+    const Member& m = t.m[j];
+    const int v = m.vec ? 16 / elem_bytes : 1;
+    const long long items = (long long)m.n * m.oh * m.ow * m.lanes;
+    const long long x_lanes = (long long)m.n * m.h * m.w * m.lanes;
+    if (m.n < 1 || m.h < 1 || m.w < 1 || m.c < 1 || m.oh != (m.h + 1) / 2 ||
+        m.ow != (m.w + 1) / 2 || (long long)m.lanes * v != m.c || items != m.items ||
+        x_lanes >= (1ll << 31) || m.tile0 != tiles ||
+        (m.vec && !(aligned16(m.x) && aligned16(m.y) && aligned16(m.g) && aligned16(m.dx))))
+      return false;
+    tiles += (items + tile_items - 1) / tile_items;
+  }
+  return tiles == t.tiles && tiles < (1ll << 31);
+}
+
+template <bool BF16, bool FIRST>
+int launch_group(const Table& t, int grid, cudaStream_t s) {
+  if (!valid(t, grid, BF16 ? 2 : 4)) return (int)cudaErrorInvalidValue;
+  maxpool2_bwd_group_kernel<BF16, FIRST><<<grid, THREADS, 0, s>>>(t);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace group
+
 }  // namespace
 
 extern "C" int mg_maxpool2(const void* x, void* y, int n, int h, int w, int c, int is_bf16,
@@ -410,4 +649,23 @@ extern "C" int mg_maxpool2_bwd(const void* x, const void* y, const void* g, void
                       : launch_bwd<__nv_bfloat16, false>(x, y, g, dx, n, h, w, c, s);
   return first_only ? launch_bwd<float, true>(x, y, g, dx, n, h, w, c, s)
                     : launch_bwd<float, false>(x, y, g, dx, n, h, w, c, s);
+}
+
+
+// The group design: one launch for table->count tensors (the table of
+// cuda_pool.py::_group_plan, passed by address and copied into the
+// kernel's parameters; table_bytes is the caller's sizeof, refused unless
+// it is this file's), under one tie rule and one dtype, on `grid` blocks.
+// Refuses, with cudaErrorInvalidValue, a table the wrapper would not make.
+extern "C" int mg_maxpool2_bwd_group(const void* table, int table_bytes, int grid, int first_only,
+                                     int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (table == nullptr || table_bytes != (int)sizeof(group::Table))
+    return (int)cudaErrorInvalidValue;
+  const group::Table& t = *static_cast<const group::Table*>(table);
+  if (is_bf16)
+    return first_only ? group::launch_group<true, true>(t, grid, s)
+                      : group::launch_group<true, false>(t, grid, s);
+  return first_only ? group::launch_group<false, true>(t, grid, s)
+                    : group::launch_group<false, false>(t, grid, s);
 }

@@ -43,11 +43,14 @@ LAUNCHES: dict[str, int] = {"conv3x3": 0, "conv3x3_bn_relu_in": 0, "maxpool2": 0
                             "maxpool2_bwd": 0, "conv_i8": 0, "quant_i8": 0}
 # (kernel, design) -> launches since the last reset_launches(), for the
 # kernels with two designs: the convs' (mgtpu_torch/ops/cuda_conv.py::_route),
-# the pool forward's (mgtpu_torch/ops/cuda_pool.py::_route) and the int8
-# conv's (mgtpu_torch/ops/cuda_conv_i8.py::_route)
+# the pool forward's (mgtpu_torch/ops/cuda_pool.py::_route), the int8
+# conv's (mgtpu_torch/ops/cuda_conv_i8.py::_route) and the pool
+# backward's ("group" on the port's path; "simple" only through
+# cuda_pool._simple_backward)
 ROUTES: dict[tuple[str, str], int] = {
     **{(k, r): 0 for k in ("conv3x3", "conv3x3_bn_relu_in") for r in ("sm90", "tile")},
-    **{(k, r): 0 for k in ("maxpool2", "conv_i8") for r in ("sm90", "simple")}}
+    **{(k, r): 0 for k in ("maxpool2", "conv_i8") for r in ("sm90", "simple")},
+    **{("maxpool2_bwd", r): 0 for r in ("group", "simple")}}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -71,6 +74,8 @@ _SIGNATURES = {
     "mg_maxpool2_sm90": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, y, g, dx, n, h, w, c, first_only, is_bf16, stream
     "mg_maxpool2_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # table (a cuda_pool._Table), table_bytes, grid, first_only, is_bf16, stream
+    "mg_maxpool2_bwd_group": (_P, _I, _I, _I, _I, _P),
     # x, w, sx, scale, y_in, bias, y, n, h, w, ci, co, k, stride, pad,
     # w_tap_stride, out_kind, relu, stream
     "mg_conv_i8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L, _I, _I, _P),

@@ -11,6 +11,15 @@ kernels took even sizes only. The forward has two designs, ``sm90``
 shape and alignment alone. It is not a fallback: a launch that fails
 raises.
 
+The backward has two designs too. ``group`` is the port's: one launch
+for a group of pools that share a tie rule and a dtype, the pools of one
+multigrid layer (:func:`maxpool2_group`, whose cotangents reach autograd
+together; :func:`maxpool2_backward_group`), with the member table passed
+by value in the launch (:func:`_group_plan`, :func:`_group_table`); a
+single pool is a group of one. ``simple`` is the first design, one
+launch a tensor, reachable only through :func:`_simple_backward` to hold
+the two against each other and time them.
+
 The backward has two tie rules for a window whose max several elements
 share. ``ties="all"`` is the Pallas kernel's: every tied element gets
 the cotangent (sum(dx) = k*g for k ties). ``ties="first"`` gives it to
@@ -26,6 +35,7 @@ neighbouring outputs, which block 1's 2x2 down-pool then sees tied.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -179,12 +189,63 @@ def _simple_forward(x: torch.Tensor) -> torch.Tensor:
     return _launch(x, "simple")
 
 
-def maxpool2_backward(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
-                      ties: str = "all") -> torch.Tensor:
-    """dx of the pool under the tie rule ``ties``. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
-    if x.device.type == "cpu":
-        return maxpool2_bwd_plain(x, y, g, ties)
+# the group design of the backward (maxpool2.cu, section "group"): the
+# most tensors one launch takes (a longer group is split), the threads a
+# block, the items a thread takes at most, and the blocks an SM holds
+# (the kernel's __launch_bounds__)
+MAX_MEMBERS, GROUP_THREADS, GROUP_MAX_ITEMS, GROUP_BLOCKS_PER_SM = 8, 256, 2, 2
+
+
+class _Member(ctypes.Structure):
+    """maxpool2.cu group::Member, field for field"""
+    _fields_ = [("x", ctypes.c_void_p), ("y", ctypes.c_void_p), ("g", ctypes.c_void_p),
+                ("dx", ctypes.c_void_p), *((f, ctypes.c_int) for f in (
+                    "n", "h", "w", "c", "oh", "ow", "lanes", "vec", "items", "tile0"))]
+
+
+class _Table(ctypes.Structure):
+    """maxpool2.cu group::Table: the member table a launch takes by value"""
+    _fields_ = [("m", _Member * MAX_MEMBERS), ("count", ctypes.c_int), ("tiles", ctypes.c_int),
+                ("per_thread", ctypes.c_int)]
+
+
+@functools.cache
+def _group_plan(members: tuple, sms: int) -> tuple:
+    """The index plan of one launch of the group design. ``members`` is
+    ((n, h, w, c, v), ...), v the channels a lane (16 bytes' worth, or 1).
+    Returns (per_thread, grid, tiles, ((items, tile0), ...)): a member's
+    items are its lanes of y, n*ceil(h/2)*ceil(w/2)*c/v, cut into tiles
+    of per_thread*GROUP_THREADS items, tile0 the prefix sum of the earlier
+    members' tiles. per_thread is the most items a thread (up to
+    GROUP_MAX_ITEMS) that still gives every resident block of the card a
+    tile, else 1 (a tiny group: the most blocks); the grid is the tiles,
+    at most one resident wave. Cached: a net's layers form a few groups."""
+    if not 0 < len(members) <= MAX_MEMBERS:
+        raise ValueError(f"maxpool2_bwd: {len(members)} members, 1 to {MAX_MEMBERS} a launch")
+    items = [n * -(-h // 2) * -(-w // 2) * (c // v) for n, h, w, c, v in members]
+    resident = GROUP_BLOCKS_PER_SM * sms
+    for per_thread in range(GROUP_MAX_ITEMS, 0, -1):
+        size = per_thread * GROUP_THREADS
+        counts = [-(-i // size) for i in items]
+        if sum(counts) >= resident:
+            break
+    tile0 = [sum(counts[:j]) for j in range(len(counts))]
+    tiles = sum(counts)
+    return per_thread, min(tiles, resident), tiles, tuple(zip(items, tile0))
+
+
+def _lane(x: torch.Tensor, *others: torch.Tensor) -> int:
+    """Channels a lane of the group design: 16 bytes' worth where C fills
+    whole 16-byte lanes and all four tensors start on a 16-byte boundary,
+    else one."""
+    v = 16 // x.element_size()
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, *others))
+    return v if x.shape[3] % v == 0 and aligned else 1
+
+
+def _checked(x, y, g, ties):
+    """(x, y, g in x's type) of one member, checked as the kernels take
+    them; raises on anything else."""
     _check_ties(ties)
     _check("maxpool2_bwd", x)
     n, h, w, c = x.shape
@@ -195,31 +256,120 @@ def maxpool2_backward(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
         if tuple(t.shape) != pooled or t.dtype != x.dtype or t.device != x.device:
             raise ValueError(f"maxpool2_bwd: {name} is {tuple(t.shape)} {t.dtype} on "
                              f"{t.device}, expected {pooled} {x.dtype} on {x.device}")
+    # 32-bit index math in the group design
+    if x.numel() // _lane(x) >= 2**31:
+        raise ValueError(f"maxpool2_bwd: {tuple(x.shape)} has 2**31 lanes or more")
+    return x, y, g
+
+
+def _group_table(members, sms: int) -> tuple[_Table, int]:
+    """(the member table, the grid) of one launch of the group design over
+    ``members``, [(x, y, g, dx)]: _group_plan's plan, filled in with the
+    tensors' addresses."""
+    dims = tuple((*m[0].shape, _lane(*m)) for m in members)
+    per_thread, grid, tiles, plan = _group_plan(dims, sms)
+    table = _Table(count=len(members), tiles=tiles, per_thread=per_thread)
+    for slot, (x, y, g, dx), (n, h, w, c, v), (items, tile0) in zip(table.m, members, dims, plan):
+        slot.x, slot.y, slot.g, slot.dx = x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr()
+        slot.n, slot.h, slot.w, slot.c = n, h, w, c
+        slot.oh, slot.ow, slot.lanes, slot.vec = -(-h // 2), -(-w // 2), c // v, int(v > 1)
+        slot.items, slot.tile0 = items, tile0
+    return table, grid
+
+
+def _launch_group(members, ties: str) -> None:
+    """One launch of the group design over ``members``, [(x, y, g, dx)],
+    all of one dtype on one card."""
+    x0 = members[0][0]
+    table, grid = _group_table(members, _sms(x0.device.index))
+    kernels.launch("maxpool2_bwd", "mg_maxpool2_bwd_group", x0.device, ctypes.byref(table),
+                   ctypes.sizeof(table), grid, int(ties == "first"),
+                   int(x0.dtype == torch.bfloat16), route="group")
+
+
+def maxpool2_backward_group(xs, ys, gs, ties: str = "all") -> list:
+    """dx of each pool of a group under the tie rule ``ties``: member j is
+    (xs[j], ys[j], gs[j]); a member whose g is None gets None. CPU tensors
+    take the plain version, member by member; CUDA tensors launch the
+    group design once for up to MAX_MEMBERS members (the members of one
+    dtype on one card; more are split) or raise."""
+    _check_ties(ties)
+    if len({len(xs), len(ys), len(gs)}) != 1:
+        raise ValueError(f"maxpool2_bwd: {len(xs)} x, {len(ys)} y, {len(gs)} g")
+    if all(x.device.type == "cpu" for x in xs):
+        return [None if g is None else maxpool2_bwd_plain(x, y, g, ties)
+                for x, y, g in zip(xs, ys, gs)]
+    dxs, members = [], []
+    for x, y, g in zip(xs, ys, gs):
+        if g is None:
+            dxs.append(None)
+            continue
+        x, y, g = _checked(x, y, g, ties)
+        if x.device != xs[0].device or x.dtype != xs[0].dtype:
+            raise ValueError(f"maxpool2_bwd: a group on {x.device} {x.dtype} and "
+                             f"{xs[0].device} {xs[0].dtype}")
+        dxs.append(torch.empty_like(x))
+        if x.numel():
+            members.append((x, y, g, dxs[-1]))
+    for i in range(0, len(members), MAX_MEMBERS):
+        _launch_group(members[i:i + MAX_MEMBERS], ties)
+    return dxs
+
+
+def maxpool2_backward(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+                      ties: str = "all") -> torch.Tensor:
+    """dx of one pool under the tie rule ``ties``: a group of one."""
+    return maxpool2_backward_group([x], [y], [g], ties)[0]
+
+
+def _simple_backward(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+                     ties: str = "all") -> torch.Tensor:
+    """dx through the simple design (one launch a tensor), on CUDA
+    tensors. Private: only for holding the two designs against each
+    other and timing them (chip_smoke.py, tests/test_torch_cuda.py); the
+    port's path takes the group design."""
+    x, y, g = _checked(x, y, g, ties)
     dx = torch.empty_like(x)
     if dx.numel():
         kernels.launch("maxpool2_bwd", "mg_maxpool2_bwd", x.device, x.data_ptr(), y.data_ptr(),
-                       g.data_ptr(), dx.data_ptr(), n, h, w, c, int(ties == "first"),
-                       int(x.dtype == torch.bfloat16))
+                       g.data_ptr(), dx.data_ptr(), *x.shape, int(ties == "first"),
+                       int(x.dtype == torch.bfloat16), route="simple")
     return dx
 
 
-class _MaxPool2(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, ties):
-        y = maxpool2_forward(x)
-        ctx.ties = ties
-        ctx.save_for_backward(x, y)
-        return y
+class _MaxPool2Group(torch.autograd.Function):
+    """The pools of a group: the forward one launch a member, the
+    backward one grouped launch over the members whose output has a
+    cotangent."""
 
     @staticmethod
-    def backward(ctx, g):
-        x, y = ctx.saved_tensors
-        return maxpool2_backward(x, y, g, ctx.ties), None
+    def forward(ctx, ties, *xs):
+        ys = tuple(maxpool2_forward(x) for x in xs)
+        ctx.ties = ties
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*xs, *ys)
+        return ys
+
+    @staticmethod
+    def backward(ctx, *gs):
+        saved = ctx.saved_tensors
+        xs, ys = saved[:len(gs)], saved[len(gs):]
+        gs = [g if need else None for g, need in zip(gs, ctx.needs_input_grad[1:])]
+        return (None, *maxpool2_backward_group(xs, ys, gs, ctx.ties))
+
+
+def maxpool2_group(xs, ties: str = "all") -> tuple:
+    """NHWC 2x2/2 ceil-mode max pools of the tensors ``xs`` (one dtype,
+    one device), differentiable under the tie rule ``ties`` ("all", the
+    Pallas kernel's, or "first"): a multigrid layer's pools, whose
+    cotangents reach autograd together and take one launch of the
+    backward. CPU tensors take the plain versions; CUDA tensors launch
+    the kernels or raise."""
+    _check_ties(ties)
+    return _MaxPool2Group.apply(ties, *xs) if len(xs) else ()
 
 
 def maxpool2(x: torch.Tensor, ties: str = "all") -> torch.Tensor:
     """NHWC 2x2/2 ceil-mode max pool, differentiable under the tie rule
-    ``ties`` ("all", the Pallas kernel's, or "first"). CPU tensors take
-    the plain versions; CUDA tensors launch the kernels or raise."""
-    _check_ties(ties)
-    return _MaxPool2.apply(x, ties)
+    ``ties``: a group of one."""
+    return maxpool2_group((x,), ties)[0]

@@ -17,7 +17,8 @@ from torch import nn
 
 from mgtpu_torch.nn import ConvBN, Dropout, UpConvBN
 from mgtpu_torch.ops.cuda_conv import bn_relu_plain
-from mgtpu_torch.ops.resample import maxpool, maxpool2_ceil, avgpool, upsample_nearest2
+from mgtpu_torch.ops.resample import (avgpool, maxpool, maxpool2_ceil, maxpool2_ceil_group,
+                                     upsample_nearest2)
 
 Pyramid = tuple
 
@@ -36,17 +37,26 @@ def pyramid_widths_after_exchange(widths: Sequence[int]) -> list[int]:
     return out
 
 
-def exchange_parts(pyr: Pyramid, i: int, same=None):
+def pool_finer(pyr: Pyramid) -> tuple:
+    """maxpool2_ceil of every scale but the coarsest, in one group: the
+    exchange's down parts of a layer (scale i takes entry i - 1), whose
+    backward is one launch on the card."""
+    return maxpool2_ceil_group(pyr[:-1])
+
+
+def exchange_parts(pyr: Pyramid, i: int, same=None, down=None):
     """The i-th scale's exchange inputs as a list of ``(kind, tensor)``,
     in the concat order {maxpool2(finer), self, coarser}. The coarser
     neighbour is passed raw (kind "up") so the conv can fold its
     nearest upsample. ``same`` replaces ``pyr[i]`` as the "same" part
     (an un-normalized ``(y_raw, scale, shift)``, see
-    `ConvBN.conv_parts`)."""
+    `ConvBN.conv_parts`). ``down`` is the layer's ``pool_finer(pyr)``,
+    made once for all its scales; without it the finer scale is pooled
+    alone."""
     n = len(pyr)
     parts = []
     if i > 0:
-        parts.append(("down", maxpool2_ceil(pyr[i - 1])))
+        parts.append(("down", maxpool2_ceil(pyr[i - 1]) if down is None else down[i - 1]))
     parts.append(("same", pyr[i] if same is None else same))
     if i + 1 < n:
         parts.append(("up", pyr[i + 1]))
@@ -130,7 +140,9 @@ class MgConv(nn.Module):
         self.out_widths = list(out_widths)
 
     def forward(self, pyr):
-        return tuple(conv.apply_parts(exchange_parts(pyr, i)) for i, conv in enumerate(self.convs))
+        down = pool_finer(pyr)
+        return tuple(conv.apply_parts(exchange_parts(pyr, i, down=down))
+                     for i, conv in enumerate(self.convs))
 
 
 class DropCoarsest(nn.Module):
@@ -211,8 +223,9 @@ class MgResidual(nn.Module):
 
     def _stage(self, layers, pyr):
         out = []
+        down = pool_finer(pyr)
         for i, layer in enumerate(layers):
-            parts = exchange_parts(pyr, i)
+            parts = exchange_parts(pyr, i, down=down)
             if self.drop is not None and self.training:
                 oh, ow = pyr[i].shape[1], pyr[i].shape[2]
                 parts = [("same", self.drop(materialize_part(kind, xp, oh, ow)))
@@ -228,10 +241,14 @@ class MgResidual(nn.Module):
         only for the neighbours' down and up parts: nowhere in a
         single-scale block."""
         n = len(pyr)
-        raw = [layer.conv_parts(exchange_parts(pyr, i)) for i, layer in enumerate(self.stage1)]
+        down = pool_finer(pyr)
+        raw = [layer.conv_parts(exchange_parts(pyr, i, down=down))
+               for i, layer in enumerate(self.stage1)]
         affine = [layer.bn.batch_affine(y) for layer, y in zip(self.stage1, raw)]
         act = tuple(bn_relu_plain(y, *a) if n > 1 else None for y, a in zip(raw, affine))
-        return tuple(layer._tail(layer.conv_parts(exchange_parts(act, i, (raw[i], *affine[i]))))
+        down = pool_finer(act)
+        return tuple(layer._tail(layer.conv_parts(exchange_parts(act, i, (raw[i], *affine[i]),
+                                                                 down)))
                      for i, layer in enumerate(self.stage2))
 
     def forward(self, pyr):
@@ -257,7 +274,8 @@ class MgPool(nn.Module):
     """Block transition: mode "plain" max-pools (2x2/2, ceil) every
     scale; mode "concat" pools scales 0..n-2 and concatenates the
     untouched coarsest scale onto scale n-2, leaving n-1 scales; mode
-    "drop" pools scales 0..n-2 and drops the coarsest."""
+    "drop" pools scales 0..n-2 and drops the coarsest. The pools form one
+    group (one backward launch on the card)."""
 
     def __init__(self, widths, mode="plain"):
         super().__init__()
@@ -276,8 +294,8 @@ class MgPool(nn.Module):
 
     def forward(self, pyr):
         if self.mode == "plain":
-            return tuple(maxpool2_ceil(x) for x in pyr)
-        out = [maxpool2_ceil(x) for x in pyr[:-1]]
+            return maxpool2_ceil_group(pyr)
+        out = list(pool_finer(pyr))
         if self.mode == "concat":
             out[-1] = torch.cat([out[-1], pyr[-1]], dim=-1)
         return tuple(out)

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from mgtpu_torch.ops.cuda_pool import maxpool2
+from mgtpu_torch.ops.cuda_pool import maxpool2, maxpool2_group
 
 
 def nchw(x: torch.Tensor) -> torch.Tensor:
@@ -34,6 +34,12 @@ def maxpool2_ceil(x: torch.Tensor) -> torch.Tensor:
     return maxpool2(x, ties="first")
 
 
+def maxpool2_ceil_group(xs) -> tuple:
+    """``maxpool2_ceil`` of each tensor of ``xs``, as one group: a
+    multigrid layer's pools, whose backward is one launch on the card."""
+    return maxpool2_group(tuple(xs), ties="first")
+
+
 def maxpool2_floor(x: torch.Tensor) -> torch.Tensor:
     """2x2/2 max pool with floor semantics (the U-Net's pool): a last row
     or column without a partner is dropped. That is ``maxpool2_ceil``
@@ -51,12 +57,29 @@ def maxpool(x: torch.Tensor, k: int, s: int, pad: int = 0) -> torch.Tensor:
 
 def avgpool(x: torch.Tensor, r: int, s: int | None = None) -> torch.Tensor:
     """r x r / s average pool, VALID, accumulated in f32 and returned in
-    ``x.dtype``."""
+    ``x.dtype``.
+
+    The 2x2/2 pool (the input pyramid) adds its four taps a, b (top row)
+    and c, d (bottom row) in the order XLA's reshape-mean takes in
+    `mgtpu.ops.resample.avgpool` on the CPU, eager and jitted alike, then
+    divides by 4. That order depends on the row: (a + b) + (c + d) where
+    W*C is a power of two (XLA vectorizes the row), ((a + b) + c) + d
+    elsewhere (a numpy probe of every order over batches 1-64, sizes 2-224
+    and C 1-64: the cluttered-MNIST pyramids take the first, the 3-channel
+    images the second). Each add and the divide is one IEEE operation, so
+    the CPU and the card give the JAX version's bits; a reduction
+    (``mean``) sums in an order of its own on each device, one ulp off,
+    which is enough to flip an int8 quantize tie downstream."""
     s = r if s is None else s
     n, h, w, c = x.shape
     xf = x.float()
     if r == h and r == w:  # global (e.g. Avg(7,7) on 7x7)
         return xf.mean(dim=(1, 2), keepdim=True).to(x.dtype)
+    if s == r == 2 and h % 2 == 0 and w % 2 == 0:
+        t = xf.reshape(n, h // 2, 2, w // 2, 2, c)
+        a, b, c_, d = t[:, :, 0, :, 0], t[:, :, 0, :, 1], t[:, :, 1, :, 0], t[:, :, 1, :, 1]
+        y = (a + b) + (c_ + d) if (w * c) & (w * c - 1) == 0 else ((a + b) + c_) + d
+        return (y / 4).to(x.dtype)
     if s == r and h % r == 0 and w % r == 0:
         y = xf.reshape(n, h // r, r, w // r, r, c).mean(dim=(2, 4))
         return y.to(x.dtype)

@@ -65,12 +65,14 @@ def test_route_counts_per_pass(recorded):
         ("conv3x3", "sm90"): 70, ("conv3x3", "tile"): 42,
         ("conv3x3_bn_relu_in", "sm90"): 0, ("conv3x3_bn_relu_in", "tile"): 0,
         ("maxpool2", "sm90"): 46, ("maxpool2", "simple"): 0,
-        ("conv_i8", "sm90"): 0, ("conv_i8", "simple"): 0}
+        ("conv_i8", "sm90"): 0, ("conv_i8", "simple"): 0,
+        ("maxpool2_bwd", "group"): 0, ("maxpool2_bwd", "simple"): 0}
     assert predicted_routes(recorded["train"]) == {
         ("conv3x3", "sm90"): 44, ("conv3x3", "tile"): 32,
         ("conv3x3_bn_relu_in", "sm90"): 26, ("conv3x3_bn_relu_in", "tile"): 10,
         ("maxpool2", "sm90"): 46, ("maxpool2", "simple"): 0,
-        ("conv_i8", "sm90"): 0, ("conv_i8", "simple"): 0}
+        ("conv_i8", "sm90"): 0, ("conv_i8", "simple"): 0,
+        ("maxpool2_bwd", "group"): 29, ("maxpool2_bwd", "simple"): 0}
 
 
 @pytest.mark.parametrize("net", ["ilsvrc/rnmg", "mnist-cluttered/unmg"])

@@ -11,13 +11,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import RMG34_POOLS, misaligned
+from chip_smoke import RMG34_POOLS, misaligned, pool_bwd_case
 from mgtpu_torch import kernels
 from mgtpu_torch.ops.cuda_conv import (_route, _tile_forward, bn_relu_plain, conv3x3,
                                        conv3x3_bn_relu_in, conv3x3_bn_relu_in_plain,
                                        conv3x3_plain)
-from mgtpu_torch.ops.cuda_pool import (_route as _pool_route, _simple_forward, maxpool2,
-                                       maxpool2_backward, maxpool2_bwd_plain, maxpool2_plain)
+from mgtpu_torch.ops.cuda_pool import (MAX_MEMBERS, SM90_STAGE_BYTES, _route as _pool_route,
+                                       _simple_backward, _simple_forward, maxpool2,
+                                       maxpool2_backward, maxpool2_backward_group,
+                                       maxpool2_bwd_plain, maxpool2_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -330,12 +332,80 @@ def test_conv3x3_bn_relu_in_kernel_matches_plain(dev, shape, dtype, relu_out, ze
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ties", ["all", "first"])
 def test_maxpool2_bwd_kernel_exact(dev, shape, dtype, ties):
+    """One pool's backward, a group of one, through the group design (and
+    the simple design beside it), equal to the plain version."""
     x = _pool_input(shape, dtype, dev)
     x[0] = torch.relu(torch.round(x[0].float() * 2) / 2).to(dtype)  # ties at 0 and > 0
     y = maxpool2_plain(x)
     g = torch.randn(y.shape, device=dev)
+    kernels.reset_launches()
     dx = maxpool2_backward(x, y, g, ties)
+    assert kernels.ROUTES[("maxpool2_bwd", "group")] == 1
     assert torch.equal(dx, maxpool2_bwd_plain(x, y, g, ties))
+    assert torch.equal(_simple_backward(x, y, g, ties), dx)
+    assert kernels.ROUTES[("maxpool2_bwd", "simple")] == 1
+
+
+def _assert_group_exact(xs, ys, gs, ties):
+    kernels.reset_launches()
+    dxs = maxpool2_backward_group(xs, ys, gs, ties)
+    torch.cuda.synchronize()
+    assert kernels.ROUTES[("maxpool2_bwd", "group")] == -(-len(xs) // MAX_MEMBERS)
+    assert kernels.ROUTES[("maxpool2_bwd", "simple")] == 0
+    for x, y, g, dx in zip(xs, ys, gs, dxs):
+        assert dx.dtype == x.dtype and torch.equal(dx, maxpool2_bwd_plain(x, y, g, ties))
+
+
+ZOO = ["ilsvrc/rnmg", "ilsvrc/prnmgseg", "cifar/nmg", "cifar/rnmg", "cifar/pnmg", "cifar/prnmg",
+       "mnist-cluttered/unmg", "mnist-cluttered/pnmg.mnist", "mnist-cluttered/prnmg.mnist"]
+
+
+@pytest.mark.parametrize("net", ZOO)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_bwd_group_equals_plain_at_every_zoo_group(dev, net, dtype):
+    """Every group of pools a multigrid net's training step forms (its
+    recipe's options, recorded on the CPU), at batch 2, one launch each,
+    bit for bit under both tie rules."""
+    from chip_smoke import SEG_RECIPES, cifar_opts, record_kernel_shapes
+    from mgtpu_torch.models import NetOpts
+
+    opt = (cifar_opts(net) if net.startswith("cifar/") else
+           SEG_RECIPES[net][0] if net in SEG_RECIPES else NetOpts(depth=34))
+    groups = record_kernel_shapes(True, opt)["maxpool2_bwd"]
+    assert any(len(key) > 1 for key in groups)
+    for k, key in enumerate(sorted(groups)):
+        xs, ys, gs = pool_bwd_case([(2, *shape) for shape in key], dtype, 10 * k, ties=True)
+        for ties in ("all", "first"):
+            _assert_group_exact(xs, ys, gs, ties)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ties", ["all", "first"])
+def test_pool_bwd_group_edge_cases(dev, dtype, ties):
+    """Odd sizes, NaN and all -inf windows, ties at 0 and > 0, members off
+    a 16-byte boundary and one-element lanes beside 16-byte ones in one
+    launch; MAX_MEMBERS + 1 members in two launches."""
+    shapes = [(2, 7, 9, 3), (3, 15, 14, 130), (1, 1, 1, 4), (2, 57, 55, 64), (4, 56, 56, 64),
+              (2, 8, 9, 64)]
+    xs, ys, gs = pool_bwd_case(shapes, dtype, 80, ties=True)
+    xs[3] = misaligned(xs[3])
+    gs[5] = misaligned(gs[5])
+    _assert_group_exact(xs, ys, gs, ties)
+    many = [(2, 3 + j, 4 + j, 8 * (1 + j)) for j in range(MAX_MEMBERS + 1)]
+    _assert_group_exact(*pool_bwd_case(many, dtype, 90, ties=True), ties)
+
+
+def test_pool_bwd_group_refuses(dev):
+    x = torch.zeros((1, 4, 4, 8), device=dev)
+    y, g = maxpool2_plain(x), torch.zeros((1, 2, 2, 8), device=dev)
+    with pytest.raises(ValueError, match="a group on"):
+        maxpool2_backward_group([x, x.bfloat16()], [y, y.bfloat16()], [g, g], "first")
+    with pytest.raises(ValueError, match="expected"):
+        maxpool2_backward_group([x], [y[:, :1]], [g], "first")
+    with pytest.raises(ValueError, match="unsupported device"):
+        maxpool2_backward_group([x, x.cpu()], [y, y.cpu()], [g, g.cpu()], "first")
+    with pytest.raises(ValueError, match="ties"):
+        maxpool2_backward_group([x], [y], [g], "last")
 
 
 def test_conv_functions_grads_match_plain_autograd(dev):
@@ -373,8 +443,9 @@ def test_rmg18_train_step_launches_and_matches_cpu(dev):
     kernels.reset_launches()
     loss = nll_loss(model(x.to(dev)), y.to(dev))
     loss.backward()
+    # the 26 pools' backward in 15 launches: one a multigrid layer's group
     assert kernels.LAUNCHES == {"conv3x3": 38, "conv3x3_bn_relu_in": 18, "maxpool2": 26,
-                                "maxpool2_bwd": 26, "conv_i8": 0, "quant_i8": 0}
+                                "maxpool2_bwd": 15, "conv_i8": 0, "quant_i8": 0}
     # f32 on both sides, summation order only
     torch.testing.assert_close(loss.cpu(), ref.detach(), rtol=1e-4, atol=0)
 
@@ -412,12 +483,16 @@ def test_seg_shapes_match_plain(dev, shape, dtype, prologue):
 @pytest.mark.parametrize("shape", [(2, 64, 64, 64), (2, 64, 64, 128), (2, 16, 16, 512),
                                    (2, 32, 32, 16)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_seg_pools_take_sm90_and_match_plain(dev, shape, dtype):
-    """The 64 px nets' pools go to the sm90 design and equal the plain
-    version, as does their backward under the first-tie rule."""
+def test_seg_pools_take_their_route_and_match_plain(dev, shape, dtype):
+    """The 64 px nets' pools take the design _route's rule gives (sm90
+    where a row pair, 2*W*C*itemsize bytes, fits a stage of the ring;
+    simple where it does not: (2, 64, 64, 128) and (2, 16, 16, 512) in
+    f32, 64 KB) and equal the plain version, as does their backward under
+    the first-tie rule."""
     x = torch.from_numpy(np.maximum(np.random.default_rng(42).standard_normal(
         shape, dtype=np.float32), 0)).to(dev, dtype)
-    assert _pool_route(x) == "sm90"
+    row_pair = 2 * shape[2] * shape[3] * x.element_size()
+    assert _pool_route(x) == ("sm90" if row_pair <= SM90_STAGE_BYTES else "simple")
     y = maxpool2(x)
     assert torch.equal(y, maxpool2_plain(x))
     g = torch.randn(y.shape, device=dev).to(dtype)

@@ -57,6 +57,31 @@ def test_avgpool_bf16_accumulates_in_f32(r, s, shape):
     np.testing.assert_allclose(got.float().numpy(), ref, rtol=2.0 ** -7, atol=1e-6)
 
 
+# the input pyramid's 2x2/2 averages: R-MG-34's and PR-MG-30's 224 px
+# images and their 112 px scale, the CIFAR nets' 32 px images down to 4 px,
+# the cluttered-MNIST nets' 64x64x1 down to 8 px
+PYRAMID_SHAPES = [(2, 224, 224, 3), (2, 112, 112, 3), (4, 32, 32, 3), (4, 16, 16, 3),
+                  (4, 8, 8, 3), (4, 4, 4, 3), (4, 64, 64, 1), (4, 32, 32, 1), (4, 16, 16, 1),
+                  (4, 8, 8, 1)]
+
+
+@pytest.mark.parametrize("shape", PYRAMID_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_avgpool2_is_bit_equal_to_jax(shape, dtype):
+    """The pyramid's average, bit for bit: both add the four taps in f32
+    in XLA's order for the row (((a + b) + c) + d for the 3-channel
+    images, (a + b) + (c + d) for the 1-channel ones, whose W*C is a power
+    of two) and divide by 4. A torch reduction (``mean``) is an ulp off
+    at some pixels of the 3-channel images on the CPU."""
+    x = (_x(shape, seed=6) * 37).astype(getattr(ml_dtypes, dtype) if dtype == "bfloat16"
+                                         else np.float32)
+    ref = np.asarray(jr.avgpool(jnp.asarray(x), 2)).astype(np.float32)
+    xt = torch.from_numpy(x.astype(np.float32)).to(getattr(torch, dtype))
+    got = tr.avgpool(xt, 2)
+    assert got.dtype == xt.dtype and got.shape == ref.shape
+    np.testing.assert_array_equal(got.float().numpy(), ref)
+
+
 @pytest.mark.parametrize("shape,out", [((2, 4, 4, 3), None), ((1, 4, 3, 2), (7, 5)),
                                        ((1, 3, 3, 2), (6, 5)), ((1, 2, 2, 1), (3, 4))])
 def test_upsample_nearest2(shape, out):

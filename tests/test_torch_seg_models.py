@@ -207,7 +207,7 @@ def test_kernel_calls_per_forward_and_micro_batch(net):
     assert _calls(train) == SEG_PER_MICRO[net]
     for shapes in (serve, train):
         routes = predicted_routes(shapes)
-        for kernel in ("conv3x3", "conv3x3_bn_relu_in", "maxpool2"):
+        for kernel in ("conv3x3", "conv3x3_bn_relu_in", "maxpool2", "maxpool2_bwd"):
             assert sum(n for (k, _), n in routes.items() if k == kernel) == _calls(shapes)[kernel]
 
 

@@ -308,13 +308,14 @@ def test_narrow_bridge_round_trip(narrow):
 def test_rmg34_train_step_kernel_calls():
     """One R-MG-34 training forward and backward at batch 1 calls the
     kernels' entry points 76 times for conv3x3, 36 for
-    conv3x3_bn_relu_in, 46 for the maxpool2 forward and 46 for its
-    backward (on a card each call is one launch)."""
+    conv3x3_bn_relu_in, 46 for the maxpool2 forward and 29 for its
+    backward, which takes the pools of a multigrid layer together (on a
+    card each call is one launch)."""
     calls = dict.fromkeys(["conv3x3", "conv3x3_bn_relu_in", "maxpool2", "maxpool2_bwd"], 0)
     patched = {(cuda_conv, "conv3x3_forward"): "conv3x3",
                (cuda_conv, "conv3x3_bn_relu_in_forward"): "conv3x3_bn_relu_in",
                (cuda_pool, "maxpool2_forward"): "maxpool2",
-               (cuda_pool, "maxpool2_backward"): "maxpool2_bwd"}
+               (cuda_pool, "maxpool2_backward_group"): "maxpool2_bwd"}
 
     def counting(fn, name):
         def wrapped(*a, **kw):
@@ -332,7 +333,7 @@ def test_rmg34_train_step_kernel_calls():
     finally:
         mp.undo()
     assert calls == {"conv3x3": 76, "conv3x3_bn_relu_in": 36, "maxpool2": 46,
-                     "maxpool2_bwd": 46}
+                     "maxpool2_bwd": 29}
 
 
 def test_trainer_cli_on_cpu(capsys):
