@@ -15,7 +15,8 @@ CPU path in f32, times the kernels, the serving forward and the
 training step with CUDA events, runs two recipes through the run
 loop, `mgtpu_torch.main`, and serves R-MG-34, cifar/prnmg and unmg under
 int8 (`Server(int8=True)`, `-test -int8`) through the int8 conv and the
-activation quantizer kernels. Phases:
+activation quantizer kernels, runs the saliency harness (`-pipeline
+saliency`) and takes the train step's `-remat` steps. Phases:
 
   1 device   the card, and its name and power limit from nvidia-smi
   2 build    nvcc over mgtpu_torch/csrc/*.cu, bound with ctypes
@@ -186,13 +187,36 @@ activation quantizer kernels. Phases:
              peak; quant_i8 at each quantizer shape of that forward beside
              its plain torch ops and, a different function on an f32 copy,
              torch.quantize_per_tensor; its bound at HBM's rate
+ 27 saliency the saliency harness: a pnmg.mnist checkpoint
+             (scripts/mnist-cluttered/pnmg.mnist.sh's options, seeded,
+             BNs calibrated) written by the port; scripts/mnist-cluttered/
+             mnist-saliency.sh through the port's Session (8 synthetic
+             samples, -saliencyBatch 4: 3,368 images of 64x64x1 a forward,
+             f32) at -saliencyDumpStack 1 and 0, through
+             saliency.saliency_samples (no h5py on the card's machine): 50
+             conv3x3 and 18 maxpool2 launches a forward through the
+             designs predicted at batch 1; samples/s, ms a group, peak
+             memory, the card's time by kernel and its idle share; sample
+             1's 842 outputs vs the plain CPU forward (phase 18's gate),
+             its valid, points and saliency vs the CPU's probe of those,
+             the card's probe vs the host's on the same outputs; conv3x3
+             and maxpool2 at the forward's shapes at N = 3,368 vs their
+             plain versions, then timed beside them and one PyTorch call
+ 28 remat    the train step's -remat: R-MG-34 bf16 at batch 128 and
+             cifar/prnmg --isDropout at 64 x 2, one remat step beside two
+             plain ones from the same weights: the update and the running
+             stats within three times the plain step's own change between
+             its two runs, the forward's kernels launched twice
+             (REMAT_PER_STEP), R-MG-34's peak memory lower and both steps
+             timed; one f32 remat step of cifar/prnmg vs the CPU's
 
 Any failed check exits non-zero. The second-to-last line of stdout is
 one JSON object with the kernels: ``launches`` sums each kernel's
 launches over the main-path runs (phase 5's serving forwards, phase
 10's training steps, phases 13 and 14's bf16 forwards and steps of
-the CIFAR nets, phases 18 and 19's of the others and phases 21 and
-22's runs of the CLI), ``max_abs_err``
+the CIFAR nets, phases 18 and 19's of the others, phases 21 and
+22's runs of the CLI, phase 27's saliency runs and phase 28's remat
+steps), ``max_abs_err``
 is its largest error against its plain version (phases 3, 4, 7, 8, 12,
 17), and ``ms`` / ``plain_ms`` /
 ``library_ms`` are the summed times of its launches (through the design
@@ -207,7 +231,10 @@ numbers for cifar/prnmg: its launches in phases 13 and 14 (cifar/prnmg's
 own), its times and bounds per batch-128 forward or 64 x 2 step (phase
 15); under each net of phases 16-20 that launches it, the same numbers
 for that net (its launches in phases 18 and 19, its times and bounds per
-forward at its largest serving batch or per training step, phase 20).
+forward at its largest serving batch or per training step, phase 20);
+under "mnist-saliency (...)" conv3x3's and maxpool2's for the saliency
+forward (phase 27: its launches, and its times and bounds per 3,368-image
+f32 forward, the bound at the f32 peak outside the tensor cores).
 The last two entries are ``conv_i8`` and ``quant_i8``: their launches in
 phases 24 and 25, their largest error (phase 23 and phase 24's
 quantizer checks: 0, the comparisons are exact), their time, their
@@ -254,6 +281,7 @@ from mgtpu_torch.ops.cuda_pool import (maxpool2, maxpool2_backward_group, maxpoo
                                        maxpool2_plain)
 from mgtpu_torch.ops.resample import nchw
 from mgtpu_torch.serve import Server, image_shape
+from mgtpu_torch.train.step import rematerialized
 from mgtpu_torch.trainer import Trainer, synthetic_batch
 from mgtpu_torch.utils.bridge import export_jax_tree
 
@@ -270,6 +298,11 @@ PER_FORWARD = {"conv3x3": 112, "conv3x3_bn_relu_in": 0, "maxpool2": 46, "maxpool
 # scales) in one grouped launch: 46 pools in 29 launches
 PER_STEP = {"conv3x3": 76, "conv3x3_bn_relu_in": 36, "maxpool2": 46, "maxpool2_bwd": 29,
             "conv_i8": 0, "quant_i8": 0}
+# launches per training micro-batch with -remat: the forward's kernels
+# twice (the first forward, and its run again in the backward), the
+# backward's once
+REMAT_PER_STEP = {"conv3x3": 152, "conv3x3_bn_relu_in": 72, "maxpool2": 92, "maxpool2_bwd": 29,
+                  "conv_i8": 0, "quant_i8": 0}
 # the (H, W, C) at which R-MG-34 pools, in either pass
 RMG34_POOLS = [(14, 14, 16), (14, 14, 32), (14, 14, 64), (14, 14, 128), (14, 14, 256),
                (28, 28, 32), (28, 28, 64), (28, 28, 128), (56, 56, 64)]
@@ -289,6 +322,8 @@ CHECK_BATCH, TIME_BATCH = 8, 128
 # tensor cores and HBM3 bandwidth. Bounds and shares are against these,
 # whatever power limit the card runs at (printed beside them).
 PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
+# f32 outside the tensor cores (the same data sheet)
+PEAK_F32_FLOPS = 67e12
 # a timed pool call reads its input from device memory only if the other
 # inputs it rotates through (more than this in all) have pushed it out of
 # the 50 MB L2
@@ -350,13 +385,14 @@ def pool_group_keys(xs, ys, gs, *a) -> list:
 
 
 def record_kernel_shapes(train: bool, opt: NetOpts = RMG34, fold: bool = True,
-                         int8: bool = False):
+                         int8: bool = False, remat: bool = False):
     """One f32 pass of the net ``opt`` names (R-MG-34 by default) at batch
     1 on the CPU (the plain path), recording the input shapes of every
     kernel entry point it calls: the serving forward (BN folded; with
     ``fold`` False the run loop's eval forward, BN unfolded; with
     ``int8`` quantized after the fold, as Server does), or a training
-    forward and backward (one micro-batch). Returns {kernel: Counter of
+    forward and backward (one micro-batch; with ``remat`` the train
+    step's rematerialized forward, run again in the backward). Returns {kernel: Counter of
     shapes}; a pool backward's shape is its group's: the (H, W, C) of
     each member it launches for, in order (pool_group_keys)."""
     shapes = {k: Counter() for k in PER_STEP}
@@ -390,7 +426,7 @@ def record_kernel_shapes(train: bool, opt: NetOpts = RMG34, fold: bool = True,
     try:
         x = torch.zeros((1, *image_shape(opt)))
         if train:
-            model(x)[:, 0].sum().backward()
+            (rematerialized(model) if remat else model)(x)[:, 0].sum().backward()
         else:
             with torch.inference_mode():
                 model(x)
@@ -400,21 +436,22 @@ def record_kernel_shapes(train: bool, opt: NetOpts = RMG34, fold: bool = True,
     return shapes
 
 
-def predicted_routes(shapes) -> dict:
+def predicted_routes(shapes, dtype=torch.bfloat16) -> dict:
     """{(kernel, design): launches} that cuda_conv._route and
     cuda_pool._route give one pass's recorded conv and pool calls in
-    bf16: stand-in CPU tensors of their shapes (on the card the
+    ``dtype``: stand-in CPU tensors of their shapes, at batch 1 (the
+    routes do not depend on the batch; on the card the
     activations and the weight slices, which start at a multiple of Co
     elements, are 16-byte aligned as they are); the pool backward's
     recorded launches all take the group design."""
     got = dict.fromkeys(kernels.ROUTES, 0)
     for kernel in ("conv3x3", "conv3x3_bn_relu_in"):
         for (h, w, ci, co), count in shapes[kernel].items():
-            x = torch.empty((1, h, w, ci), dtype=torch.bfloat16)
-            wt = torch.empty((3, 3, ci, co), dtype=torch.bfloat16)
+            x = torch.empty((1, h, w, ci), dtype=dtype)
+            wt = torch.empty((3, 3, ci, co), dtype=dtype)
             got[(kernel, cuda_conv._route(x, wt))] += count
     for shape, count in shapes["maxpool2"].items():
-        got[("maxpool2", cuda_pool._route(torch.empty((1, *shape), dtype=torch.bfloat16)))] += count
+        got[("maxpool2", cuda_pool._route(torch.empty((1, *shape), dtype=dtype)))] += count
     got[("maxpool2_bwd", "group")] = sum(shapes["maxpool2_bwd"].values())
     return got
 
@@ -448,24 +485,28 @@ def pool_elements(shape, batch):
     return batch * h * w * c, batch * -(-h // 2) * -(-w // 2) * c
 
 
-def bound(flops, nbytes):
+def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
     """(ms, "operations" or "bytes"): the least time the card could take
-    for this work, and which of the two sets it."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    for this work (operations at ``peak``: bf16 on the tensor cores by
+    default), and which of the two sets it."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
-def path_bounds(shapes, batch):
+def path_bounds(shapes, batch, dtype=torch.bfloat16):
     """{kernel: (operations, bytes, bound ms, bound_by)} summed over one
-    pass's launches (record_kernel_shapes' counts) at `batch` in bf16:
-    the bound of each launch, summed; bound_by names the bound that sets
-    most of that sum."""
+    pass's launches (record_kernel_shapes' counts) at `batch` in
+    ``dtype`` (bf16: the tensor cores' peak; f32: the f32 peak outside
+    them, which the f32 tile design runs on): the bound of each launch,
+    summed; bound_by names the bound that sets most of that sum."""
     out = {}
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
     for kernel, counts in shapes.items():
         flops = nbytes = ms = ops_ms = 0
         for shape, count in counts.items():
-            f, b = kernel_work(kernel, shape, batch)
-            t, by = bound(f, b)
+            f, b = kernel_work(kernel, shape, batch, itemsize)
+            t, by = bound(f, b, peak)
             flops, nbytes, ms = flops + count * f, nbytes + count * b, ms + count * t
             ops_ms += count * t * (by == "operations")
         out[kernel] = (flops, nbytes, ms, "operations" if ms and 2 * ops_ms >= ms else "bytes")
@@ -505,13 +546,32 @@ def routed(kernel, x, wt, fn):
 
 def conv_inputs(n, h, w, ci, co, dtype, seed):
     rng = np.random.default_rng(seed)
+    if n * h * w * ci >= LARGE:  # drawn on the card
+        x = torch.randn((n, h, w, ci), generator=torch.Generator("cuda").manual_seed(seed),
+                        device="cuda")
+        wt = torch.from_numpy(rng.standard_normal((3, 3, ci, co), dtype=np.float32)
+                              / np.sqrt(9 * ci))
+        b = torch.from_numpy(0.1 * rng.standard_normal(co, dtype=np.float32))
+        return x.to(dtype), wt.cuda().to(dtype), b.cuda()
     x = torch.from_numpy(rng.standard_normal((n, h, w, ci), dtype=np.float32))
     wt = torch.from_numpy(rng.standard_normal((3, 3, ci, co), dtype=np.float32) / np.sqrt(9 * ci))
     b = torch.from_numpy(0.1 * rng.standard_normal(co, dtype=np.float32))
     return x.cuda().to(dtype), wt.cuda().to(dtype), b.cuda()
 
 
+# inputs of this many elements or more are drawn on the card: the saliency
+# forward's reach 0.9 G elements, which numpy takes seconds to draw
+LARGE = 2 ** 26
+
+
 def pool_input(shape, dtype, seed, ties=False):
+    if np.prod(shape) >= LARGE and not ties:
+        x = torch.randn(shape, generator=torch.Generator("cuda").manual_seed(seed), device="cuda")
+        x[0, 0, 0, 0] = float("nan")
+        x[0, -1, -1, -1] = float("inf")
+        x[-1, :2, :2, :] = float("-inf")
+        x[-1, -1, -1, -1] = float("nan")
+        return x.to(dtype)
     x = np.random.default_rng(seed).standard_normal(shape, dtype=np.float32)
     if ties:  # ReLU outputs on a coarse grid: ties at zero and at positive values
         x = np.maximum(np.round(x * 2) / 2, 0)
@@ -1468,7 +1528,7 @@ def time_end_to_end(tag, label, name, fns, imgs) -> None:
 
 
 def time_kernels(label, serve, train, serve_batch, micro, iters, seed=600, alternatives=True,
-                 windows=5):
+                 windows=5, dtype=torch.bfloat16):
     """Each kernel at a net's shapes (``serve``: its serving forward's,
     at ``serve_batch``; ``train``: its training micro-batch's, at
     ``micro``, ``iters`` a step) beside its plain version, one PyTorch
@@ -1484,8 +1544,9 @@ def time_kernels(label, serve, train, serve_batch, micro, iters, seed=600, alter
     ms, plain_ms = dict.fromkeys(KERNELS, 0.0), dict.fromkeys(KERNELS, 0.0)
     alt_ms, library_ms = dict.fromkeys(KERNELS, 0.0), dict.fromkeys(KERNELS, 0.0)
     library_ms["conv3x3_bn_relu_in"] = None
+    itemsize = torch.empty((), dtype=dtype).element_size()
     for k, ((h, w, ci, co), count) in enumerate(sorted(serve["conv3x3"].items())):
-        xc, wt, b = conv_inputs(serve_batch, h, w, ci, co, torch.bfloat16, seed=seed + k)
+        xc, wt, b = conv_inputs(serve_batch, h, w, ci, co, dtype, seed=seed + k)
         w_lib = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         b_lib = b.to(xc.dtype)
         cfns = {cuda_conv._route(xc, wt): lambda: conv3x3(xc, wt, b, with_stats=False),
@@ -1508,7 +1569,7 @@ def time_kernels(label, serve, train, serve_batch, micro, iters, seed=600, alter
         time_conv("conv3x3_bn_relu_in", (h, w, ci, co), iters * count, "step", cfns, ms,
                   plain_ms, alt_ms, library_ms, micro, windows)
     for k, ((h, w, c), count) in enumerate(sorted(serve["maxpool2"].items())):
-        xp = pool_input((serve_batch, h, w, c), torch.bfloat16, seed=seed + 200 + k)
+        xp = pool_input((serve_batch, h, w, c), dtype, seed=seed + 200 + k)
         route = cuda_pool._route(xp)
         sets = cold_copies([xp])
         pfns = {route: rotating(maxpool2, sets),
@@ -1517,7 +1578,7 @@ def time_kernels(label, serve, train, serve_batch, micro, iters, seed=600, alter
         if route == "sm90" and alternatives:
             pfns["simple"] = rotating(cuda_pool._simple_forward, sets)
         pres = dict(zip(pfns, device_ms(list(pfns.values()), windows)))
-        nbytes = kernel_work("maxpool2", (h, w, c), serve_batch)[1]
+        nbytes = kernel_work("maxpool2", (h, w, c), serve_batch, itemsize)[1]
         ms["maxpool2"] += count * pres[route][0]
         plain_ms["maxpool2"] += count * pres["plain"][0]
         library_ms["maxpool2"] += count * pres["library"][0]
@@ -2607,6 +2668,419 @@ def time_i8_1x1(i8_rec) -> dict:
     return out
 
 
+# ------------------------------------ the saliency harness (phase 27)
+
+SAL_RECIPE = "scripts/mnist-cluttered/mnist-saliency.sh"
+SAL_TRAINED_RECIPE = "scripts/mnist-cluttered/pnmg.mnist.sh"
+SAL_NET = "mnist-cluttered/pnmg.mnist"
+SAL_PARAMS = 600_507
+# -synthSize 8 at -saliencyBatch 4: two groups, each one forward of 4 x 842
+# images of 64x64x1
+SAL_SAMPLES, SAL_GROUP = 8, 4
+SAL_TOL = 1e-5  # of the outputs' scale: the f32 forward, card vs CPU (phase 18's gate)
+
+
+def saliency_argv(ckpt, dump, cache):
+    return recipe_argv(SAL_RECIPE) + [
+        "-trainedNet", ckpt, "-synthSize", str(SAL_SAMPLES), "-saliencyBatch", str(SAL_GROUP),
+        "-saliencyDumpStack", str(dump), "-cache", cache]
+
+
+def impacts(outputs, points):
+    """(N, 7) impacts of the variants on the probes, as saliency_map
+    takes them (numpy)"""
+    diff = np.abs(outputs[1:] - outputs[:1])
+    return np.stack([(diff * points[j]).reshape(len(diff), -1).max(1)
+                     for j in range(len(points))], 1)
+
+
+def check_saliency(name) -> tuple[dict, dict]:
+    """27: the saliency harness on the card. A checkpoint of pnmg.mnist
+    with scripts/mnist-cluttered/pnmg.mnist.sh's options (seeded weights,
+    BatchNorms calibrated to their inputs as Server calibrates them),
+    written by the port's writer; then scripts/mnist-cluttered/
+    mnist-saliency.sh through the port's Session (-data synthetic, 8
+    samples, -saliencyBatch 4: 3,368 images a forward, f32 as the recipe
+    runs) at -saliencyDumpStack 1 (the host probe) and 0 (the stack
+    built and probed on the card), each driven through
+    saliency.saliency_samples (the card's machine has no h5py, which
+    run's dump needs): the pinned launches a forward through the designs
+    predicted at batch 1, the run's samples/s, ms a group, peak memory,
+    the forward's kernel time by kernel and the card's idle share; sample
+    1's whole 842-stack held to the port's plain CPU forward (phase 18's
+    gate: 1e-5 of the outputs' scale, or three times the CPU's own change
+    under images moved by 1e-6 where that is larger), its valid and
+    points bit for bit and its saliency within that bound carried through
+    the impacts, for both dump modes; the card's probe on the card's
+    stack against the host's on the same numbers (valid and points bit
+    for bit, saliency at test_saliency.py's rtol 1e-5 / atol 1e-6); the
+    outputs within the bound of the 0.4 threshold and the
+    impacts within it of 0.1 counted; the two modes' samples against each
+    other. Returns (the launches of the two runs, the times for the
+    kernels line)."""
+    from mgtpu_torch.data.mnist import occlusion_masks
+    from mgtpu_torch.models import net_options
+    from mgtpu_torch.nn import param_count
+    from mgtpu_torch.pipelines import saliency
+    from mgtpu_torch.pipelines.standard import Session, net_opts
+    from mgtpu_torch.serve import calibrate_batchnorm
+    from mgtpu_torch.utils.checkpoint import model_meta, save_checkpoint
+    from mgtpu_torch.utils.opts import parse
+
+    t0 = time.perf_counter()
+    cache = tempfile.mkdtemp(prefix="chip_smoke_saliency_")
+    with contextlib.redirect_stdout(io.StringIO()):
+        topt = parse(recipe_argv(SAL_TRAINED_RECIPE) + ["-cache", cache])
+    net_opt = net_options(net_opts(topt))
+    gen = torch.Generator().manual_seed(0)
+    model = create_model(net_opt, generator=gen)
+    calibrate_batchnorm(model, gen, get_spec(SAL_NET).image_shape)
+    check(param_count(model) == SAL_PARAMS, f"{SAL_NET}: {param_count(model)} params")
+    ckpt = str(Path(cache) / "pnmg.mnist.ckpt")
+    save_checkpoint(ckpt, model, None, 1, model_meta(topt))
+    del model
+    shapes = record_kernel_shapes(False, net_opt, fold=False)
+    per_forward = {k: sum(c.values()) for k, c in shapes.items()}
+    check(per_forward == SEG_PER_FORWARD[SAL_NET], f"{SAL_NET} eval forward: the CPU made "
+          f"kernel calls {per_forward}, expected {SEG_PER_FORWARD[SAL_NET]}")
+    routes = predicted_routes(shapes, torch.float32)
+    n_stack = 1 + len(occlusion_masks())  # an image and its 841 occluded variants
+    n_img = SAL_GROUP * n_stack
+    phase("saliency", f"{SAL_NET} ({SAL_TRAINED_RECIPE}'s options, {SAL_PARAMS} params, seeded, "
+          f"BNs calibrated) written to {Path(ckpt).name}; {SAL_RECIPE} at -synthSize "
+          f"{SAL_SAMPLES} -saliencyBatch {SAL_GROUP}: {n_img} images a forward, f32; launches "
+          f"a forward {per_forward}, designs predicted at batch 1: " + ", ".join(
+              f"{k} {r} {n}" for (k, r), n in routes.items() if n))
+    launches, runs, res = Counter(), {}, {}
+    for dump in (1, 0):
+        with contextlib.redirect_stdout(io.StringIO()):
+            sess = Session(parse(saliency_argv(ckpt, dump, cache)))
+        try:
+            check(next(sess.model.parameters()).is_cuda and not sess.model.training,
+                  "the harness's model is not on the card in eval mode")
+            loader = sess.loaders["test"]
+            step = saliency.GroupStep(sess.model, loader, SAL_GROUP, bool(dump), sess.device)
+            group = np.stack([loader.get(i, i)[0][0] for i in range(1, SAL_GROUP + 1)])
+            # one forward: its launches and designs at N = 3,368
+            kernels.reset_launches()
+            before = dict(kernels.ROUTES)
+            out = step(group)
+            torch.cuda.synchronize()
+            got = {k: v for k, v in kernels.LAUNCHES.items()}
+            check(got == per_forward, f"saliency dump {dump}: one group's launches {got}, "
+                  f"expected {per_forward}")
+            check(routes_since(before) == routes, f"saliency dump {dump}: designs at N = "
+                  f"{n_img} {routes_since(before)}, predicted at batch 1 {routes}")
+            if dump:  # sample 1's whole stack
+                res["stack_dev"] = out[:n_stack].clone()
+                res["stack"] = res["stack_dev"].cpu().numpy()
+            del out
+            list(saliency.saliency_samples(sess, step))  # warm up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t1 = time.perf_counter()
+            samples = list(saliency.saliency_samples(sess, step))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            got = dict(kernels.LAUNCHES)
+            n_groups = -(-SAL_SAMPLES // SAL_GROUP)
+            want = {k: n_groups * v for k, v in per_forward.items()}
+            check(got == want, f"saliency dump {dump}: the run's launches {got}, expected {want}")
+            launches.update(got)
+            peak = torch.cuda.max_memory_allocated()
+            busy, by_name, _, _, seen, counted = profile_kernels(lambda: step(group))
+            group_ms = wall / n_groups * 1e3
+            runs[dump] = dict(samples)
+            top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+            phase("saliency", f"-saliencyDumpStack {dump} on {name}: {len(samples)} of "
+                  f"{SAL_SAMPLES} samples kept; {SAL_SAMPLES / wall:.3f} samples/s, "
+                  f"{group_ms:.1f} ms a group of {SAL_GROUP} (wall, host probe and copies "
+                  f"included); peak memory {peak / 2**30:.2f} GiB; one group's device work "
+                  f"profiled: card busy {busy:.1f} ms, idle {max(0.0, 1 - busy / group_ms):.0%} of the "
+                  f"group's wall; {seen} of the {counted} port launches in the trace; by "
+                  f"kernel: " + ", ".join(f"{k[:48]} {n}x {t:.2f} ms" for k, (n, t) in top))
+            res[dump] = dict(wall=wall, group_ms=group_ms, peak=peak, busy=busy)
+        finally:
+            sess.pool.shutdown()
+            del sess
+    # sample 1's stack through the port's plain path on the CPU, f32
+    cpu_model = get_spec("mnist-cluttered/mnist-saliency").create_model(
+        NetOpts(netType="mnist-cluttered/mnist-saliency", trainedNet=ckpt))
+    with contextlib.redirect_stdout(io.StringIO()):
+        opt1 = parse(saliency_argv(ckpt, 1, cache) + ["-device", "cpu"])
+    from mgtpu_torch.data import get_loaders
+
+    x1 = get_loaders(opt1)["test"].get(1, 1)[0][0]
+    moved = x1 * (1 + 1e-6 * np.random.default_rng(3).standard_normal(x1.shape,
+                                                                      dtype=np.float32))
+    t1 = time.perf_counter()
+    with torch.inference_mode():
+        ref = cpu_model(torch.from_numpy(x1)).numpy()
+        ref_moved = cpu_model(torch.from_numpy(moved)).numpy()
+    cpu_s = time.perf_counter() - t1
+    # phase 18's gate for the mnist nets' f32 forwards: 1e-5 of the
+    # outputs' scale, or three times the change that moving the images by
+    # 1e-6 makes to the CPU's own forward where that is larger
+    scale = float(np.abs(ref).max())
+    own = float(np.abs(ref_moved - ref).max())
+    tol = max(SAL_TOL * scale, CIFAR_F32_OWN_FACTOR * own)
+    err = float(np.abs(res["stack"] - ref).max())
+    check(err <= tol, f"saliency: sample 1's {n_stack} outputs, card vs CPU max abs err {err:.3g} "
+          f"(bound {tol:.3g}: 1e-5 x {scale:.4g}, or 3 x {own:.3g}, the CPU's own change under "
+          f"images moved by 1e-6)")
+    ref_points = saliency.interest_point(ref[0])
+    near_out = int((np.abs(ref[0] - 0.4) <= tol).sum())
+    near_imp = 0
+    if ref_points is not None:
+        near_imp = int((np.abs(impacts(ref, ref_points) - 0.1) <= tol).sum())
+    phase("saliency", f"sample 1, {n_stack} outputs on the card vs the plain CPU forward (two "
+          f"forwards in {cpu_s:.1f} s on the CPU): max abs err {err:.3g}, "
+          f"{int((np.abs(res['stack'] - ref) > SAL_TOL * scale).sum())} of {ref.size} over "
+          f"{SAL_TOL} x {scale:.4g} (bound {tol:.3g}: that, or 3 x {own:.3g}, the CPU's own "
+          f"change under images moved by 1e-6); outputs within {tol:.3g} of the 0.4 threshold: "
+          f"{near_out}; impacts within it of 0.1: {near_imp}")
+    ref_sal = None if ref_points is None else saliency.saliency_map(ref, ref_points,
+                                                                   loader.mask)
+    # the saliency of other outputs: each impact moves by at most twice the
+    # outputs' bound, and a pixel's saliency sums the impacts of the masks
+    # that cover it (while no impact crosses 0.1: counted above)
+    carried = 2 * tol * loader.mask.sum(0)
+
+    def sal_close(got, want):
+        return bool((np.abs(got - want) <= carried + 1e-5 * np.abs(want) + 1e-6).all())
+
+    for dump in (1, 0):
+        got = runs[dump].get(1)
+        check((got is None) == (ref_points is None), f"saliency dump {dump}: sample 1 valid "
+              f"{got is not None} on the card, {ref_points is not None} on the CPU")
+        if got is not None:
+            check(np.array_equal(got["points"], ref_points), f"saliency dump {dump}: sample 1's "
+                  f"probe points differ from the CPU's")
+            check(sal_close(got["saliency"], ref_sal), f"saliency dump {dump}: sample 1's "
+                  f"saliency vs the CPU's, max abs err {np.abs(got['saliency'] - ref_sal).max():.3g} "
+                  f"(bound 2 x {tol:.3g} x the masks over a pixel, up to {carried.max():.3g})")
+    # the probe on the card and on the host, on the same outputs (sample 1's
+    # card stack): test_saliency.py's tolerance
+    valid, points = saliency.interest_points(res["stack_dev"][:1])
+    sal_dev = saliency.saliency_maps(res["stack_dev"][None], points, torch.from_numpy(
+        loader.mask).cuda())[0].cpu().numpy()
+    host_points = saliency.interest_point(res["stack"][0])
+    check(bool(valid[0]) == (host_points is not None), "sample 1: the card's probe and the "
+          "host's disagree on valid")
+    probe_err = 0.0
+    if host_points is not None:
+        host_sal = saliency.saliency_map(res["stack"], host_points, loader.mask)
+        probe_err = float(np.abs(sal_dev - host_sal).max())
+        check(np.array_equal(points[0].cpu().numpy(), host_points)
+              and np.allclose(sal_dev, host_sal, rtol=1e-5, atol=1e-6),
+              f"sample 1: the card's probe vs the host's on the same outputs: points equal "
+              f"{np.array_equal(points[0].cpu().numpy(), host_points)}, saliency max abs err "
+              f"{probe_err:.3g} (rtol 1e-5, atol 1e-6)")
+    check(sorted(runs[0]) == sorted(runs[1]), f"saliency: samples kept {sorted(runs[1])} with "
+          f"the host probe, {sorted(runs[0])} with the card's")
+    sal_err = 0.0
+    for i in runs[1]:
+        a, b = runs[1][i], runs[0][i]
+        check(np.array_equal(a["points"], b["points"]) and np.array_equal(a["input"], b["input"]),
+              f"saliency sample {i}: points or input differ between the two dump modes")
+        check(sal_close(b["saliency"], a["saliency"]), f"saliency sample {i}: the card-built "
+              f"stack's saliency vs the host-built one's, max abs err "
+              f"{np.abs(b['saliency'] - a['saliency']).max():.3g}")
+        sal_err = max(sal_err, float(np.abs(b["saliency"] - a["saliency"]).max()))
+    cpu_err = 0.0 if ref_sal is None else float(np.abs(runs[1][1]["saliency"] - ref_sal).max())
+    phase("saliency", f"sample 1: valid and points equal the CPU's in both dump modes, its "
+          f"saliency within {cpu_err:.3g} of the CPU's (bound 2 x {tol:.3g} x the masks over a "
+          f"pixel, up to {carried.max():.3g}); the card's probe on the card's outputs equals the "
+          f"host's (points; saliency within {probe_err:.3g}, rtol 1e-5 / atol 1e-6); the "
+          f"{len(runs[1])} kept samples: points and input equal in both dump modes, saliency "
+          f"within {sal_err:.3g}; a group takes {res[1]['group_ms'] / res[0]['group_ms']:.2f}x "
+          f"as long with the host's probe as with the card's")
+    # conv3x3 and maxpool2 at the saliency forward's shapes, N = 3,368, f32:
+    # the path's calls (relu_out and stats off) held to the plain version, then timed
+    worst, pool_ok = 0.0, 0
+    for k, ((h, w, ci, co), _) in enumerate(sorted(shapes["conv3x3"].items())):
+        x, wt, b = conv_inputs(n_img, h, w, ci, co, torch.float32, seed=700 + k)
+        y = routed("conv3x3", x, wt, lambda: conv3x3(x, wt, b, with_stats=False))[0]
+        y_ref = conv3x3_plain(x, wt, b, with_stats=False)[0]
+        share = rel_share(y, y_ref, 1e-5)
+        check(share <= 1.0, f"conv3x3 {n_img}x{h}x{w}x{ci}->{co} f32: {share:.2f} of its bound")
+        worst = max(worst, share)
+        del x, y, y_ref
+    for k, (h, w, c) in enumerate(sorted(shapes["maxpool2"])):
+        x = pool_input((n_img, h, w, c), torch.float32, seed=800 + k)
+        same, _ = pool_equal(maxpool2(x), maxpool2_plain(x))
+        check(same, f"maxpool2 {n_img}x{h}x{w}x{c} f32: differs from the plain version")
+        pool_ok += 1
+        del x
+    torch.cuda.empty_cache()
+    phase("saliency", f"conv3x3 at the forward's {len(shapes['conv3x3'])} shapes at N = {n_img}, "
+          f"f32, as the path calls it: largest error {worst:.2f} of its bound; maxpool2 at its "
+          f"{pool_ok} shapes: equal to the plain version")
+    label = f"mnist-saliency ({SAL_NET}, {n_img} a forward)"
+    t_ms, t_plain, t_lib, t_simple = time_kernels(
+        label, shapes, {k: Counter() for k in KERNELS}, n_img, 1, 1, seed=900,
+        alternatives=False, windows=3, dtype=torch.float32)
+    # (the bounds at the f32 peak outside the tensor cores: main prints them)
+    bounds = path_bounds(shapes, n_img, torch.float32)
+    shutil.rmtree(cache)
+    phase("saliency", f"phase 27 took {time.perf_counter() - t0:.1f} s")
+    return dict(launches), (label, (f"{n_img}-image forward", ""), t_ms, t_plain, t_lib,
+                            t_simple, bounds)
+
+
+# ----------------------------------------------- the remat step (phase 28)
+
+# the dropout net of the remat check, at its recipe
+REMAT_DROPOUT = "cifar/prnmg"
+
+
+def step_delta(trainer, x, y, lr, wd):
+    """One Trainer.step: (its loss, the parameter update as one f32
+    vector, the running stats after it as one vector, peak memory over
+    what was allocated before it, wall ms)."""
+    p0 = np.concatenate([a.ravel() for a in flat(export_jax_tree(trainer.model)[0])])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    loss = float(trainer.step(x, y, lr, wd)["loss"])
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    p, s = export_jax_tree(trainer.model)
+    d = np.concatenate([a.ravel() for a in flat(p)]) - p0
+    return loss, d, np.concatenate([a.ravel() for a in flat(s)]), peak, wall
+
+
+def remat_pair(opt, x, y, lr, wd, iters, dtype=torch.bfloat16):
+    """The plain step twice and the remat step once, each from the same
+    seeded weights, zero momentum and init stats: ({"plain", "again",
+    "remat"}: step_delta, {"remat": its launches and designs})."""
+    out, seen = {}, {}
+    for key, remat in (("plain", False), ("again", False), ("remat", True)):
+        tr = Trainer(opt, seed=0, device="cuda", compute_dtype=dtype, iter_size=iters,
+                     remat=remat)
+        kernels.reset_launches()
+        before = dict(kernels.ROUTES)
+        out[key] = step_delta(tr, x, y, lr, wd)
+        seen[key] = (dict(kernels.LAUNCHES), routes_since(before))
+        del tr
+        torch.cuda.empty_cache()
+    return out, seen
+
+
+def remat_errors(out):
+    """(the plain step's own change between two runs, remat's change from
+    the plain step: each the L2 of the update's difference over the
+    update's L2; the same two for the running stats: max abs difference
+    over the stats' scale)"""
+    (_, d1, s1, _, _), (_, d2, s2, _, _), (_, dr, sr, _, _) = (
+        out["plain"], out["again"], out["remat"])
+    n1 = np.linalg.norm(d1)
+    sc = max(np.abs(s1).max(), 1e-12)
+    return (float(np.linalg.norm(d2 - d1) / n1), float(np.linalg.norm(dr - d1) / n1),
+            float(np.abs(s2 - s1).max() / sc), float(np.abs(sr - s1).max() / sc))
+
+
+def check_remat(name) -> dict:
+    """28: -remat on the card. R-MG-34 bf16 at batch 128 (the main path):
+    one Trainer.step with remat beside two without, from the same seeded
+    weights and batch: the update within three times the plain step's
+    own change between its two runs, the running stats likewise (updated
+    once, as the plain step's), the pinned launches a micro-batch
+    (REMAT_PER_STEP: the forward's kernels twice) through the predicted
+    designs, a lower peak memory, and both steps' times interleaved;
+    cifar/prnmg --isDropout at its recipe's 64 x 2 the same way (the
+    masks replayed: a fresh draw moves the update far past the bound);
+    one f32 remat step of cifar/prnmg (8 x 2) on the card vs the CPU's
+    remat step, within the f32 step gates. Returns the launches of the
+    remat steps."""
+    t0 = time.perf_counter()
+    launches = Counter()
+    x, y = synthetic_batch(TIME_BATCH, seed=5)
+    out, seen = remat_pair(RMG34, x, y, TRAIN_RULE["lr"], TRAIN_RULE["wd"], 1)
+    rec = record_kernel_shapes(True, remat=True)
+    want = {k: sum(c.values()) for k, c in rec.items()}
+    check(want == REMAT_PER_STEP, f"the CPU's remat micro-batch made kernel calls {want}, "
+          f"expected {REMAT_PER_STEP}")
+    got, routes = seen["remat"]
+    check(got == REMAT_PER_STEP and routes == predicted_routes(rec), f"R-MG-{DEPTH} remat step: "
+          f"launches {got}, designs {routes}; expected {REMAT_PER_STEP}, "
+          f"{predicted_routes(rec)}")
+    check(seen["plain"][0] == seen["again"][0] == PER_STEP,
+          f"R-MG-{DEPTH} plain steps: launches {seen['plain'][0]}, {seen['again'][0]}")
+    launches.update(got)
+    own, upd, own_st, st = remat_errors(out)
+    lp, lr_ = out["plain"][0], out["remat"][0]
+    check(np.isfinite(lr_) and abs(lr_ - lp) <= 3 * abs(out["again"][0] - lp),
+          f"R-MG-{DEPTH} remat loss {lr_} vs plain {lp} (again {out['again'][0]})")
+    check(upd <= 3 * own and st <= 3 * own_st, f"R-MG-{DEPTH} remat vs plain: update err {upd:.3g} "
+          f"(bound 3 x the plain step's own {own:.3g}), stats err {st:.3g} (bound 3 x "
+          f"{own_st:.3g})")
+    peak_plain, peak_remat = out["plain"][3], out["remat"][3]
+    check(peak_remat < peak_plain, f"R-MG-{DEPTH} remat peak {peak_remat / 2**30:.2f} GiB, plain "
+          f"{peak_plain / 2**30:.2f} GiB")
+    phase("remat", f"R-MG-{DEPTH} bf16, batch {TIME_BATCH}, one step on {name}: loss {lp:.6f} "
+          f"both; update: remat vs plain {upd:.3g} of its L2 norm, the plain step against itself "
+          f"{own:.3g} (bound 3x); running stats {st:.3g} vs {own_st:.3g} of their scale; "
+          f"launches {got} (the forward's twice), designs as predicted; the step's peak memory "
+          f"over the resident model {peak_remat / 2**30:.3f} GiB with remat, "
+          f"{peak_plain / 2**30:.3f} GiB without ({peak_remat / peak_plain:.0%})")
+    plain_tr = Trainer(RMG34, seed=0, device="cuda", compute_dtype=torch.bfloat16)
+    remat_tr = Trainer(RMG34, seed=0, device="cuda", compute_dtype=torch.bfloat16, remat=True)
+    xt, yt = torch.from_numpy(x).cuda().to(torch.bfloat16), torch.from_numpy(y).cuda()
+    (t_p, s_p), (t_r, s_r) = interleaved_ms([
+        lambda: plain_tr.step(xt, yt, TRAIN_RULE["lr"], TRAIN_RULE["wd"]),
+        lambda: remat_tr.step(xt, yt, TRAIN_RULE["lr"], TRAIN_RULE["wd"])], windows=5)
+    phase("remat", f"R-MG-{DEPTH} bf16 step, batch {TIME_BATCH}, interleaved: plain {t_p:.2f} ms "
+          f"(spread {s_p:.1%}) = {TIME_BATCH / t_p * 1e3:.1f} img/s, remat {t_r:.2f} ms (spread "
+          f"{s_r:.1%}) = {TIME_BATCH / t_r * 1e3:.1f} img/s ({t_r / t_p:.2f}x)")
+    del plain_tr, remat_tr
+    torch.cuda.empty_cache()
+
+    _, micro, iters = CIFAR_RECIPES[REMAT_DROPOUT]
+    dopt = cifar_opts(REMAT_DROPOUT, dropout=True)
+    x, y = synthetic_batch(micro * iters, seed=6, n_classes=100, shape=CIFAR_IMAGE)
+    out, seen = remat_pair(dopt, x, y, CIFAR_LR, 5e-4, iters)
+    rec = record_kernel_shapes(True, dopt, remat=True)
+    want = {k: iters * sum(c.values()) for k, c in rec.items()}
+    fwd = ("conv3x3", "conv3x3_bn_relu_in", "maxpool2")
+    check(want == {k: iters * n * (2 if k in fwd else 1)
+                   for k, n in PRNMG_DROPOUT_PER_MICRO.items()},
+          f"{REMAT_DROPOUT} --isDropout remat: the CPU's calls {want}")
+    check(seen["remat"][0] == want, f"{REMAT_DROPOUT} --isDropout remat step: launches "
+          f"{seen['remat'][0]}, expected {want}")
+    launches.update(seen["remat"][0])
+    own, upd, own_st, st = remat_errors(out)
+    check(upd <= 3 * own and st <= 3 * own_st, f"{REMAT_DROPOUT} --isDropout remat vs plain: "
+          f"update err {upd:.3g} (bound 3 x {own:.3g}), stats err {st:.3g} (bound 3 x "
+          f"{own_st:.3g})")
+    phase("remat", f"{REMAT_DROPOUT} --isDropout bf16, {micro} x {iters}: update remat vs plain "
+          f"{upd:.3g}, plain vs itself {own:.3g}; stats {st:.3g} vs {own_st:.3g}; launches "
+          f"{seen['remat'][0]}; peak {out['remat'][3] / 2**20:.0f} MiB with remat, "
+          f"{out['plain'][3] / 2**20:.0f} MiB without")
+
+    fopt = cifar_opts(REMAT_DROPOUT)
+    x2, y2 = synthetic_batch(CIFAR_F32_BATCH, seed=2, n_classes=100, shape=CIFAR_IMAGE)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(fopt, seed=0, device=dev, compute_dtype=torch.float32, iter_size=2,
+                     remat=True)
+        before, _ = export_jax_tree(tr.model)
+        m = tr.step(x2, y2, 0.1, 5e-4)
+        res[dev] = (float(m["loss"]), before, *export_jax_tree(tr.model))
+    loss_err, upd, st = step_error(res)
+    check(loss_err <= 1e-4 and upd <= F32_STEP_PARAM_BOUND and st <= F32_STEP_STATS_BOUND,
+          f"{REMAT_DROPOUT} f32 remat step, card vs CPU: loss err {loss_err:.3g}, update err "
+          f"{upd:.3g} (bound {F32_STEP_PARAM_BOUND}), stats err {st:.3g} (bound "
+          f"{F32_STEP_STATS_BOUND})")
+    phase("remat", f"{REMAT_DROPOUT} f32 remat step on the card vs the CPU's remat step, "
+          f"{CIFAR_F32_BATCH // 2} x 2 at lr 0.1: loss err {loss_err:.3g}; update err {upd:.3g} "
+          f"(bound {F32_STEP_PARAM_BOUND}); stats err {st:.3g} (bound {F32_STEP_STATS_BOUND}); "
+          f"phase 28 took {time.perf_counter() - t0:.1f} s")
+    return dict(launches)
+
+
 def fmt(metrics) -> str:
     return ", ".join(f"{k} {v:.5f}" for k, v in metrics.items())
 
@@ -2830,6 +3304,12 @@ def main() -> None:
     i8_1x1 = time_i8_1x1(i8_rec)
     phase("i8 times", f"phases 23-26 took {time.perf_counter() - t0:.1f} s")
 
+    # 27 the saliency harness; 28 the train step's -remat
+    sal_launches, sal_times = check_saliency(name)
+    remat_launches = check_remat(name)
+    launches = {k: launches[k] + sal_launches.get(k, 0) + remat_launches.get(k, 0)
+                for k in KERNELS}
+
     # each kernel's bound over the pass its times sum: the serving forward
     # (conv3x3, maxpool2) or the training step (the other two)
     fwd_bounds = path_bounds(serve_shapes, TIME_BATCH)
@@ -2847,6 +3327,7 @@ def main() -> None:
         _, micro, iters, batches = SEG_RECIPES[net]
         nets[net] = (seg_launches[net], (f"batch-{batches[-1]} forward", f"{micro} x {iters} step"),
                      n_ms, n_plain, n_lib, n_simple, n_bounds)
+    nets[sal_times[0]] = (sal_launches, *sal_times[1:])
     for net, (_, units, kms, kplain, klib, ksimple, bds) in nets.items():
         for k in kms:
             flops, nbytes, t_bound, by = bds[k]

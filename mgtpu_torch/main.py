@@ -7,9 +7,10 @@ of the reference's `main.lua` + `run.lua`); takes the JAX CLI's flags:
 Boot order as `main.lua:36-58`: parse the options (two-stage), seed
 Python's, numpy's and torch's generators, make the run dir and write
 ``opts.json``, build the Session (net, model, SGD state, loaders, donkey
-pool, steps), run the standard pipeline, and at the end, also on an
-error, wait for a pending checkpoint write and shut the donkey pool down.
-Runs on ``-device`` (default cuda)."""
+pool, steps), run the pipeline ``-pipeline`` names (the standard one, or
+with ``saliency`` the saliency harness as epoch 1, `run.lua:1-33`), and
+at the end, also on an error, wait for a pending checkpoint write and
+shut the donkey pool down. Runs on ``-device`` (default cuda)."""
 
 from __future__ import annotations
 
@@ -36,14 +37,18 @@ def main(argv=None):
         json.dump(vars(opt), f, indent=2, default=str)
     print(f"==> run dir: {opt.save}")
 
-    from mgtpu_torch.pipelines.standard import Session, run
+    from mgtpu_torch.pipelines import saliency, standard
     from mgtpu_torch.utils.checkpoint import join_pending_saves
 
-    sess = Session(opt)
+    sess = standard.Session(opt)
     # shut down in finally: an exception mid-run must not leave
     # process-mode donkeys alive
     try:
-        run(sess)
+        if opt.pipeline == "saliency":
+            sess.epoch = 1
+            saliency.run(sess)
+        else:
+            standard.run(sess)
     finally:
         try:
             # don't exit under an in-flight checkpoint write; re-raises a

@@ -1,10 +1,8 @@
 """Model registry of the port: ``-netType`` name -> NetSpec (the model,
 its input and target shapes, loss, LR rule and metrics): R-MG-18/34 and
 PR-MG-30/52 (``ilsvrc/``), the CIFAR zoo (``cifar/``) and the
-cluttered-MNIST nets and the ``mnist-test`` harness
-(``mnist-cluttered/``). Of the JAX package's zoo only the
-``mnist-saliency`` harness, which runs on the saliency pipeline, is not
-here (ROADMAP Queue 1 item 6)."""
+cluttered-MNIST nets and the ``mnist-test`` and ``mnist-saliency``
+harnesses (``mnist-cluttered/``): the JAX package's whole zoo."""
 
 from __future__ import annotations
 
@@ -12,12 +10,13 @@ from mgtpu_torch.models.base import NetOpts, NetSpec
 from mgtpu_torch.models.cifar import nmg, pnmg, prnmg, resnet, rnmg, vgg
 from mgtpu_torch.models.ilsvrc import prnmgseg
 from mgtpu_torch.models.ilsvrc import rnmg as ilsvrc_rnmg
-from mgtpu_torch.models.mnist_cluttered import mnist_test, pnmg_mnist, prnmg_mnist, unet, unmg
+from mgtpu_torch.models.mnist_cluttered import (mnist_saliency, mnist_test, pnmg_mnist,
+                                                prnmg_mnist, unet, unmg)
 
 _SPECS = {spec.name: spec for spec in (ilsvrc_rnmg.NET, prnmgseg.NET, nmg.NET, rnmg.NET,
                                        pnmg.NET, prnmg.NET, resnet.NET, vgg.NET, unet.NET,
                                        unmg.NET, pnmg_mnist.NET, prnmg_mnist.NET,
-                                       mnist_test.NET)}
+                                       mnist_test.NET, mnist_saliency.NET)}
 
 
 def list_models() -> list[str]:
@@ -28,7 +27,7 @@ def get_spec(name: str) -> NetSpec:
     """The NetSpec registered under ``name`` (the JAX package's
     ``-netType``)."""
     if name not in _SPECS:
-        raise KeyError(f"unknown or not yet ported net {name!r}; ported: {list_models()}")
+        raise KeyError(f"unknown net {name!r}; the nets: {list_models()}")
     return _SPECS[name]
 
 

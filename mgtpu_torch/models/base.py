@@ -67,6 +67,7 @@ class NetOpts:
     nEpochs: int = 20
     shortcutType: str = "B"
     retrain: Optional[str] = None  # the checkpoint a harness (mnist-test) rebuilds its net from
+    trainedNet: Optional[str] = None  # the checkpoint the mnist-saliency harness serves
 
     @classmethod
     def from_meta(cls, meta: dict) -> "NetOpts":

@@ -12,11 +12,13 @@ f32 bias; BatchNorm computes in f32 in both modes. Parameters are f32
 masters, drawn on the CPU from an explicit ``torch.Generator`` and then
 moved to ``device``, so a seed gives the same weights on every device.
 BatchNorm's running stats are buffers, updated in place by a
-train-mode forward (the JAX layer returns them as new stats).
+train-mode forward (the JAX layer returns them as new stats), except
+inside :func:`running_stats_held`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -183,6 +185,25 @@ class _BatchNormTrain(torch.autograd.Function):
         return dx.to(x.dtype), sum_dy_xhat, sum_dy, None
 
 
+_RUNNING_STATS_HELD = False
+
+
+@contextlib.contextmanager
+def running_stats_held():
+    """Within it, a train-mode BatchNorm normalizes with the batch's
+    moments as ever but leaves its running stats as they are: a forward
+    that is run again to rebuild activations for the backward
+    (``make_train_step(remat=True)``) must not update them a second time.
+    In the JAX package the stats are an output of the primal forward
+    only."""
+    global _RUNNING_STATS_HELD
+    held, _RUNNING_STATS_HELD = _RUNNING_STATS_HELD, True
+    try:
+        yield
+    finally:
+        _RUNNING_STATS_HELD = held
+
+
 class BatchNorm(nn.Module):
     """Spatial batch norm over the last axis, computed in f32, returning
     ``x.dtype``. Eval mode normalizes with the running stats. Train mode
@@ -215,6 +236,8 @@ class BatchNorm(nn.Module):
 
     @torch.no_grad()
     def _update_running(self, mean, var, n):
+        if _RUNNING_STATS_HELD:
+            return
         m = self.momentum
         self.mean.copy_((1 - m) * self.mean + m * mean)
         self.var.copy_((1 - m) * self.var + m * (var * (n / max(n - 1, 1))))

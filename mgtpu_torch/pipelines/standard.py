@@ -104,7 +104,9 @@ def quantize_session_model(model, loaders: dict, opt) -> None:
 class Session:
     """The run's state (the reference's OPT/MODEL/NETOBJ/DONKEYS globals,
     `main.lua:21-27`): the net, its model on ``opt.device`` with its SGD
-    state, the loaders, the donkey pool, the steps and the loggers."""
+    state, the loaders, the donkey pool, the steps and the loggers. The
+    saliency harness (``mnist-cluttered/mnist-saliency``) builds its
+    model from ``-trainedNet``, weights included, in eval mode."""
 
     def __init__(self, opt):
         from mgtpu_torch.data import get_loaders
@@ -145,7 +147,7 @@ class Session:
 
         self.train_step = make_train_step(self.model, self.loss_fn, self.net,
                                           iter_size=opt.iterSize, momentum=opt.momentum,
-                                          log_grad_norm=opt.logGradNorm)
+                                          remat=opt.remat, log_grad_norm=opt.logGradNorm)
         mk_eval = make_tencrop_eval_step if opt.tenCrop else make_eval_step
         self.test_step = mk_eval(self.model, self.loss_fn, self.net, "test")
         self.eval_step = mk_eval(self.model, self.loss_fn, self.net, "eval")

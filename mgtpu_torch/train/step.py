@@ -3,8 +3,13 @@
 The train step runs forward, loss and backward, averages the gradients
 over ``iter_size`` micro-batches, and takes one SGD step. BatchNorm
 running stats are updated in place by each micro-batch's forward, in
-order, as the JAX step threads them through its scan. The JAX step's
-``remat``, ``zero1`` and ``bucket_sgd`` options are not ported.
+order, as the JAX step threads them through its scan. ``remat`` runs
+each micro-batch's forward under ``torch.utils.checkpoint``, layer by
+layer, which keeps only the layers' inputs and runs the whole forward
+again in the backward (`rematerialized`);
+``bucket_sgd`` picks the multi-tensor SGD update (the default) or the
+loop over tensors. The JAX step's ``zero1`` needs a mesh and is not
+ported (ROADMAP Queue 1 item 4).
 
 The step asks cuDNN (the stock convs and every conv's backward) for its
 deterministic algorithms while ``DETERMINISTIC_CUDNN`` is True, so that
@@ -23,7 +28,9 @@ import contextlib
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
+from mgtpu_torch.nn import Dropout, running_stats_held
 from mgtpu_torch.train.optim import sgd_update
 
 
@@ -44,8 +51,60 @@ def _global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
 
 
+def _remat_contexts(dropouts, device):
+    """The two contexts ``checkpoint`` runs a rematerialized forward in:
+    the first forward, and the run again in the backward. The run again
+    draws the masks the first forward drew (each Dropout's generator is
+    set back to its state before the first forward, and after the run to
+    its state after it: ``checkpoint``'s own ``preserve_rng_state`` knows
+    only torch's default generators), and it leaves the BatchNorms'
+    running stats alone: the first forward updated them."""
+    gens = [d._generator_on(device) for d in dropouts]
+    before = [g.get_state() for g in gens]
+
+    @contextlib.contextmanager
+    def again():
+        after = [g.get_state() for g in gens]
+        for g, s in zip(gens, before):
+            g.set_state(s)
+        try:
+            with running_stats_held():
+                yield
+        finally:
+            for g, s in zip(gens, after):
+                g.set_state(s)
+
+    return contextlib.nullcontext(), again()
+
+
+def rematerialized(model):
+    """``model``'s forward under ``torch.utils.checkpoint``, one segment
+    for each top-level layer of its sequence (``model.seq.layers``; the
+    whole model where it has none, as the U-Nets): a segment keeps only
+    its input, and the backward runs each segment again, whole (no early
+    stop), before its own backward, with the first forward's dropout
+    masks and without a second update of the BatchNorms' running stats.
+    Every forward kernel runs twice, as under JAX's ``jax.checkpoint`` of
+    the whole loss; one checkpoint of the whole forward would rebuild
+    every saved activation before the backward frees one, and held the
+    plain step's peak memory on the card (`probe_remat_memory.py`)."""
+    seq = getattr(model, "seq", None)
+    segments = list(seq.layers) if seq is not None else [model]
+    dropouts = [[m for m in seg.modules() if isinstance(m, Dropout)] for seg in segments]
+
+    def forward(x):
+        device = next(model.parameters()).device
+        for seg, drops in zip(segments, dropouts):
+            with set_checkpoint_early_stop(False):
+                x = checkpoint(seg, x, use_reentrant=False,
+                               context_fn=lambda drops=drops: _remat_contexts(drops, device))
+        return x
+
+    return forward
+
+
 def make_train_step(model, loss_fn, net, iter_size: int = 1, momentum: float = 0.9,
-                    log_grad_norm: bool = False):
+                    remat: bool = False, bucket_sgd: bool = True, log_grad_norm: bool = False):
     """Returns train_step(opt_state, batch, lr, wd) -> metrics.
 
     batch = {"x": ..., "y": ...}; with iter_size > 1 the leading axis of
@@ -55,11 +114,20 @@ def make_train_step(model, loss_fn, net, iter_size: int = 1, momentum: float = 0
     train metrics, averaged over the micro-batches, and with
     ``log_grad_norm`` also ``gradnorm`` (global L2 of the averaged raw
     gradients, before the weight-decay term), ``pnorm`` (global L2 of
-    the updated parameters) and ``maxupd`` (largest |parameter change|)."""
+    the updated parameters) and ``maxupd`` (largest |parameter change|).
+
+    ``remat`` (the JAX step's ``jax.checkpoint`` of the loss): each
+    micro-batch's forward keeps only its layers' inputs, and the backward
+    runs it again, layer by layer, to rebuild the activations it needs
+    (`rematerialized`); less memory for one more forward. The values are the plain step's: the same masks,
+    and the running stats updated once. ``bucket_sgd`` True updates all
+    tensors with PyTorch's multi-tensor ops, False loops over them
+    (`mgtpu_torch.train.optim.sgd_update`); the values are the same."""
     params = list(model.parameters())
+    forward = rematerialized(model) if remat else model
 
     def grads_and_metrics(x, y):
-        out = model(x)
+        out = forward(x)
         loss = loss_fn(out, y)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
@@ -81,7 +149,7 @@ def make_train_step(model, loss_fn, net, iter_size: int = 1, momentum: float = 0
         if log_grad_norm:
             metrics["gradnorm"] = _global_norm(grads)
             old = [p.detach().clone() for p in params]
-        sgd_update(params, grads, opt_state, lr, wd, momentum)
+        sgd_update(params, grads, opt_state, lr, wd, momentum, foreach=bucket_sgd)
         if log_grad_norm:
             with torch.no_grad():
                 metrics["pnorm"] = _global_norm(params)

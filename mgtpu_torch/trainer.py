@@ -53,11 +53,15 @@ class Trainer:
     BN stats and, when it holds one, the momentum), which names its net;
     without it the weights come from ``seed``, as do the dropout masks.
     ``iter_size`` > 1 splits each batch into that many micro-batches and
-    averages their gradients."""
+    averages their gradients. ``remat`` runs each micro-batch's forward
+    again in the backward instead of keeping its activations
+    (`mgtpu_torch.train.step.make_train_step`): the same values, less
+    memory."""
 
     def __init__(self, opt: NetOpts = NetOpts(), ckpt: Optional[str] = None, seed: int = 0,
                  device: str | torch.device = "cuda",
-                 compute_dtype: torch.dtype = torch.bfloat16, iter_size: int = 1):
+                 compute_dtype: torch.dtype = torch.bfloat16, iter_size: int = 1,
+                 remat: bool = False):
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
         self.iter_size = iter_size
@@ -77,7 +81,7 @@ class Trainer:
         else:
             self.opt_state = sgd_init(self.model.parameters())
         self._step = make_train_step(self.model, self.net.create_loss(opt), self.net,
-                                     iter_size=iter_size)
+                                     iter_size=iter_size, remat=remat)
 
     def step(self, images, labels, lr: float, wd: float) -> dict:
         """One SGD step on images (B, H, W, C) NHWC (``self.image_shape``)

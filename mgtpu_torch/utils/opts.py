@@ -21,23 +21,16 @@ import time
 from typing import Optional, Sequence
 
 PARALLEL = "ROADMAP Queue 1 item 4 (parallel/mesh.py)"
-REMAT = "ROADMAP Queue 1 item 3 (the train-step options)"
-SALIENCY = "ROADMAP Queue 1 item 6 (the saliency pipeline)"
 # flag -> (is it asked for, given the parsed options; what ports it)
 REFUSED = {
     "-spatial": (lambda o: o.spatial > 1, PARALLEL),
     "-tensor": (lambda o: o.tensor > 1, PARALLEL),
     "-zero1": (lambda o: o.zero1, PARALLEL),
     "-multihost": (lambda o: o.multihost, PARALLEL),
-    "-remat": (lambda o: o.remat, REMAT),
-    "-pipeline": (lambda o: o.pipeline != "standard", SALIENCY),
-    "-saliencyBatch": (lambda o: o.saliencyBatch != 4, SALIENCY),
-    "-saliencyDumpStack": (lambda o: o.saliencyDumpStack != 1, SALIENCY),
     "-allowPickleCkpt": (lambda o: o.allowPickleCkpt,
                          "no item: the port reads mgtpu-ckpt npz archives only and never "
                          "unpickles"),
 }
-SALIENCY_NET = "mnist-cluttered/mnist-saliency"
 
 
 class _SingleDash:
@@ -97,11 +90,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-eval", action="store_true")
     p.add_argument("-test", action="store_true")
     p.add_argument("-pipeline", default="standard",
-                   help=f"standard (saliency is not ported yet: {SALIENCY})")
+                   help="standard, or saliency (the occlusion-saliency harness)")
     p.add_argument("-saliencyBatch", type=int, default=4,
-                   help=f"saliency pipeline; not ported yet: {SALIENCY}")
+                   help="saliency pipeline: occlusion stacks per forward")
     p.add_argument("-saliencyDumpStack", type=int, default=1,
-                   help=f"saliency pipeline; not ported yet: {SALIENCY}")
+                   help="1 (default): write the full 842-stack output "
+                        "per sample to testOutput.h5 like the reference "
+                        "(saliency/test.lua:163-168), the probe on the host. "
+                        "0: build the stack, probe and saliency on the "
+                        "device, dump only {points,saliency,input}")
     # ------------- Additions of the JAX package ---------
     p.add_argument("-dtype", default="float32", choices=["float32", "bfloat16"],
                    help="compute dtype for conv/matmul")
@@ -123,7 +120,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(train.lua:48-55); default keeps momentum "
                         "(documented improvement)")
     p.add_argument("-remat", action="store_true",
-                   help=f"activation rematerialization; not ported yet: {REMAT}")
+                   help="rematerialize activations in the backward pass "
+                        "(torch.utils.checkpoint): slower, fits larger batches")
     p.add_argument("-int8", action="store_true",
                    help="post-training int8 inference: per-output-channel int8 conv "
                         "kernels, per-tensor int8 activations, int32 sums on the "
@@ -197,8 +195,6 @@ def parse(argv: Optional[Sequence[str]] = None):
             net_type = argv[i + 1]
         elif a.startswith("-netType="):  # argparse's '=' form
             net_type = a.split("=", 1)[1]
-    if net_type == SALIENCY_NET:
-        raise SystemExit(f"-netType {SALIENCY_NET} is not ported yet: {SALIENCY}")
     if net_type:
         from mgtpu_torch.models import get_spec
 

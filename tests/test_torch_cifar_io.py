@@ -230,8 +230,8 @@ def test_server_and_trainer_from_jax_checkpoint(prnmg, tmp_path):
 def test_checkpoint_of_an_unported_net_is_refused(prnmg, tmp_path):
     path = str(tmp_path / "model_1.ckpt")
     save_checkpoint(path, prnmg.p, prnmg.s, epoch=1,
-                    meta={"netType": "mnist-cluttered/mnist-saliency"})
-    with pytest.raises(KeyError, match="not yet ported"):
+                    meta={"netType": "cifar/nonesuch"})
+    with pytest.raises(KeyError, match="unknown net"):
         Server(ckpt=path, device="cpu")
 
 

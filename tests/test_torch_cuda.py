@@ -722,3 +722,57 @@ def test_int8_server_launches_conv_i8_per_part(dev):
     assert kernels.LAUNCHES == per and per["conv3x3"] == 0 and per["conv_i8"] > 0
     ref = cpu.predict(x)
     assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_remat_step_on_the_card_equals_the_plain_step(dev):
+    """-remat on the card: cifar/prnmg --isDropout, bf16, two micro-batches
+    of 8: the remat step's parameters and running stats move from the
+    plain step's by no more than three times the plain step's own change
+    between two runs (the run again in the backward draws the first
+    forward's masks and leaves the stats alone), and the forward's
+    kernels launch twice."""
+    from chip_smoke import PRNMG_DROPOUT_PER_MICRO
+    from mgtpu_torch.models.base import NetOpts
+    from mgtpu_torch.trainer import Trainer, synthetic_batch
+
+    opt = NetOpts(netType="cifar/prnmg", isDropout=True)
+    x, y = synthetic_batch(16, seed=1, n_classes=100, shape=(32, 32, 3))
+    states = []
+    for remat in (False, False, True):
+        tr = Trainer(opt, seed=0, device=dev, compute_dtype=torch.bfloat16, iter_size=2,
+                     remat=remat)
+        kernels.reset_launches()
+        tr.step(x, y, 1e-3, 5e-4)
+        launches = dict(kernels.LAUNCHES)
+        states.append({k: v.float().clone() for k, v in tr.model.state_dict().items()})
+    fwd = ("conv3x3", "conv3x3_bn_relu_in", "maxpool2")
+    assert launches == {k: 2 * n * (2 if k in fwd else 1)
+                        for k, n in PRNMG_DROPOUT_PER_MICRO.items()}
+    for k in states[0]:
+        own = (states[1][k] - states[0][k]).abs().max().item()
+        assert (states[2][k] - states[0][k]).abs().max().item() <= 3 * own, k
+
+
+def test_saliency_probe_on_the_card_equals_the_host_probe(dev):
+    """The saliency pipeline's device probe on CUDA tensors (argmax of
+    int32 masks, the f32 product) against its numpy host probe on
+    the same outputs: valid and points bit for bit, saliency at rtol
+    1e-5 / atol 1e-6."""
+    from mgtpu_torch.pipelines import saliency
+
+    rng = np.random.default_rng(5)
+    outs = rng.random((3, 1 + 30, 64, 64, 1)).astype(np.float32) * 0.8
+    outs[1, 0] = 0.0  # nothing over the threshold
+    outs[2, 0, :, :20] = 0.0
+    mask = (rng.random((30, 64, 64, 1)) > 0.9).astype(np.float32)
+    valid, points = saliency.interest_points(torch.from_numpy(outs[:, 0]).to(dev))
+    sal = saliency.saliency_maps(torch.from_numpy(outs).to(dev), points,
+                                 torch.from_numpy(mask).to(dev)).cpu().numpy()
+    for j in range(3):
+        host = saliency.interest_point(outs[j, 0])
+        assert bool(valid[j]) == (host is not None)
+        if host is not None:
+            np.testing.assert_array_equal(points[j].cpu().numpy(), host)
+            np.testing.assert_allclose(sal[j], saliency.saliency_map(outs[j], host, mask),
+                                       rtol=1e-5, atol=1e-6)
+    assert valid.tolist() == [True, False, True]

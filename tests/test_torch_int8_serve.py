@@ -35,9 +35,10 @@ from mgtpu_torch.utils.checkpoint import write_checkpoint
 from test_torch_cifar_models import few_torch_threads  # noqa: F401 (autouse fixture)
 from test_torch_pipeline import _run
 
-# every net of the zoo but the mnist-test harness (it rebuilds a
-# checkpoint's net), at its smallest options
-ZOO = [net for net in list_models() if net != "mnist-cluttered/mnist-test"]
+# every net of the zoo but the mnist-test and mnist-saliency harnesses
+# (they rebuild a checkpoint's net), at its smallest options
+ZOO = [net for net in list_models()
+       if net not in ("mnist-cluttered/mnist-test", "mnist-cluttered/mnist-saliency")]
 
 
 def _jax_opt(opt: NetOpts):

@@ -1,8 +1,9 @@
 """The port's option parser (`mgtpu_torch/utils/opts.py`) against the JAX
 package's (`mgtpu/utils/opts.py`): every recipe under scripts/ parses to
-the same values, key by key, and to the same run-dir flag string; what
-the port does not have yet is refused with the ROADMAP item that ports
-it; the int8 flags follow the JAX Session's rules. Exact comparisons
+the same values, key by key, and to the same run-dir flag string (the
+saliency recipe with the harness's flags too); what the port does not
+have yet is refused with the ROADMAP item that ports it; the int8 flags
+follow the JAX Session's rules. Exact comparisons
 (parsed values, no arithmetic)."""
 
 import os
@@ -40,8 +41,16 @@ def test_recipe_parses_to_the_jax_values(path, extra):
 
 @pytest.mark.parametrize("path", SALIENCY, ids=[os.path.basename(p) for p in SALIENCY])
 def test_saliency_recipe_is_refused(path):
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 6"):
-        opts.parse(recipe_argv(path))
+    """Refused until the saliency harness was ported: the recipe, with
+    the harness's -trainedNet and the device probe, now parses to the
+    JAX values and run dir."""
+    argv = recipe_argv(path) + ["-trainedNet", "model_1.ckpt", "-saliencyDumpStack", "0"]
+    ref, got = jax_opts.parse(argv), opts.parse(argv)
+    want = {k: v for k, v in vars(ref).items() if k not in ("compute_dtype", "save")}
+    assert {k: v for k, v in vars(got).items() if k not in ("device", "save")} == want
+    assert (got.pipeline, got.trainedNet, got.saliencyDumpStack) == ("saliency", "model_1.ckpt",
+                                                                    0)
+    assert _flag_string(got) == _flag_string(ref)
 
 
 BASE = ["-netType", "cifar/nmg", "-dataset", "cifar100-whitened", "-train"]
@@ -52,16 +61,24 @@ BASE = ["-netType", "cifar/nmg", "-dataset", "cifar100-whitened", "-train"]
     (["-tensor", "2"], "item 4"),
     (["-zero1"], "item 4"),
     (["-multihost"], "item 4"),
-    (["-remat"], "item 3"),
-    (["-pipeline", "saliency"], "item 6"),
-    (["-saliencyBatch", "8"], "item 6"),
-    (["-saliencyDumpStack", "0"], "item 6"),
     (["-allowPickleCkpt"], "never unpickles"),
 ], ids=lambda v: v[0] if isinstance(v, list) else None)
 def test_unported_flag_is_refused(flags, item):
     with pytest.raises(SystemExit, match=item):
         opts.parse(BASE + flags)
     jax_opts.parse(BASE + flags)  # the JAX CLI takes it
+
+
+@pytest.mark.parametrize("flags", [["-remat"], ["-pipeline", "saliency"],
+                                   ["-saliencyBatch", "8"], ["-saliencyDumpStack", "0"]],
+                         ids=lambda v: v[0])
+def test_ported_flag_parses_to_the_jax_values(flags):
+    """The train step's -remat and the saliency harness's flags, refused
+    until they were ported, parse to the JAX values and run dir."""
+    ref, got = jax_opts.parse(BASE + flags), opts.parse(BASE + flags)
+    name = flags[0][1:]
+    assert getattr(got, name) == getattr(ref, name) != jax_opts.build_parser().get_default(name)
+    assert _flag_string(got) == _flag_string(ref)
 
 
 TEST = ["-netType", "cifar/nmg", "-dataset", "cifar100-whitened", "-test"]

@@ -50,8 +50,11 @@ def test_param_count(depth, n):
 
 
 def test_registry():
-    with pytest.raises(KeyError, match="not yet ported"):
-        get_spec("mnist-cluttered/mnist-saliency")
+    """The whole JAX zoo is registered, the saliency harness last; an
+    unknown name is refused."""
+    assert get_spec("mnist-cluttered/mnist-saliency").name == "mnist-cluttered/mnist-saliency"
+    with pytest.raises(KeyError, match="unknown net"):
+        get_spec("mnist-cluttered/nonesuch")
 
 
 @pytest.fixture(scope="module")

@@ -148,11 +148,11 @@ def test_spec_matches_jax(net):
 
 
 def test_registry_and_defaults():
-    """Every net of the JAX zoo but the saliency harness is here (the
-    mnist-test harness runs on the ported run loop); each mnist
+    """Every net of the JAX zoo is here (the mnist-test and
+    mnist-saliency harnesses run on the ported run loop); each mnist
     net's dataset is its recipe's; prnmgseg's depth is its own (30), and
     R-MG-34's depth (34) is refused."""
-    assert set(jax_list_models()) - set(list_models()) == {"mnist-cluttered/mnist-saliency"}
+    assert set(jax_list_models()) - set(list_models()) == set()
     assert {net: get_spec(net).dataset for net in SEG if net.startswith("mnist")} == {
         "mnist-cluttered/unet": "mnist-sca", "mnist-cluttered/unmg": "mnist-seg",
         "mnist-cluttered/pnmg.mnist": "mnist-aff", "mnist-cluttered/prnmg.mnist": "mnist-spt"}
