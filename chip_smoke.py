@@ -16,7 +16,8 @@ training step with CUDA events, runs two recipes through the run
 loop, `mgtpu_torch.main`, and serves R-MG-34, cifar/prnmg and unmg under
 int8 (`Server(int8=True)`, `-test -int8`) through the int8 conv and the
 activation quantizer kernels, runs the saliency harness (`-pipeline
-saliency`) and takes the train step's `-remat` steps. Phases:
+saliency`), takes the train step's `-remat` steps and a data-parallel
+step on two ranks. Phases:
 
   1 device   the card, and its name and power limit from nvidia-smi
   2 build    nvcc over mgtpu_torch/csrc/*.cu, bound with ctypes
@@ -209,14 +210,26 @@ saliency`) and takes the train step's `-remat` steps. Phases:
              its two runs, the forward's kernels launched twice
              (REMAT_PER_STEP), R-MG-34's peak memory lower and both steps
              timed; one f32 remat step of cifar/prnmg vs the CPU's
+ 29 dp       data parallelism (mgtpu_torch.parallel): cifar/prnmg's recipe
+             64 x 2 as 32 x 2 on each of two ranks, spawned processes on
+             the one card joined over gloo (NCCL takes one rank a card):
+             the f32 step vs the one-rank step on the card (loss within
+             1e-5 relative, update and stats within the f32 step gates),
+             4 bf16 steps (the loss falls, the same bits on both ranks
+             after each, each rank's launches the one-rank pins for its
+             micro-batches), each rank's step time and one gradient
+             all-reduce's time and bytes (gloo on one card: not NCCL, not
+             scaling); the f32 step in an NCCL group of one, bit for bit
+             the group-less step; scripts/cifar/prnmg.sh (-nGPU 4) through
+             mgtpu_torch.main on one card: the clamp line, one rank
 
 Any failed check exits non-zero. The second-to-last line of stdout is
 one JSON object with the kernels: ``launches`` sums each kernel's
 launches over the main-path runs (phase 5's serving forwards, phase
 10's training steps, phases 13 and 14's bf16 forwards and steps of
 the CIFAR nets, phases 18 and 19's of the others, phases 21 and
-22's runs of the CLI, phase 27's saliency runs and phase 28's remat
-steps), ``max_abs_err``
+22's runs of the CLI, phase 27's saliency runs, phase 28's remat
+steps and phase 29's two ranks' bf16 steps), ``max_abs_err``
 is its largest error against its plain version (phases 3, 4, 7, 8, 12,
 17), and ``ms`` / ``plain_ms`` /
 ``library_ms`` are the summed times of its launches (through the design
@@ -3081,6 +3094,183 @@ def check_remat(name) -> dict:
     return dict(launches)
 
 
+DP_NET = "cifar/prnmg"  # its recipe's 64 x 2 as 32 x 2 a rank; every kernel on its path
+DP_STEPS = 4
+
+
+def dp_step(tr, x, y, lr, wd):
+    """One step of ``tr``: (loss, params before, params after, stats after)."""
+    before, _ = export_jax_tree(tr.model)
+    m = tr.step(x, y, lr, wd)
+    return (float(m["loss"]), before, *export_jax_tree(tr.model))
+
+
+def dp_rank(rank, init, out_dir) -> None:
+    """One of phase 29's two ranks, a spawned process on cuda:0, joined
+    over gloo (NCCL takes one rank a card): one f32 step of DP_NET on its
+    half of the global 64 x 2 batch (rank 0 writes the step's state),
+    then DP_STEPS bf16 steps with the kernels' counts set to 0 just
+    before and read just after, the same bits on both ranks held after
+    each, each step timed (host clock to the loss read), and one
+    gradient all-reduce of the model's parameters' size timed. Writes
+    out_dir/rank<r>.json."""
+    import torch.distributed as dist
+
+    from mgtpu_torch.parallel import all_reduce_mean, make_mesh, same_bits
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(2, rank=rank, device="cuda:0", init_method=init, backend="gloo")
+    try:
+        _, micro, iters = CIFAR_RECIPES[DP_NET]
+        x, y = synthetic_batch(micro * iters, seed=7, n_classes=100, shape=CIFAR_IMAGE)
+        tr = Trainer(cifar_opts(DP_NET), seed=0, device="cuda:0", compute_dtype=torch.float32,
+                     iter_size=iters, mesh=mesh)
+        res = dp_step(tr, x, y, 0.1, 5e-4)
+        if rank == 0:
+            np.savez(Path(out_dir) / "f32.npz", loss=res[0], **{
+                f"{k}/{i}": a for k, tree in zip("bps", res[1:]) for i, a in enumerate(flat(tree))})
+        del tr
+        tr = Trainer(cifar_opts(DP_NET), seed=0, device="cuda:0", compute_dtype=torch.bfloat16,
+                     iter_size=iters, mesh=mesh)
+        wd = tr.net.train_rule(1, tr.opt)["wd"]
+        losses, bits, step_ms, launches = [], [], [], Counter()
+        for _ in range(DP_STEPS):
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(tr.step(x, y, CIFAR_LR, wd)["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            launches.update(kernels.LAUNCHES)
+            bits.append(same_bits(mesh, [*tr.model.parameters(), *tr.model.buffers()]))
+        grads = [torch.ones_like(p) for p in tr.model.parameters()]
+        ar_ms = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce_mean(mesh, grads)
+            torch.cuda.synchronize()
+            ar_ms.append((time.perf_counter() - t0) * 1e3)
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps({
+            "losses": losses, "bits": bits, "launches": dict(launches), "step_ms": step_ms,
+            "allreduce_ms": ar_ms[1:], "allreduce_bytes": sum(g.nbytes for g in grads)}))
+    finally:
+        dist.destroy_process_group()
+
+
+def check_dp(name, power) -> dict:
+    """29: data parallelism. (a) DP_NET at its recipe's 64 x 2, two ranks
+    on the one card over gloo (32 x 2 each): the f32 step against the
+    one-rank step on the card (loss within 1e-5 relative, the update and
+    stats within the f32 step gates); DP_STEPS bf16 steps: the loss
+    falls, both ranks hold the same bits after each, each rank's launches
+    the one-rank pins for its micro-batches (all four kernels on both);
+    each rank's step time and one gradient all-reduce's, gloo on one
+    card (not NCCL, not scaling). (b) An NCCL group of one: the f32 step
+    bit for bit the group-less step. (c) The launcher: the recipe's -nGPU
+    4 on one card prints the clamp and runs one rank. Returns the
+    ranks' bf16 launches, summed."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from mgtpu_torch.main import free_port
+    from mgtpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    _, micro, iters = CIFAR_RECIPES[DP_NET]
+    x, y = synthetic_batch(micro * iters, seed=7, n_classes=100, shape=CIFAR_IMAGE)
+    one = dp_step(Trainer(cifar_opts(DP_NET), seed=0, device="cuda", compute_dtype=torch.float32,
+                          iter_size=iters), x, y, 0.1, 5e-4)
+    tr = Trainer(cifar_opts(DP_NET), seed=0, device="cuda", compute_dtype=torch.bfloat16,
+                 iter_size=iters)
+    wd = tr.net.train_rule(1, tr.opt)["wd"]
+    one_ms = []
+    for _ in range(DP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(tr.step(x, y, CIFAR_LR, wd)["loss"])
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+    del tr
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.start_processes(dp_rank, args=(f"tcp://127.0.0.1:{free_port()}", tmp), nprocs=2,
+                           start_method="spawn")
+        spawn_s = time.perf_counter() - t0
+        got = np.load(Path(tmp) / "f32.npz")
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text()) for r in (0, 1)]
+    # step_error's trees: the ranks' leaves and the one-rank step's, in flat()'s order
+    res = {"cuda": (float(got["loss"]), *({f"{i:06d}": got[f"{k}/{i}"]
+                                            for i in range(len(flat(tree)))}
+                                           for k, tree in zip("bps", one[1:]))),
+           "cpu": one}
+    loss_err, upd, st = step_error(res)
+    check(loss_err <= 1e-5 and upd <= F32_STEP_PARAM_BOUND and st <= F32_STEP_STATS_BOUND,
+          f"{DP_NET} f32 step, two ranks vs one on the card: loss err {loss_err:.3g} (bound "
+          f"1e-5), update err {upd:.3g} (bound {F32_STEP_PARAM_BOUND}), stats err {st:.3g} "
+          f"(bound {F32_STEP_STATS_BOUND})")
+    phase("dp", f"{DP_NET} f32, {micro} x {iters} as {micro // 2} x {iters} on each of two "
+          f"ranks (spawned processes, gloo, one card) vs one rank on the global batch: loss "
+          f"{res['cuda'][0]:.6f} vs {one[0]:.6f} (err {loss_err:.3g}, bound 1e-5); update err "
+          f"{upd:.3g} of its L2 norm (bound {F32_STEP_PARAM_BOUND}); running stats err "
+          f"{st:.3g} of their scale (bound {F32_STEP_STATS_BOUND})")
+    want = {k: DP_STEPS * iters * n for k, n in CIFAR_PER_MICRO[DP_NET].items()}
+    for r, rk in enumerate(ranks):
+        check(rk["losses"] == ranks[0]["losses"] and all(rk["bits"]),
+              f"rank {r}: losses {rk['losses']} (rank 0 {ranks[0]['losses']}), the same bits "
+              f"as rank 0 after each step: {rk['bits']}")
+        check(rk["launches"] == want, f"rank {r}: launches {rk['launches']} in {DP_STEPS} "
+              f"steps, expected {want}")
+    losses = ranks[0]["losses"]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"two ranks: losses {losses}")
+    med = [statistics.median(rk["step_ms"][1:]) for rk in ranks]
+    ar = statistics.median(ranks[0]["allreduce_ms"])
+    nbytes = ranks[0]["allreduce_bytes"]
+    phase("dp", f"{DP_NET} bf16, {DP_STEPS} steps on two ranks: losses "
+          + ", ".join(f"{v:.4f}" for v in losses) + f"; parameters and stats the same bits on "
+          f"both ranks after every step; launches per rank {want} (the one-rank pins for "
+          f"{DP_STEPS} x {iters} micro-batches of {micro // 2})")
+    phase("dp", f"times on {power} (gloo, two ranks sharing one card: not NCCL, not "
+          f"scaling): a rank's {micro // 2} x {iters} step {med[0]:.1f} / {med[1]:.1f} ms "
+          f"(median of steps 2-{DP_STEPS}, host clock to the loss read), one rank's "
+          f"{micro} x {iters} step {statistics.median(one_ms[1:]):.1f} ms; the gradient "
+          f"all-reduce of {nbytes / 1e6:.1f} MB (f32, one bucket) {ar:.2f} ms "
+          f"({nbytes / ar / 1e6:.2f} GB/s); the two ranks' processes took {spawn_s:.1f} s")
+
+    # (b) NCCL as a group of one: the collectives run, and change no bit
+    mesh = make_mesh(1, device="cuda:0", init_method=f"tcp://127.0.0.1:{free_port()}",
+                     backend="nccl")
+    try:
+        grouped = dp_step(Trainer(cifar_opts(DP_NET), seed=0, device="cuda",
+                                  compute_dtype=torch.float32, iter_size=iters, mesh=mesh),
+                          x, y, 0.1, 5e-4)
+    finally:
+        dist.destroy_process_group()
+    same = grouped[0] == one[0] and all(np.array_equal(a, b) for t, u in zip(grouped[1:], one[1:])
+                                        for a, b in zip(flat(t), flat(u)))
+    check(same, f"{DP_NET} f32 step in an NCCL group of one differs from the group-less step")
+    phase("dp", f"{DP_NET} f32 step in an NCCL group of one (the gradients, metrics and the "
+          f"replica check through NCCL): loss, parameters and stats bit for bit the group-less "
+          f"step's")
+
+    # (c) the launcher on one card
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = recipe_argv("scripts/cifar/prnmg.sh") + [
+            "-nEpochs", "1", "-epochSize", "1", "-synthSize", "256", "-nDonkeys", "1",
+            "-cache", tmp]
+        argv.remove("-test")
+        sess, out, cli, wall = run_main(argv)
+    check("==> nGPU clamped to 1 (1 CUDA devices)" in out and sess.mesh.size == 1
+          and sess.mesh.group is None, f"-nGPU 4 on one card: {out[-800:]}")
+    check(cli == {k: iters * n for k, n in CIFAR_PER_MICRO[DP_NET].items()},
+          f"the launcher's one-rank step: launches {cli}")
+    metric_lines(out, "the launcher")
+    phase("dp", f"scripts/cifar/prnmg.sh (-nGPU 4) through mgtpu_torch.main on one card, one "
+          f"iteration: \"==> nGPU clamped to 1 (1 CUDA devices)\", one rank, the step's "
+          f"pinned launches, in {wall:.1f} s; phase 29 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(sum((Counter(rk["launches"]) for rk in ranks), Counter()))
+
+
 def fmt(metrics) -> str:
     return ", ".join(f"{k} {v:.5f}" for k, v in metrics.items())
 
@@ -3307,8 +3497,10 @@ def main() -> None:
     # 27 the saliency harness; 28 the train step's -remat
     sal_launches, sal_times = check_saliency(name)
     remat_launches = check_remat(name)
+    # 29 data parallelism
+    dp_launches = check_dp(name, smi.stdout.strip().splitlines()[0])
     launches = {k: launches[k] + sal_launches.get(k, 0) + remat_launches.get(k, 0)
-                for k in KERNELS}
+                + dp_launches.get(k, 0) for k in KERNELS}
 
     # each kernel's bound over the pass its times sum: the serving forward
     # (conv3x3, maxpool2) or the training step (the other two)

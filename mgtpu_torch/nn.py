@@ -23,6 +23,8 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 from torch import nn
 
@@ -147,13 +149,45 @@ def _bn_axes_n(x):
     return axes, math.prod(x.shape[:-1])
 
 
+_BATCH_GROUP = None  # the data-parallel Mesh BatchNorm sums over, while one is active
+
+
+@contextlib.contextmanager
+def batch_group(mesh):
+    """Within it, a train-mode BatchNorm takes its batch moments, and its
+    backward its two reductions, over the global batch of ``mesh``'s
+    ranks (each rank holding an equal slice): one all-reduce in the
+    forward and one in the backward, sums in f32, the running variance's
+    n / (n - 1) with the global n. This is the JAX step's BatchNorm under
+    a sharded batch (GSPMD reduces over the whole 'data' axis). A mesh of
+    one rank, or None, changes nothing: every value is the group-less
+    one, bit for bit."""
+    global _BATCH_GROUP
+    old, _BATCH_GROUP = _BATCH_GROUP, mesh if mesh is not None and mesh.size > 1 else None
+    try:
+        yield
+    finally:
+        _BATCH_GROUP = old
+
+
 def _bn_moments(x):
-    """One-pass f32 batch moments: mean, and the biased variance
-    E[x^2] - E[x]^2 (as `mgtpu/nn.py::_bn_train_fwd`)."""
+    """One-pass f32 batch moments: mean, the biased variance E[x^2] -
+    E[x]^2 (as `mgtpu/nn.py::_bn_train_fwd`), and the count n they are
+    over. Under `batch_group` the sums (sum x, sum x^2) are all-reduced
+    over the group first, by the autograd-aware all-reduce: where the
+    moments are differentiated (``batch_affine``), gradients reach every
+    rank's x through them."""
     xf = x.float()
-    axes, _ = _bn_axes_n(x)
-    mean = xf.mean(dim=axes)
-    return mean, torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0)
+    axes, n = _bn_axes_n(x)
+    mesh = _BATCH_GROUP
+    if mesh is None:
+        mean = xf.mean(dim=axes)
+        return mean, torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0), n
+    sums = dist_fn.all_reduce(torch.cat([xf.sum(dim=axes), (xf * xf).sum(dim=axes)]),
+                              group=mesh.group)
+    n *= mesh.size
+    mean, sq = (sums / n).chunk(2)
+    return mean, torch.clamp_min(sq - mean * mean, 0.0), n
 
 
 class _BatchNormTrain(torch.autograd.Function):
@@ -165,23 +199,33 @@ class _BatchNormTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps):
-        mean, var = _bn_moments(x)
+        mean, var, n = _bn_moments(x)
         inv = torch.rsqrt(var + eps)
         a = inv * scale
         y = (x.float() * a + (bias - mean * a)).to(x.dtype)
         ctx.save_for_backward(x, mean, inv, scale)
         ctx.mark_non_differentiable(mean, var)
+        ctx.mesh, ctx.n = _BATCH_GROUP, n
         return y, mean, var
 
     @staticmethod
     def backward(ctx, gy, _gmean, _gvar):
+        """Under a group, dx takes the global sums, and scale and bias
+        their rank's own: the step's mean over the ranks of those
+        gradients is the global batch's."""
         x, mean, inv, scale = ctx.saved_tensors
-        axes, n = _bn_axes_n(x)
+        axes, _ = _bn_axes_n(x)
+        n = ctx.n
         gf = gy.float()
         xhat = (x.float() - mean) * inv
         sum_dy = gf.sum(dim=axes)
         sum_dy_xhat = (gf * xhat).sum(dim=axes)
-        dx = (scale * inv) * (gf - sum_dy / n - xhat * (sum_dy_xhat / n))
+        g_dy, g_dy_xhat = sum_dy, sum_dy_xhat
+        if ctx.mesh is not None:
+            sums = torch.cat([sum_dy, sum_dy_xhat])
+            dist.all_reduce(sums, group=ctx.mesh.group)
+            g_dy, g_dy_xhat = sums.chunk(2)
+        dx = (scale * inv) * (gf - g_dy / n - xhat * (g_dy_xhat / n))
         return dx.to(x.dtype), sum_dy_xhat, sum_dy, None
 
 
@@ -250,16 +294,17 @@ class BatchNorm(nn.Module):
         VJP of ``forward`` computes. For a caller that applies the BN
         elsewhere (the prologue of `conv3x3_bn_relu_in`)."""
         self._check_trainable()
-        mean, var = _bn_moments(x)
+        mean, var, n = _bn_moments(x)
         scale = torch.rsqrt(var + self.eps) * self.scale
-        self._update_running(mean.detach(), var.detach(), _bn_axes_n(x)[1])
+        self._update_running(mean.detach(), var.detach(), n)
         return scale, self.bias - mean * scale
 
     def forward(self, x):
         if self.training:
             self._check_trainable()
             y, mean, var = _BatchNormTrain.apply(x, self.scale, self.bias, self.eps)
-            self._update_running(mean, var, _bn_axes_n(x)[1])
+            n = _bn_axes_n(x)[1] * (1 if _BATCH_GROUP is None else _BATCH_GROUP.size)
+            self._update_running(mean, var, n)
             return y
         if self.folded:
             return x
@@ -286,6 +331,13 @@ class Dropout(nn.Module):
         self.rate = rate
         self.seed = int(torch.randint(0, 2**62, (), generator=_generator(generator)))
         self._generators: dict[torch.device, torch.Generator] = {}
+
+    def seed_for_rank(self, rank: int) -> None:
+        """The masks of data-parallel rank ``rank``: the seed offset by
+        it (rank 0 keeps the one-rank masks), so that ranks that built
+        the model from one seed drop different elements."""
+        self.seed += rank
+        self._generators.clear()
 
     def _generator_on(self, device: torch.device) -> torch.Generator:
         g = self._generators.get(device)

@@ -31,13 +31,16 @@ group size does not change a value). Group g + 1 is dispatched before
 group g is consumed: its copies and kernels are queued on the device
 while the host writes group g (no host sync in between).
 
-The port drives one device: the JAX pipeline's sharding of the stack
-over a data mesh (`shard_batch`, for more than one device) is not
-ported; it comes with `parallel/mesh.py` (ROADMAP Queue 1 item 4).
+With several data-parallel ranks (``sess.mesh``) a group's rows (its k
+base images, or its k x 842 host-built variants) are split over the
+ranks where they divide, as the JAX pipeline shards them over its data
+mesh; each rank runs the forward on its rows, the outputs are gathered
+on every rank before the probe, and rank 0 alone writes the h5.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import time
@@ -45,6 +48,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+
+from mgtpu_torch.parallel import fetch_global, is_primary, shard_batch
 
 
 def interest_point(output: np.ndarray, th: float = 0.4, dp: int = 1) -> Optional[np.ndarray]:
@@ -176,14 +181,21 @@ class GroupStep:
     is the affine map ((1-m)*img + noise - mean)/std = (1-m)*b + (noise -
     m*mean)/std of the host-normalized base image b, whose constant second
     term is made once here (the JAX pipeline's map, so the h5 ``input``
-    is the loader's base image bit for bit)."""
+    is the loader's base image bit for bit).
 
-    def __init__(self, model, loader, k: int, dump_stack: bool, device):
+    ``mesh`` (`mgtpu_torch.parallel.Mesh`, default one rank): the group's
+    rows split over its ranks where they divide, the forward's outputs
+    gathered on every rank (`parallel.fetch_global`) before the probe;
+    each rank gets the whole group's results."""
+
+    def __init__(self, model, loader, k: int, dump_stack: bool, device, mesh=None):
         self.model, self.k, self.dump_stack = model, k, dump_stack
         self.device = torch.device(device)
         mask = loader.mask  # (841, H, W, 1)
         self.n_stack = 1 + mask.shape[0]
         self.expand_dev = not dump_stack and getattr(loader, "expand", "host") == "device"
+        rows = k if self.expand_dev else k * self.n_stack
+        self.mesh = mesh if mesh is not None and rows % mesh.size == 0 else None
         self.mask = None if dump_stack else torch.from_numpy(mask).to(self.device)
         if self.expand_dev:
             mean = np.asarray(loader.meanstd[0], np.float32)
@@ -205,13 +217,17 @@ class GroupStep:
         Ho, Wo, Co); else (valid (k,), points (k, 7, Ho, Wo, 1), saliency
         (k, 7, H, W, 1)), and, where the stack is built on the device, the
         base images (k, H, W, C) after them."""
+        if not self.expand_dev:  # the rows: the variants of the k stacks
+            x = x.reshape(-1, *x.shape[2:])
         x = self.to_device(x)
+        mine = x if self.mesh is None else shard_batch(self.mesh, {"x": x})["x"]
         if self.expand_dev:
-            b = x[:, None]
-            stacks = torch.cat([b, self.inv[None] * b + self.offset[None]], 1)
-        else:
-            stacks = x
-        out = self.model(stacks.reshape(-1, *stacks.shape[2:]))
+            b = mine[:, None]
+            mine = torch.cat([b, self.inv[None] * b + self.offset[None]], 1)
+            mine = mine.reshape(-1, *mine.shape[2:])
+        out = self.model(mine)
+        if self.mesh is not None:
+            out = fetch_global(self.mesh, out)
         if self.dump_stack:
             return out
         outs = out.reshape(self.k, self.n_stack, *out.shape[1:])
@@ -240,7 +256,7 @@ def saliency_samples(sess, step: Optional[GroupStep] = None) -> Iterator[tuple[i
     k = group_size(opt, n_test)
     if step is None:
         step = GroupStep(sess.model, loader, k, dump_stack,
-                         getattr(sess, "device", torch.device("cpu")))
+                         getattr(sess, "device", torch.device("cpu")), getattr(sess, "mesh", None))
 
     def specs():
         for i in range(1, n_test + 1):
@@ -300,7 +316,9 @@ def saliency_samples(sess, step: Optional[GroupStep] = None) -> Iterator[tuple[i
 def run(sess) -> None:
     """The saliency pipeline (`saliency/pipeline.lua:1-2`: EPOCH = 1,
     test()): every test sample through `saliency_samples`, each kept one
-    written to ``<save>/testOutput.h5`` as group id%05d. Needs h5py."""
+    written to ``<save>/testOutput.h5`` as group id%05d, by the primary
+    rank (the others run the groups with it and write nothing). Needs
+    h5py."""
     import h5py
 
     opt = sess.opt
@@ -310,12 +328,13 @@ def run(sess) -> None:
     print("==> doing epoch on testing data:")
     print("==> online epoch # 1")
     t0 = time.time()
-    with h5py.File(path, "w") as f:
+    with h5py.File(path, "w") if is_primary() else contextlib.nullcontext() as f:
         for ind, arrays in saliency_samples(sess):
             gid = f"id{ind:05d}"
             print(gid)
             for name, value in arrays.items():
-                f.create_dataset(f"{gid}/{name}", data=value)
+                if f is not None:
+                    f.create_dataset(f"{gid}/{name}", data=value)
     dt = time.time() - t0
     print(f"saliency: {n_test} samples in {dt:.2f}s "
           f"({n_test / max(dt, 1e-9):.2f} samples/s, group size {group_size(opt, n_test)})")

@@ -20,10 +20,12 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mgtpu_torch.models.base import NetOpts
+from mgtpu_torch.parallel import (fetch_global, gather_tree, is_primary, make_mesh, replicate,
+                                  shard_batch, shard_opt_zero1)
 from mgtpu_torch.utils.logging import EpochLogger, fmt_metrics, now
-from mgtpu_torch.utils.opts import PARALLEL
 
 
 def net_opts(opt) -> NetOpts:
@@ -106,9 +108,15 @@ class Session:
     `main.lua:21-27`): the net, its model on ``opt.device`` with its SGD
     state, the loaders, the donkey pool, the steps and the loggers. The
     saliency harness (``mnist-cluttered/mnist-saliency``) builds its
-    model from ``-trainedNet``, weights included, in eval mode."""
+    model from ``-trainedNet``, weights included, in eval mode.
 
-    def __init__(self, opt):
+    ``mesh`` (`mgtpu_torch.parallel.make_mesh`; default one rank on
+    ``opt.device``): this rank's place in a data-parallel run. The model
+    runs on the rank's device as rank 0's replica, batches keep the
+    rank's rows (`to_device`), and under ``-zero1`` the momentum keeps
+    the rank's slices (after a resume too)."""
+
+    def __init__(self, opt, mesh=None):
         from mgtpu_torch.data import get_loaders
         from mgtpu_torch.data.prefetch import DonkeyPool
         from mgtpu_torch.models import get_spec, net_options
@@ -119,13 +127,16 @@ class Session:
         from mgtpu_torch.utils.checkpoint import load_checkpoint, model_meta
 
         self.opt = opt
-        self.device = torch.device(opt.device)
+        self.mesh = mesh if mesh is not None else make_mesh(device=opt.device)
+        self.device = self.mesh.device
         self.compute_dtype = torch.bfloat16 if opt.dtype == "bfloat16" else None
         self.net = get_spec(opt.netType)
         self.net_opt = net_options(net_opts(opt))
-        if opt.nGPU != 1:
-            print(f"==> nGPU {opt.nGPU} clamped to 1: the port drives one device "
-                  f"(data parallelism is {PARALLEL})")
+        zero1 = opt.zero1 and self.mesh.size > 1
+        if opt.zero1 and not zero1:  # the JAX Session's line
+            print("==> -zero1 has no effect: the data mesh axis is size 1 "
+                  "(nGPU 1, or batchSize clamped it) — momentum stays "
+                  "replicated and optimizer memory is NOT sharded")
         model = self.net.create_model(self.net_opt, compute_dtype=self.compute_dtype,
                                       generator=torch.Generator().manual_seed(opt.manualSeed))
         self.loss_fn = self.net.create_loss(self.net_opt)
@@ -135,9 +146,11 @@ class Session:
             load_jax_tree(model, ckpt["params"], ckpt["stats"])
             momentum = ckpt["opt_state"]
             print(f"=> resumed from {opt.retrain} (epoch {ckpt['epoch']})")
-        self.model = model.to(self.device)
+        self.model = replicate(self.mesh, model.to(self.device))
         self.opt_state = (load_momentum(self.model, momentum) if momentum is not None
                           else sgd_init(self.model.parameters()))
+        if zero1:
+            self.opt_state = shard_opt_zero1(self.mesh, self.opt_state, self.model.parameters())
         self.loaders = get_loaders(opt)
         if opt.int8:  # after the resume, before the steps (opts refuses -train)
             quantize_session_model(self.model, self.loaders, opt)
@@ -145,9 +158,13 @@ class Session:
         self.pool = DonkeyPool(opt.nDonkeys, mode=opt.donkeyMode, opt=opt, loaders=self.loaders)
         self.epoch = opt.epochNumber
 
+        # bucketing concatenates the momentum leaves, which under -zero1
+        # are slices of their parameters: off there, as in JAX
         self.train_step = make_train_step(self.model, self.loss_fn, self.net,
                                           iter_size=opt.iterSize, momentum=opt.momentum,
-                                          remat=opt.remat, log_grad_norm=opt.logGradNorm)
+                                          remat=opt.remat, bucket_sgd=not zero1,
+                                          log_grad_norm=opt.logGradNorm, mesh=self.mesh,
+                                          zero1=zero1)
         mk_eval = make_tencrop_eval_step if opt.tenCrop else make_eval_step
         self.test_step = mk_eval(self.model, self.loss_fn, self.net, "test")
         self.eval_step = mk_eval(self.model, self.loss_fn, self.net, "eval")
@@ -156,10 +173,12 @@ class Session:
         self.cast_dtype = self.compute_dtype if opt.hostCast and not opt.int8 else None
         self._loggers: Dict[str, EpochLogger] = {}
 
-    def to_device(self, batch: dict) -> dict:
-        """A numpy batch on the device: cast on the host (``-hostCast``),
-        then copied from pinned memory without blocking the host."""
-        batch = host_cast_inputs(batch, self.cast_dtype)
+    def to_device(self, batch: dict, batch_axis: int = 0) -> dict:
+        """This rank's rows of a numpy batch (along ``batch_axis``: 1 for
+        an ``iterSize`` batch) on the device: cast on the host
+        (``-hostCast``), then copied from pinned memory without blocking
+        the host."""
+        batch = host_cast_inputs(shard_batch(self.mesh, batch, batch_axis), self.cast_dtype)
         if self.device.type != "cuda":
             return batch
         return {k: v.pin_memory().to(self.device, non_blocking=True) for k, v in batch.items()}
@@ -262,7 +281,7 @@ def train(sess: Session):
         data_t = time.time() - t_data
         if prof_dir and it == 1 and prof is None:
             prof = _start_profile(sess.device)
-        batch = sess.to_device(batch)
+        batch = sess.to_device(batch, 1 if opt.iterSize > 1 else 0)
         t_run = time.time()
         metrics = sess.train_step(sess.opt_state, batch, lr, wd)
         if pending is not None:
@@ -313,18 +332,32 @@ def _eval_loop(sess: Session, mode: str):
             yield ("get", split, i, i2, sess.epoch)
             i = i2 + 1
 
-    # stored outputs are dumped in test mode only (`test.lua:63-89`); eval
-    # copies no outputs to the host
-    collect = mode == "test"
+    # stored outputs are dumped in test mode only (`test.lua:63-89`), by
+    # the primary rank; eval copies no outputs to the host
+    collect = mode == "test" and is_primary()
+    mesh = sess.mesh
+    metrics_fn = sess.net.test_metrics if mode == "test" else sess.net.eval_metrics
     acc: Dict[str, tuple] = {}
     stored: Dict[str, list] = {}
     t0 = time.time()
-    # the ragged tail runs at its own size: its metrics are its samples'
-    # own, weighted by their count, as the JAX loop's recomputation on the
-    # true slice of its padded batch gives them
     for x, y in sess.pool.imap_specs(specs()):
+        n = x.shape[0]
+        # one rank: the ragged tail runs at its own size, its metrics its
+        # samples' own, weighted by their count, as the JAX loop's
+        # recomputation on the true slice of its padded batch gives them.
+        # Several: the tail is padded to a multiple of the ranks (the last
+        # sample repeated) and split; every rank gathers the outputs and
+        # takes the metrics of the true n on the global batch, as JAX does
+        pad = -n % mesh.size
+        if pad:
+            x = np.concatenate([x, np.repeat(x[-1:], pad, 0)])
+            y = np.concatenate([y, np.repeat(y[-1:], pad, 0)])
         metrics, out = step(sess.to_device({"x": x, "y": y}))
-        _acc_update(acc, {k: float(v) for k, v in metrics.items()}, x.shape[0])
+        if mesh.size > 1:
+            out = fetch_global(mesh, out)[:n]
+            yt = torch.from_numpy(np.ascontiguousarray(y[:n])).to(out.device)
+            metrics = metrics_fn(out, yt, sess.loss_fn(out, yt))
+        _acc_update(acc, {k: float(v) for k, v in metrics.items()}, n)
         if collect:
             for k, v in sess.net.stored_outputs(out).items():
                 stored.setdefault(k, []).append(v.float().cpu().numpy())
@@ -358,7 +391,8 @@ def evaluate(sess: Session):
 
 def run(sess: Session):
     """Epoch loop (`pipelines/standard/pipeline.lua:1-10`)."""
-    from mgtpu_torch.utils.checkpoint import save_checkpoint
+    from mgtpu_torch.utils.checkpoint import (join_pending_saves, pending_save_failed,
+                                              save_checkpoint)
 
     opt = sess.opt
     for epoch in range(opt.epochNumber, opt.nEpochs + 1):
@@ -373,14 +407,29 @@ def run(sess: Session):
         # a -stopAfter epoch always checkpoints (resume must not lose work
         # when the stop point is off the -nEpochsSave cadence)
         if opt.train and (epoch % opt.nEpochsSave == 0 or stop_here):
-            path = os.path.join(opt.save, f"model_{epoch}.ckpt")
-            # async: the copy to the host happens inside the call (the next
-            # step updates the parameters in place); the npz write overlaps
-            # the next epoch. main joins before the process exits, and
-            # load_checkpoint before it reads.
-            save_checkpoint(path, sess.model, sess.opt_state, epoch, sess.meta,
-                            async_write=True)
-            print(f"checkpoint -> {path}")
+            # gather first, on every rank (a collective): -zero1's momentum
+            # slices to whole buffers, so the checkpoint is a one-rank run's
+            opt_state = gather_tree(sess.mesh, sess.opt_state, sess.model.parameters())
+            if sess.mesh.size > 1:
+                # the primary learns of its previous async write's failure
+                # only when it joins: tell every rank, so that all stop
+                # together instead of the others waiting in the next
+                # collective until its timeout
+                bad = torch.tensor(int(is_primary() and pending_save_failed()),
+                                   device=sess.device)
+                dist.all_reduce(bad, group=sess.mesh.group)
+                if int(bad):
+                    join_pending_saves()  # re-raises with the cause on the primary
+                    raise RuntimeError("primary's async checkpoint write failed; aborting")
+            if is_primary():
+                path = os.path.join(opt.save, f"model_{epoch}.ckpt")
+                # async: the copy to the host happens inside the call (the
+                # next step updates the parameters in place); the npz write
+                # overlaps the next epoch. main joins before the process
+                # exits, and load_checkpoint before it reads.
+                save_checkpoint(path, sess.model, opt_state, epoch, sess.meta,
+                                async_write=True)
+                print(f"checkpoint -> {path}")
         if stop_here:
             # bounded partial run: exit after this epoch without touching
             # -nEpochs (which the LR rules read)

@@ -8,8 +8,10 @@ each micro-batch's forward under ``torch.utils.checkpoint``, layer by
 layer, which keeps only the layers' inputs and runs the whole forward
 again in the backward (`rematerialized`);
 ``bucket_sgd`` picks the multi-tensor SGD update (the default) or the
-loop over tensors. The JAX step's ``zero1`` needs a mesh and is not
-ported (ROADMAP Queue 1 item 4).
+loop over tensors. With a ``mesh`` of several ranks (data parallelism,
+`mgtpu_torch.parallel`) each rank steps on its slice of the global
+batch, BatchNorm sums over the group, and the gradients are averaged
+over the ranks once a step; ``zero1`` shards the momentum (ZeRO-1).
 
 The step asks cuDNN (the stock convs and every conv's backward) for its
 deterministic algorithms while ``DETERMINISTIC_CUDNN`` is True, so that
@@ -28,9 +30,12 @@ import contextlib
 import math
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
-from mgtpu_torch.nn import Dropout, running_stats_held
+from mgtpu_torch.nn import Dropout, batch_group, running_stats_held
+from mgtpu_torch.parallel.mesh import (all_gather_slices, all_reduce_mean, mean_metrics,
+                                       own_slice, reduce_scatter_mean, zero1_spec)
 from mgtpu_torch.train.optim import sgd_update
 
 
@@ -47,8 +52,15 @@ def _cudnn_choice():
         torch.backends.cudnn.deterministic = old
 
 
-def _global_norm(tensors) -> torch.Tensor:
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+def _global_norm(tensors, mesh=None, sliced=()) -> torch.Tensor:
+    """The L2 norm of all ``tensors``; those at the indices ``sliced`` are
+    each rank's slices of a whole (ZeRO-1), summed over ``mesh``."""
+    sq = [t.float().square().sum() for t in tensors]
+    if not sliced:
+        return torch.sqrt(sum(sq))
+    part = torch.stack([sq[i] for i in sliced]).sum()
+    dist.all_reduce(part, group=mesh.group)
+    return torch.sqrt(part + sum(q for i, q in enumerate(sq) if i not in sliced))
 
 
 def _remat_contexts(dropouts, device):
@@ -104,7 +116,8 @@ def rematerialized(model):
 
 
 def make_train_step(model, loss_fn, net, iter_size: int = 1, momentum: float = 0.9,
-                    remat: bool = False, bucket_sgd: bool = True, log_grad_norm: bool = False):
+                    remat: bool = False, bucket_sgd: bool = True, log_grad_norm: bool = False,
+                    mesh=None, zero1: bool = False):
     """Returns train_step(opt_state, batch, lr, wd) -> metrics.
 
     batch = {"x": ..., "y": ...}; with iter_size > 1 the leading axis of
@@ -122,9 +135,24 @@ def make_train_step(model, loss_fn, net, iter_size: int = 1, momentum: float = 0
     (`rematerialized`); less memory for one more forward. The values are the plain step's: the same masks,
     and the running stats updated once. ``bucket_sgd`` True updates all
     tensors with PyTorch's multi-tensor ops, False loops over them
-    (`mgtpu_torch.train.optim.sgd_update`); the values are the same."""
+    (`mgtpu_torch.train.optim.sgd_update`); the values are the same.
+
+    ``mesh`` (a `mgtpu_torch.parallel.Mesh` of several ranks): ``batch``
+    is this rank's slice of the global batch (`parallel.shard_batch`);
+    BatchNorm takes its moments over the group (`nn.batch_group`); after
+    the micro-batches the gradients are averaged over the ranks in one
+    all-reduce, so every rank takes the same update, and the metrics are
+    too, so every rank reports the global batch's. ``zero1`` (the JAX
+    step's ZeRO-1): ``opt_state`` holds, for each parameter that
+    `parallel.zero1_spec` shards, only this rank's trailing-dim slice of
+    its momentum (`parallel.shard_opt_zero1`); the gradients are
+    reduce-scattered, each rank updates its slice of those parameters
+    (the others whole), and the parameters are all-gathered."""
     params = list(model.parameters())
     forward = rematerialized(model) if remat else model
+    ranks = 1 if mesh is None else mesh.size
+    sharded = [i for i, p in enumerate(params) if zero1 and zero1_spec(p, ranks)]
+    whole = [i for i in range(len(params)) if i not in sharded]
 
     def grads_and_metrics(x, y):
         out = forward(x)
@@ -133,9 +161,19 @@ def make_train_step(model, loss_fn, net, iter_size: int = 1, momentum: float = 0
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         return grads, net.train_metrics(out.detach(), y, loss.detach())
 
+    def zero1_update(opt_state, grads, lr, wd):
+        """ZeRO-1: this rank's slices of the sharded parameters and the
+        whole others through `sgd_update`'s arithmetic, then the slices
+        all-gathered into the parameters."""
+        mine = [own_slice(mesh, params[i].data) for i in sharded]
+        idx = sharded + whole
+        sgd_update(mine + [params[i] for i in whole], [grads[i] for i in idx],
+                   {"m": [opt_state["m"][i] for i in idx]}, lr, wd, momentum, foreach=False)
+        all_gather_slices(mesh, mine, [params[i].data for i in sharded])
+
     def train_step(opt_state, batch, lr, wd):
         model.train()
-        with _cudnn_choice():
+        with _cudnn_choice(), batch_group(mesh):
             if iter_size == 1:
                 grads, metrics = grads_and_metrics(batch["x"], batch["y"])
             else:
@@ -146,10 +184,18 @@ def make_train_step(model, loss_fn, net, iter_size: int = 1, momentum: float = 0
                     ms.append(m)
                 grads = [g / iter_size for g in grads]
                 metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+        if mesh is not None and mesh.group is not None:
+            metrics = mean_metrics(mesh, metrics)
+            all_reduce_mean(mesh, [grads[i] for i in whole])
+            for i, g in zip(sharded, reduce_scatter_mean(mesh, [grads[i] for i in sharded])):
+                grads[i] = g
         if log_grad_norm:
-            metrics["gradnorm"] = _global_norm(grads)
+            metrics["gradnorm"] = _global_norm(grads, mesh, sharded)
             old = [p.detach().clone() for p in params]
-        sgd_update(params, grads, opt_state, lr, wd, momentum, foreach=bucket_sgd)
+        if sharded:
+            zero1_update(opt_state, grads, lr, wd)
+        else:
+            sgd_update(params, grads, opt_state, lr, wd, momentum, foreach=bucket_sgd)
         if log_grad_norm:
             with torch.no_grad():
                 metrics["pnorm"] = _global_norm(params)

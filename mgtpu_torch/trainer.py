@@ -39,6 +39,7 @@ import torch
 
 from mgtpu_torch.models import create_model, get_spec, net_options
 from mgtpu_torch.models.base import NetOpts
+from mgtpu_torch.parallel import make_mesh, replicate, shard_batch
 from mgtpu_torch.serve import add_net_arguments, image_shape, parsed_net_opts, read_checkpoint
 from mgtpu_torch.train.optim import sgd_init
 from mgtpu_torch.train.step import make_train_step
@@ -56,13 +57,18 @@ class Trainer:
     averages their gradients. ``remat`` runs each micro-batch's forward
     again in the backward instead of keeping its activations
     (`mgtpu_torch.train.step.make_train_step`): the same values, less
-    memory."""
+    memory. ``mesh`` (`mgtpu_torch.parallel.make_mesh`, of several
+    ranks; each rank builds its Trainer with its own): data parallelism,
+    the model on ``mesh.device`` as rank 0's replica, each step on this
+    rank's rows of the batch every rank passes, BatchNorm over the
+    global batch."""
 
     def __init__(self, opt: NetOpts = NetOpts(), ckpt: Optional[str] = None, seed: int = 0,
                  device: str | torch.device = "cuda",
                  compute_dtype: torch.dtype = torch.bfloat16, iter_size: int = 1,
-                 remat: bool = False):
-        self.device = torch.device(device)
+                 remat: bool = False, mesh=None):
+        self.mesh = mesh if mesh is not None else make_mesh(device=device)
+        self.device = self.mesh.device
         self.compute_dtype = compute_dtype
         self.iter_size = iter_size
         blob = None
@@ -75,23 +81,22 @@ class Trainer:
                              generator=torch.Generator().manual_seed(seed))
         if blob is not None:
             load_jax_tree(model, blob["params"], blob["stats"])
-        self.model = model.to(self.device).train()
+        self.model = replicate(self.mesh, model.to(self.device)).train()
         if blob is not None and blob["opt_state"] is not None:
             self.opt_state = load_momentum(self.model, blob["opt_state"])
         else:
             self.opt_state = sgd_init(self.model.parameters())
         self._step = make_train_step(self.model, self.net.create_loss(opt), self.net,
-                                     iter_size=iter_size, remat=remat)
+                                     iter_size=iter_size, remat=remat, mesh=self.mesh)
 
     def step(self, images, labels, lr: float, wd: float) -> dict:
         """One SGD step on images (B, H, W, C) NHWC (``self.image_shape``)
         and their targets (numpy or torch): int labels (B,) for a
         classifier, f32 {0, 1} targets (B, *``self.target_shape``) of the
         output's shape for an mnist net. Returns the metrics as 0-dim f32
-        tensors on the device (no host sync)."""
-        x = torch.as_tensor(images).to(self.device, self.compute_dtype)
-        dtype = torch.float32 if self.target_shape else torch.int64
-        y = torch.as_tensor(labels).to(self.device, dtype)
+        tensors on the device (no host sync). Under a ``mesh`` every rank
+        passes the global batch and steps on its rows."""
+        x, y = torch.as_tensor(images), torch.as_tensor(labels)
         shape = self.image_shape
         if (x.dim() != 4 or tuple(x.shape[1:]) != shape
                 or tuple(y.shape) != (x.shape[0], *self.target_shape)):
@@ -101,7 +106,10 @@ class Trainer:
         if self.iter_size > 1:
             x = x.reshape(self.iter_size, -1, *shape)
             y = y.reshape(self.iter_size, -1, *self.target_shape)
-        return self._step(self.opt_state, {"x": x.contiguous(), "y": y}, lr, wd)
+        batch = shard_batch(self.mesh, {"x": x, "y": y}, 1 if self.iter_size > 1 else 0)
+        x = batch["x"].to(self.device, self.compute_dtype).contiguous()
+        y = batch["y"].to(self.device, torch.float32 if self.target_shape else torch.int64)
+        return self._step(self.opt_state, {"x": x, "y": y}, lr, wd)
 
 
 def synthetic_batch(batch: int, seed: int, n_classes: int = 1000,

@@ -79,6 +79,17 @@ _pending_save: Optional[threading.Thread] = None
 _pending_error: Optional[BaseException] = None
 
 
+def pending_save_failed() -> bool:
+    """Join any in-flight async write and report, without clearing or
+    raising, whether it failed: a data-parallel run tells every rank, so
+    that all stop together."""
+    global _pending_save
+    if _pending_save is not None:
+        _pending_save.join()
+        _pending_save = None
+    return _pending_error is not None
+
+
 def join_pending_saves() -> None:
     """Block until any in-flight async checkpoint write has completed.
     Re-raises a background write failure (ENOSPC, permissions, ...):

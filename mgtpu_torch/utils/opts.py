@@ -20,13 +20,12 @@ import os
 import time
 from typing import Optional, Sequence
 
-PARALLEL = "ROADMAP Queue 1 item 4 (parallel/mesh.py)"
+MODEL_AXIS = ("ROADMAP Queue 1 item 6 (-spatial/-tensor: halo exchanges and channel "
+              "collectives by hand)")
 # flag -> (is it asked for, given the parsed options; what ports it)
 REFUSED = {
-    "-spatial": (lambda o: o.spatial > 1, PARALLEL),
-    "-tensor": (lambda o: o.tensor > 1, PARALLEL),
-    "-zero1": (lambda o: o.zero1, PARALLEL),
-    "-multihost": (lambda o: o.multihost, PARALLEL),
+    "-spatial": (lambda o: o.spatial > 1, MODEL_AXIS),
+    "-tensor": (lambda o: o.tensor > 1, MODEL_AXIS),
     "-allowPickleCkpt": (lambda o: o.allowPickleCkpt,
                          "no item: the port reads mgtpu-ckpt npz archives only and never "
                          "unpickles"),
@@ -56,8 +55,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-manualSeed", type=int, default=2)
     p.add_argument("-GPU", type=int, default=1, help="kept for CLI parity (unused)")
     p.add_argument("-nGPU", type=int, default=1,
-                   help="number of devices in the data-parallel mesh (0 = all); the "
-                        "port drives one device")
+                   help="data-parallel ranks, one process and card each (0 = all the "
+                        "cards; with -device cpu, CPU processes), clamped to the cards "
+                        "there are and to a divisor of -batchSize; BatchNorm sums over "
+                        "the global batch")
     p.add_argument("-nDonkeys", type=int, default=2, help="data loading threads (0 = sync)")
     p.add_argument("-imageSize", type=int, default=256)
     p.add_argument("-imageCrop", type=int, default=224)
@@ -142,11 +143,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "2..9 of the first epoch into DIR, as a Chrome "
                         "trace (chrome://tracing, Perfetto)")
     p.add_argument("-spatial", type=int, default=1,
-                   help=f"spatial parallelism; not ported yet: {PARALLEL}")
+                   help=f"spatial parallelism; not ported yet: {MODEL_AXIS}")
     p.add_argument("-tensor", type=int, default=1,
-                   help=f"tensor parallelism; not ported yet: {PARALLEL}")
+                   help=f"tensor parallelism; not ported yet: {MODEL_AXIS}")
     p.add_argument("-zero1", action="store_true",
-                   help=f"ZeRO-1 momentum sharding; not ported yet: {PARALLEL}")
+                   help="ZeRO-1: shard the SGD momentum over the data-parallel ranks "
+                        "(each holds 1/nGPU of every leaf whose trailing dim divides); "
+                        "parameters stay whole on every rank")
     p.add_argument("-logGradNorm", action="store_true",
                    help="add per-iteration training diagnostics to the "
                         "metric stream: global grad L2 norm (pre-weight-"
@@ -162,7 +165,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "partial runs, chained by tools/soak_chain.py "
                         "through -retrain/-epochNumber resume")
     p.add_argument("-multihost", action="store_true",
-                   help=f"multi-host runs; not ported yet: {PARALLEL}")
+                   help="one launcher process a host: MGTPU_COORDINATOR (host:port), "
+                        "MGTPU_NUM_PROCESSES and MGTPU_PROCESS_ID join them; -nGPU "
+                        "counts the ranks of all hosts")
     p.add_argument("-split", type=int, default=0,
                    help="ilsvrc: split a single directory-per-class tree "
                         "N%%/(100-N)%% into train/test (0 = expect "
