@@ -17,7 +17,9 @@ loop, `mgtpu_torch.main`, and serves R-MG-34, cifar/prnmg and unmg under
 int8 (`Server(int8=True)`, `-test -int8`) through the int8 conv and the
 activation quantizer kernels, runs the saliency harness (`-pipeline
 saliency`), takes the train step's `-remat` steps and a data-parallel
-step on two ranks. Phases:
+step on two ranks, and drives the model tools (`mgtpu_torch.tools`:
+model_info, export_model and serve_exported in a fresh process,
+bench_serving, bench_step_breakdown). Phases:
 
   1 device   the card, and its name and power limit from nvidia-smi
   2 build    nvcc over mgtpu_torch/csrc/*.cu, bound with ctypes
@@ -222,6 +224,20 @@ step on two ranks. Phases:
              scaling); the f32 step in an NCCL group of one, bit for bit
              the group-less step; scripts/cifar/prnmg.sh (-nGPU 4) through
              mgtpu_torch.main on one card: the clamp line, one rank
+ 30 tools    the model tools (mgtpu_torch.tools): model_info's two counts
+             for R-MG-34 (the published params and reference MACs, and
+             the as-run MACs); R-MG-34 exported at batch 128 (BN folded,
+             bf16; and int8 with static scales from -calib) through
+             export_model, the program's graph holding the mgtpu:: ops;
+             each program served by serve_exported in a fresh process
+             that imports no model code: its outputs against
+             Server.predict's on the same images (bf16: the same top-1
+             and within 1e-5 of the scale; int8: bit for bit), its
+             launches per forward Server.predict's (PER_FORWARD,
+             TOOLS_I8_PER_FORWARD), its median of 5 windows beside
+             Server.predict's, the artifact's size; one bench_serving row
+             per dtype at batch 128 (bf16, int8-static); and
+             bench_step_breakdown at batch 128
 
 Any failed check exits non-zero. The second-to-last line of stdout is
 one JSON object with the kernels: ``launches`` sums each kernel's
@@ -229,7 +245,9 @@ launches over the main-path runs (phase 5's serving forwards, phase
 10's training steps, phases 13 and 14's bf16 forwards and steps of
 the CIFAR nets, phases 18 and 19's of the others, phases 21 and
 22's runs of the CLI, phase 27's saliency runs, phase 28's remat
-steps and phase 29's two ranks' bf16 steps), ``max_abs_err``
+steps, phase 29's two ranks' bf16 steps and phase 30's: the exported
+programs' forwards in their own processes, the forwards that they are
+held to, bench_serving's and bench_step_breakdown's), ``max_abs_err``
 is its largest error against its plain version (phases 3, 4, 7, 8, 12,
 17), and ``ms`` / ``plain_ms`` /
 ``library_ms`` are the summed times of its launches (through the design
@@ -249,7 +267,7 @@ under "mnist-saliency (...)" conv3x3's and maxpool2's for the saliency
 forward (phase 27: its launches, and its times and bounds per 3,368-image
 f32 forward, the bound at the f32 peak outside the tensor cores).
 The last two entries are ``conv_i8`` and ``quant_i8``: their launches in
-phases 24 and 25, their largest error (phase 23 and phase 24's
+phases 24, 25 and 30, their largest error (phase 23 and phase 24's
 quantizer checks: 0, the comparisons are exact), their time, their
 plain version's and their bound per batch-128 int8 R-MG-34 forward
 (phase 26), ``library_ms`` null (no PyTorch call computes an int8 conv
@@ -272,6 +290,7 @@ import re
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from collections import Counter
@@ -293,7 +312,7 @@ from mgtpu_torch.ops.quant import quantize_model
 from mgtpu_torch.ops.cuda_pool import (maxpool2, maxpool2_backward_group, maxpool2_bwd_plain,
                                        maxpool2_plain)
 from mgtpu_torch.ops.resample import nchw
-from mgtpu_torch.serve import Server, image_shape
+from mgtpu_torch.serve import CALIB_BATCH, Server, image_shape
 from mgtpu_torch.train.step import rematerialized
 from mgtpu_torch.trainer import Trainer, synthetic_batch
 from mgtpu_torch.utils.bridge import export_jax_tree
@@ -3271,6 +3290,181 @@ def check_dp(name, power) -> dict:
     return dict(sum((Counter(rk["launches"]) for rk in ranks), Counter()))
 
 
+# 30: the tools on the card (mgtpu_torch/tools)
+TOOLS_RMG34_PARAMS, TOOLS_RMG34_MACS = 32_899_176, 5_760_277_760  # the published counts
+# the exported programs' pinned launches per forward: Server.predict's
+TOOLS_I8_PER_FORWARD = launch_counts(0, 0, 46, 0, 155, 155)
+# the serving side of the exported programs, in one fresh process: it
+# imports what registers the mgtpu:: ops and nothing of the model code; for
+# each program it runs one forward to build and warm up, one counted
+# forward, then TOOLS_WINDOWS windows of TOOLS_REPS timed ones, and prints
+# one JSON line; then the model code it imported (none)
+TOOLS_WINDOWS, TOOLS_REPS = 5, 5
+TOOLS_CHILD = r"""
+import json, statistics, sys
+import numpy as np, torch
+from mgtpu_torch import kernels
+from mgtpu_torch.tools import serve_exported
+xs, windows, reps = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+for art, out in zip(sys.argv[4::2], sys.argv[5::2]):
+    fwd, (shape, dtype) = serve_exported.load(art, "cuda")
+    x = torch.as_tensor(np.load(xs)).to("cuda", dtype)
+    with torch.no_grad():
+        fwd(x)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        y = fwd(x)
+        torch.cuda.synchronize()
+        per = dict(kernels.LAUNCHES)
+        routes = {f"{k}/{r}": n for (k, r), n in kernels.ROUTES.items() if n}
+        np.save(out, y.float().cpu().numpy())
+        ms = []
+        for _ in range(windows):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                fwd(x)
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b) / reps)
+    print(json.dumps({"shape": list(shape), "dtype": str(dtype), "launches": per,
+                      "routes": routes, "total": {k: n * (2 + windows * reps)
+                                                  for k, n in per.items()},
+                      "ms": statistics.median(ms),
+                      "spread": (max(ms) - min(ms)) / statistics.median(ms)}))
+    del fwd, x, y
+print(json.dumps(sorted(m for m in sys.modules if m in ("jax", "mgtpu", "mgtpu_torch.nn",
+                 "mgtpu_torch.serve", "mgtpu_torch.trainer", "mgtpu_torch.ops.mg")
+                 or m.startswith(("jax.", "mgtpu.", "mgtpu_torch.models")))))
+"""
+
+
+def serve_exported_child(xs, pairs) -> tuple[list, list, float]:
+    """TOOLS_CHILD on the images ``xs`` (.npy) and ``pairs`` [(program,
+    output .npy)] in a fresh process from the repository's root: (its
+    JSON line a program, the model code it imported, its wall seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", TOOLS_CHILD, str(xs), str(TOOLS_WINDOWS),
+                        str(TOOLS_REPS), *(str(p) for pair in pairs for p in pair)],
+                       capture_output=True, text=True, timeout=600,
+                       cwd=Path(__file__).resolve().parent)
+    check(r.returncode == 0, f"serve_exported in a fresh process failed ({r.returncode}): "
+          f"{r.stderr[-3000:]}")
+    lines = [json.loads(line) for line in r.stdout.strip().splitlines()[-len(pairs) - 1:]]
+    return lines[:-1], lines[-1], time.perf_counter() - t0
+
+
+def check_tools(name, power) -> dict:
+    """30: the tools on the card. model_info's two counts for R-MG-34;
+    R-MG-34 exported folded bf16 and int8 static at batch TIME_BATCH
+    with mgtpu_torch.tools.export_model's functions (the program's graph
+    holds mgtpu:: ops), both served in one fresh process through
+    serve_exported (no model code there): each one's outputs against
+    Server.predict's on the same images from the server it was exported
+    from (bf16: the same top-1 and within 1e-5 of the scale; int8: bit for
+    bit), its launches per forward Server.predict's (PER_FORWARD,
+    TOOLS_I8_PER_FORWARD), its median of TOOLS_WINDOWS windows beside
+    Server.predict's, the artifact's size; one bench_serving row per
+    dtype at batch TIME_BATCH and bench_step_breakdown at TIME_BATCH.
+    Returns the launches of the phase's runs (the child's forwards, the
+    reference forwards, bench_serving's and bench_step_breakdown's)."""
+    from mgtpu_torch.tools import bench_serving, bench_step_breakdown, export_model, model_info
+
+    t_phase = time.perf_counter()
+    info = model_info.model_info("ilsvrc/rnmg", 224, "cuda", depth=DEPTH, shortcutType="B")
+    check(info["params"] == TOOLS_RMG34_PARAMS and info["macs_per_image"] == TOOLS_RMG34_MACS,
+          f"model_info R-MG-34: {info}")
+    phase("tools", f"model_info R-MG-{DEPTH} at 224 on {info['device']}: params "
+          f"{info['params']:,}, macs_per_image {info['macs_per_image']:,} (the reference "
+          f"formulation, the published count), macs_per_image_as_run "
+          f"{info['macs_per_image_as_run']:,} (the convs the port runs: each exact-2x up "
+          f"part as its 4x4/2 transposed conv)")
+    kernels.reset_launches()
+    launches = Counter()
+    rng = np.random.default_rng(21)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        xs = tmp / "images.npy"
+        np.save(xs, rng.standard_normal((TIME_BATCH, *IMAGE_SHAPE), dtype=np.float32))
+        np.save(tmp / "calib.npy", rng.standard_normal((CALIB_BATCH, *IMAGE_SHAPE),
+                                                       dtype=np.float32))
+        base = ["-netType", "ilsvrc/rnmg", "-depth", str(DEPTH), "-shortcutType", "B",
+                "-batch", str(TIME_BATCH), "-imageCrop", str(IMAGE_SHAPE[0])]
+        cases = {}
+        for label, extra, pins in (("bf16", [], PER_FORWARD),
+                                   ("int8 static", ["-int8", "-calib", str(tmp / "calib.npy")],
+                                    TOOLS_I8_PER_FORWARD)):
+            art = tmp / f"rmg34_{label.replace(' ', '_')}.pt2"
+            args = export_model.parser().parse_args(base + extra + ["-out", str(art)])
+            server = export_model.build_server(args)
+            t0 = time.perf_counter()
+            program = export_model.export(server, TIME_BATCH, IMAGE_SHAPE[0], IMAGE_SHAPE[2])
+            program.example_inputs = None
+            torch.export.save(program, str(art))
+            ops = Counter(str(n.target) for n in program.graph.nodes
+                          if str(n.target).startswith("mgtpu."))
+            check(ops, f"{label}: the exported graph holds no mgtpu:: op")
+            cases[label] = (art, tmp / f"y_{len(cases)}.npy", server, pins, ops,
+                            time.perf_counter() - t0)
+            del program
+        served, model_code, wall = serve_exported_child(xs, [c[:2] for c in cases.values()])
+        check(model_code == [], f"serve_exported imported model code: {model_code}")
+        images = torch.from_numpy(np.load(xs)).cuda()
+        for (label, (art, out, server, pins, ops, t_export)), child in zip(cases.items(), served):
+            check(child["launches"] == pins, f"{label}: the exported forward launched "
+                  f"{child['launches']}, expected Server.predict's {pins}")
+            launches.update(child["total"])
+            y_ref = server.predict(images).float().cpu()
+            y = torch.from_numpy(np.load(out))
+            err, scale = (y - y_ref).abs().max().item(), y_ref.abs().max().item()
+            same = torch.equal(y, y_ref)
+            if label == "bf16":
+                top1 = int((y.argmax(-1) == y_ref.argmax(-1)).sum())
+                check(bool(torch.isfinite(y).all()) and top1 == TIME_BATCH
+                      and err <= 1e-5 * scale, f"{label}: exported vs Server.predict max abs "
+                      f"{err:.3g} (scale {scale:.4g}), top-1 agrees on {top1}/{TIME_BATCH}")
+                gate = f"top-1 agrees on {top1}/{TIME_BATCH}, max abs {err:.3g} (bound 1e-5 x " \
+                       f"{scale:.4g})"
+            else:
+                check(same, f"{label}: exported vs Server.predict differ, max abs {err:.3g}")
+                gate = "bit for bit"
+            (t_ref, s_ref), = interleaved_ms([lambda: server.predict(images)], min_reps=5)
+            phase("tools", f"R-MG-{DEPTH} {label}, BN folded, batch {TIME_BATCH}: exported in "
+                  f"{t_export:.1f} s, {art.stat().st_size / 1e6:.1f} MB, the graph's ops "
+                  f"{dict(ops)}; served by serve_exported in a fresh process (no model code; "
+                  f"{wall:.1f} s for both programs): {gate} against Server.predict "
+                  f"({'the same bits' if same else 'not the same bits'}); launches per forward "
+                  f"{child['launches']}, designs {child['routes']}")
+            phase("tools", f"R-MG-{DEPTH} {label} forward at batch {TIME_BATCH} on {name} "
+                  f"({power}): exported program {child['ms']:.3f} ms (median of "
+                  f"{TOOLS_WINDOWS} windows of {TOOLS_REPS}, spread {child['spread']:.1%}, its "
+                  f"own process), Server.predict {t_ref:.3f} ms (median of 5 windows, spread "
+                  f"{s_ref:.1%}), host included")
+        del cases, images, server
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bench_serving.main(["--int8", "--batches", str(TIME_BATCH)])
+    rows = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+    check(len(rows) == 2 and all(r["throughput_img_s"] > 0 for r in rows),
+          f"bench_serving: {out.getvalue()[-800:]}")
+    for r in rows:
+        phase("tools", f"bench_serving {json.dumps(r)}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bench_step_breakdown.main([str(TIME_BATCH)])
+    lines = out.getvalue().strip().splitlines()
+    check(len(lines) == 6 and "full step" in lines[4], f"bench_step_breakdown: {lines}")
+    for line in lines:
+        phase("tools", f"bench_step_breakdown: {line}")
+    launches.update(kernels.LAUNCHES)
+    for k in ("conv3x3", "conv3x3_bn_relu_in", "maxpool2", "maxpool2_bwd", "conv_i8",
+              "quant_i8"):
+        check(launches[k] > 0, f"{k} never launched in phase 30: {dict(launches)}")
+    phase("tools", f"phase 30 took {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{dict(launches)}")
+    return dict(launches)
+
+
 def fmt(metrics) -> str:
     return ", ".join(f"{k} {v:.5f}" for k, v in metrics.items())
 
@@ -3501,6 +3695,10 @@ def main() -> None:
     dp_launches = check_dp(name, smi.stdout.strip().splitlines()[0])
     launches = {k: launches[k] + sal_launches.get(k, 0) + remat_launches.get(k, 0)
                 + dp_launches.get(k, 0) for k in KERNELS}
+    # 30 the tools
+    tool_launches = check_tools(name, smi.stdout.strip().splitlines()[0])
+    launches = {k: launches[k] + tool_launches.get(k, 0) for k in KERNELS}
+    i8_launches = {k: i8_launches[k] + tool_launches.get(k, 0) for k in i8_launches}
 
     # each kernel's bound over the pass its times sum: the serving forward
     # (conv3x3, maxpool2) or the training step (the other two)

@@ -16,7 +16,9 @@ The backward of both is cuDNN's dgrad and wgrad (``convolution_backward``
 on the ``channels_last`` views) plus elementwise reductions: the JAX
 package has no Pallas backward for these convs (XLA differentiates
 them), so there is no TPU kernel to port there. The stats output is not
-differentiable.
+differentiable. Under ``torch.export`` the forwards are the custom
+ops ``mgtpu::conv3x3`` and ``mgtpu::conv3x3_bn_relu_in``
+(`mgtpu_torch.ops.library`).
 """
 
 from __future__ import annotations
@@ -228,7 +230,12 @@ def conv3x3(x, w, b, *, relu_out=False, with_stats=True):
     ``w`` may be a slice of a wider HWIO weight along its input
     channels (a view), as the multigrid exchange passes it.
     Differentiable in x, w and b (not through stats). CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise."""
+    the plain version; CUDA tensors launch the kernel or raise; under
+    ``torch.export``, the op ``mgtpu::conv3x3`` (inference only)."""
+    if torch.compiler.is_exporting():
+        from mgtpu_torch.ops import library  # noqa: F401 (registers the op)
+
+        return torch.ops.mgtpu.conv3x3(x, w, b, relu_out, with_stats)
     return _Conv3x3.apply(x, w, b, relu_out, with_stats)
 
 
@@ -240,5 +247,10 @@ def conv3x3_bn_relu_in(x, w, b, scale, shift, *, relu_out=False, with_stats=True
     normalized input is rounded to x.dtype before the conv and never
     stored. Differentiable in x, w, b, scale and shift (not through
     stats). CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    kernel or raise; under ``torch.export``, the op
+    ``mgtpu::conv3x3_bn_relu_in`` (inference only)."""
+    if torch.compiler.is_exporting():
+        from mgtpu_torch.ops import library  # noqa: F401 (registers the op)
+
+        return torch.ops.mgtpu.conv3x3_bn_relu_in(x, w, b, scale, shift, relu_out, with_stats)
     return _Conv3x3BnReluIn.apply(x, w, b, scale, shift, relu_out, with_stats)

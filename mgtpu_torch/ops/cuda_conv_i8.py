@@ -17,7 +17,10 @@ channel counts and offsets multiples of 16, reading the weight from its
 K-major copy, :func:`pack_weight`) and ``simple`` (everything else, from
 the HWIO weight); :func:`_route` picks one from shape and alignment
 alone, and counts in ``kernels.ROUTES[("conv_i8", design)]``. CPU tensors
-take the plain version; CUDA tensors launch the kernel or raise.
+take the plain version; CUDA tensors launch the kernel or raise. Under
+``torch.export`` the call is the custom op ``mgtpu::conv_i8``
+(`mgtpu_torch.ops.library`), which writes a new tensor instead of the
+part sum.
 """
 
 from __future__ import annotations
@@ -159,10 +162,13 @@ def _check(x8, w8, stride, pad, v, dtype, sx, y_in, bias, wk):
     return shape
 
 
-def _launch(x8, w8, stride, pad, v, dtype, sx, y_in, bias, relu, wk, route, shape):
+def _launch(x8, w8, stride, pad, v, dtype, sx, y_in, bias, relu, wk, route, shape,
+            in_place=True):
     n, h, w, ci = x8.shape
     k, co = w8.shape[0], w8.shape[3]
-    y = y_in if y_in is not None else torch.empty(shape, dtype=dtype, device=x8.device)
+    # the kernel reads y_in and writes y through two pointers, which may be one tensor
+    y = y_in if y_in is not None and in_place else torch.empty(shape, dtype=dtype,
+                                                                device=x8.device)
     if not y.numel():
         return y
     if route == "sm90":
@@ -197,17 +203,33 @@ def conv_i8(x8, w8, stride: int, pad: int, v=None, dtype=torch.int32, *, sx=None
     ``sm90`` operand; without it the slice is packed per call). The kernel
     rounds each step as the plain version does: the two are equal bit for
     bit. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (the design :func:`_route` picks) or raise."""
+    kernel (the design :func:`_route` picks) or raise; under
+    ``torch.export``, the op ``mgtpu::conv_i8``."""
+    if torch.compiler.is_exporting():
+        from mgtpu_torch.ops import library  # noqa: F401 (registers the op)
+
+        return torch.ops.mgtpu.conv_i8(x8, w8, stride, pad, v, dtype, sx, y_in, bias, relu, wk)
+    return conv_i8_forward(x8, w8, stride, pad, v, dtype, sx=sx, y_in=y_in, bias=bias,
+                           relu=relu, wk=wk)
+
+
+def conv_i8_forward(x8, w8, stride: int, pad: int, v=None, dtype=torch.int32, *, sx=None,
+                    y_in=None, bias=None, relu=False, wk=None, in_place=True):
+    """`conv_i8` without the export branch: the op ``mgtpu::conv_i8``'s
+    implementation. With ``in_place`` False the result is a new tensor
+    and ``y_in`` is only read."""
     if (v is None) != (dtype == torch.int32) or dtype not in _OUT_KINDS:
         raise TypeError(f"conv_i8: out dtype {dtype} with v {'absent' if v is None else 'given'}")
     if v is None and (sx is not None or y_in is not None or bias is not None or relu):
         raise TypeError("conv_i8: sx, y_in, bias and relu need a dequantized output (v)")
     if x8.device.type == "cpu":
+        if y_in is not None and not in_place:
+            y_in = y_in.clone()
         return conv_i8_plain(x8, w8, stride, pad, v, dtype, sx=sx, y_in=y_in, bias=bias,
                              relu=relu)
     shape = _check(x8, w8, stride, pad, v, dtype, sx, y_in, bias, wk)
     return _launch(x8, w8, stride, pad, v, dtype, sx, y_in, bias, relu, wk,
-                   _route(x8, w8, stride, pad, wk), shape)
+                   _route(x8, w8, stride, pad, wk), shape, in_place)
 
 
 def _simple_forward(x8, w8, stride: int, pad: int, v=None, dtype=torch.int32, *, sx=None,

@@ -31,6 +31,9 @@ the JAX model zoo trains with (and as torch's ``max_pool2d`` does).
 rule, the port of the zoo's pool, because on R-MG-34 positive ties are
 common: the stem's overlapping 3x3/2 max pool copies one maximum into
 neighbouring outputs, which block 1's 2x2 down-pool then sees tied.
+
+Under ``torch.export`` the forward is the custom op ``mgtpu::maxpool2``
+(`mgtpu_torch.ops.library`), and the backward is not exported.
 """
 
 from __future__ import annotations
@@ -364,8 +367,13 @@ def maxpool2_group(xs, ties: str = "all") -> tuple:
     Pallas kernel's, or "first"): a multigrid layer's pools, whose
     cotangents reach autograd together and take one launch of the
     backward. CPU tensors take the plain versions; CUDA tensors launch
-    the kernels or raise."""
+    the kernels or raise; under ``torch.export``, one op
+    ``mgtpu::maxpool2`` a member (the forward only)."""
     _check_ties(ties)
+    if torch.compiler.is_exporting():
+        from mgtpu_torch.ops import library  # noqa: F401 (registers the op)
+
+        return tuple(torch.ops.mgtpu.maxpool2(x) for x in xs)
     return _MaxPool2Group.apply(ties, *xs) if len(xs) else ()
 
 

@@ -89,9 +89,33 @@ def quant_i8(x: torch.Tensor, sx: torch.Tensor | None = None, up=None):
     Both launches count as ``quant_i8``. ``x`` is a contiguous NHWC f32
     or bf16 tensor. Bit-equal to the plain version; a NaN quantizes to 0
     on both. CPU tensors take the plain version; CUDA tensors launch the
-    kernels or raise."""
+    kernels or raise; under ``torch.export``, the op ``mgtpu::quant_i8``
+    (`mgtpu_torch.ops.library`)."""
+    if torch.compiler.is_exporting():
+        from mgtpu_torch.ops import library  # noqa: F401 (registers the op)
+
+        x8, scales = torch.ops.mgtpu.quant_i8(x, sx, None if up is None else list(up))
+        return x8, (sx if sx is not None else scales[1])
     if x.device.type == "cpu":
         return quant_i8_plain(x, sx, up)
+    x8, scales = _launch(x, sx, up)
+    return x8, (sx if scales is None else scales[1])
+
+
+def quant_i8_forward(x: torch.Tensor, sx: torch.Tensor | None = None, up=None):
+    """`quant_i8` as the op ``mgtpu::quant_i8`` computes it: (x8,
+    scales), ``scales`` None where ``sx`` is given, else a new (2,) f32
+    tensor whose element 1 is the dynamic scale (element 0 is the absmax
+    on the card, the scale again on the CPU)."""
+    if x.device.type == "cpu":
+        x8, s = quant_i8_plain(x, sx, up)
+        return x8, (None if sx is not None else torch.stack((s, s)))
+    return _launch(x, sx, up)
+
+
+def _launch(x: torch.Tensor, sx: torch.Tensor | None, up):
+    """The kernels of `quant_i8` on a CUDA tensor: (x8, None) with a
+    static ``sx``, else (x8, the (absmax, sx) pair on the card)."""
     if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"quant_i8: needs a contiguous NHWC f32 or bf16 x, got "
                          f"{tuple(x.shape)} {x.dtype} strides {x.stride()}")
@@ -109,13 +133,13 @@ def quant_i8(x: torch.Tensor, sx: torch.Tensor | None = None, up=None):
     if sx is not None:
         kernels.launch("quant_i8", "mg_quant_i8", x.device, x.data_ptr(), sx.data_ptr(), 0, 0,
                        x8.data_ptr(), *shape)
-        return x8, sx
+        return x8, None
     scales = torch.empty(2, device=x.device)  # the absmax, then sx
     kernels.launch("quant_i8", "mg_absmax", x.device, x.data_ptr(), scales.data_ptr(), x.numel(),
                    is_bf16)
     kernels.launch("quant_i8", "mg_quant_i8", x.device, x.data_ptr(), 0, scales.data_ptr(),
                    scales.data_ptr() + 4, x8.data_ptr(), *shape)
-    return x8, scales[1]
+    return x8, scales
 
 
 # --- calibration (static activation scales) -------------------------------

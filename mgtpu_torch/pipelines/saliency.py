@@ -255,8 +255,11 @@ def saliency_samples(sess, step: Optional[GroupStep] = None) -> Iterator[tuple[i
     dump_stack = bool(int(getattr(opt, "saliencyDumpStack", 1)))
     k = group_size(opt, n_test)
     if step is None:
-        step = GroupStep(sess.model, loader, k, dump_stack,
-                         getattr(sess, "device", torch.device("cpu")), getattr(sess, "mesh", None))
+        device = getattr(sess, "device", None)
+        if device is None:  # no quiet fall-back to the CPU
+            raise ValueError("saliency_samples: the session names no device to run the "
+                             "groups on (a Session's -device)")
+        step = GroupStep(sess.model, loader, k, dump_stack, device, getattr(sess, "mesh", None))
 
     def specs():
         for i in range(1, n_test + 1):

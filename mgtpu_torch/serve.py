@@ -128,12 +128,15 @@ class Server:
     `tools/export_model.py`), its activation scales calibrated over
     ``int8_calib`` batches of ``CALIB_BATCH`` seeded normal images
     (static) or, with 0, computed per call (dynamic); images go in as
-    f32, since the int8 path quantizes the raw input."""
+    f32, since the int8 path quantizes the raw input.
+
+    ``fold_bn`` False keeps the eval-mode BatchNorms as normalize passes
+    (`tools/export_model.py`'s ``-no-fold-bn``)."""
 
     def __init__(self, opt: NetOpts = NetOpts(), ckpt: Optional[str] = None, seed: int = 0,
                  device: str | torch.device = "cuda",
                  compute_dtype: torch.dtype = torch.bfloat16, int8: bool = False,
-                 int8_calib: int = 0):
+                 int8_calib: int = 0, fold_bn: bool = True):
         self.device = torch.device(device)
         self.compute_dtype = compute_dtype
         self.int8 = int8
@@ -146,7 +149,8 @@ class Server:
             load_jax_tree(model, blob["params"], blob["stats"])
         else:
             calibrate_batchnorm(model, gen, self.image_shape)
-        fold_batchnorm(model)
+        if fold_bn:
+            fold_batchnorm(model)
         if int8:
             quantize_model(model)
         with torch.no_grad():  # cast once, not on every call

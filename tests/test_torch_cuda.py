@@ -776,3 +776,49 @@ def test_saliency_probe_on_the_card_equals_the_host_probe(dev):
             np.testing.assert_allclose(sal[j], saliency.saliency_map(outs[j], host, mask),
                                        rtol=1e-5, atol=1e-6)
     assert valid.tolist() == [True, False, True]
+
+
+def test_custom_ops_launch_the_kernels(dev):
+    """Each mgtpu:: op (`mgtpu_torch.ops.library`) on CUDA tensors
+    launches its kernel once (twice for a dynamic quantize) and returns
+    the wrapper's bits (a conv's stats: sums added with atomics in a
+    varying order, to the bounds above); conv_i8's op writes a new tensor
+    where the wrapper adds into y_in."""
+    from mgtpu_torch.ops import cuda_conv_i8, library, quant  # noqa: F401 (the ops)
+
+    ops = torch.ops.mgtpu
+
+    x, w, b = _conv_inputs(2, 14, 14, 64, 64, torch.bfloat16, dev)
+    sc, sh = torch.rand(64, device=dev) + 0.5, torch.randn(64, device=dev)
+    x8 = torch.randint(-127, 128, (2, 14, 14, 64), dtype=torch.int8, device=dev)
+    w8 = torch.randint(-127, 128, (3, 3, 64, 64), dtype=torch.int8, device=dev)
+    v, sx = torch.rand(64, device=dev), torch.tensor(0.01, device=dev)
+    y_in = torch.randn((2, 14, 14, 64), device=dev).to(torch.bfloat16)
+    cases = [
+        ("conv3x3", lambda: ops.conv3x3(x, w, b, True, True),
+         lambda: conv3x3(x, w, b, relu_out=True, with_stats=True), 1),
+        ("conv3x3_bn_relu_in", lambda: ops.conv3x3_bn_relu_in(x, w, b, sc, sh, False, True),
+         lambda: conv3x3_bn_relu_in(x, w, b, sc, sh), 1),
+        ("maxpool2", lambda: ops.maxpool2(x), lambda: maxpool2(x), 1),
+        ("conv_i8", lambda: ops.conv_i8(x8, w8, 1, 1, v, torch.bfloat16, sx, y_in, b, True,
+                                            None),
+         lambda: cuda_conv_i8.conv_i8(x8, w8, 1, 1, v, torch.bfloat16, sx=sx,
+                                      y_in=y_in.clone(), bias=b, relu=True), 1),
+        ("quant_i8", lambda: ops.quant_i8(x, sx, [27, 28])[0],
+         lambda: quant.quant_i8(x, sx, (27, 28))[0], 1),
+        ("quant_i8", lambda: (lambda r: (r[0], r[1][1]))(ops.quant_i8(x, None, None)),
+         lambda: quant.quant_i8(x), 2),
+    ]
+    with torch.no_grad():
+        for kernel, op, wrapper, n in cases:
+            kernels.reset_launches()
+            got = op()
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES[kernel] == n, (kernel, dict(kernels.LAUNCHES))
+            want = wrapper()
+            pairs = zip(*((t,) if isinstance(t, torch.Tensor) else t for t in (got, want)))
+            for i, (g, r) in enumerate(pairs):
+                if kernel.startswith("conv3x3") and i == 1:
+                    torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-5 * r.abs().max().item())
+                else:
+                    assert torch.equal(g, r), kernel

@@ -273,30 +273,47 @@ def _jax_mesh_step(case, inputs):
     return {k: float(v) for k, v in m2.items()}, ref
 
 
+def _init_draw(p, rng):
+    """The parameter tree ``p`` drawn anew with numpy by the init's laws
+    (`mgtpu/nn.py`): a conv kernel N(0, 2 / (k*k*Co)), a dense kernel
+    U(-1/sqrt(Ci), 1/sqrt(Ci)); biases and BN affines as they are (the
+    init's constants)."""
+    out = {}
+    for k, v in p.items():
+        if isinstance(v, dict):
+            out[k] = _init_draw(v, rng)
+        elif k == "w" and v.ndim == 4:
+            kh, kw, _, co = v.shape
+            out[k] = (rng.standard_normal(v.shape) * np.sqrt(2.0 / (kh * kw * co))).astype(
+                np.float32)
+        elif k == "w":
+            bound = 1.0 / np.sqrt(v.shape[0])
+            out[k] = rng.uniform(-bound, bound, v.shape).astype(np.float32)
+        else:
+            out[k] = v.copy()
+    return out
+
+
 @pytest.fixture(scope="module")
 def dp(tmp_path_factory):
-    """Each STEPS case's inputs (the JAX package's initial weights, one
-    draw a net, jittered as the CIFAR parity tests jitter them, a
-    momentum, a batch), the two ranks run on all cases, and the JAX mesh
-    step of JAX_CASES meanwhile: ``inputs`` {case: (p, s, m, x, y)},
+    """Each STEPS case's inputs (initial weights drawn with numpy by the
+    init's laws, one draw a net, in the JAX trees' layout of the port's
+    model, jittered as the CIFAR parity tests jitter them, a momentum, a
+    batch), the two ranks run on all cases, and the JAX mesh step of
+    JAX_CASES meanwhile: ``inputs`` {case: (p, s, m, x, y)},
     ``results`` {case: [rank 0, rank 1]}, ``tmp``, ``jax`` {case:
     (metrics, state)}."""
     import jax
 
-    import mgtpu.models.cifar.nmg as jnmg
-    import mgtpu.models.cifar.pnmg as jpnmg
-    from mgtpu.models import get_net
+    from mgtpu_torch.utils.bridge import export_jax_tree
     from mgtpu_torch.utils.checkpoint import write_checkpoint
     from test_torch_cifar_train import _jitter
 
     tmp = tmp_path_factory.mktemp("dp")
     init = {}
-    with pytest.MonkeyPatch.context() as mpatch:
-        for net, mod in (("cifar/nmg", jnmg), ("cifar/prnmg", jpnmg)):
-            mpatch.setattr(mod, "BLOCKS", BLOCKS[net])
-            jm = get_net(net).create_model(types.SimpleNamespace(dataset="cifar100", nLayer=1,
-                                                                 isDropout=False))
-            init[net] = jax.tree.map(np.array, jax.jit(jm.init)(jax.random.PRNGKey(0)))
+    for seed, net in enumerate(("cifar/nmg", "cifar/prnmg")):
+        p, s = export_jax_tree(_port_model(net, None)[0])
+        init[net] = (_init_draw(p, np.random.default_rng(seed)), s)
     inputs, paths = {}, {}
     for case, (net, iters, _, shift, _) in STEPS.items():
         p, s = jax.tree.map(np.copy, init[net])

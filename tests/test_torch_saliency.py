@@ -180,6 +180,35 @@ def test_run_matches_jax_and_the_group_size(dump, expand, tmp_path):
     assert "samples/s, group size 3)" in lines[-2] and lines[-1].endswith("testOutput.h5")
 
 
+@pytest.mark.parametrize("device", [None, "cpu"], ids=["no-device", "cpu"])
+def test_a_session_names_its_device(device, tmp_path):
+    """A session without a device is refused (no quiet fall-back to the
+    CPU); one whose device is the CPU (-device cpu) runs its groups
+    there and gives the JAX run's samples."""
+    sess = _stub_session(False, tmp_path, 3, 1, "host")
+    if device is None:
+        del sess.device
+        with pytest.raises(ValueError, match="names no device"):
+            next(sal.saliency_samples(sess))
+        return
+    steps = []
+
+    class Recorded(sal.GroupStep):
+        def __init__(self, *args):
+            super().__init__(*args)
+            steps.append(self)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(sal, "GroupStep", Recorded)
+        got = dict(sal.saliency_samples(sess))
+    assert len(steps) == 1 and steps[0].device == torch.device(device)
+    jsal.run(_stub_session(True, tmp_path / "jax", 3, 1, "host"))
+    ref = _read(tmp_path / "jax" / "testOutput.h5")
+    assert sorted(ref) == [f"id{i:05d}" for i in sorted(got)]
+    for i, arrays in got.items():
+        np.testing.assert_array_equal(arrays["points"], ref[f"id{i:05d}"]["points"])
+
+
 # the slice: pnmg.mnist narrowed as tests/test_torch_seg_train.py narrows it,
 # on occlusion masks cut to the first WINDOWS of the 841 windows
 NARROW = {"BLOCKS4": [8, 6, 5, 4]}
