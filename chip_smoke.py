@@ -226,16 +226,18 @@ bench_serving, bench_step_breakdown). Phases:
              mgtpu_torch.main on one card: the clamp line, one rank
  30 tools    the model tools (mgtpu_torch.tools): model_info's two counts
              for R-MG-34 (the published params and reference MACs, and
-             the as-run MACs); R-MG-34 exported at batch 128 (BN folded,
-             bf16; and int8 with static scales from -calib) through
-             export_model, the program's graph holding the mgtpu:: ops;
-             each program served by serve_exported in a fresh process
-             that imports no model code: its outputs against
-             Server.predict's on the same images (bf16: the same top-1
-             and within 1e-5 of the scale; int8: bit for bit), its
+             the as-run MACs); the host us a call of four kernels as
+             mgtpu:: ops and through their wrappers; R-MG-34 exported at
+             batch 128 (BN folded, bf16; and int8 with static scales from
+             -calib) through export_model, the program's graph holding
+             the mgtpu:: ops; each program served by serve_exported in a
+             fresh process that imports no model code: its outputs
+             against Server.predict's on the same images (bf16: the same
+             top-1 and within 1e-5 of the scale; int8: bit for bit), its
              launches per forward Server.predict's (PER_FORWARD,
-             TOOLS_I8_PER_FORWARD), its median of 5 windows beside
-             Server.predict's, the artifact's size; one bench_serving row
+             TOOLS_I8_PER_FORWARD), its median of 15 windows alone, then,
+             once that process has built the same Server, in turns with
+             Server.predict's; the artifact's size; one bench_serving row
              per dtype at batch 128 (bf16, int8-static); and
              bench_step_breakdown at batch 128
 
@@ -245,9 +247,11 @@ launches over the main-path runs (phase 5's serving forwards, phase
 10's training steps, phases 13 and 14's bf16 forwards and steps of
 the CIFAR nets, phases 18 and 19's of the others, phases 21 and
 22's runs of the CLI, phase 27's saliency runs, phase 28's remat
-steps, phase 29's two ranks' bf16 steps and phase 30's: the exported
-programs' forwards in their own processes, the forwards that they are
-held to, bench_serving's and bench_step_breakdown's), ``max_abs_err``
+steps, phase 29's two ranks' bf16 steps and phase 30's: the servers'
+builds and calibration, the exported programs' forwards in their own
+process (warm-up, counted and timed), that process's servers' builds and
+timed Server.predict calls, the forwards that the programs are held to,
+bench_serving's and bench_step_breakdown's), ``max_abs_err``
 is its largest error against its plain version (phases 3, 4, 7, 8, 12,
 17), and ``ms`` / ``plain_ms`` /
 ``library_ms`` are the summed times of its launches (through the design
@@ -3294,80 +3298,171 @@ def check_dp(name, power) -> dict:
 TOOLS_RMG34_PARAMS, TOOLS_RMG34_MACS = 32_899_176, 5_760_277_760  # the published counts
 # the exported programs' pinned launches per forward: Server.predict's
 TOOLS_I8_PER_FORWARD = launch_counts(0, 0, 46, 0, 155, 155)
-# the serving side of the exported programs, in one fresh process: it
-# imports what registers the mgtpu:: ops and nothing of the model code; for
-# each program it runs one forward to build and warm up, one counted
-# forward, then TOOLS_WINDOWS windows of TOOLS_REPS timed ones, and prints
-# one JSON line; then the model code it imported (none)
-TOOLS_WINDOWS, TOOLS_REPS = 5, 5
+# the serving side of the exported programs, in one fresh process. First
+# it imports what registers the mgtpu:: ops and nothing of the model code:
+# each program runs one forward to build and warm up, one counted
+# forward, and TOOLS_WINDOWS windows of TOOLS_REPS timed ones alone, and
+# the child prints one JSON line a program, then the model code it
+# imported (none). Then it imports the model code, builds each program's
+# Server from the flags it was exported with, and times the program and
+# Server.predict in turns (TOOLS_WINDOWS windows of TOOLS_REPS each, the
+# order alternating), one JSON line a program; last, the launches of
+# every forward it ran, as its counter read them.
+TOOLS_WINDOWS, TOOLS_REPS = 15, 5
 TOOLS_CHILD = r"""
 import json, statistics, sys
+from collections import Counter
 import numpy as np, torch
 from mgtpu_torch import kernels
 from mgtpu_torch.tools import serve_exported
-xs, windows, reps = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
-for art, out in zip(sys.argv[4::2], sys.argv[5::2]):
-    fwd, (shape, dtype) = serve_exported.load(art, "cuda")
-    x = torch.as_tensor(np.load(xs)).to("cuda", dtype)
-    with torch.no_grad():
-        fwd(x)
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        y = fwd(x)
-        torch.cuda.synchronize()
-        per = dict(kernels.LAUNCHES)
-        routes = {f"{k}/{r}": n for (k, r), n in kernels.ROUTES.items() if n}
-        np.save(out, y.float().cpu().numpy())
-        ms = []
-        for _ in range(windows):
+
+
+def windows(fns, n, reps):
+    # each of fns' ms a call in n windows of reps calls, host included, in
+    # turns whose order alternates from window to window
+    for fn in fns:
+        fn()
+    per = [[] for _ in fns]
+    for i in range(n):
+        for j in (range(len(fns)) if i % 2 == 0 else reversed(range(len(fns)))):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
             for _ in range(reps):
-                fwd(x)
+                fns[j]()
             b.record()
             b.synchronize()
-            ms.append(a.elapsed_time(b) / reps)
+            per[j].append(a.elapsed_time(b) / reps)
+    return per
+
+
+def summary(ms):
+    # the median, and the spread (max - min) over it
+    return statistics.median(ms), (max(ms) - min(ms)) / statistics.median(ms)
+
+
+xs, n, reps = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+jobs = [json.loads(a) for a in sys.argv[4:]]
+images = torch.from_numpy(np.load(xs)).cuda()
+kernels.reset_launches()
+fwds = []
+for job in jobs:
+    fwd, (shape, dtype) = serve_exported.load(job["art"], "cuda")
+    run = lambda fwd=fwd, dtype=dtype: fwd(images.to(dtype))
+    with torch.no_grad():
+        run()
+        torch.cuda.synchronize()
+        launches, routes = Counter(kernels.LAUNCHES), Counter(kernels.ROUTES)
+        y = run()
+        torch.cuda.synchronize()
+        per = {k: v - launches[k] for k, v in kernels.LAUNCHES.items()}
+        routes = {f"{k}/{r}": v - routes[(k, r)] for (k, r), v in kernels.ROUTES.items()
+                  if v - routes[(k, r)]}
+        np.save(job["out"], y.float().cpu().numpy())
+        ms, spread = summary(windows([run], n, reps)[0])
+    fwds.append(run)
     print(json.dumps({"shape": list(shape), "dtype": str(dtype), "launches": per,
-                      "routes": routes, "total": {k: n * (2 + windows * reps)
-                                                  for k, n in per.items()},
-                      "ms": statistics.median(ms),
-                      "spread": (max(ms) - min(ms)) / statistics.median(ms)}))
-    del fwd, x, y
+                      "routes": routes, "ms": ms, "spread": spread}))
+    del y
 print(json.dumps(sorted(m for m in sys.modules if m in ("jax", "mgtpu", "mgtpu_torch.nn",
                  "mgtpu_torch.serve", "mgtpu_torch.trainer", "mgtpu_torch.ops.mg")
                  or m.startswith(("jax.", "mgtpu.", "mgtpu_torch.models")))))
+from mgtpu_torch.tools import export_model
+for job, run in zip(jobs, fwds):
+    server = export_model.build_server(export_model.parser().parse_args(job["flags"]))
+    with torch.no_grad():
+        own, ref = windows([run, lambda: server.predict(images)], n, reps)
+    # each window's program time over the Server.predict window beside it
+    ratios = [a / b for a, b in zip(own, ref)]
+    print(json.dumps({"ms": summary(own), "predict_ms": summary(ref),
+                      "ratio": statistics.quantiles(ratios, n=4)}))
+    del server
+print(json.dumps(dict(kernels.LAUNCHES)))
 """
 
 
-def serve_exported_child(xs, pairs) -> tuple[list, list, float]:
-    """TOOLS_CHILD on the images ``xs`` (.npy) and ``pairs`` [(program,
-    output .npy)] in a fresh process from the repository's root: (its
-    JSON line a program, the model code it imported, its wall seconds)."""
+def serve_exported_child(xs, jobs) -> tuple[list, list, list, dict, float]:
+    """TOOLS_CHILD on the images ``xs`` (.npy) and ``jobs`` [{"art": the
+    program, "out": its outputs' .npy, "flags": the export_model flags it
+    was exported with}] in a fresh process from the repository's root:
+    (its JSON line a program from the serving alone, the model code it
+    imported then, its JSON line a program from the turns with
+    Server.predict, the launches of all its forwards, its wall
+    seconds)."""
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-c", TOOLS_CHILD, str(xs), str(TOOLS_WINDOWS),
-                        str(TOOLS_REPS), *(str(p) for pair in pairs for p in pair)],
+                        str(TOOLS_REPS), *(json.dumps(job) for job in jobs)],
                        capture_output=True, text=True, timeout=600,
                        cwd=Path(__file__).resolve().parent)
     check(r.returncode == 0, f"serve_exported in a fresh process failed ({r.returncode}): "
           f"{r.stderr[-3000:]}")
-    lines = [json.loads(line) for line in r.stdout.strip().splitlines()[-len(pairs) - 1:]]
-    return lines[:-1], lines[-1], time.perf_counter() - t0
+    lines = [json.loads(line) for line in r.stdout.strip().splitlines()[-2 * len(jobs) - 2:]]
+    k = len(jobs)
+    return lines[:k], lines[k], lines[k + 1:2 * k + 1], lines[-1], time.perf_counter() - t0
+
+
+def host_us(fn, n=300) -> float:
+    """Host microseconds a call of fn: n calls enqueued back to back."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def ops_host_cost(power) -> None:
+    """The host cost of a kernel as an mgtpu:: op against its wrapper's
+    direct call (the eager forward's) at one R-MG-34 shape (batch 8,
+    14x14x256, bf16 / int8), in turns: what the wrappers' direct call
+    outside torch.export rests on. Not counted as a main-path run."""
+    from mgtpu_torch.ops import library  # noqa: F401 (registers the ops)
+
+    ops = torch.ops.mgtpu
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x8 = torch.randint(-127, 128, (8, 14, 14, 256), dtype=torch.int8, device="cuda", generator=g)
+    w8 = torch.randint(-127, 128, (3, 3, 256, 256), dtype=torch.int8, device="cuda", generator=g)
+    wk = cuda_conv_i8.pack_weight(w8)
+    v, sx = torch.rand(256, device="cuda", generator=g), torch.tensor(0.01, device="cuda")
+    xb = torch.randn((8, 14, 14, 256), device="cuda", dtype=torch.bfloat16, generator=g)
+    wb = torch.randn((3, 3, 256, 256), device="cuda", dtype=torch.bfloat16, generator=g) * 0.02
+    bb = torch.zeros(256, device="cuda", dtype=torch.float32)
+    with torch.no_grad():
+        for label, direct, op in (
+                ("conv3x3", lambda: cuda_conv.conv3x3_forward(xb, wb, bb, relu_out=True,
+                                                              with_stats=False),
+                 lambda: ops.conv3x3(xb, wb, bb, True, False)),
+                ("conv_i8", lambda: cuda_conv_i8.conv_i8(x8, w8, 1, 1, v, torch.bfloat16, sx=sx,
+                                                         wk=wk),
+                 lambda: ops.conv_i8(x8, w8, 1, 1, v, torch.bfloat16, sx, None, None, False, wk)),
+                ("quant_i8", lambda: quant.quant_i8(xb, sx), lambda: ops.quant_i8(xb, sx, None)),
+                ("maxpool2", lambda: cuda_pool.maxpool2_forward(xb), lambda: ops.maxpool2(xb))):
+            a = [host_us(direct), host_us(op), host_us(direct), host_us(op)]
+            phase("tools", f"{label} at 8x14x14x256 ({power}): host us a call, the wrapper "
+                  f"{a[0]:.1f} / {a[2]:.1f}, the mgtpu:: op {a[1]:.1f} / {a[3]:.1f} (in turns)")
 
 
 def check_tools(name, power) -> dict:
-    """30: the tools on the card. model_info's two counts for R-MG-34;
-    R-MG-34 exported folded bf16 and int8 static at batch TIME_BATCH
-    with mgtpu_torch.tools.export_model's functions (the program's graph
-    holds mgtpu:: ops), both served in one fresh process through
-    serve_exported (no model code there): each one's outputs against
-    Server.predict's on the same images from the server it was exported
-    from (bf16: the same top-1 and within 1e-5 of the scale; int8: bit for
-    bit), its launches per forward Server.predict's (PER_FORWARD,
-    TOOLS_I8_PER_FORWARD), its median of TOOLS_WINDOWS windows beside
-    Server.predict's, the artifact's size; one bench_serving row per
-    dtype at batch TIME_BATCH and bench_step_breakdown at TIME_BATCH.
-    Returns the launches of the phase's runs (the child's forwards, the
-    reference forwards, bench_serving's and bench_step_breakdown's)."""
+    """30: the tools on the card. model_info's two counts for R-MG-34; the
+    host cost of the kernels as mgtpu:: ops against their wrappers'
+    direct calls (:func:`ops_host_cost`); R-MG-34 exported folded bf16
+    and int8 static at batch TIME_BATCH with
+    mgtpu_torch.tools.export_model's functions (the program's graph holds
+    mgtpu:: ops), both served in one fresh process through serve_exported
+    (no model code there): each one's outputs against Server.predict's on
+    the same images from the server it was exported from (bf16: the same
+    top-1 and within 1e-5 of the scale; int8: bit for bit), its launches
+    per forward Server.predict's (PER_FORWARD, TOOLS_I8_PER_FORWARD), its
+    median of TOOLS_WINDOWS windows alone, then beside Server.predict's
+    in turns in that process once it has built the same server, the
+    artifact's size; one bench_serving row per dtype at batch TIME_BATCH
+    and bench_step_breakdown at TIME_BATCH. Returns the launches of the
+    phase's runs, each as a counter read it: in this process the two
+    servers' builds (the int8 one's calibration), the reference forwards,
+    bench_serving's and bench_step_breakdown's; in the child every forward it ran (the
+    programs' warm-up, counted and timed forwards, its servers' builds and
+    calibration, their timed Server.predict calls)."""
     from mgtpu_torch.tools import bench_serving, bench_step_breakdown, export_model, model_info
 
     t_phase = time.perf_counter()
@@ -3379,6 +3474,7 @@ def check_tools(name, power) -> dict:
           f"formulation, the published count), macs_per_image_as_run "
           f"{info['macs_per_image_as_run']:,} (the convs the port runs: each exact-2x up "
           f"part as its 4x4/2 transposed conv)")
+    ops_host_cost(power)
     kernels.reset_launches()
     launches = Counter()
     rng = np.random.default_rng(21)
@@ -3395,8 +3491,8 @@ def check_tools(name, power) -> dict:
                                    ("int8 static", ["-int8", "-calib", str(tmp / "calib.npy")],
                                     TOOLS_I8_PER_FORWARD)):
             art = tmp / f"rmg34_{label.replace(' ', '_')}.pt2"
-            args = export_model.parser().parse_args(base + extra + ["-out", str(art)])
-            server = export_model.build_server(args)
+            flags = base + extra + ["-out", str(art)]
+            server = export_model.build_server(export_model.parser().parse_args(flags))
             t0 = time.perf_counter()
             program = export_model.export(server, TIME_BATCH, IMAGE_SHAPE[0], IMAGE_SHAPE[2])
             program.example_inputs = None
@@ -3404,18 +3500,20 @@ def check_tools(name, power) -> dict:
             ops = Counter(str(n.target) for n in program.graph.nodes
                           if str(n.target).startswith("mgtpu."))
             check(ops, f"{label}: the exported graph holds no mgtpu:: op")
-            cases[label] = (art, tmp / f"y_{len(cases)}.npy", server, pins, ops,
-                            time.perf_counter() - t0)
+            cases[label] = ({"art": str(art), "out": str(tmp / f"y_{len(cases)}.npy"),
+                             "flags": flags}, server, pins, ops, time.perf_counter() - t0)
             del program
-        served, model_code, wall = serve_exported_child(xs, [c[:2] for c in cases.values()])
+        alone, model_code, turns, child_launches, wall = serve_exported_child(
+            xs, [c[0] for c in cases.values()])
         check(model_code == [], f"serve_exported imported model code: {model_code}")
+        launches.update(child_launches)
         images = torch.from_numpy(np.load(xs)).cuda()
-        for (label, (art, out, server, pins, ops, t_export)), child in zip(cases.items(), served):
+        for (label, (job, server, pins, ops, t_export)), child, pair in zip(
+                cases.items(), alone, turns):
             check(child["launches"] == pins, f"{label}: the exported forward launched "
                   f"{child['launches']}, expected Server.predict's {pins}")
-            launches.update(child["total"])
             y_ref = server.predict(images).float().cpu()
-            y = torch.from_numpy(np.load(out))
+            y = torch.from_numpy(np.load(job["out"]))
             err, scale = (y - y_ref).abs().max().item(), y_ref.abs().max().item()
             same = torch.equal(y, y_ref)
             if label == "bf16":
@@ -3428,18 +3526,22 @@ def check_tools(name, power) -> dict:
             else:
                 check(same, f"{label}: exported vs Server.predict differ, max abs {err:.3g}")
                 gate = "bit for bit"
-            (t_ref, s_ref), = interleaved_ms([lambda: server.predict(images)], min_reps=5)
+            size = Path(job["art"]).stat().st_size / 1e6
             phase("tools", f"R-MG-{DEPTH} {label}, BN folded, batch {TIME_BATCH}: exported in "
-                  f"{t_export:.1f} s, {art.stat().st_size / 1e6:.1f} MB, the graph's ops "
-                  f"{dict(ops)}; served by serve_exported in a fresh process (no model code; "
-                  f"{wall:.1f} s for both programs): {gate} against Server.predict "
-                  f"({'the same bits' if same else 'not the same bits'}); launches per forward "
-                  f"{child['launches']}, designs {child['routes']}")
+                  f"{t_export:.1f} s, {size:.1f} MB, the graph's ops {dict(ops)}; served by "
+                  f"serve_exported in a fresh process (no model code; {wall:.1f} s for both "
+                  f"programs, the turns with Server.predict included): {gate} against "
+                  f"Server.predict ({'the same bits' if same else 'not the same bits'}); "
+                  f"launches per forward {child['launches']}, designs {child['routes']}")
             phase("tools", f"R-MG-{DEPTH} {label} forward at batch {TIME_BATCH} on {name} "
-                  f"({power}): exported program {child['ms']:.3f} ms (median of "
-                  f"{TOOLS_WINDOWS} windows of {TOOLS_REPS}, spread {child['spread']:.1%}, its "
-                  f"own process), Server.predict {t_ref:.3f} ms (median of 5 windows, spread "
-                  f"{s_ref:.1%}), host included")
+                  f"({power}), host included, in the fresh process, medians of "
+                  f"{TOOLS_WINDOWS} windows of {TOOLS_REPS}: the exported program alone "
+                  f"{child['ms']:.3f} ms (spread {child['spread']:.1%}); in turns with "
+                  f"Server.predict, the exported program {pair['ms'][0]:.3f} ms (spread "
+                  f"{pair['ms'][1]:.1%}), Server.predict {pair['predict_ms'][0]:.3f} ms (spread "
+                  f"{pair['predict_ms'][1]:.1%}); the program's window over the "
+                  f"Server.predict window beside it: median {pair['ratio'][1]:.3f}, quartiles "
+                  f"{pair['ratio'][0]:.3f} and {pair['ratio'][2]:.3f}")
         del cases, images, server
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -3461,7 +3563,7 @@ def check_tools(name, power) -> dict:
               "quant_i8"):
         check(launches[k] > 0, f"{k} never launched in phase 30: {dict(launches)}")
     phase("tools", f"phase 30 took {time.perf_counter() - t_phase:.1f} s; launches "
-          f"{dict(launches)}")
+          f"{dict(launches)} (the child's {child_launches})")
     return dict(launches)
 
 

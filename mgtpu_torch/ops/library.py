@@ -21,9 +21,10 @@ op: an exported program serves, as the JAX package's does.
 The ops are defined with the dispatcher's own API (a schema, one
 implementation for the CPU and the CUDA key, a fake), not with
 ``torch.library.custom_op``, whose Python layers (an autograd wrapper
-and an aliasing check on every call) cost more host time a call, and an
-exported forward is host-bound (`probe_export.py` measures both on the
-card). No op has an autograd kernel: the programs serve. The
+and an aliasing check on every call) add host time to every call, and an
+exported forward is host-bound (``chip_smoke.py`` phase 30 times each op
+against its wrapper on the card). No op has an autograd kernel: the
+programs serve. The
 wrappers call the ops only while ``torch.compiler.is_exporting()``: the
 eager forward calls the wrappers' forwards directly, without the
 dispatcher. Importing this module registers the ops; a program that

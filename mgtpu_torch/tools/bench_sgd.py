@@ -15,7 +15,8 @@ Each form's time is the best of 3 windows of 30 updates; its first
 update from the same state is held to the per-leaf form's. The floor is
 the bytes the update must move, read p, g, m and write p, m (5 x 4
 bytes a parameter), over the card's memory rate (the published peak of
-its part; printed as not known for another card).
+its part, looked up by the card's full name in ``HBM_RATE``; printed as
+not known for a card not listed there).
 
 Usage: python -m mgtpu_torch.tools.bench_sgd [-device cpu]
 """
@@ -29,8 +30,11 @@ import torch
 
 from mgtpu_torch.tools import card, sync
 
-# published HBM rates (bytes/s) by the card's name
-HBM_RATE = {"H100": 3.35e12, "H200": 4.8e12}
+# published memory rates (bytes/s) by the card's full name, as
+# torch.cuda.get_device_name gives it: the H100's three parts differ
+HBM_RATE = {"NVIDIA H100 80GB HBM3": 3.35e12,  # SXM5
+            "NVIDIA H100 PCIe": 2.0e12,
+            "NVIDIA H100 NVL": 3.9e12}
 LR, WD, MU = 0.1, 1e-4, 0.9
 
 
@@ -88,6 +92,15 @@ def one_step_error(params) -> dict:
             for name, (state, _) in fs.items() if name != "per-leaf"}
 
 
+def floor_text(traffic: int, device: str) -> str:
+    """The update's floor: ``traffic`` bytes over the memory rate of the
+    card named ``device``, or that the rate is not known for it."""
+    rate = HBM_RATE.get(device)
+    if rate is None:
+        return f"not known for this device ({device}: no published memory rate listed)"
+    return f"{traffic / rate * 1e3:.3f} ms at {rate / 1e12:.2f} TB/s"
+
+
 def main(argv=None):
     from mgtpu_torch.models import create_model
     from mgtpu_torch.models.base import NetOpts
@@ -100,9 +113,7 @@ def main(argv=None):
     n_par = sum(p.numel() for p in params)
     traffic = 5 * 4 * n_par
     where = card(device)
-    rate = next((r for k, r in HBM_RATE.items() if k in where["device"]), None)
-    floor = "not known for this device" if rate is None else \
-        f"{traffic / rate * 1e3:.3f} ms at {rate / 1e12:.2f} TB/s"
+    floor = floor_text(traffic, where["device"])
     print(f"leaves={len(params)} params={n_par / 1e6:.2f}M traffic={traffic / 1e6:.0f}MB/step; "
           f"floor {floor}; on {where['device']} (power limit {where['power_limit']})")
     errors = one_step_error(params)

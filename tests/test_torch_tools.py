@@ -14,12 +14,13 @@ JAX package's tools (`tools/*.py`) and forward on the same inputs.
   bit, and JAX's ``model.apply`` on the same (folded, quantized) tree
   within 1e-5 of the outputs' scale (int8: or three times the change
   that moving the images by 1e-6 makes to JAX's own forward, the rule
-  of tests/test_torch_int8_serve.py; JAX eager there, as ``calibrate``
-  runs it); the ops' fake implementations give the real outputs' shapes
-  and dtypes;
+  of tests/test_torch_int8_serve.py; JAX's apply jitted, a compile
+  costing a fifth of the eager dispatch); the ops' fake implementations
+  give the real outputs' shapes and dtypes;
 - ``bench_data`` on synthetic data; ``profile_summary`` on a CPU trace
   written by ``-profile`` and, by category, on a synthetic trace with
-  device events; ``bench_sgd``'s forms and the timing helpers.
+  device events; ``bench_sgd``'s forms, its floor by the card's full
+  name, and the timing helpers.
 """
 
 import contextlib
@@ -168,6 +169,7 @@ def _graph_macs(program) -> int:
 
 @pytest.mark.parametrize("mode", ["f32", "int8"])
 def test_exported_program_serves_server_predict_and_jax(exported, mode):
+    import jax
     import jax.numpy as jnp
 
     from mgtpu.models import get_net
@@ -187,12 +189,13 @@ def test_exported_program_serves_server_predict_and_jax(exported, mode):
     p, s = export_jax_tree(server.model)
     jm = get_net("cifar/nmg").create_model(types.SimpleNamespace(nLayer=1, nEpochs=200,
                                                                  shortcutType="A"))
-    ref = np.asarray(jm.apply(p, s, jnp.asarray(x), train=False)[0])
+    apply = jax.jit(lambda p, s, x: jm.apply(p, s, x, train=False)[0])
+    ref = np.asarray(apply(p, s, jnp.asarray(x)))
     own = 0.0
     if mode == "int8":
         moved = x * (1 + 1e-6 * np.random.default_rng(6).standard_normal(x.shape)).astype(
             np.float32)
-        own = np.abs(np.asarray(jm.apply(p, s, jnp.asarray(moved), train=False)[0]) - ref).max()
+        own = np.abs(np.asarray(apply(p, s, jnp.asarray(moved))) - ref).max()
     err, scale = np.abs(y - ref).max(), np.abs(ref).max()
     assert y.shape == ref.shape == (2, 100) and err <= max(1e-5 * scale, 3 * own), (err, scale)
     if mode == "f32":  # the exported graph's convs are model_info's as-run count
@@ -324,6 +327,19 @@ def test_bench_sgd_forms_agree():
     assert errors == {"foreach": 0.0, "flat": 0.0}
     for _, update in bench_sgd.forms(params).values():
         assert bench_sgd.time_update(update, torch.device("cpu"), iters=2, warmup=1) > 0
+
+
+@pytest.mark.parametrize("device, rate", [("NVIDIA H100 80GB HBM3", 3.35),
+                                          ("NVIDIA H100 PCIe", 2.0), ("NVIDIA H100 NVL", 3.9),
+                                          ("NVIDIA H100", None), ("cpu", None)])
+def test_bench_sgd_floor_names_the_part(device, rate):
+    """The floor is read by the card's full name: each H100 part has its
+    own memory rate, and a name not listed has no floor."""
+    text = bench_sgd.floor_text(20 * 10**9, device)
+    if rate is None:
+        assert text.startswith("not known for this device") and device in text
+    else:
+        assert text == f"{20 / rate:.3f} ms at {rate:.2f} TB/s"
 
 
 def test_timing_helpers_name_the_device():
