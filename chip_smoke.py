@@ -240,6 +240,23 @@ bench_serving, bench_step_breakdown). Phases:
              Server.predict's; the artifact's size; one bench_serving row
              per dtype at batch 128 (bf16, int8-static); and
              bench_step_breakdown at batch 128
+ 31 axis     the mesh's second axis (mgtpu_torch.parallel.axis): R-MG-34
+             at 224 px, two ranks on the one card over gloo (not scaling),
+             under -spatial 2 (H-slabs at 224, 112, 56 and 28 rows, whole
+             from 14 down) and then under -tensor 2 (channel slices): one
+             f32 step at global batch 8 vs the one-rank f32 step on the
+             card (loss within 1e-5 relative, update and stats within the
+             f32 step gates); AXIS_STEPS bf16 steps at global batch 128
+             (phase 10's rate): the loss falls, every leaf the mesh keeps whole the same bits
+             on both ranks after each, each rank's launches the one-rank
+             pins (PER_STEP) through the designs predicted from the
+             recorded shapes (-tensor: the output channels sliced where
+             tp_spec says), the convs' halo-mode launches (kernels.PADDED)
+             those at the scales split under -spatial; each rank's step
+             time, one more step with the axis's collectives (halo and row
+             gathers, channel gathers and the inputs' gradient sums)
+             counted, their bytes and time; the peak memory of a rank
+             against the one-rank bf16 step's
 
 Any failed check exits non-zero. The second-to-last line of stdout is
 one JSON object with the kernels: ``launches`` sums each kernel's
@@ -251,7 +268,8 @@ steps, phase 29's two ranks' bf16 steps and phase 30's: the servers'
 builds and calibration, the exported programs' forwards in their own
 process (warm-up, counted and timed), that process's servers' builds and
 timed Server.predict calls, the forwards that the programs are held to,
-bench_serving's and bench_step_breakdown's), ``max_abs_err``
+bench_serving's and bench_step_breakdown's; phase 31's ranks' bf16
+steps under both axes), ``max_abs_err``
 is its largest error against its plain version (phases 3, 4, 7, 8, 12,
 17), and ``ms`` / ``plain_ms`` /
 ``library_ms`` are the summed times of its launches (through the design
@@ -261,7 +279,11 @@ forward (conv3x3, maxpool2) or training step (conv3x3_bn_relu_in,
 maxpool2_bwd). ``bound_ms`` is the least time the card could take for
 the same launches (:func:`path_bounds`), ``bound_by`` which bound sets
 most of it. ``maxpool2_bwd`` names its ``design`` (group) and gives the
-simple design's time for the same pools (``simple_ms``). Under the key "cifar/prnmg" each kernel has the same
+simple design's time for the same pools (``simple_ms``). The two convs
+give, under ``halo_mode``, rank 0's halo-mode launches of one R-MG-34
+step under -spatial 2 at batch 128 (phase 31): their count, time, plain
+version's time, the whole-image launches' time at their shapes, largest
+error and bound. Under the key "cifar/prnmg" each kernel has the same
 numbers for cifar/prnmg: its launches in phases 13 and 14 (cifar/prnmg's
 own), its times and bounds per batch-128 forward or 64 x 2 step (phase
 15); under each net of phases 16-20 that launches it, the same numbers
@@ -1725,10 +1747,10 @@ SEG_PER_FORWARD = {
     "ilsvrc/prnmgseg": launch_counts(148, 0, 60, 0)}
 # (the pool backward one launch a layer's group: unmg's 13 differentiated
 # pools in 8 launches, pnmg.mnist's 15 in 7, prnmg.mnist's 33 in 15,
-# prnmgseg's 58 in 24. prnmgseg's is one more pool than one launch a pool
-# differentiated (57): in its last layer one pool of a group reaches the
-# loss, so autograd walks the whole group's inputs, and a conv Function on
-# the way turns the unread scale's missing cotangent into zeros)
+# prnmgseg's 57 in 24. In prnmgseg's last layer one pool of a group
+# reaches the loss; the conv Functions leave an unread scale's cotangent
+# None (set_materialize_grads(False)), so the group's other members are
+# not differentiated)
 SEG_PER_MICRO = {
     "mnist-cluttered/unet": launch_counts(7, 0, 3, 3),
     "mnist-cluttered/unmg": launch_counts(25, 0, 16, 8),
@@ -3572,6 +3594,290 @@ def fmt(metrics) -> str:
 
 
 
+# 31: the mesh's second axis (-spatial, -tensor)
+AXIS_MODES = {"spatial": "model", "tensor": "tensor"}
+AXIS_BATCH, AXIS_F32_BATCH, AXIS_STEPS = 128, 8, 3
+
+
+def axis_pins(train_shapes, mode) -> tuple[dict, dict]:
+    """A rank's predicted (designs, halo-mode launches) per R-MG-34
+    training step under ``mode`` with two model ranks, from one rank's
+    recorded conv shapes (H, W, Ci, Co): under -spatial the same designs
+    (a slab keeps its channels), each launch at a height spatial_split
+    splits in halo mode; under -tensor no halo mode, and each conv's Co
+    halved where tp_spec slices it."""
+    from mgtpu_torch.parallel import spatial_split, tp_spec
+
+    shapes = {k: Counter(v) for k, v in train_shapes.items()}
+    padded = dict.fromkeys(kernels.PADDED, 0)
+    if mode == "tensor":
+        for k in ("conv3x3", "conv3x3_bn_relu_in"):
+            shapes[k] = Counter({(h, w, ci, co // 2 if tp_spec((co,), 2) else co): n
+                                 for (h, w, ci, co), n in shapes[k].items()})
+    routes = predicted_routes(shapes)
+    if mode == "spatial":
+        for k in ("conv3x3", "conv3x3_bn_relu_in"):
+            for (h, w, ci, co), n in shapes[k].items():
+                if spatial_split(h, 2):
+                    x = torch.empty((1, h, w, ci), dtype=torch.bfloat16)
+                    wt = torch.empty((3, 3, ci, co), dtype=torch.bfloat16)
+                    padded[(k, cuda_conv._route(x, wt))] += n
+    return routes, padded
+
+
+def halo_work(kernel, shape, batch, itemsize=2):
+    """(operations, bytes) of rank 0's halo-mode launch under -spatial 2
+    at a recorded whole-image shape (H, W, Ci, Co): H/2 output rows from
+    H/2 + 1 input rows (the halo row below; the zero pad above), each
+    input read once, each output written once, multiply-adds on the taps
+    inside x (3 * H/2 - 1 along H, 3W - 2 along W)."""
+    h, w, ci, co = shape
+    hl = h // 2
+    nbytes = itemsize * (batch * (hl + 1) * w * ci + 9 * ci * co + batch * hl * w * co) + 4 * co
+    if kernel == "conv3x3_bn_relu_in":
+        nbytes += 8 * ci
+    return 2 * batch * (3 * hl - 1) * (3 * w - 2) * ci * co, nbytes
+
+
+def time_halo(train_shapes) -> dict:
+    """Rank 0's halo-mode launches of one R-MG-34 training step under
+    -spatial 2 at AXIS_BATCH (the recorded shapes at the heights
+    spatial_split splits, H/2 + 1 input rows, pads (1, 0)): each held
+    against its plain version on the same slab, then timed in turns with
+    the plain version and the whole-image launch at the same shape
+    (device_ms). Returns {kernel: launches, ms, plain_ms, whole_ms,
+    max_abs_err, bound_ms, bound_by}, the times summed over the step."""
+    from mgtpu_torch.parallel import spatial_split
+
+    out = {}
+    for k, fn, plain in (("conv3x3", conv3x3, conv3x3_plain),
+                         ("conv3x3_bn_relu_in", conv3x3_bn_relu_in, conv3x3_bn_relu_in_plain)):
+        tot = dict(launches=0, ms=0.0, plain_ms=0.0, whole_ms=0.0, max_abs_err=0.0, flops=0,
+                   nbytes=0)
+        for i, ((h, w, ci, co), n) in enumerate(sorted(train_shapes[k].items())):
+            if not spatial_split(h, 2):
+                continue
+            x, wt, b = conv_inputs(AXIS_BATCH, h, w, ci, co, torch.bfloat16, seed=310 + i)
+            vec = bn_inputs(ci, seed=320 + i) if k == "conv3x3_bn_relu_in" else ()
+            xs = x[:, :h // 2 + 1].contiguous()
+            y = fn(xs, wt, b, *vec, with_stats=False, pad_top=1, pad_bottom=0)[0]
+            y_ref = plain(xs.float(), wt.float(), b, *vec, with_stats=False, pad_top=1,
+                          pad_bottom=0)[0]
+            torch.cuda.synchronize()
+            err = float((y.float() - y_ref).abs().max())
+            check(err <= 2.0 ** -7 * float(y_ref.abs().max()) + 1e-3,
+                  f"{k} halo mode at {(AXIS_BATCH, h // 2 + 1, w, ci, co)}: max abs err {err:.3g}")
+            (t, _), (tp, _), (tw, _) = device_ms([
+                lambda: fn(xs, wt, b, *vec, with_stats=False, pad_top=1, pad_bottom=0),
+                lambda: plain(xs, wt, b, *vec, with_stats=False, pad_top=1, pad_bottom=0),
+                lambda: fn(x, wt, b, *vec, with_stats=False)], windows=3)
+            flops, nbytes = halo_work(k, (h, w, ci, co), AXIS_BATCH)
+            tot["launches"] += n
+            tot["ms"] += n * t
+            tot["plain_ms"] += n * tp
+            tot["whole_ms"] += n * tw
+            tot["max_abs_err"] = max(tot["max_abs_err"], err)
+            tot["flops"] += n * flops
+            tot["nbytes"] += n * nbytes
+            del x, xs, y, y_ref
+        tot["bound_ms"], tot["bound_by"] = bound(tot["flops"], tot["nbytes"])
+        out[k] = tot
+    return out
+
+
+def whole_export(mesh, model):
+    """(params, stats) of ``model`` as whole JAX trees (gathered under
+    -tensor; a collective)."""
+    from mgtpu_torch.parallel import whole_tensors
+
+    with whole_tensors(mesh, model):
+        return export_jax_tree(model)
+
+
+@contextlib.contextmanager
+def axis_collectives(log: list):
+    """Within it, each all-gather and all-reduce of the mesh's second axis
+    (mgtpu_torch.parallel.axis) is synchronized and timed: ``log`` gets
+    (kind, bytes, ms) for each."""
+    from mgtpu_torch.parallel import axis as pax
+
+    gather, reduce = pax._all_gather, pax._all_reduce
+
+    def timed(kind, fn, t, nbytes):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        log.append((kind, nbytes, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    pax._all_gather = lambda t, group, n: timed(
+        "all_gather", lambda: gather(t, group, n), t, n * t.nbytes)
+    pax._all_reduce = lambda t, group: timed("all_reduce", lambda: reduce(t, group), t, t.nbytes)
+    try:
+        yield
+    finally:
+        pax._all_gather, pax._all_reduce = gather, reduce
+
+
+def axis_rank(rank, mode, init, out_dir) -> None:
+    """One of phase 31's two ranks under ``mode``, a spawned process on
+    cuda:0 joined over gloo: one f32 step of R-MG-34 on the global batch
+    of AXIS_F32_BATCH (rank 0 writes the whole state), then AXIS_STEPS
+    bf16 steps at AXIS_BATCH with the counts set to 0 just before each and
+    read just after, the leaves kept whole held the same bits on both
+    ranks after each, the peak memory, and one more step with the axis's
+    collectives timed. Writes out_dir/<mode><rank>.json."""
+    import torch.distributed as dist
+
+    from mgtpu_torch.parallel import make_mesh, same_bits
+    from mgtpu_torch.parallel.axis import sliced
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(1, rank=rank, device="cuda:0", init_method=init, backend="gloo",
+                     n_model=2, model_axis=AXIS_MODES[mode])
+    try:
+        x, y = synthetic_batch(AXIS_F32_BATCH, seed=11)
+        tr = Trainer(RMG34, seed=0, device="cuda:0", compute_dtype=torch.float32, mesh=mesh)
+        before, _ = whole_export(mesh, tr.model)
+        loss = float(tr.step(x, y, 0.1, 1e-4)["loss"])
+        p, st = whole_export(mesh, tr.model)
+        if rank == 0:
+            np.savez(Path(out_dir) / f"{mode}.npz", loss=loss, **{
+                f"{k}/{i}": a for k, tree in zip("bps", (before, p, st))
+                for i, a in enumerate(flat(tree))})
+        del tr
+        torch.cuda.empty_cache()
+        x, y = synthetic_batch(AXIS_BATCH, seed=12)
+        tr = Trainer(RMG34, seed=0, device="cuda:0", compute_dtype=torch.bfloat16, mesh=mesh)
+        lr, wd = TRAIN_RULE["lr"], TRAIN_RULE["wd"]
+        kept = ([q for q in tr.model.parameters() if not sliced(q)]
+                + [m for q, m in zip(tr.model.parameters(), tr.opt_state["m"]) if not sliced(q)]
+                + [b for b in tr.model.buffers() if not sliced(b)])
+        losses, bits, step_ms = [], [], []
+        launches, routes, padded = Counter(), Counter(), Counter()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(AXIS_STEPS):
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(tr.step(x, y, lr, wd)["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            launches.update(kernels.LAUNCHES)
+            routes.update({f"{k}/{r}": n for (k, r), n in kernels.ROUTES.items()})
+            padded.update({f"{k}/{r}": n for (k, r), n in kernels.PADDED.items()})
+            bits.append(same_bits(mesh, kept))
+        peak = torch.cuda.max_memory_allocated()
+        log = []
+        with axis_collectives(log):
+            tr.step(x, y, lr, wd)
+        (Path(out_dir) / f"{mode}{rank}.json").write_text(json.dumps({
+            "losses": losses, "bits": bits, "step_ms": step_ms, "launches": dict(launches),
+            "routes": dict(routes), "padded": dict(padded), "peak": peak,
+            "collectives": log, "held_bytes": sum(q.nbytes for q in tr.model.parameters())}))
+    finally:
+        dist.destroy_process_group()
+
+
+def check_axis(name, power, train_shapes) -> dict:
+    """31: R-MG-34 under -spatial 2 and -tensor 2 (see the module's
+    head). Returns the ranks' bf16 launches, summed."""
+    import torch.multiprocessing as mp
+
+    from mgtpu_torch.main import free_port
+
+    t_phase = time.perf_counter()
+    x, y = synthetic_batch(AXIS_F32_BATCH, seed=11)
+    one = dp_step(Trainer(RMG34, seed=0, device="cuda", compute_dtype=torch.float32), x, y,
+                  0.1, 1e-4)
+    torch.cuda.empty_cache()
+    xb, yb = synthetic_batch(AXIS_BATCH, seed=12)
+    tr = Trainer(RMG34, seed=0, device="cuda", compute_dtype=torch.bfloat16)
+    rule = TRAIN_RULE
+    tr.step(xb, yb, rule["lr"], rule["wd"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    float(tr.step(xb, yb, rule["lr"], rule["wd"])["loss"])
+    one_ms = (time.perf_counter() - t0) * 1e3
+    one_peak = torch.cuda.max_memory_allocated()
+    one_bytes = sum(q.nbytes for q in tr.model.parameters())
+    del tr
+    torch.cuda.empty_cache()
+    total = Counter()
+    for mode, axis_name in AXIS_MODES.items():
+        t_mode = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            mp.start_processes(axis_rank, args=(mode, f"tcp://127.0.0.1:{free_port()}", tmp),
+                               nprocs=2, start_method="spawn")
+            got = np.load(Path(tmp) / f"{mode}.npz")
+            ranks = [json.loads((Path(tmp) / f"{mode}{r}.json").read_text()) for r in (0, 1)]
+        res = {"cuda": (float(got["loss"]), *({f"{i:06d}": got[f"{k}/{i}"]
+                                                for i in range(len(flat(tree)))}
+                                               for k, tree in zip("bps", one[1:]))),
+               "cpu": one}
+        loss_err, upd, st = step_error(res)
+        check(loss_err <= 1e-5 and upd <= F32_STEP_PARAM_BOUND and st <= F32_STEP_STATS_BOUND,
+              f"R-MG-{DEPTH} f32 step under -{mode} 2 vs one rank on the card: loss err "
+              f"{loss_err:.3g} (bound 1e-5), update err {upd:.3g} (bound "
+              f"{F32_STEP_PARAM_BOUND}), stats err {st:.3g} (bound {F32_STEP_STATS_BOUND})")
+        phase("axis", f"R-MG-{DEPTH} f32 at global batch {AXIS_F32_BATCH}, -{mode} 2 ('"
+              f"{axis_name}' axis; two ranks on one card, gloo) vs one rank on the card: loss "
+              f"{res['cuda'][0]:.6f} vs {one[0]:.6f} (err {loss_err:.3g}, bound 1e-5); update "
+              f"err {upd:.3g} of its L2 norm (bound {F32_STEP_PARAM_BOUND}); running stats err "
+              f"{st:.3g} of their scale (bound {F32_STEP_STATS_BOUND})")
+        routes, padded = axis_pins(train_shapes, mode)
+        want = {k: AXIS_STEPS * n for k, n in PER_STEP.items() if n}
+        want_routes = {f"{k}/{r}": AXIS_STEPS * n for (k, r), n in routes.items() if n}
+        want_padded = {f"{k}/{r}": AXIS_STEPS * n for (k, r), n in padded.items() if n}
+        for r, rk in enumerate(ranks):
+            check(all(np.isfinite(rk["losses"])) and rk["losses"][-1] < rk["losses"][0]
+                  and rk["losses"] == ranks[0]["losses"]
+                  and all(rk["bits"]), f"-{mode} rank {r}: losses {rk['losses']} (rank 0 "
+                  f"{ranks[0]['losses']}), the leaves kept whole the same bits: {rk['bits']}")
+            got_launches = {k: n for k, n in rk["launches"].items() if n}
+            check(got_launches == want, f"-{mode} rank {r}: launches {got_launches} in "
+                  f"{AXIS_STEPS} steps, expected {want}")
+            got_routes = {k: n for k, n in rk["routes"].items() if n}
+            got_padded = {k: n for k, n in rk["padded"].items() if n}
+            check(got_routes == want_routes and got_padded == want_padded,
+                  f"-{mode} rank {r}: designs {got_routes}, expected {want_routes}; halo-mode "
+                  f"launches {got_padded}, expected {want_padded}")
+            total.update(rk["launches"])
+        med = [statistics.median(rk["step_ms"][1:]) for rk in ranks]
+        coll = {}
+        for kind, nbytes, ms in ranks[0]["collectives"]:
+            c = coll.setdefault(kind, [0, 0, 0.0])
+            c[0], c[1], c[2] = c[0] + 1, c[1] + nbytes, c[2] + ms
+        phase("axis", f"R-MG-{DEPTH} bf16, global batch {AXIS_BATCH}, -{mode} 2, "
+              f"{AXIS_STEPS} steps at lr {TRAIN_RULE['lr']:g}: losses "
+              + ", ".join(f"{v:.4f}" for v in ranks[0]["losses"])
+              + f"; the leaves kept whole the same bits on both ranks after every step; "
+              f"launches per rank {want}, designs {want_routes}, halo mode {want_padded or 0}")
+        phase("axis", f"times on {power} (gloo, two ranks sharing one card: not scaling): a "
+              f"rank's step {med[0]:.1f} / {med[1]:.1f} ms (median of steps 2-{AXIS_STEPS}, host "
+              f"clock to the loss read), one rank's step {one_ms:.1f} ms; the axis's "
+              f"collectives in one step of rank 0 (each synchronized): "
+              + "; ".join(f"{n} {kind}s, {b / 1e6:.1f} MB, {ms:.1f} ms"
+                          for kind, (n, b, ms) in coll.items())
+              + f"; peak memory a rank {ranks[0]['peak'] / 2**30:.2f} / "
+              f"{ranks[1]['peak'] / 2**30:.2f} GiB, one rank {one_peak / 2**30:.2f} GiB; "
+              f"parameters held a rank {ranks[0]['held_bytes'] / 1e6:.1f} MB, one rank "
+              f"{one_bytes / 1e6:.1f} MB; -{mode} took {time.perf_counter() - t_mode:.1f} s")
+    halo = time_halo(train_shapes)
+    for k, t in halo.items():
+        phase("axis", f"{k} in halo mode, rank 0's {t['launches']} launches of one R-MG-{DEPTH} "
+              f"step under -spatial 2 at batch {AXIS_BATCH} (H/2 + 1 rows, pads (1, 0)), on "
+              f"{power}: {t['flops'] / 1e9:.1f} GFLOP, {t['nbytes'] / 1e6:.1f} MB, bound "
+              f"{t['bound_ms']:.4f} ms (by {t['bound_by']}); kernel {t['ms']:.3f} ms "
+              f"({t['bound_ms'] / t['ms']:.0%} of the bound), plain {t['plain_ms']:.3f} ms, the "
+              f"whole-image launches at the same shapes {t['whole_ms']:.3f} ms; max abs err vs "
+              f"plain {t['max_abs_err']:.3g}")
+    phase("axis", f"phase 31 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(total), halo
+
+
 def main() -> None:
     # 1 device
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: this smoke run "
@@ -3800,6 +4106,9 @@ def main() -> None:
     # 30 the tools
     tool_launches = check_tools(name, smi.stdout.strip().splitlines()[0])
     launches = {k: launches[k] + tool_launches.get(k, 0) for k in KERNELS}
+    # 31 the mesh's second axis
+    axis_launches, halo = check_axis(name, smi.stdout.strip().splitlines()[0], train_shapes)
+    launches = {k: launches[k] + axis_launches.get(k, 0) for k in KERNELS}
     i8_launches = {k: i8_launches[k] + tool_launches.get(k, 0) for k in i8_launches}
 
     # each kernel's bound over the pass its times sum: the serving forward
@@ -3838,6 +4147,9 @@ def main() -> None:
          "ms": ms[k], "plain_ms": plain_ms[k], "bound_ms": bounds[k][2],
          "bound_by": bounds[k][3], "library_ms": library_ms[k],
          **({"simple_ms": simple_ms[k]} if k in simple_ms else {}),
+         **({"halo_mode": {key: halo[k][key] for key in (
+             "launches", "ms", "plain_ms", "whole_ms", "max_abs_err", "bound_ms", "bound_by")}}
+            if k in halo else {}),
          **{net: {"launches": n_launches[k], "ms": kms[k], "plain_ms": kplain[k],
                   "bound_ms": bds[k][2], "bound_by": bds[k][3], "library_ms": klib[k],
                   **({"simple_ms": ksimple[k]} if k in ksimple else {})}

@@ -3,6 +3,14 @@
 // an optional per-channel (sum, sum of squares) epilogue; optionally
 // with a BatchNorm-apply + ReLU prologue on its input.
 //
+// Per-side H padding: pad_top and pad_bottom, each 0 or 1, say whether
+// the image's zero row lies above and below x; where one is 0, x holds
+// the neighbour's row there instead (a halo row of an H-slab, under
+// -spatial). x has H + (1 - pad_top) + (1 - pad_bottom) rows, y has H,
+// and output row h reads input rows h - pad_top .. h - pad_top + 2. The
+// prologue normalizes halo rows, as they are activations; only padding
+// stays 0. (1, 1) is the plain pad-1 conv, with the same arithmetic.
+//
 // Replaces: mgtpu/ops/pallas_conv.py::conv3x3 (kernel bodies
 // _conv_rows_kernel and _conv_slab_kernel) as mg_conv3x3 and
 // mg_conv3x3_sm90, and pallas_conv.py::conv3x3_bn_relu_in (body
@@ -119,7 +127,7 @@ conv3x3_wmma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
                     const float* __restrict__ bias, const float* __restrict__ scale,
                     const float* __restrict__ shift, __nv_bfloat16* __restrict__ y,
                     float* __restrict__ stats, int H, int W, int Ci, int Co, long long M,
-                    long long w_tap_stride, int relu, int with_stats) {
+                    long long w_tap_stride, int relu, int with_stats, int off, int Hin) {
   using namespace nvcuda;
   __shared__ __align__(32) __nv_bfloat16 As[BM][A_LD];
   __shared__ __align__(32) __nv_bfloat16 Bs[WK][B_LD];
@@ -161,9 +169,10 @@ conv3x3_wmma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
       for (int r = 0; r < 2; ++r) {
         const int v = tid + WTHREADS * r;
         const int row = v / 4, k = (v % 4) * 8;
-        const int hh = ap[r].h + dh, ww = ap[r].w + dw;
-        const bool in = ap[r].ok && hh >= 0 && hh < H && ww >= 0 && ww < W;
-        const __nv_bfloat16* src = x + (((long long)ap[r].img * H + hh) * W + ww) * Ci + ci0 + k;
+        // input row of the tap: off = 1 - pad_top rows sit above output row 0
+        const int hh = ap[r].h + dh + off, ww = ap[r].w + dw;
+        const bool in = ap[r].ok && hh >= 0 && hh < Hin && ww >= 0 && ww < W;
+        const __nv_bfloat16* src = x + (((long long)ap[r].img * Hin + hh) * W + ww) * Ci + ci0 + k;
         if (VEC) {
           uint4 val = make_uint4(0, 0, 0, 0);
           if (in && ci0 + k < Ci) {
@@ -267,7 +276,7 @@ conv3x3_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ bias, const float* __restrict__ scale,
                    const float* __restrict__ shift, float* __restrict__ y,
                    float* __restrict__ stats, int H, int W, int Ci, int Co, long long M,
-                   long long w_tap_stride, int relu, int with_stats) {
+                   long long w_tap_stride, int relu, int with_stats, int off, int Hin) {
   __shared__ float As[FK][BM + 1];  // +1: the transposed store hits distinct banks
   __shared__ float Bs[FK][BN];
   __shared__ float red[2][BN];
@@ -303,10 +312,10 @@ conv3x3_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int ci = ci0 + tx;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int hh = ap[i].h + dh, ww = ap[i].w + dw;
+        const int hh = ap[i].h + dh + off, ww = ap[i].w + dw;
         float v = 0.f;
-        if (ap[i].ok && ci < Ci && hh >= 0 && hh < H && ww >= 0 && ww < W) {
-          v = x[(((long long)ap[i].img * H + hh) * W + ww) * Ci + ci];
+        if (ap[i].ok && ci < Ci && hh >= 0 && hh < Hin && ww >= 0 && ww < W) {
+          v = x[(((long long)ap[i].img * Hin + hh) * W + ww) * Ci + ci];
           if (PRO) v = bn_relu(v, scale, shift, ci);
         }
         As[tx][ty + 16 * i] = v;
@@ -367,11 +376,20 @@ conv3x3_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
 bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
 
+// the input rows of an output of h rows under (pad_top, pad_bottom), or
+// -1 where a pad is not 0 or 1
+int input_rows(int h, int pad_top, int pad_bottom) {
+  if (pad_top < 0 || pad_top > 1 || pad_bottom < 0 || pad_bottom > 1) return -1;
+  return h + (1 - pad_top) + (1 - pad_bottom);
+}
+
 template <bool PRO>
 int launch(const void* x, const void* w, const void* b, const void* scale, const void* shift,
            void* y, void* stats, int n, int h, int wd, int ci, int co, long long w_tap_stride,
-           int relu, int with_stats, int is_bf16, cudaStream_t s) {
+           int relu, int with_stats, int is_bf16, int pad_top, int pad_bottom, cudaStream_t s) {
   const long long m = (long long)n * h * wd;
+  const int hin = input_rows(h, pad_top, pad_bottom), off = 1 - pad_top;
+  if (hin < 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((m + BM - 1) / BM), (unsigned)((co + BN - 1) / BN));
   const float* bias = static_cast<const float*>(b);
   const float* sc = static_cast<const float*>(scale);
@@ -386,14 +404,16 @@ int launch(const void* x, const void* w, const void* b, const void* scale, const
                      aligned16(w);
     if (vec)
       conv3x3_wmma_kernel<true, PRO><<<grid, WTHREADS, 0, s>>>(
-          xb, wb, bias, sc, sh, yb, st, h, wd, ci, co, m, w_tap_stride, relu, with_stats);
+          xb, wb, bias, sc, sh, yb, st, h, wd, ci, co, m, w_tap_stride, relu, with_stats, off,
+          hin);
     else
       conv3x3_wmma_kernel<false, PRO><<<grid, WTHREADS, 0, s>>>(
-          xb, wb, bias, sc, sh, yb, st, h, wd, ci, co, m, w_tap_stride, relu, with_stats);
+          xb, wb, bias, sc, sh, yb, st, h, wd, ci, co, m, w_tap_stride, relu, with_stats, off,
+          hin);
   } else {
     conv3x3_fma_kernel<PRO><<<grid, FTHREADS, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), bias, sc, sh,
-        static_cast<float*>(y), st, h, wd, ci, co, m, w_tap_stride, relu, with_stats);
+        static_cast<float*>(y), st, h, wd, ci, co, m, w_tap_stride, relu, with_stats, off, hin);
   }
   return (int)cudaGetLastError();
 }
@@ -415,10 +435,11 @@ int launch(const void* x, const void* w, const void* b, const void* scale, const
 //   A: x through an im2col tensor map (C, W, H, N). One load brings the
 //      128 pixels m0..m0+127 of a tile (in N*H*W order) at one tap
 //      (offsets kw, kh) and 64 channels: 128 rows of 128 bytes, 128-byte
-//      swizzled. The map's bounding box (corners -1, -1) walks a pixel
-//      along W, then H, then N, and TMA fills every element outside the
-//      image with zero: that fill is the conv's padding, and rows past
-//      the last image are zero too. No padded copy of x, no bounds check
+//      swizzled. The map's bounding box (corners -1, -1 in W; -pad_top
+//      and -1 - (1 - pad_bottom) in H) walks a pixel along W, then H,
+//      then N, and TMA fills every element outside x with zero: that
+//      fill is the conv's padding (a halo row of an H-slab is inside x,
+//      and loaded), and rows past the last image are zero too. No padded copy of x, no bounds check
 //      in the loop. im2col, and not a spatial box of a 4-D tiled map,
 //      because it tiles M linearly: on the 7x7 and 14x14 grids a spatial
 //      box of 128 rows holds 98 useful pixels.
@@ -561,7 +582,7 @@ conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
                     const __grid_constant__ CUtensorMap ymap, const float* __restrict__ bias,
                     const float* __restrict__ scale, const float* __restrict__ shift,
                     float* __restrict__ stats, int H, int W, int Ci, int Co, int M, int relu,
-                    int with_stats) {
+                    int with_stats, int pad_top, int Hin) {
   using C = Cfg<BN>;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
@@ -606,9 +627,10 @@ conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
             bar_wait(saddr(empty + s), (it / C::STAGES & 1) ^ 1);
             const uint32_t fb = saddr(full + s), a = saddr(ring + s * C::STAGE_BYTES);
             bar_expect_tx(fb, C::STAGE_BYTES);
-            // the base pixel is one row up and one column left of the
-            // output pixel; the offsets pick the tap
-            load_im2col(a, &xmap, fb, c * BK, w - 1, h - 1, img, (uint16_t)(tap % 3),
+            // the base pixel is pad_top rows up (input row h - pad_top: one
+            // row up, or the halo row) and one column left of the output
+            // pixel; the offsets pick the tap
+            load_im2col(a, &xmap, fb, c * BK, w - 1, h - pad_top, img, (uint16_t)(tap % 3),
                         (uint16_t)(tap / 3));
 #pragma unroll
             for (int j = 0; j < BN / 64; ++j)
@@ -644,8 +666,9 @@ conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
           const int ph = m % (H * W) / W, pw = m % W;
 #pragma unroll
           for (int tap = 0; tap < 9; ++tap) {
-            const int hh = ph + tap / 3 - 1, ww = pw + tap % 3 - 1;
-            if (m < M && hh >= 0 && hh < H && ww >= 0 && ww < W) in_image[i] |= 1u << tap;
+            // the input row of the tap; halo rows are in x, and normalized
+            const int hh = ph + tap / 3 - pad_top, ww = pw + tap % 3 - 1;
+            if (m < M && hh >= 0 && hh < Hin && ww >= 0 && ww < W) in_image[i] |= 1u << tap;
           }
         }
       }
@@ -768,8 +791,8 @@ int pick_bn(long long m, int co, int sms) {
 template <int BN, bool PRO>
 int launch_bn(const CUtensorMap& xmap, const CUtensorMap& wmap, const CUtensorMap& ymap,
               const float* bias, const float* sc, const float* sh, float* st, int h, int wd,
-              int ci, int co, long long m, int relu, int with_stats, int dev, int sms,
-              cudaStream_t s) {
+              int ci, int co, long long m, int relu, int with_stats, int pad_top, int hin,
+              int dev, int sms, cudaStream_t s) {
   auto kernel = conv3x3_sm90_kernel<BN, PRO>;
   const size_t smem = Cfg<BN>::smem(ci, co);
   // allow this instantiation the card's largest dynamic shared memory,
@@ -786,17 +809,18 @@ int launch_bn(const CUtensorMap& xmap, const CUtensorMap& wmap, const CUtensorMa
   const long long tiles = (m + BM - 1) / BM * (co / BN);
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
   kernel<<<grid, THREADS, smem, s>>>(xmap, wmap, ymap, bias, sc, sh, st, h, wd, ci, co, (int)m,
-                                     relu, with_stats);
+                                     relu, with_stats, pad_top, hin);
   return (int)cudaGetLastError();
 }
 
 template <bool PRO>
 int launch(const void* x, const void* w, const void* b, const void* scale, const void* shift,
            void* y, void* stats, int n, int h, int wd, int ci, int co, long long w_tap_stride,
-           int relu, int with_stats, int is_bf16, cudaStream_t s) {
+           int relu, int with_stats, int is_bf16, int pad_top, int pad_bottom, cudaStream_t s) {
   const long long m = (long long)n * h * wd;
+  const int hin = input_rows(h, pad_top, pad_bottom);
   // the shapes the wrapper routes here; anything else is refused
-  if (!is_bf16 || ci % BK != 0 || co % 64 != 0 || ci > MAX_C || co > MAX_C ||
+  if (hin < 0 || !is_bf16 || ci % BK != 0 || co % 64 != 0 || ci > MAX_C || co > MAX_C ||
       w_tap_stride % 8 != 0 || !aligned16(x) || !aligned16(w) || !aligned16(y) || m <= 0 ||
       m >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
@@ -813,11 +837,14 @@ int launch(const void* x, const void* w, const void* b, const void* scale, const
 
   const cuuint32_t ones[4] = {1, 1, 1, 1};
   CUtensorMap xmap, wmap, ymap;
-  // x (C, W, H, N), im2col: 64 channels of 128 pixels per load; the
-  // bounding box of the base pixel runs from -1 to (size - 2) in W and H
-  const cuuint64_t xdim[4] = {(cuuint64_t)ci, (cuuint64_t)wd, (cuuint64_t)h, (cuuint64_t)n};
-  const cuuint64_t xstride[3] = {2ull * ci, 2ull * ci * wd, 2ull * ci * wd * h};
-  const int lower[2] = {-1, -1}, upper[2] = {-1, -1};
+  // x (C, W, Hin, N), im2col: 64 channels of 128 pixels per load; the
+  // bounding box of the base pixel (corners {W, H}) runs from -1 to
+  // W - 2 in W and from -pad_top to Hin - 3 + pad_bottom (= H - 1 -
+  // pad_top) in H: W and H positions, so M stays N*H*W output pixels,
+  // and TMA's zero fill outside x is the padding on the sides that have it
+  const cuuint64_t xdim[4] = {(cuuint64_t)ci, (cuuint64_t)wd, (cuuint64_t)hin, (cuuint64_t)n};
+  const cuuint64_t xstride[3] = {2ull * ci, 2ull * ci * wd, 2ull * ci * wd * hin};
+  const int lower[2] = {-1, -pad_top}, upper[2] = {-1, -1 - (1 - pad_bottom)};
   CUresult r = im2col(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), xdim,
                       xstride, lower, upper, BK, BM, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
                       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -846,20 +873,24 @@ int launch(const void* x, const void* w, const void* b, const void* scale, const
   float* st = static_cast<float*>(stats);
   if (pick_bn(m, co, sms) == 128)
     return launch_bn<128, PRO>(xmap, wmap, ymap, bias, sc, sh, st, h, wd, ci, co, m, relu,
-                               with_stats, dev, sms, s);
+                               with_stats, pad_top, hin, dev, sms, s);
   return launch_bn<64, PRO>(xmap, wmap, ymap, bias, sc, sh, st, h, wd, ci, co, m, relu,
-                            with_stats, dev, sms, s);
+                            with_stats, pad_top, hin, dev, sms, s);
 }
 
 }  // namespace sm90
 
 }  // namespace
 
+// pad_top, pad_bottom: 0 or 1 each (see the head of this file); (1, 1)
+// is the pad-1 conv
 extern "C" int mg_conv3x3(const void* x, const void* w, const void* b, void* y, void* stats,
                           int n, int h, int wd, int ci, int co, long long w_tap_stride,
-                          int relu, int with_stats, int is_bf16, void* stream) {
+                          int relu, int with_stats, int is_bf16, int pad_top, int pad_bottom,
+                          void* stream) {
   return launch<false>(x, w, b, nullptr, nullptr, y, stats, n, h, wd, ci, co, w_tap_stride, relu,
-                       with_stats, is_bf16, static_cast<cudaStream_t>(stream));
+                       with_stats, is_bf16, pad_top, pad_bottom,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // conv3x3(max(x*scale + shift, 0)) with the conv's zero padding kept;
@@ -868,18 +899,21 @@ extern "C" int mg_conv3x3_bn_relu_in(const void* x, const void* w, const void* b
                                      const void* scale, const void* shift, void* y, void* stats,
                                      int n, int h, int wd, int ci, int co,
                                      long long w_tap_stride, int relu, int with_stats,
-                                     int is_bf16, void* stream) {
+                                     int is_bf16, int pad_top, int pad_bottom, void* stream) {
   return launch<true>(x, w, b, scale, shift, y, stats, n, h, wd, ci, co, w_tap_stride, relu,
-                      with_stats, is_bf16, static_cast<cudaStream_t>(stream));
+                      with_stats, is_bf16, pad_top, pad_bottom,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // The sm90 design of mg_conv3x3 (same arguments; bf16 only): refuses,
 // with cudaErrorInvalidValue, any launch the wrapper would not route here
 extern "C" int mg_conv3x3_sm90(const void* x, const void* w, const void* b, void* y, void* stats,
                                int n, int h, int wd, int ci, int co, long long w_tap_stride,
-                               int relu, int with_stats, int is_bf16, void* stream) {
+                               int relu, int with_stats, int is_bf16, int pad_top,
+                               int pad_bottom, void* stream) {
   return sm90::launch<false>(x, w, b, nullptr, nullptr, y, stats, n, h, wd, ci, co, w_tap_stride,
-                             relu, with_stats, is_bf16, static_cast<cudaStream_t>(stream));
+                             relu, with_stats, is_bf16, pad_top, pad_bottom,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // The sm90 design of mg_conv3x3_bn_relu_in (same arguments; bf16 only)
@@ -887,7 +921,9 @@ extern "C" int mg_conv3x3_bn_relu_in_sm90(const void* x, const void* w, const vo
                                           const void* scale, const void* shift, void* y,
                                           void* stats, int n, int h, int wd, int ci, int co,
                                           long long w_tap_stride, int relu, int with_stats,
-                                          int is_bf16, void* stream) {
+                                          int is_bf16, int pad_top, int pad_bottom,
+                                          void* stream) {
   return sm90::launch<true>(x, w, b, scale, shift, y, stats, n, h, wd, ci, co, w_tap_stride, relu,
-                            with_stats, is_bf16, static_cast<cudaStream_t>(stream));
+                            with_stats, is_bf16, pad_top, pad_bottom,
+                            static_cast<cudaStream_t>(stream));
 }

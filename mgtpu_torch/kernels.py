@@ -52,22 +52,28 @@ ROUTES: dict[tuple[str, str], int] = {
     **{(k, r): 0 for k in ("maxpool2", "conv_i8") for r in ("sm90", "simple")},
     **{("maxpool2_bwd", r): 0 for r in ("group", "simple")}}
 
+# (kernel, design) -> the convs' launches in halo mode (per-side padding
+# other than (1, 1): an H-slab's, under -spatial) since the last
+# reset_launches(); each is also counted in LAUNCHES and ROUTES
+PADDED: dict[tuple[str, str], int] = {
+    (k, r): 0 for k in ("conv3x3", "conv3x3_bn_relu_in") for r in ("sm90", "tile")}
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry point -> argtypes; every function returns cudaGetLastError()
 _SIGNATURES = {
-    # x, w, b, y, stats, n, h, w, ci, co, w_tap_stride, relu, with_stats,
-    # is_bf16, stream
-    "mg_conv3x3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _I, _P),
-    # x, w, b, scale, shift, y, stats, n, h, w, ci, co, w_tap_stride, relu,
-    # with_stats, is_bf16, stream
+    # x, w, b, y, stats, n, h (of y), w, ci, co, w_tap_stride, relu,
+    # with_stats, is_bf16, pad_top, pad_bottom, stream
+    "mg_conv3x3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _P),
+    # x, w, b, scale, shift, y, stats, n, h (of y), w, ci, co, w_tap_stride,
+    # relu, with_stats, is_bf16, pad_top, pad_bottom, stream
     "mg_conv3x3_bn_relu_in": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _I,
-                              _P),
+                              _I, _I, _P),
     # the sm90 designs of the two: the same arguments
-    "mg_conv3x3_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _I, _P),
+    "mg_conv3x3_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _P),
     "mg_conv3x3_bn_relu_in_sm90": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I,
-                                   _I, _P),
+                                   _I, _I, _I, _P),
     # x, y, n, h, w, c, is_bf16, stream
     "mg_maxpool2": (_P, _P, _I, _I, _I, _I, _I, _P),
     # x, y, n, h, w, c, k (row pairs a chunk), grid, stage_limit, is_bf16, stream
@@ -94,6 +100,8 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
     for k in ROUTES:
         ROUTES[k] = 0
+    for k in PADDED:
+        PADDED[k] = 0
 
 
 def _nvcc() -> str:
@@ -170,10 +178,12 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def launch(kernel: str, entry: str, device: torch.device, *args, route: str | None = None) -> None:
+def launch(kernel: str, entry: str, device: torch.device, *args, route: str | None = None,
+           padded: bool = False) -> None:
     """Call C entry ``entry`` with ``device`` current, on its current
     stream; raise on a launch error, and count one launch of ``kernel``
-    (and of its design ``route``, for a kernel with two designs)."""
+    (and of its design ``route``, for a kernel with two designs, and in
+    ``PADDED`` where ``padded``: a conv's halo mode)."""
     fn = getattr(library(), entry)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
@@ -183,3 +193,5 @@ def launch(kernel: str, entry: str, device: torch.device, *args, route: str | No
     LAUNCHES[kernel] += 1
     if route is not None:
         ROUTES[(kernel, route)] += 1
+    if padded:
+        PADDED[(kernel, route)] += 1

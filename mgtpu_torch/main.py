@@ -15,9 +15,12 @@ shut the donkey pool down. Runs on ``-device`` (default cuda).
 ``-nGPU`` N > 1 (after the JAX clamp, `data_ranks`) runs N data-parallel
 ranks, one process each (`torch.multiprocessing`, spawned): rank r on
 ``cuda:r``, or on the CPU under ``-device cpu``; the kernels are built
-once before. Under ``-multihost`` each of the P launcher processes
-(`parallel.init_multihost`) spawns N / P ranks, global rank = process id
-x N / P + local rank, and N counts the ranks of all of them. Every rank
+once before. ``-spatial`` or ``-tensor`` M > 1 makes the mesh a grid of
+N data x M model ranks (`model_ranks`; the devices, on the CPU
+``-nGPU`` processes, must divide by M and N is at most their number / M),
+rank r = i x M + j still on ``cuda:r``. Under ``-multihost`` each of the
+P launcher processes (`parallel.init_multihost`) spawns N x M / P ranks,
+global rank = process id x N x M / P + local rank. Every rank
 takes rank 0's run dir; rank r > 0 writes its ``opts.json``, logs and
 standard output under ``proc<r>/`` there, and only rank 0 writes
 checkpoints and dumps. An error on any rank ends the run with a non-zero
@@ -36,22 +39,34 @@ import numpy as np
 import torch
 
 
+def model_ranks(opt) -> int:
+    """The ranks of the mesh's second axis: ``-spatial`` or ``-tensor``
+    (the options refuse both at once)."""
+    return max(opt.spatial, 1) * max(opt.tensor, 1)
+
+
 def data_ranks(opt, n_processes: int = 1) -> int:
     """The number of data-parallel ranks, as the JAX Session clamps
     ``-nGPU``: at most the devices there are (the visible cards of all
     ``n_processes`` launchers; on the CPU ``-nGPU`` itself, 0 meaning one
-    rank a process), ``-nGPU`` 0 meaning all of them, then the largest
-    divisor of ``-batchSize``. A clamp is printed."""
+    rank a process) over the second axis's ranks (`model_ranks`, which
+    must divide the devices), ``-nGPU`` 0 meaning all of them, then the
+    largest divisor of ``-batchSize``. A clamp is printed."""
+    n_model = model_ranks(opt)
     if opt.device.startswith("cuda"):
-        avail = torch.cuda.device_count() * n_processes
-        if avail == 0:
+        devices = torch.cuda.device_count() * n_processes
+        if devices == 0:
             raise SystemExit(f"-device {opt.device}: torch sees no CUDA device")
-        where = f"{avail} CUDA devices"
+        where = f"{devices} CUDA devices"
     else:
-        avail = opt.nGPU if opt.nGPU > 0 else n_processes
+        devices = opt.nGPU if opt.nGPU > 0 else n_processes
         where = f"-device {opt.device}"
+    if devices % n_model:  # the JAX Session's words
+        raise SystemExit(f"-spatial/-tensor {n_model} needs a device count divisible by it "
+                         f"(have {devices})")
+    avail = devices // n_model
     n = min(opt.nGPU if opt.nGPU > 0 else avail, avail)
-    if opt.nGPU > 0 and n != opt.nGPU:
+    if opt.nGPU > 0 and n != opt.nGPU and n_model == 1:
         print(f"==> nGPU clamped to {n} ({where})")
     requested = n
     # the reference's DataParallelTable scattered uneven chunks
@@ -101,7 +116,8 @@ def run(opt, mesh=None):
 
 
 def _rank(local: int, opt, n: int, first: int, init_method: str) -> None:
-    """One data-parallel rank: rank ``first + local`` of ``n``."""
+    """One rank: rank ``first + local`` of the ``n`` data x `model_ranks`
+    grid."""
     import torch.distributed as dist
 
     from mgtpu_torch.parallel import make_mesh
@@ -109,7 +125,8 @@ def _rank(local: int, opt, n: int, first: int, init_method: str) -> None:
     rank = first + local
     device = torch.device(f"cuda:{local}") if opt.device.startswith("cuda") else torch.device(
         opt.device)
-    mesh = make_mesh(n, rank=rank, device=device, init_method=init_method)
+    mesh = make_mesh(n, rank=rank, device=device, init_method=init_method,
+                     n_model=model_ranks(opt), model_axis="tensor" if opt.tensor > 1 else "model")
     try:
         # every rank computed its own time-stamped run dir: take rank 0's
         save = [opt.save]
@@ -146,14 +163,17 @@ def main(argv=None):
         coord, n_proc, pid = init_multihost()
         init_method = f"tcp://{coord}"
     n = data_ranks(opt, n_proc)
-    if n == 1 and n_proc == 1:
+    n_model = model_ranks(opt)
+    world = n * n_model
+    if world == 1 and n_proc == 1:
         return run(opt)
-    if n % n_proc:
-        raise SystemExit(f"{n} ranks do not divide over {n_proc} -multihost processes")
-    per = n // n_proc
-    print(f"==> {n} data-parallel ranks" + (f": process {pid}/{n_proc}, ranks "
-                                             f"{pid * per}..{pid * per + per - 1}"
-                                             if n_proc > 1 else ""), flush=True)
+    if world % n_proc:
+        raise SystemExit(f"{world} ranks do not divide over {n_proc} -multihost processes")
+    per = world // n_proc
+    grid = f" x {n_model} {'tensor' if opt.tensor > 1 else 'model'} ranks" if n_model > 1 else ""
+    print(f"==> {n} data-parallel ranks{grid}" + (f": process {pid}/{n_proc}, ranks "
+                                                  f"{pid * per}..{pid * per + per - 1}"
+                                                  if n_proc > 1 else ""), flush=True)
     if opt.device.startswith("cuda"):
         from mgtpu_torch import kernels
 

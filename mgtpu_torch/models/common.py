@@ -10,6 +10,7 @@ from torch import nn
 from mgtpu_torch.nn import ConvBN, Dense, Sequential
 from mgtpu_torch.ops.mg import MgConv, MgConvInput, MgPool, MgResidual, PerScale, TailOp
 from mgtpu_torch.ops.resample import avgpool, maxpool2_ceil
+from mgtpu_torch.parallel import axis
 
 
 class LogSoftmaxClassifier(nn.Module):
@@ -25,7 +26,7 @@ class LogSoftmaxClassifier(nn.Module):
                            device=device, generator=generator)
 
     def forward(self, pyr):
-        x = pyr[self.scale]
+        x = axis.gather_h(pyr[self.scale])  # -spatial: whole rows (a no-op on the 7x7 grids)
         if self.pool:
             x = avgpool(x, self.pool, 1)
         y = self.dense(x.reshape(x.shape[0], -1))
@@ -34,7 +35,8 @@ class LogSoftmaxClassifier(nn.Module):
 
 class SigmoidHead(nn.Module):
     """Pyramid scale ``scale`` -> sigmoid, computed in f32: the
-    segmentation nets' per-pixel probabilities."""
+    segmentation nets' per-pixel probabilities (under -spatial an
+    H-slab's, which the step gathers before the loss)."""
 
     def __init__(self, scale=0):
         super().__init__()
@@ -54,6 +56,7 @@ class FlatClassifier(nn.Module):
                            device=device, generator=generator)
 
     def forward(self, x):
+        x = axis.gather_h(x)
         return torch.log_softmax(self.dense(x.reshape(x.shape[0], -1)).float(), dim=-1)
 
 

@@ -14,6 +14,13 @@ moved to ``device``, so a seed gives the same weights on every device.
 BatchNorm's running stats are buffers, updated in place by a
 train-mode forward (the JAX layer returns them as new stats), except
 inside :func:`running_stats_held`.
+
+Under the mesh's second axis (`mgtpu_torch.parallel.axis`, active within
+:func:`batch_group`): -spatial runs a layer on an H-slab with the halo
+rows its window needs, the 3x3 kernels with the slab's per-side padding;
+-tensor runs a layer whose output channels are sliced (``module.tp``) on
+its slice, its input through ``axis.copy_t`` and its output, after its
+BatchNorm and ReLU, through ``axis.gather_c``.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from torch import nn
 from mgtpu_torch.ops import cuda_conv_i8, quant
 from mgtpu_torch.ops.cuda_conv import bn_relu_plain, conv3x3, conv3x3_bn_relu_in
 from mgtpu_torch.ops.resample import nchw, nhwc, upsample_nearest2
+from mgtpu_torch.parallel import axis
 
 
 def cast_to(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -44,8 +52,23 @@ def _generator(generator: Optional[torch.Generator]) -> torch.Generator:
 
 
 def conv2d_nhwc(x, w, stride: int = 1, pad: int = 0):
-    """NHWC x, HWIO w -> NHWC conv (stock cuDNN / CPU conv)."""
-    return nhwc(F.conv2d(nchw(x), w.permute(3, 2, 0, 1), stride=stride, padding=pad))
+    """NHWC x, HWIO w -> NHWC conv (stock cuDNN / CPU conv). On an
+    H-slab (-spatial) the halo rows its window needs come from the
+    neighbours (zeros at the image's edges) and the conv pads W alone;
+    the output is the slab of the output rows (a strided conv's brought
+    to the rule's layout)."""
+    g = axis.rows(x)
+    if g is None:
+        return nhwc(F.conv2d(nchw(x), w.permute(3, 2, 0, 1), stride=stride, padding=pad))
+    k = w.shape[0]
+    if x.shape[1] % stride or (g + 2 * pad - k) // stride + 1 != g // stride:
+        return conv2d_nhwc(axis.gather_h(x), w, stride, pad)
+    top, bottom = axis.window_rows(k, stride, pad)
+    if top or bottom:
+        x = axis.halo(x, top, bottom, fill=0)[0]
+    y = axis.mark(nhwc(F.conv2d(nchw(x), w.permute(3, 2, 0, 1), stride=stride,
+                                padding=(0, pad))), g // stride)
+    return y if stride == 1 else axis.canonical(y)
 
 
 def _int8_part(conv, slot: int, xp, w8, kind: str = "same", oh=None, ow=None, y_in=None,
@@ -83,6 +106,7 @@ class Conv(nn.Module):
     compute dtype."""
 
     calibration = None  # the calibration pass running on this conv, if any
+    tp = None  # the -tensor mesh, where the weight holds this rank's output channels (ConvBN)
 
     def __init__(self, c_in, c_out, k=3, stride=1, pad=None, compute_dtype=None,
                  device=None, generator=None):
@@ -128,6 +152,8 @@ class ConvTranspose(nn.Module):
     bias, bound 1/sqrt(2*2*c_in). Runs the stock transposed conv on the
     channels_last view, as the JAX package leaves it to XLA."""
 
+    tp = None  # the -tensor mesh, where the weight holds this rank's output channels
+
     def __init__(self, c_in, c_out, compute_dtype=None, device=None, generator=None):
         super().__init__()
         self.compute_dtype = compute_dtype
@@ -139,9 +165,20 @@ class ConvTranspose(nn.Module):
         self.b = nn.Parameter(b.to(device))
 
     def forward(self, x):
+        """On an H-slab (-spatial) each input row makes two output rows:
+        the slab of twice the rows, local; the output in the rule's
+        layout. Under -tensor, this rank's output channels (the caller
+        gathers them)."""
+        if self.tp is not None:
+            x = axis.copy_t(x, self.tp)
+        g = axis.rows(x)
         w = cast_to(self.w, self.compute_dtype).flip(0, 1).permute(2, 3, 0, 1)  # (Ci, Co, kh, kw)
         y = nhwc(F.conv_transpose2d(nchw(cast_to(x, self.compute_dtype)), w, stride=2))
-        return y + self.b.to(y.dtype)
+        y = y + self.b.to(y.dtype)
+        if g is not None:
+            axis.mark_partial(self.w, self.b)
+            axis.mark(y, 2 * g)
+        return axis.canonical(y)
 
 
 def _bn_axes_n(x):
@@ -159,33 +196,51 @@ def batch_group(mesh):
     ranks (each rank holding an equal slice): one all-reduce in the
     forward and one in the backward, sums in f32, the running variance's
     n / (n - 1) with the global n. This is the JAX step's BatchNorm under
-    a sharded batch (GSPMD reduces over the whole 'data' axis). A mesh of
-    one rank, or None, changes nothing: every value is the group-less
-    one, bit for bit."""
+    a sharded batch (GSPMD reduces over the whole 'data' axis). An
+    H-slab's BatchNorm sums over every rank (data x model), a whole or a
+    channel-sliced tensor's over the data group. The layers see the
+    mesh's second axis (`axis.ACTIVE`) within it. A mesh of one rank, or
+    None, changes nothing: every value is the group-less one, bit for
+    bit."""
     global _BATCH_GROUP
-    old, _BATCH_GROUP = _BATCH_GROUP, mesh if mesh is not None and mesh.size > 1 else None
+    on = mesh is not None and (mesh.size > 1 or mesh.n_model > 1)
+    old, _BATCH_GROUP = _BATCH_GROUP, mesh if on else None
+    old_axis, axis.ACTIVE = axis.ACTIVE, mesh if on else None
     try:
         yield
     finally:
-        _BATCH_GROUP = old
+        _BATCH_GROUP, axis.ACTIVE = old, old_axis
+
+
+def _bn_group(x):
+    """(the group BatchNorm's sums over ``x`` take, its number of ranks),
+    (None, 1) where they stay on the rank."""
+    mesh = _BATCH_GROUP
+    if mesh is None:
+        return None, 1
+    if axis.rows(x) is not None:  # an H-slab: every rank's rows of every batch slice
+        return mesh.all_ranks, mesh.size * mesh.n_model
+    if mesh.size > 1:
+        return mesh.group, mesh.size
+    return None, 1
 
 
 def _bn_moments(x):
     """One-pass f32 batch moments: mean, the biased variance E[x^2] -
     E[x]^2 (as `mgtpu/nn.py::_bn_train_fwd`), and the count n they are
     over. Under `batch_group` the sums (sum x, sum x^2) are all-reduced
-    over the group first, by the autograd-aware all-reduce: where the
-    moments are differentiated (``batch_affine``), gradients reach every
-    rank's x through them."""
+    over the group first (`_bn_group`), by the autograd-aware all-reduce:
+    where the moments are differentiated (``batch_affine``), gradients
+    reach every rank's x through them."""
     xf = x.float()
     axes, n = _bn_axes_n(x)
-    mesh = _BATCH_GROUP
-    if mesh is None:
+    group, ranks = _bn_group(x)
+    if group is None:
         mean = xf.mean(dim=axes)
         return mean, torch.clamp_min((xf * xf).mean(dim=axes) - mean * mean, 0.0), n
     sums = dist_fn.all_reduce(torch.cat([xf.sum(dim=axes), (xf * xf).sum(dim=axes)]),
-                              group=mesh.group)
-    n *= mesh.size
+                              group=group)
+    n *= ranks
     mean, sq = (sums / n).chunk(2)
     return mean, torch.clamp_min(sq - mean * mean, 0.0), n
 
@@ -205,7 +260,7 @@ class _BatchNormTrain(torch.autograd.Function):
         y = (x.float() * a + (bias - mean * a)).to(x.dtype)
         ctx.save_for_backward(x, mean, inv, scale)
         ctx.mark_non_differentiable(mean, var)
-        ctx.mesh, ctx.n = _BATCH_GROUP, n
+        ctx.group, ctx.n = _bn_group(x)[0], n
         return y, mean, var
 
     @staticmethod
@@ -221,9 +276,9 @@ class _BatchNormTrain(torch.autograd.Function):
         sum_dy = gf.sum(dim=axes)
         sum_dy_xhat = (gf * xhat).sum(dim=axes)
         g_dy, g_dy_xhat = sum_dy, sum_dy_xhat
-        if ctx.mesh is not None:
+        if ctx.group is not None:
             sums = torch.cat([sum_dy, sum_dy_xhat])
-            dist.all_reduce(sums, group=ctx.mesh.group)
+            dist.all_reduce(sums, group=ctx.group)
             g_dy, g_dy_xhat = sums.chunk(2)
         dx = (scale * inv) * (gf - g_dy / n - xhat * (g_dy_xhat / n))
         return dx.to(x.dtype), sum_dy_xhat, sum_dy, None
@@ -297,14 +352,17 @@ class BatchNorm(nn.Module):
         mean, var, n = _bn_moments(x)
         scale = torch.rsqrt(var + self.eps) * self.scale
         self._update_running(mean.detach(), var.detach(), n)
+        if axis.rows(x) is not None:
+            axis.mark_partial(self.scale, self.bias)
         return scale, self.bias - mean * scale
 
     def forward(self, x):
         if self.training:
             self._check_trainable()
             y, mean, var = _BatchNormTrain.apply(x, self.scale, self.bias, self.eps)
-            n = _bn_axes_n(x)[1] * (1 if _BATCH_GROUP is None else _BATCH_GROUP.size)
-            self._update_running(mean, var, n)
+            self._update_running(mean, var, _bn_axes_n(x)[1] * _bn_group(x)[1])
+            if axis.rows(x) is not None:
+                axis.mark_partial(self.scale, self.bias)
             return y
         if self.folded:
             return x
@@ -324,7 +382,11 @@ class Dropout(nn.Module):
     generator), so a model seed gives the same sequence of masks on
     every run; each device's generator starts from that seed when the
     layer first runs there. The JAX package's key stream cannot be
-    matched: parity with it is distributional only."""
+    matched: parity with it is distributional only. Under -spatial an
+    H-slab's mask is the rank's rows of the mask drawn at the whole
+    height (what a rank without the model axis draws on its batch
+    slice); a whole tensor draws the same mask on every model rank, as
+    the ranks of a model group share the seed (`parallel.replicate`)."""
 
     def __init__(self, rate: float, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -349,13 +411,21 @@ class Dropout(nn.Module):
         if not self.training or self.rate <= 0.0:
             return x
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=self._generator_on(x.device), device=x.device) < keep
+        g, gen = axis.rows(x), self._generator_on(x.device)
+        if g is None:
+            mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+        else:
+            h, j = x.shape[1], axis.spatial().model_rank
+            whole = torch.rand((x.shape[0], g, *x.shape[2:]), generator=gen, device=x.device)
+            mask = whole[:, j * h:(j + 1) * h] < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Dense(nn.Module):
     """Linear layer, (c_in, c_out) weight, torch-default uniform init,
     zero bias. Accumulates in f32 and adds the f32 bias."""
+
+    tp = None  # the -tensor mesh, where the weight holds this rank's output columns
 
     def __init__(self, c_in, c_out, compute_dtype=None, device=None, generator=None):
         super().__init__()
@@ -368,9 +438,12 @@ class Dense(nn.Module):
     def forward(self, x):
         # products of compute_dtype values are exact in f32: an f32
         # matmul of the cast operands is the f32-accumulating dot
+        if self.tp is not None:
+            x = axis.copy_t(x, self.tp)
         x = cast_to(x, self.compute_dtype).float()
         w = cast_to(self.w, self.compute_dtype).float()
-        return torch.matmul(x, w) + self.b
+        y = torch.matmul(x, w) + self.b
+        return y if self.tp is None else axis.gather_c(y, self.tp)
 
 
 class Sequential(nn.Module):
@@ -407,6 +480,8 @@ class ConvBN(nn.Module):
         y = self.bn(y)
         if self.relu:
             y = torch.relu(y)
+        if self.conv.tp is not None:  # -tensor: the channel slices put together
+            y = axis.gather_c(y, self.conv.tp)
         if self.drop is not None and self.dropout_pos == "after":
             y = self.drop(y)
         return y
@@ -448,7 +523,16 @@ class ConvBN(nn.Module):
             upsample of the result.
 
         The first kernel launch carries the conv bias. Other convs go to
-        the stock conv on the materialized part. Differentiable."""
+        the stock conv on the materialized part. Differentiable.
+
+        On H-slabs (-spatial; the parts in one layout, `exchange_parts`
+        aligns the up part) each 3x3 launch reads the slab with its
+        neighbours' edge rows (`axis.halo`) and pads only at the image's
+        edges, `_conv_up3` reads one coarse halo row each side, and the
+        output is the output rows' slab; the conv's parameters then take
+        this rank's share of their gradient (`axis.mark_partial`). Under
+        -tensor (``conv.tp``) each part passes `axis.copy_t` and the
+        output holds this rank's channels."""
         from mgtpu_torch.ops.mg import materialize_part
 
         conv = self.conv
@@ -457,11 +541,11 @@ class ConvBN(nn.Module):
         dt = conv.compute_dtype
         w = cast_to(conv.w, dt)  # cast once; each part takes a view of its slice
         is3x3 = self.k == 3 and conv.stride == 1 and conv.pad == 1
-        oh = ow = None
+        oh = ow = g = None
         for kind, xp in parts:
             if kind != "up":
                 xr = xp[0] if isinstance(xp, tuple) else xp
-                oh, ow = xr.shape[1], xr.shape[2]
+                oh, ow, g = xr.shape[1], xr.shape[2], axis.rows(xr)
         drop = self.drop if self.dropout_pos == "before" and self.training else None
         bias = conv.b
         y = None
@@ -472,6 +556,9 @@ class ConvBN(nn.Module):
                 xp, *bn_in = xp
                 if not is3x3 or drop is not None:
                     xp, bn_in = bn_relu_plain(xp, *bn_in), None
+            if conv.tp is not None:
+                xp = axis.copy_t(xp, conv.tp)
+                bn_in = None if bn_in is None else [axis.copy_t(v, conv.tp) for v in bn_in]
             c = xp.shape[-1]
             ws = w[:, :, ofs:ofs + c, :]
             ofs += c
@@ -490,10 +577,15 @@ class ConvBN(nn.Module):
                 if is3x3:
                     b = torch.zeros(ws.shape[3], device=xp.device) if bias is None else bias
                     bias = None
+                    pads = (1, 1)
+                    if g is not None:  # an H-slab: the neighbours' rows, pads at the edges
+                        xp, *pads = axis.halo(xp, 1, 1)
                     if bn_in is None:
-                        yy, _ = conv3x3(xp, ws, b, with_stats=False)
+                        yy, _ = conv3x3(xp, ws, b, with_stats=False, pad_top=pads[0],
+                                        pad_bottom=pads[1])
                     else:
-                        yy, _ = conv3x3_bn_relu_in(xp, ws, b, *bn_in, with_stats=False)
+                        yy, _ = conv3x3_bn_relu_in(xp, ws, b, *bn_in, with_stats=False,
+                                                   pad_top=pads[0], pad_bottom=pads[1])
                 else:
                     yy = conv2d_nhwc(xp, ws, conv.stride, conv.pad)
             y = yy if y is None else y + yy
@@ -501,6 +593,10 @@ class ConvBN(nn.Module):
             raise ValueError(f"parts carry {ofs} channels, the conv takes {w.shape[2]}")
         if bias is not None:  # no kernel launch took it
             y = y + bias.to(y.dtype)
+        if g is not None:
+            axis.mark_partial(conv.w, conv.b)
+            if conv.stride == 1:  # the slab's rows (a strided conv set its own layout)
+                axis.mark(y, g)
         return y
 
     def _int8_parts(self, parts, relu=False):
@@ -545,7 +641,8 @@ class UpConvBN(nn.Module):
         self.bn = BatchNorm(c_out, eps=1e-3, device=device)
 
     def forward(self, x):
-        return torch.relu(self.bn(self.conv(x)))
+        y = torch.relu(self.bn(self.conv(x)))
+        return y if self.conv.tp is None else axis.gather_c(y, self.conv.tp)
 
 
 def _conv_up3(xp, ws, oh: int, ow: int):
@@ -553,7 +650,10 @@ def _conv_up3(xp, ws, oh: int, ow: int):
     the JAX version's stride-2 lhs-dilated conv with the 4x4 kernel
     K[u, v] = sum_{a, b in {0, 1}} W[u-a, v-b] is a stride-2, padding-1
     transposed conv with K flipped in space and its in/out channels
-    swapped. Exact-2x only: (oh, ow) == (2h, 2w)."""
+    swapped. Exact-2x only: (oh, ow) == (2h, 2w). On a coarse H-slab
+    (-spatial) it reads one neighbour row above and below (zeros at the
+    image's edges: the fine conv's zero pad) and pads H by 3, which
+    leaves the slab's 2h output rows."""
     if (oh, ow) != (2 * xp.shape[1], 2 * xp.shape[2]):
         raise ValueError(f"_conv_up3 needs an exact 2x output, got {(oh, ow)} "
                          f"for input {tuple(xp.shape[1:3])}")
@@ -563,7 +663,10 @@ def _conv_up3(xp, ws, oh: int, ow: int):
         for b in (0, 1):
             k4[a:a + 3, b:b + 3] += ws
     wt = k4.flip(0, 1).permute(2, 3, 0, 1)  # (Ci, Co, 4, 4)
-    return nhwc(F.conv_transpose2d(nchw(xp), wt, stride=2, padding=1))
+    if axis.rows(xp) is None:
+        return nhwc(F.conv_transpose2d(nchw(xp), wt, stride=2, padding=1))
+    xh = axis.halo(xp, 1, 1, fill=0)[0]
+    return nhwc(F.conv_transpose2d(nchw(xh), wt, stride=2, padding=(3, 1)))
 
 
 def param_count(module: nn.Module) -> int:

@@ -12,6 +12,14 @@ wgmma, for bf16 with Ci and Co multiples of 64: the large shapes) and
 from dtype, shape and alignment alone; it is not a fallback, and a
 launch that fails raises.
 
+Per-side H padding (``pad_top``, ``pad_bottom``, each 0 or 1; default
+1): where one is 0, ``x`` carries the neighbour's row on that side (the
+halo row of an H-slab under ``-spatial``, `mgtpu_torch.parallel.axis`)
+instead of a zero pad, so ``x`` has ``H + (1 - pad_top) + (1 -
+pad_bottom)`` rows and ``y`` has ``H``. ``conv3x3_bn_relu_in``
+normalizes halo rows (they are activations); only padding stays 0. One
+slab conv is one launch, as one whole-image conv is.
+
 The backward of both is cuDNN's dgrad and wgrad (``convolution_backward``
 on the ``channels_last`` views) plus elementwise reductions: the JAX
 package has no Pallas backward for these convs (XLA differentiates
@@ -40,10 +48,30 @@ def _stats(y, co, with_stats):
     return torch.stack([yf.sum(dim=_AXES), (yf * yf).sum(dim=_AXES)])
 
 
-def conv3x3_plain(x, w, b, *, relu_out=False, with_stats=True):
+def _pad_rows(x, pad_top, pad_bottom):
+    """NHWC x with ``pad_top`` zero rows above and ``pad_bottom`` below."""
+    return F.pad(x, (0, 0, 0, 0, pad_top, pad_bottom)) if pad_top or pad_bottom else x
+
+
+def out_rows(x, pad_top=1, pad_bottom=1) -> int:
+    """The rows of a conv3x3's output from ``x`` under the pads."""
+    if pad_top not in (0, 1) or pad_bottom not in (0, 1):
+        raise ValueError(f"pad_top {pad_top} and pad_bottom {pad_bottom} must be 0 or 1")
+    return x.shape[1] - (1 - pad_top) - (1 - pad_bottom)
+
+
+def conv3x3_plain(x, w, b, *, relu_out=False, with_stats=True, pad_top=1, pad_bottom=1):
     """Stock-torch version, the same formula as ``xla_conv3x3``:
-    y = conv(x, w) + b in ``x.dtype`` [ReLU]; stats (2, Co) f32 of y."""
-    y = nhwc(F.conv2d(nchw(x), w.permute(3, 2, 0, 1), b.to(x.dtype), padding=1))
+    y = conv(x, w) + b in ``x.dtype`` [ReLU]; stats (2, Co) f32 of y.
+    Under per-side padding the zero rows are added to x where a pad is 1
+    and the conv pads W alone."""
+    wt = w.permute(3, 2, 0, 1)
+    if (pad_top, pad_bottom) == (1, 1):
+        y = nhwc(F.conv2d(nchw(x), wt, b.to(x.dtype), padding=1))
+    else:
+        out_rows(x, pad_top, pad_bottom)
+        y = nhwc(F.conv2d(nchw(_pad_rows(x, pad_top, pad_bottom)), wt, b.to(x.dtype),
+                          padding=(0, 1)))
     y = y.contiguous()
     if relu_out:
         y = torch.relu(y)
@@ -56,12 +84,14 @@ def bn_relu_plain(x, scale, shift):
     return torch.relu(x.float() * scale + shift).to(x.dtype)
 
 
-def conv3x3_bn_relu_in_plain(x, w, b, scale, shift, *, relu_out=False, with_stats=True):
+def conv3x3_bn_relu_in_plain(x, w, b, scale, shift, *, relu_out=False, with_stats=True,
+                             pad_top=1, pad_bottom=1):
     """Stock-torch version, the same formula as ``xla_conv3x3_bn_relu_in``:
     conv3x3_plain of the normalized input. Its zero padding is added
-    after the normalization, so pad positions stay 0."""
+    after the normalization, so pad positions stay 0; every row of x,
+    halo rows included, is normalized."""
     return conv3x3_plain(bn_relu_plain(x, scale, shift), w, b, relu_out=relu_out,
-                         with_stats=with_stats)
+                         with_stats=with_stats, pad_top=pad_top, pad_bottom=pad_bottom)
 
 
 def _check(name, x, w, b, vectors=()):
@@ -110,8 +140,11 @@ def _route(x, w):
     return "tile"
 
 
-def _launch(kernel, route, x, w, b, vectors, relu_out, with_stats):
-    n, h, wd, ci = x.shape
+def _launch(kernel, route, x, w, b, vectors, relu_out, with_stats, pads=(1, 1)):
+    n, _, wd, ci = x.shape
+    h = out_rows(x, *pads)
+    if h < 1:
+        raise ValueError(f"{kernel}: {x.shape[1]} input rows under pads {pads} leave no output")
     co = w.shape[3]
     y = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
     stats = torch.zeros((2, co), dtype=torch.float32, device=x.device)
@@ -120,52 +153,70 @@ def _launch(kernel, route, x, w, b, vectors, relu_out, with_stats):
         kernels.launch(kernel, entry, x.device, x.data_ptr(), w.data_ptr(), b.data_ptr(),
                        *(v.data_ptr() for v in vectors), y.data_ptr(), stats.data_ptr(), n, h,
                        wd, ci, co, w.stride(1), int(relu_out), int(with_stats),
-                       int(x.dtype == torch.bfloat16), route=route)
+                       int(x.dtype == torch.bfloat16), *pads, route=route,
+                       padded=tuple(pads) != (1, 1))
     return y, stats
 
 
-def conv3x3_forward(x, w, b, *, relu_out=False, with_stats=True):
+def conv3x3_forward(x, w, b, *, relu_out=False, with_stats=True, pad_top=1, pad_bottom=1):
     """The forward alone: CPU tensors take the plain version; CUDA
     tensors launch the kernel (the design :func:`_route` picks) or
     raise."""
     if x.device.type == "cpu":
-        return conv3x3_plain(x, w, b, relu_out=relu_out, with_stats=with_stats)
+        return conv3x3_plain(x, w, b, relu_out=relu_out, with_stats=with_stats,
+                             pad_top=pad_top, pad_bottom=pad_bottom)
     _check("conv3x3", x, w, b)
-    return _launch("conv3x3", _route(x, w), x, w, b, (), relu_out, with_stats)
+    return _launch("conv3x3", _route(x, w), x, w, b, (), relu_out, with_stats,
+                   (pad_top, pad_bottom))
 
 
-def conv3x3_bn_relu_in_forward(x, w, b, scale, shift, *, relu_out=False, with_stats=True):
+def conv3x3_bn_relu_in_forward(x, w, b, scale, shift, *, relu_out=False, with_stats=True,
+                               pad_top=1, pad_bottom=1):
     """The forward alone: CPU tensors take the plain version; CUDA
     tensors launch the kernel (the design :func:`_route` picks) or
     raise."""
     if x.device.type == "cpu":
         return conv3x3_bn_relu_in_plain(x, w, b, scale, shift, relu_out=relu_out,
-                                        with_stats=with_stats)
+                                        with_stats=with_stats, pad_top=pad_top,
+                                        pad_bottom=pad_bottom)
     _check("conv3x3_bn_relu_in", x, w, b, (("scale", scale), ("shift", shift)))
     return _launch("conv3x3_bn_relu_in", _route(x, w), x, w, b, (scale, shift), relu_out,
-                   with_stats)
+                   with_stats, (pad_top, pad_bottom))
 
 
-def _tile_forward(x, w, b, scale=None, shift=None, *, relu_out=False, with_stats=True):
+def _tile_forward(x, w, b, scale=None, shift=None, *, relu_out=False, with_stats=True,
+                  pad_top=1, pad_bottom=1):
     """The forward of conv3x3 (or of conv3x3_bn_relu_in, given scale and
     shift) through the tile design at any shape, on CUDA tensors.
     Private: only for holding the two designs against each other and
     timing them at one shape (chip_smoke.py, tests/test_torch_cuda.py)."""
+    pads = (pad_top, pad_bottom)
     if scale is None:
         _check("conv3x3", x, w, b)
-        return _launch("conv3x3", "tile", x, w, b, (), relu_out, with_stats)
+        return _launch("conv3x3", "tile", x, w, b, (), relu_out, with_stats, pads)
     _check("conv3x3_bn_relu_in", x, w, b, (("scale", scale), ("shift", shift)))
-    return _launch("conv3x3_bn_relu_in", "tile", x, w, b, (scale, shift), relu_out, with_stats)
+    return _launch("conv3x3_bn_relu_in", "tile", x, w, b, (scale, shift), relu_out, with_stats,
+                   pads)
 
 
-def _conv_grads(gy, x, w, need_x, need_w):
-    """(dx, dw) of y = conv3x3(x, w) for the NHWC cotangent gy: cuDNN
-    dgrad and wgrad on the channels_last views (the CPU's conv backward
-    on a CPU tensor). Each is None where not needed."""
+def _conv_grads(gy, x, w, need_x, need_w, pads=(1, 1)):
+    """(dx, dw) of y = conv3x3(x, w) under ``pads`` for the NHWC cotangent
+    gy: cuDNN dgrad and wgrad on the channels_last views (the CPU's conv
+    backward on a CPU tensor); under per-side padding, of the conv with W
+    padding alone of x with its zero rows added, dx cropped to x's rows.
+    Each is None where not needed."""
+    if pads == (1, 1):
+        xp, padding = x, [1, 1]
+    else:
+        xp, padding = _pad_rows(x, *pads).contiguous(), [0, 1]
     dx, dw, _ = torch.ops.aten.convolution_backward(
-        nchw(gy.contiguous()), nchw(x), w.permute(3, 2, 0, 1), None, [1, 1], [1, 1], [1, 1],
+        nchw(gy.contiguous()), nchw(xp), w.permute(3, 2, 0, 1), None, [1, 1], padding, [1, 1],
         False, [0, 0], 1, [need_x, need_w, False])
-    return (nhwc(dx) if need_x else None), (dw.permute(2, 3, 1, 0) if need_w else None)
+    if need_x:
+        dx = nhwc(dx)
+        if pads != (1, 1):
+            dx = dx[:, pads[0]:pads[0] + x.shape[1]].contiguous()
+    return (dx if need_x else None), (dw.permute(2, 3, 1, 0) if need_w else None)
 
 
 def _relu_out_grad(gy, y, relu_out):
@@ -173,44 +224,58 @@ def _relu_out_grad(gy, y, relu_out):
 
 
 class _Conv3x3(torch.autograd.Function):
+    """Its backward sees None for an output that no loss reads (a scale
+    whose output is discarded) and returns None: nothing is
+    differentiated behind it."""
+
     @staticmethod
-    def forward(ctx, x, w, b, relu_out, with_stats):
-        y, stats = conv3x3_forward(x, w, b, relu_out=relu_out, with_stats=with_stats)
-        ctx.relu_out = relu_out
+    def forward(ctx, x, w, b, relu_out, with_stats, pad_top, pad_bottom):
+        y, stats = conv3x3_forward(x, w, b, relu_out=relu_out, with_stats=with_stats,
+                                   pad_top=pad_top, pad_bottom=pad_bottom)
+        ctx.relu_out, ctx.pads = relu_out, (pad_top, pad_bottom)
         ctx.save_for_backward(x, w, y if relu_out else None)
         ctx.mark_non_differentiable(stats)
+        ctx.set_materialize_grads(False)
         return y, stats
 
     @staticmethod
     def backward(ctx, gy, _gstats):
+        if gy is None:
+            return (None,) * 7
         x, w, y = ctx.saved_tensors
         gy = _relu_out_grad(gy, y, ctx.relu_out)
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        dx, dw = _conv_grads(gy, x, w, need_x, need_w)
+        dx, dw = _conv_grads(gy, x, w, need_x, need_w, ctx.pads)
         db = gy.float().sum(dim=_AXES) if need_b else None
-        return dx, dw, db, None, None
+        return dx, dw, db, None, None, None, None
 
 
 class _Conv3x3BnReluIn(torch.autograd.Function):
+    """As `_Conv3x3`: a None cotangent gives None."""
+
     @staticmethod
-    def forward(ctx, x, w, b, scale, shift, relu_out, with_stats):
+    def forward(ctx, x, w, b, scale, shift, relu_out, with_stats, pad_top, pad_bottom):
         y, stats = conv3x3_bn_relu_in_forward(x, w, b, scale, shift, relu_out=relu_out,
-                                              with_stats=with_stats)
-        ctx.relu_out = relu_out
+                                              with_stats=with_stats, pad_top=pad_top,
+                                              pad_bottom=pad_bottom)
+        ctx.relu_out, ctx.pads = relu_out, (pad_top, pad_bottom)
         # the normalized input is recomputed in the backward, not kept
         ctx.save_for_backward(x, w, scale, shift, y if relu_out else None)
         ctx.mark_non_differentiable(stats)
+        ctx.set_materialize_grads(False)
         return y, stats
 
     @staticmethod
     def backward(ctx, gy, _gstats):
+        if gy is None:
+            return (None,) * 9
         x, w, scale, shift, y = ctx.saved_tensors
         gy = _relu_out_grad(gy, y, ctx.relu_out)
         need_x, need_w, need_b, need_scale, need_shift = ctx.needs_input_grad[:5]
         z = x.float() * scale + shift
         xn = torch.relu(z).to(x.dtype)
         need_z = need_x or need_scale or need_shift
-        dxn, dw = _conv_grads(gy, xn, w, need_z, need_w)
+        dxn, dw = _conv_grads(gy, xn, w, need_z, need_w, ctx.pads)
         dx = dscale = dshift = None
         if need_z:
             dz = dxn.float() * (z > 0)
@@ -218,10 +283,10 @@ class _Conv3x3BnReluIn(torch.autograd.Function):
             dscale = (dz * x.float()).sum(dim=_AXES) if need_scale else None
             dshift = dz.sum(dim=_AXES) if need_shift else None
         db = gy.float().sum(dim=_AXES) if need_b else None
-        return dx, dw, db, dscale, dshift, None, None
+        return dx, dw, db, dscale, dshift, None, None, None, None
 
 
-def conv3x3(x, w, b, *, relu_out=False, with_stats=True):
+def conv3x3(x, w, b, *, relu_out=False, with_stats=True, pad_top=1, pad_bottom=1):
     """x (N, H, W, Ci) NHWC; w (3, 3, Ci, Co) HWIO; b (Co,) f32.
     Returns (y (N, H, W, Co) in x.dtype, stats (2, Co) f32, zeros when
     ``with_stats`` is False). The f32 accumulator starts at the bias;
@@ -229,28 +294,34 @@ def conv3x3(x, w, b, *, relu_out=False, with_stats=True):
 
     ``w`` may be a slice of a wider HWIO weight along its input
     channels (a view), as the multigrid exchange passes it.
+    ``pad_top`` / ``pad_bottom`` 0: x carries a halo row on that side
+    instead of the zero pad (the module's head).
     Differentiable in x, w and b (not through stats). CPU tensors take
     the plain version; CUDA tensors launch the kernel or raise; under
     ``torch.export``, the op ``mgtpu::conv3x3`` (inference only)."""
     if torch.compiler.is_exporting():
         from mgtpu_torch.ops import library  # noqa: F401 (registers the op)
 
-        return torch.ops.mgtpu.conv3x3(x, w, b, relu_out, with_stats)
-    return _Conv3x3.apply(x, w, b, relu_out, with_stats)
+        return torch.ops.mgtpu.conv3x3(x, w, b, relu_out, with_stats, pad_top, pad_bottom)
+    return _Conv3x3.apply(x, w, b, relu_out, with_stats, pad_top, pad_bottom)
 
 
-def conv3x3_bn_relu_in(x, w, b, scale, shift, *, relu_out=False, with_stats=True):
+def conv3x3_bn_relu_in(x, w, b, scale, shift, *, relu_out=False, with_stats=True, pad_top=1,
+                       pad_bottom=1):
     """conv3x3(relu(x * scale + shift), w, b) with the conv's zero
     padding kept: pad positions are not activations, so they stay 0
     even where relu(shift) > 0. ``scale`` and ``shift`` are contiguous
     f32 (Ci,) tensors (a BatchNorm's batch scale and shift). The
     normalized input is rounded to x.dtype before the conv and never
-    stored. Differentiable in x, w, b, scale and shift (not through
+    stored. Under per-side padding halo rows are normalized too.
+    Differentiable in x, w, b, scale and shift (not through
     stats). CPU tensors take the plain version; CUDA tensors launch the
     kernel or raise; under ``torch.export``, the op
     ``mgtpu::conv3x3_bn_relu_in`` (inference only)."""
     if torch.compiler.is_exporting():
         from mgtpu_torch.ops import library  # noqa: F401 (registers the op)
 
-        return torch.ops.mgtpu.conv3x3_bn_relu_in(x, w, b, scale, shift, relu_out, with_stats)
-    return _Conv3x3BnReluIn.apply(x, w, b, scale, shift, relu_out, with_stats)
+        return torch.ops.mgtpu.conv3x3_bn_relu_in(x, w, b, scale, shift, relu_out, with_stats,
+                                                  pad_top, pad_bottom)
+    return _Conv3x3BnReluIn.apply(x, w, b, scale, shift, relu_out, with_stats, pad_top,
+                                  pad_bottom)

@@ -46,23 +46,27 @@ import torch
 from mgtpu_torch.ops import cuda_conv, cuda_conv_i8, cuda_pool, quant
 
 
-def conv3x3(x, w, b, relu_out, with_stats):
-    return cuda_conv.conv3x3_forward(x, w, b, relu_out=relu_out, with_stats=with_stats)
+def conv3x3(x, w, b, relu_out, with_stats, pad_top=1, pad_bottom=1):
+    return cuda_conv.conv3x3_forward(x, w, b, relu_out=relu_out, with_stats=with_stats,
+                                     pad_top=pad_top, pad_bottom=pad_bottom)
 
 
-def conv3x3_bn_relu_in(x, w, b, scale, shift, relu_out, with_stats):
+def conv3x3_bn_relu_in(x, w, b, scale, shift, relu_out, with_stats, pad_top=1, pad_bottom=1):
     return cuda_conv.conv3x3_bn_relu_in_forward(x, w, b, scale, shift, relu_out=relu_out,
-                                                with_stats=with_stats)
+                                                with_stats=with_stats, pad_top=pad_top,
+                                                pad_bottom=pad_bottom)
 
 
-def _conv3x3_fake(x, w, b, relu_out, with_stats):
-    n, h, wd, _ = x.shape
+def _conv3x3_fake(x, w, b, relu_out, with_stats, pad_top=1, pad_bottom=1):
+    n, _, wd, _ = x.shape
     co = w.shape[3]
+    h = cuda_conv.out_rows(x, pad_top, pad_bottom)
     return x.new_empty((n, h, wd, co)), x.new_empty((2, co), dtype=torch.float32)
 
 
-def _conv3x3_bn_relu_in_fake(x, w, b, scale, shift, relu_out, with_stats):
-    return _conv3x3_fake(x, w, b, relu_out, with_stats)
+def _conv3x3_bn_relu_in_fake(x, w, b, scale, shift, relu_out, with_stats, pad_top=1,
+                             pad_bottom=1):
+    return _conv3x3_fake(x, w, b, relu_out, with_stats, pad_top, pad_bottom)
 
 
 def maxpool2(x):
@@ -100,10 +104,11 @@ def _quant_i8_fake(x, sx, up):
 
 _LIB = torch.library.Library("mgtpu", "DEF")
 for _schema, _impl, _fake in (
-        ("conv3x3(Tensor x, Tensor w, Tensor b, bool relu_out, bool with_stats)"
-         " -> (Tensor, Tensor)", conv3x3, _conv3x3_fake),
+        ("conv3x3(Tensor x, Tensor w, Tensor b, bool relu_out, bool with_stats,"
+         " int pad_top=1, int pad_bottom=1) -> (Tensor, Tensor)", conv3x3, _conv3x3_fake),
         ("conv3x3_bn_relu_in(Tensor x, Tensor w, Tensor b, Tensor scale, Tensor shift,"
-         " bool relu_out, bool with_stats) -> (Tensor, Tensor)", conv3x3_bn_relu_in,
+         " bool relu_out, bool with_stats, int pad_top=1, int pad_bottom=1)"
+         " -> (Tensor, Tensor)", conv3x3_bn_relu_in,
          _conv3x3_bn_relu_in_fake),
         ("maxpool2(Tensor x) -> Tensor", maxpool2, _maxpool2_fake),
         ("conv_i8(Tensor x8, Tensor w8, int stride, int pad, Tensor? v, ScalarType dtype,"

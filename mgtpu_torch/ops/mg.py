@@ -5,6 +5,12 @@ half the spatial extent of scale i. Only the fused-exchange formulation
 is ported: each exchange conv takes its scale's parts through
 `ConvBN.apply_parts` and the resample-concat is never built. Every block
 runs in eval mode (serving) and in train mode (the training step).
+
+Under -spatial (`mgtpu_torch.parallel.axis`) each scale is an H-slab or
+whole by JAX's `constrain_spatial` rule of its height: the ops that
+change a height (pools, strided convs, transposed convs) put their
+outputs in that layout, and `exchange_parts` hands a conv its coarser
+neighbour in the layout of its own scale, so no layer mixes the two.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from torch import nn
 
 from mgtpu_torch.nn import ConvBN, Dropout, UpConvBN
 from mgtpu_torch.ops.cuda_conv import bn_relu_plain
+from mgtpu_torch.parallel import axis
 from mgtpu_torch.ops.resample import (avgpool, maxpool, maxpool2_ceil, maxpool2_ceil_group,
                                      upsample_nearest2)
 
@@ -52,21 +59,25 @@ def exchange_parts(pyr: Pyramid, i: int, same=None, down=None):
     (an un-normalized ``(y_raw, scale, shift)``, see
     `ConvBN.conv_parts`). ``down`` is the layer's ``pool_finer(pyr)``,
     made once for all its scales; without it the finer scale is pooled
-    alone."""
+    alone. Under -spatial the coarser neighbour comes in the layout of
+    scale i (an H-slab under a slab, whole under a whole tensor)."""
     n = len(pyr)
     parts = []
     if i > 0:
         parts.append(("down", maxpool2_ceil(pyr[i - 1]) if down is None else down[i - 1]))
     parts.append(("same", pyr[i] if same is None else same))
     if i + 1 < n:
-        parts.append(("up", pyr[i + 1]))
+        parts.append(("up", axis.aligned(pyr[i + 1], pyr[i])))
     return parts
 
 
 def materialize_part(kind: str, xp, oh: int, ow: int):
-    """Resolve an exchange part to its fine-resolution tensor."""
+    """Resolve an exchange part to its fine-resolution tensor (an H-slab's
+    upsample: the fine slab)."""
     if kind == "up":
-        return upsample_nearest2(xp, oh, ow)
+        g = axis.rows(xp)
+        y = upsample_nearest2(xp, oh, ow)
+        return y if g is None else axis.mark(y, 2 * g)
     return xp
 
 
@@ -239,12 +250,18 @@ class MgResidual(nn.Module):
         same-scale part un-normalized, so the `conv3x3_bn_relu_in`
         kernel applies relu(bn(y1)) as it reads. relu(bn(y1)) is built
         only for the neighbours' down and up parts: nowhere in a
-        single-scale block."""
+        single-scale block. Under -tensor y1 and (scale, shift) are
+        gathered from their channel slices first."""
         n = len(pyr)
         down = pool_finer(pyr)
         raw = [layer.conv_parts(exchange_parts(pyr, i, down=down))
                for i, layer in enumerate(self.stage1)]
         affine = [layer.bn.batch_affine(y) for layer, y in zip(self.stage1, raw)]
+        for i, layer in enumerate(self.stage1):
+            tp = layer.conv.tp
+            if tp is not None:  # -tensor: the channel slices put together
+                raw[i] = axis.gather_c(raw[i], tp)
+                affine[i] = tuple(axis.gather_c(v, tp) for v in affine[i])
         act = tuple(bn_relu_plain(y, *a) if n > 1 else None for y, a in zip(raw, affine))
         down = pool_finer(act)
         return tuple(layer._tail(layer.conv_parts(exchange_parts(act, i, (raw[i], *affine[i]),

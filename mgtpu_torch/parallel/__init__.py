@@ -16,3 +16,9 @@ from mgtpu_torch.parallel.mesh import (
     shard_opt_zero1,
     zero1_spec,
 )
+from mgtpu_torch.parallel.axis import (
+    shard_params_tp,
+    spatial_split,
+    tp_spec,
+    whole_tensors,
+)

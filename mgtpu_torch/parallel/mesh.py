@@ -22,9 +22,15 @@ rank: every function here is then a passthrough, and the step is the
 one-device step bit for bit. A group of one (NCCL on one card) runs the
 collectives, which leave every value as it is; BatchNorm sums over a
 group of more than one rank only.
-`constrain_spatial`, `tp_sharding` and `shard_params_tp` (-spatial,
--tensor) rest on GSPMD's halo exchanges and channel collectives and are
-not ported (ROADMAP Queue 1 item 6).
+
+The mesh's second axis (``n_model`` > 1, JAX's ``make_mesh(n_data,
+n_model, model_axis)``): the ranks form an n_data x n_model grid, rank r
+= i * n_model + j at data index i and model index j. Each rank belongs
+to its data group (the ranks of its j: the batch's slices; ``group``)
+and its model group (the ranks of its i: one batch slice's H-slabs
+under -spatial, 'model', or channel slices under -tensor, 'tensor';
+``model_group``). `mgtpu_torch.parallel.axis` holds the rules and the
+collectives of that axis.
 """
 
 from __future__ import annotations
@@ -38,8 +44,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from mgtpu_torch.nn import Dropout
-
 # a collective that waits longer than this raises on every rank (a rank
 # that died, or one that took another branch)
 TIMEOUT = datetime.timedelta(minutes=10)
@@ -47,14 +51,29 @@ TIMEOUT = datetime.timedelta(minutes=10)
 
 @dataclass(frozen=True)
 class Mesh:
-    """This rank's place in the data-parallel group: ``size`` ranks (the
-    JAX mesh's 'data' axis), this one ``rank``, running on ``device``;
-    ``group`` is the process group, None for a group-less single rank."""
+    """This rank's place in the mesh: ``size`` data ranks (the JAX mesh's
+    'data' axis), this one's data index ``rank``, running on ``device``;
+    ``group`` is the data group (the process group of a data-parallel
+    run), None for a group-less single rank. The second axis: ``n_model``
+    ranks named ``axis`` ('model' under -spatial, 'tensor' under
+    -tensor), this one's index ``model_rank`` in its ``model_group``;
+    ``world`` the group of all size x n_model ranks."""
 
     size: int
     rank: int
     device: torch.device
     group: Optional[dist.ProcessGroup] = None
+    n_model: int = 1
+    model_rank: int = 0
+    model_group: Optional[dist.ProcessGroup] = None
+    axis: str = "model"
+    world: Optional[dist.ProcessGroup] = None
+
+    @property
+    def all_ranks(self) -> Optional[dist.ProcessGroup]:
+        """The group of every rank of the mesh (the data group without a
+        second axis)."""
+        return self.world if self.world is not None else self.group
 
 
 def init_multihost() -> tuple[str, int, int]:
@@ -84,46 +103,73 @@ def is_primary() -> bool:
 
 
 def make_mesh(n_data: int = 1, rank: int = 0, device="cpu", init_method: Optional[str] = None,
-              backend: Optional[str] = None) -> Mesh:
-    """Join the data-parallel group as ``rank`` of ``n_data`` and return
-    the rank's `Mesh`. The group is NCCL on a CUDA device and gloo on the
-    CPU unless ``backend`` says otherwise (two ranks on one card take
-    gloo: NCCL refuses two ranks a device). Without ``init_method`` (a
+              backend: Optional[str] = None, n_model: int = 1, model_axis: str = "model") -> Mesh:
+    """Join the group of ``n_data`` x ``n_model`` ranks as global rank
+    ``rank`` and return the rank's `Mesh`: data index rank // n_model,
+    model index rank % n_model (JAX's ``devices.reshape(n_data,
+    n_model)``), its axis named ``model_axis`` ('model': -spatial,
+    'tensor': -tensor). Every rank creates every data and model group,
+    in one order. The group is NCCL on a CUDA device and gloo on the CPU
+    unless ``backend`` says otherwise (two ranks on one card take gloo:
+    NCCL refuses two ranks a device). Without ``init_method`` (a
     ``tcp://host:port`` that rank 0 serves) a single rank joins no group.
     A failed join raises."""
     device = torch.device(device)
+    if model_axis not in ("model", "tensor"):
+        raise ValueError(f"model_axis {model_axis!r} is not 'model' or 'tensor'")
     if init_method is None:
-        if n_data != 1:
-            raise ValueError(f"{n_data} ranks need an init_method to meet at")
-        return Mesh(1, 0, device)
+        if n_data * n_model != 1:
+            raise ValueError(f"{n_data} x {n_model} ranks need an init_method to meet at")
+        return Mesh(1, 0, device, axis=model_axis)
     if device.type == "cuda":
         if device.index is None or device.index >= torch.cuda.device_count():
             raise RuntimeError(f"rank {rank}: no CUDA device {device} "
                                f"({torch.cuda.device_count()} visible)")
         torch.cuda.set_device(device)
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
-    dist.init_process_group(backend, init_method=init_method, world_size=n_data, rank=rank,
-                            timeout=TIMEOUT)
-    return Mesh(n_data, rank, device, dist.group.WORLD)
+    dist.init_process_group(backend, init_method=init_method, world_size=n_data * n_model,
+                            rank=rank, timeout=TIMEOUT)
+    if n_model == 1:
+        return Mesh(n_data, rank, device, dist.group.WORLD, axis=model_axis)
+    i, j = divmod(rank, n_model)
+    model_groups = [dist.new_group([a * n_model + b for b in range(n_model)], timeout=TIMEOUT)
+                    for a in range(n_data)]
+    data_groups = [dist.new_group([a * n_model + b for a in range(n_data)], timeout=TIMEOUT)
+                   for b in range(n_model)]
+    return Mesh(n_data, i, device, data_groups[j], n_model, j, model_groups[i], model_axis,
+                dist.group.WORLD)
 
 
-def shard_batch(mesh: Mesh, tree: dict, batch_axis: int = 0) -> dict:
+def _part(x, axis: int, n: int, i: int, what: str):
+    size = x.shape[axis]
+    if size % n:
+        raise ValueError(f"{what}: {size} rows along axis {axis} do not divide over {n} ranks")
+    per = size // n
+    idx = [slice(None)] * x.ndim
+    idx[axis] = slice(i * per, (i + 1) * per)
+    return x[tuple(idx)]
+
+
+def shard_batch(mesh: Mesh, tree: dict, batch_axis: int = 0, spatial: bool = False) -> dict:
     """This rank's rows of a host batch: each entry's ``batch_axis`` (1
     under ``iterSize``, whose batches are (iterSize, B, ...); 0 for plain
     and ten-crop (B, 10, ...) batches) cut into ``mesh.size`` equal
-    parts, of which it keeps part ``mesh.rank``. The batch must divide."""
-    if mesh.size == 1:
+    parts, of which it keeps part ``mesh.rank``. The batch must divide.
+    With ``spatial`` (-spatial, a 'model' axis of more than one rank)
+    an entry of at least ``batch_axis`` + 4 dims (images, segmentation
+    targets; not labels) also keeps its model index's part of its height,
+    the third axis from the end (the true H of plain, iterSize and
+    ten-crop batches alike), as JAX's ``shard_batch(spatial=True)``."""
+    split_h = spatial and mesh.n_model > 1 and mesh.axis == "model"
+    if mesh.size == 1 and not split_h:
         return tree
     out = {}
     for k, x in tree.items():
-        n = x.shape[batch_axis]
-        if n % mesh.size:
-            raise ValueError(f"{k}: {n} rows along axis {batch_axis} do not divide over "
-                             f"{mesh.size} ranks")
-        per = n // mesh.size
-        idx = [slice(None)] * x.ndim
-        idx[batch_axis] = slice(mesh.rank * per, (mesh.rank + 1) * per)
-        out[k] = x[tuple(idx)]
+        if mesh.size > 1:
+            x = _part(x, batch_axis, mesh.size, mesh.rank, k)
+        if split_h and x.ndim >= batch_axis + 4:
+            x = _part(x, x.ndim - 3, mesh.n_model, mesh.model_rank, k)
+        out[k] = x
     return out
 
 
@@ -173,8 +219,21 @@ def _by_dtype(tensors) -> dict:
     return groups
 
 
+def all_reduce_sum(group, tensors: list, divisors=None) -> None:
+    """Replace each tensor by its sum over ``group``, in place, divided by
+    its entry of ``divisors`` where given: one all-reduce of one flat
+    buffer a dtype."""
+    for idx in _by_dtype(tensors).values():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat, group=group)
+        for i, part in zip(idx, flat.split([tensors[i].numel() for i in idx])):
+            if divisors is not None and divisors[i] != 1:
+                part = part / divisors[i]
+            tensors[i].copy_(part.view_as(tensors[i]))
+
+
 def all_reduce_mean(mesh: Mesh, tensors: list) -> None:
-    """Replace each tensor by its mean over the ranks, in place: one
+    """Replace each tensor by its mean over the data ranks, in place: one
     all-reduce (a sum, then the division) of one flat buffer a dtype."""
     if mesh.group is None:
         return
@@ -224,9 +283,15 @@ def gather_tree(mesh: Mesh, opt_state: dict, params) -> dict:
     it at the same point): -zero1's momentum slices (the buffers narrower
     than their parameters) all-gathered to their parameters' shapes,
     whole buffers as they are. A checkpoint written from it is a one-rank
-    run's."""
-    params = list(params)
+    run's. Under -tensor, the channel slices (``mg_sliced``) all-gathered
+    over the model group to their whole (the parameters themselves:
+    `mgtpu_torch.parallel.axis.whole_tensors`)."""
+    from mgtpu_torch.parallel import axis
+
     ms = list(opt_state["m"])
+    if mesh.n_model > 1 and mesh.axis == "tensor":
+        return {"m": [axis.whole(m, mesh) if axis.sliced(m) else m for m in ms]}
+    params = list(params)
     sharded = [i for i, (p, m) in enumerate(zip(params, ms, strict=True)) if m.shape != p.shape]
     if mesh.size == 1 or not sharded:
         return {"m": ms}
@@ -239,35 +304,41 @@ def gather_tree(mesh: Mesh, opt_state: dict, params) -> dict:
     return {"m": ms}
 
 
-def same_bits(mesh: Mesh, tensors) -> bool:
-    """True on every rank when every rank holds the same bits in
-    ``tensors`` as rank 0 (a collective)."""
+def same_bits(mesh: Mesh, tensors, group=None) -> bool:
+    """True on every rank of ``group`` (default: every rank of the mesh)
+    when each holds the same bits in ``tensors`` as the group's first
+    rank (a collective)."""
     tensors = list(tensors)
-    if mesh.group is None:
+    group = mesh.all_ranks if group is None else group
+    if group is None:
         return True
+    src = dist.get_global_rank(group, 0) if group is not dist.group.WORLD else 0
     bad = torch.zeros((), dtype=torch.int64, device=mesh.device)
     for idx in _by_dtype(tensors).values():
         flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx])
         ref = flat.clone()
-        dist.broadcast(ref, 0, group=mesh.group)
+        dist.broadcast(ref, src, group=group)
         bad += int(not torch.equal(flat.view(torch.uint8), ref.view(torch.uint8)))
-    dist.all_reduce(bad, group=mesh.group)
+    dist.all_reduce(bad, group=group)
     return int(bad) == 0
 
 
 def replicate(mesh: Mesh, model: torch.nn.Module) -> torch.nn.Module:
     """Make ``model`` (on ``mesh.device``) rank 0's replica: its
-    parameters and buffers broadcast from rank 0 (one flat buffer a
-    dtype), then held the same bits on every rank, or raise; and each
-    Dropout's masks offset by the rank, so that the ranks drop different
-    elements of their rows (every rank built the model from one seed).
-    Returns ``model``."""
+    parameters and buffers broadcast from rank 0 to every rank of the
+    mesh (one flat buffer a dtype), then held the same bits on every
+    rank, or raise; and each Dropout's masks offset by the data index, so
+    that the data ranks drop different elements of their rows (every rank
+    built the model from one seed) and the ranks of one model group draw
+    the same masks. Returns ``model``."""
+    from mgtpu_torch.nn import Dropout
+
     if mesh.group is None:
         return model
     state = [t.data for t in model.parameters()] + [t for t in model.buffers()]
     for idx in _by_dtype(state).values():
         flat = torch.cat([state[i].reshape(-1) for i in idx])
-        dist.broadcast(flat, 0, group=mesh.group)
+        dist.broadcast(flat, 0, group=mesh.all_ranks)
         for i, part in zip(idx, flat.split([state[i].numel() for i in idx])):
             state[i].copy_(part.view_as(state[i]))
     if not same_bits(mesh, state):

@@ -35,7 +35,10 @@ With several data-parallel ranks (``sess.mesh``) a group's rows (its k
 base images, or its k x 842 host-built variants) are split over the
 ranks where they divide, as the JAX pipeline shards them over its data
 mesh; each rank runs the forward on its rows, the outputs are gathered
-on every rank before the probe, and rank 0 alone writes the h5.
+on every rank before the probe, and rank 0 alone writes the h5. Under
+-spatial or -tensor the groups are split over the data ranks only, as
+the JAX pipeline shards only the batch (`mgtpu/pipelines/saliency.py`):
+the ranks of a model group run the same rows whole.
 """
 
 from __future__ import annotations

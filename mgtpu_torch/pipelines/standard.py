@@ -24,7 +24,7 @@ import torch.distributed as dist
 
 from mgtpu_torch.models.base import NetOpts
 from mgtpu_torch.parallel import (fetch_global, gather_tree, is_primary, make_mesh, replicate,
-                                  shard_batch, shard_opt_zero1)
+                                  shard_batch, shard_opt_zero1, shard_params_tp, whole_tensors)
 from mgtpu_torch.utils.logging import EpochLogger, fmt_metrics, now
 
 
@@ -114,7 +114,11 @@ class Session:
     ``opt.device``): this rank's place in a data-parallel run. The model
     runs on the rank's device as rank 0's replica, batches keep the
     rank's rows (`to_device`), and under ``-zero1`` the momentum keeps
-    the rank's slices (after a resume too)."""
+    the rank's slices (after a resume too). With the mesh's second axis:
+    under -spatial the batches also keep the rank's part of their height;
+    under -tensor the parameters, running stats and momentum keep the
+    rank's channel slices (`parallel.shard_params_tp`, after a resume
+    from a whole checkpoint too), and checkpoints are written whole."""
 
     def __init__(self, opt, mesh=None):
         from mgtpu_torch.data import get_loaders
@@ -133,6 +137,9 @@ class Session:
         self.net = get_spec(opt.netType)
         self.net_opt = net_options(net_opts(opt))
         zero1 = opt.zero1 and self.mesh.size > 1
+        second = self.mesh.n_model > 1
+        self.spatial = second and self.mesh.axis == "model"
+        self.tensor = second and self.mesh.axis == "tensor"
         if opt.zero1 and not zero1:  # the JAX Session's line
             print("==> -zero1 has no effect: the data mesh axis is size 1 "
                   "(nGPU 1, or batchSize clamped it) — momentum stays "
@@ -151,6 +158,8 @@ class Session:
                           else sgd_init(self.model.parameters()))
         if zero1:
             self.opt_state = shard_opt_zero1(self.mesh, self.opt_state, self.model.parameters())
+        if self.tensor:
+            self.opt_state = shard_params_tp(self.mesh, self.model, self.opt_state)
         self.loaders = get_loaders(opt)
         if opt.int8:  # after the resume, before the steps (opts refuses -train)
             quantize_session_model(self.model, self.loaders, opt)
@@ -159,15 +168,16 @@ class Session:
         self.epoch = opt.epochNumber
 
         # bucketing concatenates the momentum leaves, which under -zero1
-        # are slices of their parameters: off there, as in JAX
+        # and -tensor are slices: off there, as in JAX
         self.train_step = make_train_step(self.model, self.loss_fn, self.net,
                                           iter_size=opt.iterSize, momentum=opt.momentum,
-                                          remat=opt.remat, bucket_sgd=not zero1,
+                                          remat=opt.remat,
+                                          bucket_sgd=not (zero1 or self.tensor),
                                           log_grad_norm=opt.logGradNorm, mesh=self.mesh,
                                           zero1=zero1)
         mk_eval = make_tencrop_eval_step if opt.tenCrop else make_eval_step
-        self.test_step = mk_eval(self.model, self.loss_fn, self.net, "test")
-        self.eval_step = mk_eval(self.model, self.loss_fn, self.net, "eval")
+        self.test_step = mk_eval(self.model, self.loss_fn, self.net, "test", self.mesh)
+        self.eval_step = mk_eval(self.model, self.loss_fn, self.net, "eval", self.mesh)
         # int8 quantizes the raw input, with no compute-dtype cast: a host
         # cast would round the images the scales were calibrated without
         self.cast_dtype = self.compute_dtype if opt.hostCast and not opt.int8 else None
@@ -175,10 +185,12 @@ class Session:
 
     def to_device(self, batch: dict, batch_axis: int = 0) -> dict:
         """This rank's rows of a numpy batch (along ``batch_axis``: 1 for
-        an ``iterSize`` batch) on the device: cast on the host
+        an ``iterSize`` batch; under -spatial, and of their height too)
+        on the device: cast on the host
         (``-hostCast``), then copied from pinned memory without blocking
         the host."""
-        batch = host_cast_inputs(shard_batch(self.mesh, batch, batch_axis), self.cast_dtype)
+        batch = host_cast_inputs(shard_batch(self.mesh, batch, batch_axis, spatial=self.spatial),
+                                 self.cast_dtype)
         if self.device.type != "cuda":
             return batch
         return {k: v.pin_memory().to(self.device, non_blocking=True) for k, v in batch.items()}
@@ -410,26 +422,28 @@ def run(sess: Session):
             # gather first, on every rank (a collective): -zero1's momentum
             # slices to whole buffers, so the checkpoint is a one-rank run's
             opt_state = gather_tree(sess.mesh, sess.opt_state, sess.model.parameters())
-            if sess.mesh.size > 1:
+            if sess.mesh.all_ranks is not None and sess.mesh.size * sess.mesh.n_model > 1:
                 # the primary learns of its previous async write's failure
                 # only when it joins: tell every rank, so that all stop
                 # together instead of the others waiting in the next
                 # collective until its timeout
                 bad = torch.tensor(int(is_primary() and pending_save_failed()),
                                    device=sess.device)
-                dist.all_reduce(bad, group=sess.mesh.group)
+                dist.all_reduce(bad, group=sess.mesh.all_ranks)
                 if int(bad):
                     join_pending_saves()  # re-raises with the cause on the primary
                     raise RuntimeError("primary's async checkpoint write failed; aborting")
-            if is_primary():
-                path = os.path.join(opt.save, f"model_{epoch}.ckpt")
-                # async: the copy to the host happens inside the call (the
-                # next step updates the parameters in place); the npz write
-                # overlaps the next epoch. main joins before the process
-                # exits, and load_checkpoint before it reads.
-                save_checkpoint(path, sess.model, opt_state, epoch, sess.meta,
-                                async_write=True)
-                print(f"checkpoint -> {path}")
+            # -tensor: the whole leaves, gathered on every rank (a collective)
+            with whole_tensors(sess.mesh, sess.model, opt_state) as whole_state:
+                if is_primary():
+                    path = os.path.join(opt.save, f"model_{epoch}.ckpt")
+                    # async: the copy to the host happens inside the call
+                    # (the next step updates the parameters in place); the
+                    # npz write overlaps the next epoch. main joins before
+                    # the process exits, and load_checkpoint before it reads.
+                    save_checkpoint(path, sess.model, whole_state, epoch, sess.meta,
+                                    async_write=True)
+                    print(f"checkpoint -> {path}")
         if stop_here:
             # bounded partial run: exit after this epoch without touching
             # -nEpochs (which the LR rules read)

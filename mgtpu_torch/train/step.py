@@ -12,6 +12,10 @@ loop over tensors. With a ``mesh`` of several ranks (data parallelism,
 `mgtpu_torch.parallel`) each rank steps on its slice of the global
 batch, BatchNorm sums over the group, and the gradients are averaged
 over the ranks once a step; ``zero1`` shards the momentum (ZeRO-1).
+With the mesh's second axis (-spatial, -tensor; `mgtpu_torch.parallel.axis`)
+the forward runs on H-slabs or channel slices, the output and dense
+targets are whole rows before the loss, and the gradients are first
+reduced over the model group (`_reduce_model_axis`).
 
 The step asks cuDNN (the stock convs and every conv's backward) for its
 deterministic algorithms while ``DETERMINISTIC_CUDNN`` is True, so that
@@ -34,8 +38,9 @@ import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from mgtpu_torch.nn import Dropout, batch_group, running_stats_held
-from mgtpu_torch.parallel.mesh import (all_gather_slices, all_reduce_mean, mean_metrics,
-                                       own_slice, reduce_scatter_mean, zero1_spec)
+from mgtpu_torch.parallel import axis
+from mgtpu_torch.parallel.mesh import (all_gather_slices, all_reduce_mean, all_reduce_sum,
+                                       mean_metrics, own_slice, reduce_scatter_mean, zero1_spec)
 from mgtpu_torch.train.optim import sgd_update
 
 
@@ -52,25 +57,63 @@ def _cudnn_choice():
         torch.backends.cudnn.deterministic = old
 
 
-def _global_norm(tensors, mesh=None, sliced=()) -> torch.Tensor:
+def _global_norm(tensors, group=None, sliced=()) -> torch.Tensor:
     """The L2 norm of all ``tensors``; those at the indices ``sliced`` are
-    each rank's slices of a whole (ZeRO-1), summed over ``mesh``."""
+    each rank's slices of a whole (ZeRO-1's over the data group, -tensor's
+    over the model group), summed over ``group``."""
     sq = [t.float().square().sum() for t in tensors]
     if not sliced:
         return torch.sqrt(sum(sq))
     part = torch.stack([sq[i] for i in sliced]).sum()
-    dist.all_reduce(part, group=mesh.group)
+    dist.all_reduce(part, group=group)
     return torch.sqrt(part + sum(q for i, q in enumerate(sq) if i not in sliced))
 
 
-def _remat_contexts(dropouts, device):
+def model_inputs(mesh, x, y):
+    """Under -spatial (inside `batch_group`): the images ``x`` (this rank's
+    rows, `parallel.shard_batch`) marked as the H-slab of the whole
+    height and put in the rule's layout, and dense targets (split like
+    the images) gathered whole, as the loss runs on the output's whole
+    rows (`model_output`). Else ``x`` and ``y`` as they are."""
+    if axis.spatial() is None:
+        return x, y
+    n = mesh.n_model
+    if x.dim() == 4:
+        x = axis.canonical(axis.mark(x, x.shape[1] * n))
+    if y.dim() >= 4:
+        y = axis.whole_rows(y)
+    return x, y
+
+
+def model_output(out):
+    """The model's output with whole rows (an H-slab's gathered)."""
+    return axis.gather_h(out) if isinstance(out, torch.Tensor) else out
+
+
+def _reduce_model_axis(mesh, params, grads) -> None:
+    """The gradients over the model group, in place, before the data
+    group's mean: under -spatial a parameter used on H-slabs
+    (``mg_partial``) holds its rows' share and is summed, one used on
+    whole tensors holds the whole gradient on every rank and is averaged
+    (the same values, so the copies cannot drift apart); under -tensor a
+    channel-sliced parameter's gradient is its slice's whole and stays,
+    the others are averaged."""
+    n = mesh.n_model
+    idx = [i for i, p in enumerate(params) if not axis.sliced(p)]
+    div = [1 if getattr(params[i], "mg_partial", False) and mesh.axis == "model" else n
+           for i in idx]
+    all_reduce_sum(mesh.model_group, [grads[i] for i in idx], div)
+
+
+def _remat_contexts(dropouts, device, mesh=None):
     """The two contexts ``checkpoint`` runs a rematerialized forward in:
     the first forward, and the run again in the backward. The run again
     draws the masks the first forward drew (each Dropout's generator is
     set back to its state before the first forward, and after the run to
     its state after it: ``checkpoint``'s own ``preserve_rng_state`` knows
     only torch's default generators), and it leaves the BatchNorms'
-    running stats alone: the first forward updated them."""
+    running stats alone: the first forward updated them; under -spatial
+    the slab marks flow in it as in the first forward."""
     gens = [d._generator_on(device) for d in dropouts]
     before = [g.get_state() for g in gens]
 
@@ -80,7 +123,7 @@ def _remat_contexts(dropouts, device):
         for g, s in zip(gens, before):
             g.set_state(s)
         try:
-            with running_stats_held():
+            with running_stats_held(), axis.tagging(mesh):
                 yield
         finally:
             for g, s in zip(gens, after):
@@ -89,7 +132,7 @@ def _remat_contexts(dropouts, device):
     return contextlib.nullcontext(), again()
 
 
-def rematerialized(model):
+def rematerialized(model, mesh=None):
     """``model``'s forward under ``torch.utils.checkpoint``, one segment
     for each top-level layer of its sequence (``model.seq.layers``; the
     whole model where it has none, as the U-Nets): a segment keeps only
@@ -109,7 +152,8 @@ def rematerialized(model):
         for seg, drops in zip(segments, dropouts):
             with set_checkpoint_early_stop(False):
                 x = checkpoint(seg, x, use_reentrant=False,
-                               context_fn=lambda drops=drops: _remat_contexts(drops, device))
+                               context_fn=lambda drops=drops: _remat_contexts(drops, device,
+                                                                              mesh))
         return x
 
     return forward
@@ -149,13 +193,20 @@ def make_train_step(model, loss_fn, net, iter_size: int = 1, momentum: float = 0
     reduce-scattered, each rank updates its slice of those parameters
     (the others whole), and the parameters are all-gathered."""
     params = list(model.parameters())
-    forward = rematerialized(model) if remat else model
+    forward = rematerialized(model, mesh) if remat else model
     ranks = 1 if mesh is None else mesh.size
     sharded = [i for i, p in enumerate(params) if zero1 and zero1_spec(p, ranks)]
     whole = [i for i in range(len(params)) if i not in sharded]
+    # the slices a global norm sums over a group: -tensor's, then ZeRO-1's
+    tp_slices = ((mesh.model_group, [i for i, p in enumerate(params) if axis.sliced(p)])
+                 if mesh is not None and mesh.n_model > 1 else (None, []))
+    norm_slices = tp_slices if tp_slices[1] else (
+        (mesh.group, sharded) if sharded else (None, []))
 
     def grads_and_metrics(x, y):
-        out = forward(x)
+        with axis.tagging(mesh):
+            x, y = model_inputs(mesh, x, y)
+            out = model_output(forward(x))
         loss = loss_fn(out, y)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
@@ -186,11 +237,13 @@ def make_train_step(model, loss_fn, net, iter_size: int = 1, momentum: float = 0
                 metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
         if mesh is not None and mesh.group is not None:
             metrics = mean_metrics(mesh, metrics)
+            if mesh.n_model > 1:
+                _reduce_model_axis(mesh, params, grads)
             all_reduce_mean(mesh, [grads[i] for i in whole])
             for i, g in zip(sharded, reduce_scatter_mean(mesh, [grads[i] for i in sharded])):
                 grads[i] = g
         if log_grad_norm:
-            metrics["gradnorm"] = _global_norm(grads, mesh, sharded)
+            metrics["gradnorm"] = _global_norm(grads, *norm_slices)
             old = [p.detach().clone() for p in params]
         if sharded:
             zero1_update(opt_state, grads, lr, wd)
@@ -198,30 +251,42 @@ def make_train_step(model, loss_fn, net, iter_size: int = 1, momentum: float = 0
             sgd_update(params, grads, opt_state, lr, wd, momentum, foreach=bucket_sgd)
         if log_grad_norm:
             with torch.no_grad():
-                metrics["pnorm"] = _global_norm(params)
-                metrics["maxupd"] = torch.stack([(p.float() - o.float()).abs().max()
-                                                 for p, o in zip(params, old)]).max()
+                metrics["pnorm"] = _global_norm(params, *tp_slices)
+                maxupd = torch.stack([(p.float() - o.float()).abs().max()
+                                      for p, o in zip(params, old)]).max()
+                if tp_slices[1]:
+                    dist.all_reduce(maxupd, dist.ReduceOp.MAX, group=mesh.model_group)
+                metrics["maxupd"] = maxupd
         return metrics
 
     return train_step
 
 
-def make_eval_step(model, loss_fn, net, mode: str = "test"):
+def _forward_whole(model, mesh, x, y):
+    """The model's eval forward on ``x`` under ``mesh``'s second axis:
+    (output with whole rows, targets with whole rows)."""
+    with batch_group(mesh), axis.tagging(mesh):
+        x, y = model_inputs(mesh, x, y)
+        return model_output(model(x)), y
+
+
+def make_eval_step(model, loss_fn, net, mode: str = "test", mesh=None):
     """Returns eval_step(batch) -> (metrics, outputs): eval mode (BN
     running stats, no dropout), no gradients; the net's test metrics, or
-    with ``mode`` "eval" its eval metrics."""
+    with ``mode`` "eval" its eval metrics. Under ``mesh``'s second axis
+    the outputs have whole rows (they differ by data rank only)."""
     metrics_fn = net.test_metrics if mode == "test" else net.eval_metrics
 
     @torch.no_grad()
     def eval_step(batch):
         model.eval()
-        out = model(batch["x"])
-        return metrics_fn(out, batch["y"], loss_fn(out, batch["y"])), out
+        out, y = _forward_whole(model, mesh, batch["x"], batch["y"])
+        return metrics_fn(out, y, loss_fn(out, y)), out
 
     return eval_step
 
 
-def make_tencrop_eval_step(model, loss_fn, net, mode: str = "test"):
+def make_tencrop_eval_step(model, loss_fn, net, mode: str = "test", mesh=None):
     """10-crop evaluation: batch x is (N, 10, H, W, C); one forward of all
     N * 10 crops, the class probabilities averaged over the crops, and
     the loss and metrics on the log of that mean, in f32 (logsumexp over
@@ -234,7 +299,8 @@ def make_tencrop_eval_step(model, loss_fn, net, mode: str = "test"):
         model.eval()
         x, y = batch["x"], batch["y"]
         n, k = x.shape[0], x.shape[1]
-        out = model(x.reshape(n * k, *x.shape[2:])).float().reshape(n, k, -1)
+        out = _forward_whole(model, mesh, x.reshape(n * k, *x.shape[2:]), y)[0]
+        out = out.float().reshape(n, k, -1)
         log_mean = torch.logsumexp(out, dim=1) - math.log(k)
         return metrics_fn(log_mean, y, loss_fn(log_mean, y)), log_mean
 

@@ -39,7 +39,7 @@ import torch
 
 from mgtpu_torch.models import create_model, get_spec, net_options
 from mgtpu_torch.models.base import NetOpts
-from mgtpu_torch.parallel import make_mesh, replicate, shard_batch
+from mgtpu_torch.parallel import make_mesh, replicate, shard_batch, shard_params_tp
 from mgtpu_torch.serve import add_net_arguments, image_shape, parsed_net_opts, read_checkpoint
 from mgtpu_torch.train.optim import sgd_init
 from mgtpu_torch.train.step import make_train_step
@@ -61,7 +61,11 @@ class Trainer:
     ranks; each rank builds its Trainer with its own): data parallelism,
     the model on ``mesh.device`` as rank 0's replica, each step on this
     rank's rows of the batch every rank passes, BatchNorm over the
-    global batch."""
+    global batch. A mesh with a second axis (``make_mesh(n_data, rank,
+    ..., n_model=M, model_axis="model" | "tensor")``): -spatial, each
+    step also on this rank's part of the images' height; -tensor, the
+    parameters, running stats and momentum held as this rank's channel
+    slices (`parallel.shard_params_tp`)."""
 
     def __init__(self, opt: NetOpts = NetOpts(), ckpt: Optional[str] = None, seed: int = 0,
                  device: str | torch.device = "cuda",
@@ -86,8 +90,12 @@ class Trainer:
             self.opt_state = load_momentum(self.model, blob["opt_state"])
         else:
             self.opt_state = sgd_init(self.model.parameters())
+        self.spatial = self.mesh.n_model > 1 and self.mesh.axis == "model"
+        tensor = self.mesh.n_model > 1 and self.mesh.axis == "tensor"
+        self.opt_state = shard_params_tp(self.mesh, self.model, self.opt_state)
         self._step = make_train_step(self.model, self.net.create_loss(opt), self.net,
-                                     iter_size=iter_size, remat=remat, mesh=self.mesh)
+                                     iter_size=iter_size, remat=remat, mesh=self.mesh,
+                                     bucket_sgd=not tensor)
 
     def step(self, images, labels, lr: float, wd: float) -> dict:
         """One SGD step on images (B, H, W, C) NHWC (``self.image_shape``)
@@ -106,7 +114,8 @@ class Trainer:
         if self.iter_size > 1:
             x = x.reshape(self.iter_size, -1, *shape)
             y = y.reshape(self.iter_size, -1, *self.target_shape)
-        batch = shard_batch(self.mesh, {"x": x, "y": y}, 1 if self.iter_size > 1 else 0)
+        batch = shard_batch(self.mesh, {"x": x, "y": y}, 1 if self.iter_size > 1 else 0,
+                            spatial=self.spatial)
         x = batch["x"].to(self.device, self.compute_dtype).contiguous()
         y = batch["y"].to(self.device, torch.float32 if self.target_shape else torch.int64)
         return self._step(self.opt_state, {"x": x, "y": y}, lr, wd)

@@ -10,7 +10,11 @@ A flag whose function the port does not have yet is refused with the
 ROADMAP item that ports it (:data:`REFUSED`): none is silently
 ignored. ``-int8`` with ``-train`` stops the run as the JAX Session does
 (int8 is an inference-only path); ``-int8Calib`` without ``-int8`` is
-ignored, as the JAX Session ignores it.
+ignored, as the JAX Session ignores it. The mesh's second axis takes the
+JAX Session's refusals in its words (:data:`CLASHES`): ``-spatial`` with
+``-tensor``, ``-zero1`` with ``-tensor``, ``-int8`` with ``-tensor``;
+``-int8`` with ``-spatial``, which JAX runs, is refused with its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -20,16 +24,28 @@ import os
 import time
 from typing import Optional, Sequence
 
-MODEL_AXIS = ("ROADMAP Queue 1 item 6 (-spatial/-tensor: halo exchanges and channel "
-              "collectives by hand)")
+SPATIAL_INT8 = ("ROADMAP Queue 1 item 8 (-spatial under -int8: conv_i8 with per-side H "
+                "padding, quant_i8's dynamic absmax over the model group)")
 # flag -> (is it asked for, given the parsed options; what ports it)
 REFUSED = {
-    "-spatial": (lambda o: o.spatial > 1, MODEL_AXIS),
-    "-tensor": (lambda o: o.tensor > 1, MODEL_AXIS),
     "-allowPickleCkpt": (lambda o: o.allowPickleCkpt,
                          "no item: the port reads mgtpu-ckpt npz archives only and never "
                          "unpickles"),
 }
+# (do the options clash; the message the run stops with): the JAX
+# Session's refusals, in its words, and the port's one
+CLASHES = (
+    (lambda o: o.spatial > 1 and o.tensor > 1,
+     "-spatial and -tensor both shard the second mesh axis; use one or the other"),
+    (lambda o: o.zero1 and o.tensor > 1,
+     "-zero1 and -tensor are mutually exclusive: tensor parallelism already shards the "
+     "momentum 1/N over the 'tensor' axis"),
+    (lambda o: o.int8 and o.tensor > 1,
+     "-int8 does not compose with -tensor (channel-sharding rules assume float kernel "
+     "leaves)"),
+    (lambda o: o.int8 and o.spatial > 1,
+     f"-int8 with -spatial is not ported yet: {SPATIAL_INT8}"),
+)
 
 
 class _SingleDash:
@@ -143,9 +159,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "2..9 of the first epoch into DIR, as a Chrome "
                         "trace (chrome://tracing, Perfetto)")
     p.add_argument("-spatial", type=int, default=1,
-                   help=f"spatial parallelism; not ported yet: {MODEL_AXIS}")
+                   help="spatial parallelism: split the height of every image-shaped "
+                        "activation that keeps >= 8 rows a rank over this many ranks of "
+                        "the mesh's 'model' axis (halo rows exchanged around each conv "
+                        "and pool); coarser scales stay whole. -nGPU counts all ranks")
     p.add_argument("-tensor", type=int, default=1,
-                   help=f"tensor parallelism; not ported yet: {MODEL_AXIS}")
+                   help="tensor parallelism: split every conv's, BatchNorm's and dense "
+                        "layer's output channels (and their momentum) over this many "
+                        "ranks of the mesh's 'tensor' axis, where each keeps >= 8; "
+                        "-nGPU counts all ranks")
     p.add_argument("-zero1", action="store_true",
                    help="ZeRO-1: shard the SGD momentum over the data-parallel ranks "
                         "(each holds 1/nGPU of every leaf whose trailing dim divides); "
@@ -211,6 +233,9 @@ def parse(argv: Optional[Sequence[str]] = None):
     for flag, (asked, item) in REFUSED.items():
         if asked(opt):
             raise SystemExit(f"{flag} {getattr(opt, flag[1:])} is not ported yet: {item}")
+    for clash, message in CLASHES:
+        if clash(opt):
+            raise SystemExit(message)
     if opt.int8 and opt.train:  # the JAX Session's check, in its words
         raise SystemExit("-int8 is an inference-only path; drop -train")
 

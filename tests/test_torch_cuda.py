@@ -188,6 +188,65 @@ def test_tile_conv_at_cifar_widths_with_unaligned_slices(dev, dtype, ci, co, sta
     torch.testing.assert_close(st, st_ref, rtol=1e-4, atol=1e-5 * st_ref.abs().max().item())
 
 
+# halo mode (-spatial): (pad_top, pad_bottom) of a slab's launch, and the
+# shapes: the sm90 design's (bf16, Ci and Co multiples of 64: R-MG-34's
+# 56-row scale and its 28-row one at 128 channels) and the tile design's
+# (narrow channels, in bf16 and f32)
+PADS = [(1, 1), (1, 0), (0, 1), (0, 0)]
+HALO_SHAPES = [(2, 16, 56, 64, 64), (2, 14, 28, 128, 128), (2, 12, 9, 24, 40)]
+
+
+@pytest.mark.parametrize("shape", HALO_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pads", PADS, ids=[f"pads{a}{b}" for a, b in PADS])
+@pytest.mark.parametrize("prologue", [False, True])
+@pytest.mark.parametrize("design", ["routed", "tile"])
+def test_halo_launch_matches_plain_and_whole_image(dev, shape, dtype, pads, prologue, design):
+    """A slab's launch under per-side padding (rows 4..h-4 of the image,
+    with the halo rows its pads leave out of the padding) against the
+    plain version of the same slab, and against the rows of the whole
+    image's launch through the same design; one launch. The prologue's
+    shift is positive, so a pad row that were normalized would show."""
+    n, h, w_, ci, co = shape
+    x, w, b = _conv_inputs(n, h, w_, ci, co, dtype, dev)
+    pt, pb = pads
+    lo, hi = (0 if pt else 4), (h if pb else h - 4)
+    xs = x[:, lo - (1 - pt):hi + (1 - pb)].contiguous()
+    vectors = ()
+    if prologue:
+        scale, shift = _bn(ci, dev)
+        vectors = (scale, shift.abs() + 0.5)
+    kernel = "conv3x3_bn_relu_in" if prologue else "conv3x3"
+    if design == "routed":
+        fn = conv3x3_bn_relu_in if prologue else conv3x3
+    else:
+        fn = _tile_forward
+
+    y, st = _run(kernel, design, xs, w, lambda: fn(xs, w, b, *vectors, pad_top=pt,
+                                                   pad_bottom=pb))
+    y_all, _ = _run(kernel, design, x, w, lambda: fn(x, w, b, *vectors))
+    xr = xs if not prologue else bn_relu_plain(xs, *vectors)
+    y_ref, st_ref = conv3x3_plain(xr.float(), w.float(), b, pad_top=pt, pad_bottom=pb)
+    torch.cuda.synchronize()
+    assert y.shape == (n, hi - lo, w_, co)
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    # as in test_conv3x3_kernel_matches_plain
+    torch.testing.assert_close(y.float(), y_ref, rtol=rtol, atol=1e-5 * y_ref.abs().max().item())
+    torch.testing.assert_close(st, st_ref, rtol=1e-4, atol=1e-5 * st_ref.abs().max().item())
+    # the whole image's launch: the same taps in the same order per pixel
+    torch.testing.assert_close(y, y_all[:, lo:hi], rtol=0, atol=0)
+
+
+def test_halo_launch_one_one_is_the_pad_one_launch(dev):
+    """(1, 1) passed explicitly is the default launch, bit for bit."""
+    x, w, b = _conv_inputs(2, 14, 14, 256, 256, torch.bfloat16, dev)
+    y0, s0 = conv3x3(x, w, b)
+    y1, s1 = conv3x3(x, w, b, pad_top=1, pad_bottom=1)
+    torch.cuda.synchronize()
+    assert torch.equal(y0, y1)
+    torch.testing.assert_close(s0, s1, rtol=1e-5, atol=0)
+
+
 def test_conv3x3_wrapper_refuses(dev):
     x, w, b = _conv_inputs(1, 4, 4, 16, 16, torch.float32, dev)
     with pytest.raises(TypeError):

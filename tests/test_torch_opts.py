@@ -57,8 +57,6 @@ BASE = ["-netType", "cifar/nmg", "-dataset", "cifar100-whitened", "-train"]
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["-spatial", "2"], "item 6"),
-    (["-tensor", "2"], "item 6"),
     (["-allowPickleCkpt"], "never unpickles"),
 ], ids=lambda v: v[0] if isinstance(v, list) else None)
 def test_unported_flag_is_refused(flags, item):
@@ -69,12 +67,14 @@ def test_unported_flag_is_refused(flags, item):
 
 @pytest.mark.parametrize("flags", [["-remat"], ["-pipeline", "saliency"],
                                    ["-saliencyBatch", "8"], ["-saliencyDumpStack", "0"],
-                                   ["-zero1"], ["-multihost"]],
+                                   ["-zero1"], ["-multihost"], ["-spatial", "2"],
+                                   ["-tensor", "2"]],
                          ids=lambda v: v[0])
 def test_ported_flag_parses_to_the_jax_values(flags):
-    """The train step's -remat, the saliency harness's flags and the data
-    parallelism's -zero1 and -multihost, refused until they were ported,
-    parse to the JAX values and run dir."""
+    """The train step's -remat, the saliency harness's flags, the data
+    parallelism's -zero1 and -multihost and the mesh's second axis
+    (-spatial, -tensor), refused until they were ported, parse to the
+    JAX values and run dir."""
     ref, got = jax_opts.parse(BASE + flags), opts.parse(BASE + flags)
     name = flags[0][1:]
     assert getattr(got, name) == getattr(ref, name) != jax_opts.build_parser().get_default(name)

@@ -255,7 +255,7 @@ NETS = {"ilsvrc/rnmg": (RMG34, PER_STEP, 46),
         **{net: (cifar_opts(net), CIFAR_PER_MICRO[net], pools) for net, pools in zip(
             CIFAR_RECIPES, (28, 66, 42, 32, 5, 5))},
         **{net: (SEG_RECIPES[net][0], SEG_PER_MICRO[net], pools) for net, pools in zip(
-            SEG_RECIPES, (3, 13, 15, 33, 58))}}
+            SEG_RECIPES, (3, 13, 15, 33, 57))}}
 
 
 @pytest.mark.parametrize("net", sorted(NETS))
