@@ -17,9 +17,11 @@ loop, `mgtpu_torch.main`, and serves R-MG-34, cifar/prnmg and unmg under
 int8 (`Server(int8=True)`, `-test -int8`) through the int8 conv and the
 activation quantizer kernels, runs the saliency harness (`-pipeline
 saliency`), takes the train step's `-remat` steps and a data-parallel
-step on two ranks, and drives the model tools (`mgtpu_torch.tools`:
+step on two ranks, drives the model tools (`mgtpu_torch.tools`:
 model_info, export_model and serve_exported in a fresh process,
-bench_serving, bench_step_breakdown). Phases:
+bench_serving, bench_step_breakdown), runs R-MG-34's training step
+under the mesh's second axis and serves it under int8 across ranks.
+Phases:
 
   1 device   the card, and its name and power limit from nvidia-smi
   2 build    nvcc over mgtpu_torch/csrc/*.cu, bound with ctypes
@@ -257,6 +259,28 @@ bench_serving, bench_step_breakdown). Phases:
              gathers, channel gathers and the inputs' gradient sums)
              counted, their bytes and time; the peak memory of a rank
              against the one-rank bf16 step's
+ 32 i8 axis  int8 serving across ranks: conv_i8's halo mode at every
+             recorded R-MG-34 int8 call whose height spatial_split
+             splits (3x3/s1 slabs with pads (1, 0), (0, 1), (0, 0)
+             through sm90 and simple; the 7x7/2 stems' (3, 0), (0, 2),
+             (0, 0) through simple), each launch bit for bit the whole
+             image's at its rows, the whole image's (pad, pad) launches
+             bit for bit the plain version; then R-MG-34 served under
+             int8 as phase 24 builds it (Server, I8_CALIB batches), at
+             global batch 128 through the run loop's eval step, two ranks
+             on the one card over gloo (not scaling): under -spatial 2,
+             static and dynamic scales, the outputs bit for bit the
+             one-rank int8 forward's; under -nGPU 2 (2 x 1), dynamic, each
+             rank's rows within 1e-5 of the outputs' scale of the one-rank
+             forward's; every dynamic scale bit for bit the one-rank
+             forward's and the calibrated ones the same bits on every
+             rank; each rank's launches the pins of I8_PER_FORWARD through
+             I8_ROUTES' designs, its halo-mode conv_i8 launches
+             (kernels.PADDED) those of the split calls; a rank's forward
+             ms, its scale all-reduces' count and ms, its collectives'
+             bytes and ms; rank 0's halo-mode conv_i8 launches of one
+             forward timed against their plain version and the whole
+             image's launches at the same calls
 
 Any failed check exits non-zero. The second-to-last line of stdout is
 one JSON object with the kernels: ``launches`` sums each kernel's
@@ -269,7 +293,8 @@ builds and calibration, the exported programs' forwards in their own
 process (warm-up, counted and timed), that process's servers' builds and
 timed Server.predict calls, the forwards that the programs are held to,
 bench_serving's and bench_step_breakdown's; phase 31's ranks' bf16
-steps under both axes), ``max_abs_err``
+steps under both axes; phase 32's ranks' counted int8 forwards),
+``max_abs_err``
 is its largest error against its plain version (phases 3, 4, 7, 8, 12,
 17), and ``ms`` / ``plain_ms`` /
 ``library_ms`` are the summed times of its launches (through the design
@@ -293,13 +318,15 @@ under "mnist-saliency (...)" conv3x3's and maxpool2's for the saliency
 forward (phase 27: its launches, and its times and bounds per 3,368-image
 f32 forward, the bound at the f32 peak outside the tensor cores).
 The last two entries are ``conv_i8`` and ``quant_i8``: their launches in
-phases 24, 25 and 30, their largest error (phase 23 and phase 24's
+phases 24, 25, 30 and 32, their largest error (phase 23 and phase 24's
 quantizer checks: 0, the comparisons are exact), their time, their
 plain version's and their bound per batch-128 int8 R-MG-34 forward
 (phase 26), ``library_ms`` null (no PyTorch call computes an int8 conv
 on CUDA, or this quantizer), and for ``conv_i8`` its time by design and
 the simple design's at every shape, and, a different function at the
-same shapes, the bf16 conv3x3 kernel's and cuDNN's bf16 times; for
+same shapes, the bf16 conv3x3 kernel's and cuDNN's bf16 times, and under
+``halo_mode`` rank 0's halo-mode launches of one int8 forward under
+-spatial 2 at batch 128 (phase 32), as the two convs give theirs; for
 ``quant_i8`` torch.quantize_per_tensor's (a different function).
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2288,23 +2315,26 @@ def record_i8() -> dict:
     return rec
 
 
-def i8_work(key, batch, itemsize=2):
+def i8_work(key, batch, itemsize=2, pads=None):
     """(operations, bytes) of one conv_i8 launch at a recorded shape and
     ``batch``, its output in ``itemsize`` bytes: multiply-adds (2 each)
-    on the taps inside the image; x and w read once (int8), sx and v (f32)
+    on the taps inside x; x and w read once (int8), sx and v (f32)
     read, the part sum y_in and the bias read where the launch takes them,
-    and y written once."""
+    and y written once. ``pads`` (pad_top, pad_bottom): a halo-mode
+    launch, whose x holds the key's H rows with its halo rows."""
     h, w, ci, co, k, stride, pad = key[:7]
     has_in, has_bias = key[9:11]
-    oh, ow = cuda_conv_i8.out_size(h, k, stride, pad), cuda_conv_i8.out_size(w, k, stride, pad)
+    pt, pb = (pad, pad) if pads is None else pads
+    oh, ow = (cuda_conv_i8.out_size(h, k, stride, pt, pb),
+              cuda_conv_i8.out_size(w, k, stride, pad))
 
-    def taps(n, m):  # in-image taps summed over the m outputs along a side of n
-        return sum(sum(0 <= o * stride - pad + t < n for t in range(k)) for o in range(m))
+    def taps(n, m, before):  # in-x taps summed over the m outputs along a side of n
+        return sum(sum(0 <= o * stride - before + t < n for t in range(k)) for o in range(m))
 
     out = batch * oh * ow * co
     nbytes = (batch * h * w * ci + k * k * ci * co + 4 + 4 * co + 4 * co * has_bias
               + itemsize * out * (1 + has_in))
-    return 2 * batch * taps(h, oh) * taps(w, ow) * ci * co, nbytes
+    return 2 * batch * taps(h, oh, pt) * taps(w, ow, pad) * ci * co, nbytes
 
 
 def i8_bounds(shapes, batch):
@@ -3698,7 +3728,8 @@ def whole_export(mesh, model):
 def axis_collectives(log: list):
     """Within it, each all-gather and all-reduce of the mesh's second axis
     (mgtpu_torch.parallel.axis) is synchronized and timed: ``log`` gets
-    (kind, bytes, ms) for each."""
+    (kind, bytes, ms) for each, the kind of an int8 all-gather (conv_i8's
+    halo rows) marked "all_gather int8"."""
     from mgtpu_torch.parallel import axis as pax
 
     gather, reduce = pax._all_gather, pax._all_reduce
@@ -3712,7 +3743,8 @@ def axis_collectives(log: list):
         return out
 
     pax._all_gather = lambda t, group, n: timed(
-        "all_gather", lambda: gather(t, group, n), t, n * t.nbytes)
+        "all_gather" + (" int8" if t.dtype == torch.int8 else ""), lambda: gather(t, group, n), t,
+        n * t.nbytes)
     pax._all_reduce = lambda t, group: timed("all_reduce", lambda: reduce(t, group), t, t.nbytes)
     try:
         yield
@@ -3875,6 +3907,396 @@ def check_axis(name, power, train_shapes) -> dict:
               f"whole-image launches at the same shapes {t['whole_ms']:.3f} ms; max abs err vs "
               f"plain {t['max_abs_err']:.3g}")
     phase("axis", f"phase 31 took {time.perf_counter() - t_phase:.1f} s")
+    return dict(total), halo
+
+
+# 32: int8 serving across ranks (the dynamic scale over the mesh; -spatial
+# under -int8)
+I8_AXIS_MESHES = {"spatial": (1, 2), "data": (2, 1)}  # name -> (data ranks, model ranks)
+I8_AXIS_MODES = {"spatial": ("static", "dynamic"), "data": ("dynamic",)}
+I8_AXIS_BATCH, I8_AXIS_REPS = 128, 3
+# conv_i8's halo-mode pads phase 32 holds each design to: a 3x3/s1 part's
+# slab at the image's top, at its bottom, inside; the 7x7/2 stem's (3
+# rows above, 2 below: axis.window_rows(7, 2, 3))
+I8_HALO_PADS = {(3, 1, 1): [(1, 0), (0, 1), (0, 0)], (7, 2, 3): [(3, 0), (0, 2), (0, 0)]}
+
+
+def i8_split(key) -> bool:
+    """Whether an R-MG-34 int8 forward's recorded conv_i8 call runs in
+    halo mode under -spatial 2: its height split (spatial_split), its
+    window reaching past its rows (k > 1)."""
+    from mgtpu_torch.parallel import spatial_split
+
+    return spatial_split(key[0], 2) and key[4] > 1
+
+
+def i8_slab(key, rows, pads):
+    """(input rows, output rows) of the slab of a split conv_i8 call whose
+    output rows are ``rows`` (r0, r1) of the whole image's, under
+    ``pads``: the rows its window reads, the halo's included."""
+    from mgtpu_torch.parallel.axis import window_rows
+
+    h, k, s, p = key[0], key[4], key[5], key[6]
+    top, bottom = window_rows(k, s, p)
+    r0, r1 = rows
+    return (0 if pads[0] else r0 * s - top, h if pads[1] else r1 * s + bottom), rows
+
+
+def i8_slabs(key):
+    """{pads: (input rows, output rows)} of I8_HALO_PADS' slabs of a split
+    call: the top half, the bottom half, the middle half."""
+    oh = cuda_conv_i8.out_size(key[0], key[4], key[5], key[6])
+    q = oh // 4
+    rows = {0: (0, oh // 2), 1: (oh // 2, oh), 2: (q, oh - q)}
+    return {pads: i8_slab(key, rows[i], pads)
+            for i, pads in enumerate(I8_HALO_PADS[tuple(key[4:7])])}
+
+
+def i8_axis_epilogue(key, batch, oh, ow, seed):
+    """The bf16 epilogue operands of a recorded conv_i8 call: a part sum
+    where it takes one, a bias where it takes one, no ReLU (the part
+    sums' launches take none; the checks cover it in phase 23)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    co = key[3]
+    y_in = (torch.randn((batch, oh, ow, co), generator=g, device="cuda").to(torch.bfloat16)
+            if key[9] else None)
+    bias = torch.randn(co, generator=g, device="cuda") if key[10] else None
+    return y_in, bias
+
+
+def check_i8_halo(shapes, batch=CHECK_BATCH) -> tuple[int, Counter]:
+    """32, the kernel: every recorded R-MG-34 int8 conv_i8 call that runs
+    in halo mode under -spatial 2 (i8_split), at ``batch``: each slab of
+    I8_HALO_PADS through the design _route picks and, where that is
+    sm90, through simple too, bit for bit the whole image's launch (same
+    design) at its rows, in int32 and in the bf16 epilogue of its call;
+    the whole image's (pad, pad) launches bit for bit the plain version;
+    each slab's launch counted in kernels.PADDED. Returns (cases, cases by
+    design)."""
+    designs, n_cases = Counter(), 0
+    for i, key in enumerate(sorted(k for k in shapes if i8_split(k))):
+        x8, w8, wk, v, sx = i8_operands(key, batch, seed=3200 + i)
+        h, w, ci, co, k, s, p = key[:7]
+        oh, ow = cuda_conv_i8.out_size(h, k, s, p), cuda_conv_i8.out_size(w, k, s, p)
+        y0, bias = i8_axis_epilogue(key, batch, oh, ow, seed=3300 + i)
+        acc_plain = cuda_conv_i8.conv_i8_plain(x8, w8, s, p)
+        route = cuda_conv_i8._route(x8, w8, s, p, wk)
+        fns = {route: lambda x, **kw: cuda_conv_i8.conv_i8(x, w8, s, p, wk=wk, **kw)}
+        if route == "sm90":
+            fns["simple"] = lambda x, **kw: cuda_conv_i8._simple_forward(x, w8, s, p, **kw)
+        for design, fn in fns.items():
+            epi = dict(v=v, dtype=torch.bfloat16, sx=sx, bias=bias)
+            acc = fn(x8)
+            y = fn(x8, y_in=None if y0 is None else y0.clone(), **epi)
+            check(torch.equal(acc, acc_plain) and torch.equal(y, cuda_conv_i8.epilogue_plain(
+                acc_plain, v, torch.bfloat16, sx=sx, y_in=None if y0 is None else y0.clone(),
+                bias=bias)), f"conv_i8 {batch}x{key} (pad, pad) through {design} differs from "
+                f"the plain version")
+            for pads, ((a, b), (r0, r1)) in i8_slabs(key).items():
+                xs = x8[:, a:b].contiguous()
+                before = dict(kernels.PADDED)
+                acc_s = fn(xs, pad_top=pads[0], pad_bottom=pads[1])
+                y_s = fn(xs, pad_top=pads[0], pad_bottom=pads[1],
+                         y_in=None if y0 is None else y0[:, r0:r1].contiguous(), **epi)
+                halo = pads != (p, p)
+                got_padded = kernels.PADDED[("conv_i8", design)] - before[("conv_i8", design)]
+                check(got_padded == 2 * halo, f"conv_i8 {key} pads {pads} through {design}: "
+                      f"{got_padded} halo-mode launches counted, expected {2 * halo}")
+                check(torch.equal(acc_s, acc[:, r0:r1]) and torch.equal(y_s, y[:, r0:r1]),
+                      f"conv_i8 {batch}x{key} slab {a}:{b} pads {pads} through {design}: not "
+                      f"the whole image's rows {r0}:{r1} bit for bit")
+                designs[design] += 2
+                n_cases += 2
+    torch.cuda.synchronize()
+    return n_cases, designs
+
+
+def time_i8_halo(shapes) -> dict:
+    """32, the kernel's times: rank 0's halo-mode conv_i8 launches of one
+    R-MG-34 int8 forward under -spatial 2 at I8_AXIS_BATCH (each recorded
+    call that i8_split selects: the top half's slab, pads (top, 0)),
+    checked once bit for bit against the whole image's launch at its
+    rows and its plain version, then timed in turns with the plain version
+    on the same slab and the whole image's launch at the recorded shape
+    (device_ms). Returns {launches, ms, plain_ms, whole_ms, max_abs_err,
+    bound_ms, bound_by, ops, nbytes}, the times summed over the forward."""
+    tot = dict(launches=0, ms=0.0, plain_ms=0.0, whole_ms=0.0, max_abs_err=0.0, ops=0, nbytes=0,
+               bound_ms=0.0)
+    ops_ms = 0.0  # the part of the bound that operations set
+    for i, (key, n) in enumerate(sorted(shapes.items())):
+        if not i8_split(key):
+            continue
+        x8, w8, wk, v, sx = i8_operands(key, I8_AXIS_BATCH, seed=3400 + i)
+        h, w, ci, co, k, s, p = key[:7]
+        pads, ((a, b), (r0, r1)) = next(iter(i8_slabs(key).items()))
+        xs = x8[:, a:b].contiguous()
+        oh, ow = cuda_conv_i8.out_size(h, k, s, p), cuda_conv_i8.out_size(w, k, s, p)
+        y0, bias = i8_axis_epilogue(key, I8_AXIS_BATCH, oh, ow, seed=3500 + i)
+        ys0 = None if y0 is None else y0[:, r0:r1].contiguous()
+        epi = dict(v=v, dtype=torch.bfloat16, sx=sx, bias=bias)
+        kw = dict(pad_top=pads[0], pad_bottom=pads[1])
+        y_s = cuda_conv_i8.conv_i8(xs, w8, s, p, wk=wk, y_in=None if ys0 is None else ys0.clone(),
+                                   **kw, **epi)
+        y = cuda_conv_i8.conv_i8(x8, w8, s, p, wk=wk, y_in=None if y0 is None else y0.clone(),
+                                 **epi)
+        y_p = cuda_conv_i8.conv_i8_plain(xs, w8, s, p, y_in=None if ys0 is None else ys0.clone(),
+                                         **kw, **epi)
+        torch.cuda.synchronize()
+        err = (y_s.double() - y_p.double()).abs().max().item()
+        check(torch.equal(y_s, y[:, r0:r1]) and torch.equal(y_s, y_p),
+              f"conv_i8 {I8_AXIS_BATCH}x{key} halo mode {pads}: not the whole image's rows and "
+              f"the plain version's (max abs err {err:.3g})")
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        (t, _), (tp, _), (tw, _) = device_ms([
+            lambda: cuda_conv_i8.conv_i8(xs, w8, s, p, wk=wk, y_in=ys0, **kw, **epi),
+            lambda: cuda_conv_i8.conv_i8_plain(xs, w8, s, p, y_in=None if ys0 is None
+                                               else ys0.clone(), **kw, **epi),
+            lambda: cuda_conv_i8.conv_i8(x8, w8, s, p, wk=wk, y_in=y0, **epi)], windows=3)
+        slab_key = (b - a, *key[1:])
+        ops, nbytes = i8_work(slab_key, I8_AXIS_BATCH, pads=pads)
+        t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+        tot["launches"] += n
+        tot["ms"] += n * t
+        tot["plain_ms"] += n * tp
+        tot["whole_ms"] += n * tw
+        tot["ops"] += n * ops
+        tot["nbytes"] += n * nbytes
+        tot["bound_ms"] += n * max(t_ops, t_bytes)
+        ops_ms += n * t_ops * (t_ops > t_bytes)
+        del x8, xs, y, y_s, y_p, y0, ys0
+    tot["bound_by"] = "operations" if tot["bound_ms"] and 2 * ops_ms >= tot["bound_ms"] else "bytes"
+    return tot
+
+
+@contextlib.contextmanager
+def dynamic_scales(out: list):
+    """Within it, the layers' dynamic activation scales (0-d f32 on the
+    card, in call order) go to ``out``; no synchronization."""
+    original = quant.quant_i8
+
+    def fn(x, sx=None, up=None):
+        x8, s = original(x, sx, up)
+        if sx is None:
+            out.append(s.reshape(()))
+        return x8, s
+
+    quant.quant_i8 = fn
+    try:
+        yield out
+    finally:
+        quant.quant_i8 = original
+
+
+@contextlib.contextmanager
+def timed_reduces(log: list):
+    """Within it, each all-reduce of a dynamic scale over the mesh
+    (quant.mesh_absmax) is synchronized and timed: ``log`` gets its ms."""
+    original = quant.mesh_absmax
+
+    def fn(t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(t)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    quant.mesh_absmax = fn
+    try:
+        yield log
+    finally:
+        quant.mesh_absmax = original
+
+
+def i8_axis_forwards(server, mesh, x, y) -> dict:
+    """Phase 32's forwards of ``server``'s int8 R-MG-34 through the run
+    loop's eval step on ``mesh`` (None: one rank) and this rank's rows of
+    the global batch (x, y), in each mode of the mesh's (static: the
+    server's calibrated scales; dynamic: none): one to warm up, then one
+    with the counts set to 0 just before and read just after, whose
+    outputs and dynamic scales are kept; I8_AXIS_REPS timed (host clock
+    to the synchronized output); one with each scale all-reduce timed;
+    one with the mesh's collectives timed (axis_collectives). Returns
+    {mode: results}."""
+    from mgtpu_torch.parallel import shard_batch
+    from mgtpu_torch.train.step import make_eval_step
+
+    spec = get_spec("ilsvrc/rnmg")
+    step = make_eval_step(server.model, spec.create_loss(server.opt), spec, "test", mesh)
+    convs = [m for m in server.model.modules() if getattr(m, "quantized", False)]
+    calibrated = [m.sx for m in convs]
+    batch = {"x": torch.from_numpy(x), "y": torch.from_numpy(y)}
+    if mesh is not None:
+        batch = shard_batch(mesh, batch, 0, spatial=True)
+    batch = {k: v.to(server.device) for k, v in batch.items()}
+    name = "one" if mesh is None else "data" if mesh.n_model == 1 else "spatial"
+    res = {}
+    for mode in I8_AXIS_MODES["spatial" if mesh is None else name]:
+        for m, sx in zip(convs, calibrated):
+            m.sx = sx if mode == "static" else None
+        step(batch)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with dynamic_scales([]) as scales:
+            out = step(batch)[1]
+        launches = dict(kernels.LAUNCHES)
+        routes = {f"{k}/{r}": n for (k, r), n in kernels.ROUTES.items() if n}
+        padded = {f"{k}/{r}": n for (k, r), n in kernels.PADDED.items() if n}
+        torch.cuda.synchronize()
+        fwd_ms = []
+        for _ in range(I8_AXIS_REPS):
+            t0 = time.perf_counter()
+            step(batch)[1].float().sum().item()
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+        reduces, coll = [], []
+        if mesh is not None:
+            with timed_reduces(reduces):
+                step(batch)
+            with axis_collectives(coll):
+                step(batch)
+        res[mode] = {"out": out.float().cpu().numpy(),
+                     "scales": (torch.stack(scales).cpu().numpy() if scales
+                                else np.zeros(0, np.float32)),
+                     "launches": launches, "routes": routes, "padded": padded,
+                     "fwd_ms": fwd_ms, "reduces": reduces, "collectives": coll}
+    for m, sx in zip(convs, calibrated):
+        m.sx = sx
+    return res
+
+
+def i8_axis_rank(rank, name, init, out_dir) -> None:
+    """One of phase 32's two ranks of mesh ``name`` (I8_AXIS_MESHES), a
+    spawned process on cuda:0 joined over gloo: R-MG-34 served under
+    int8 as phase 24 builds it (Server: BN folded, quantized, calibrated
+    on I8_CALIB batches), its forwards on the rank's rows of the global
+    batch (i8_axis_forwards). Writes out_dir/<name><rank>.npz and .json."""
+    import torch.distributed as dist
+
+    from mgtpu_torch.parallel import make_mesh
+
+    n_data, n_model = I8_AXIS_MESHES[name]
+    mesh = make_mesh(n_data, rank=rank, device="cuda:0", init_method=init, backend="gloo",
+                     n_model=n_model)
+    try:
+        server = Server(RMG34, seed=0, device="cuda:0", compute_dtype=torch.bfloat16, int8=True,
+                        int8_calib=I8_CALIB)
+        sx = torch.cat([m.sx for m in server.model.modules() if getattr(m, "quantized", False)])
+        res = i8_axis_forwards(server, mesh, *synthetic_batch(I8_AXIS_BATCH, seed=32))
+        np.savez(Path(out_dir) / f"{name}{rank}.npz", sx=sx.cpu().numpy(), **{
+            f"{mode}/{k}": r[k] for mode, r in res.items() for k in ("out", "scales")})
+        (Path(out_dir) / f"{name}{rank}.json").write_text(json.dumps({
+            mode: {k: v for k, v in r.items() if k not in ("out", "scales")}
+            for mode, r in res.items()}))
+    finally:
+        dist.destroy_process_group()
+
+
+def check_i8_axis(name, power, shapes) -> tuple[dict, dict]:
+    """32: int8 serving across ranks (see the module's head). Returns (the
+    ranks' counted launches, summed; conv_i8's halo_mode numbers)."""
+    import torch.multiprocessing as mp
+
+    from mgtpu_torch.main import free_port
+
+    t_phase = time.perf_counter()
+    n_cases, designs = check_i8_halo(shapes)
+    phase("i8 axis", f"conv_i8 in halo mode: {n_cases} launches ({dict(designs)} by design) at "
+          f"the {sum(1 for k in shapes if i8_split(k))} recorded R-MG-{DEPTH} int8 calls split "
+          f"under -spatial 2, batch {CHECK_BATCH} (3x3/s1 slabs with pads (1, 0), (0, 1), "
+          f"(0, 0); the 7x7/2 stems' with (3, 0), (0, 2), (0, 0); int32 and the call's bf16 "
+          f"epilogue), each bit for bit the whole image's launch through the same design at "
+          f"its rows, and counted in kernels.PADDED; the whole image's (pad, pad) launches bit "
+          f"for bit the plain version")
+    server = Server(RMG34, seed=0, device="cuda", compute_dtype=torch.bfloat16, int8=True,
+                    int8_calib=I8_CALIB)
+    sx_one = torch.cat([m.sx for m in server.model.modules()
+                        if getattr(m, "quantized", False)]).cpu().numpy()
+    x, y = synthetic_batch(I8_AXIS_BATCH, seed=32)
+    one = i8_axis_forwards(server, None, x, y)
+    del server
+    torch.cuda.empty_cache()
+    padded_pin = {f"conv_i8/{d}": n for d, n in i8_routes(
+        {k: n for k, n in shapes.items() if i8_split(k)}).items() if n}
+    total = Counter()
+    for mesh_name, (n_data, n_model) in I8_AXIS_MESHES.items():
+        t_mesh = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            mp.start_processes(i8_axis_rank, args=(mesh_name, f"tcp://127.0.0.1:{free_port()}",
+                                                   tmp), nprocs=n_data * n_model,
+                               start_method="spawn")
+            ranks = [(dict(np.load(Path(tmp) / f"{mesh_name}{r}.npz")),
+                      json.loads((Path(tmp) / f"{mesh_name}{r}.json").read_text()))
+                     for r in range(n_data * n_model)]
+        for r, (arrays, info) in enumerate(ranks):
+            check(np.array_equal(arrays["sx"], sx_one), f"-{mesh_name} rank {r}: the calibrated "
+                  f"scales differ from the one-rank calibration's")
+            for mode, rk in info.items():
+                want = i8_pins("ilsvrc/rnmg", dynamic=mode == "dynamic")
+                got = {k: n for k, n in rk["launches"].items() if n}
+                check(got == {k: n for k, n in want.items() if n},
+                      f"-{mesh_name} rank {r} {mode}: launches {got}, expected {want}")
+                want_routes = {f"conv_i8/{d}": n for d, n in I8_ROUTES["ilsvrc/rnmg"].items()}
+                got_routes = {k: n for k, n in rk["routes"].items() if k.startswith("conv_i8")}
+                want_padded = padded_pin if n_model > 1 else {}
+                check(got_routes == want_routes and rk["padded"] == want_padded,
+                      f"-{mesh_name} rank {r} {mode}: conv_i8 designs {got_routes}, expected "
+                      f"{want_routes}; halo-mode launches {rk['padded']}, expected {want_padded}")
+                total.update(rk["launches"])
+                ref = one[mode]
+                scales = arrays[f"{mode}/scales"]
+                bad = (int((scales != ref["scales"]).sum()) if scales.shape == ref["scales"].shape
+                       else "all")
+                check(np.array_equal(scales, ref["scales"]), f"-{mesh_name} rank {r} {mode}: "
+                      f"{bad} of {ref['scales'].size} dynamic scales differ from the one-rank "
+                      f"forward's")
+                out = arrays[f"{mode}/out"]
+                rows = ref["out"][(r // n_model) * len(out):(r // n_model + 1) * len(out)]
+                err, scale = float(np.abs(out - rows).max()), float(np.abs(rows).max())
+                if n_data == 1:  # the same batch: every op exact or elementwise
+                    check(np.array_equal(out, rows), f"-{mesh_name} rank {r} {mode}: outputs "
+                          f"differ from the one-rank forward's (max abs {err:.3g})")
+                else:  # the classifier's matmul at another batch
+                    check(err <= 1e-5 * scale, f"-{mesh_name} rank {r} {mode}: outputs {err:.3g} "
+                          f"from the one-rank forward's rows (bound 1e-5 x {scale:.4g})")
+        for mode in I8_AXIS_MODES[mesh_name]:
+            rk = [info[mode] for _, info in ranks]
+            coll = {}
+            for kind, nbytes, ms in rk[0]["collectives"]:
+                c = coll.setdefault(kind, [0, 0, 0.0])
+                c[0], c[1], c[2] = c[0] + 1, c[1] + nbytes, c[2] + ms
+            red = rk[0]["reduces"]
+            phase("i8 axis", f"R-MG-{DEPTH} int8 {mode}, -{mesh_name} 2 ({n_data} x {n_model}; "
+                  f"two ranks on one card, gloo), global batch {I8_AXIS_BATCH}: "
+                  + ("outputs bit for bit the one-rank int8 forward's" if n_data == 1 else
+                     "each rank's rows within 1e-5 of the outputs' scale of the one-rank "
+                     "forward's")
+                  + (f"; all {len(one[mode]['scales'])} dynamic scales bit for bit the one-rank "
+                     f"forward's on both ranks" if mode == "dynamic" else
+                     "; the calibrated scales the same bits on both ranks and one")
+                  + f"; launches a rank {i8_pins('ilsvrc/rnmg', dynamic=mode == 'dynamic')}, "
+                  f"designs {I8_ROUTES['ilsvrc/rnmg']}, halo mode "
+                  f"{padded_pin if n_model > 1 else 0}")
+            phase("i8 axis", f"times on {power} (two ranks sharing one card: not scaling): a "
+                  f"rank's forward {statistics.median(rk[0]['fwd_ms']):.1f} / "
+                  f"{statistics.median(rk[1]['fwd_ms']):.1f} ms (median of {I8_AXIS_REPS}, host "
+                  f"clock to the synchronized output), one rank's "
+                  f"{statistics.median(one[mode]['fwd_ms']):.1f} ms; "
+                  + (f"{len(red)} scale all-reduces in rank 0's forward, {sum(red):.1f} ms "
+                     f"(each synchronized, median {statistics.median(red):.3f} ms)"
+                     if red else "no scale all-reduce (static scales)")
+                  + "; the mesh's collectives in one forward of rank 0 (each synchronized): "
+                  + ("; ".join(f"{n} {kind}s, {b / 1e6:.2f} MB, {ms:.1f} ms"
+                               for kind, (n, b, ms) in coll.items()) or "none"))
+        phase("i8 axis", f"-{mesh_name} took {time.perf_counter() - t_mesh:.1f} s")
+    halo = time_i8_halo(shapes)
+    phase("i8 axis", f"conv_i8 in halo mode, rank 0's {halo['launches']} launches of one "
+          f"R-MG-{DEPTH} int8 forward under -spatial 2 at batch {I8_AXIS_BATCH} (the top "
+          f"half's slabs), on {power}: {halo['ops'] / 1e9:.1f} GOP, {halo['nbytes'] / 1e6:.1f} "
+          f"MB, bound {halo['bound_ms']:.4f} ms (by {halo['bound_by']}); kernel "
+          f"{halo['ms']:.3f} ms ({halo['bound_ms'] / halo['ms']:.0%} of the bound), plain "
+          f"{halo['plain_ms']:.3f} ms, the whole image's launches at the same calls "
+          f"{halo['whole_ms']:.3f} ms")
+    phase("i8 axis", f"phase 32 took {time.perf_counter() - t_phase:.1f} s")
     return dict(total), halo
 
 
@@ -4110,6 +4532,11 @@ def main() -> None:
     axis_launches, halo = check_axis(name, smi.stdout.strip().splitlines()[0], train_shapes)
     launches = {k: launches[k] + axis_launches.get(k, 0) for k in KERNELS}
     i8_launches = {k: i8_launches[k] + tool_launches.get(k, 0) for k in i8_launches}
+    # 32 int8 serving across ranks
+    i8_axis_launches, i8_halo = check_i8_axis(name, smi.stdout.strip().splitlines()[0],
+                                              rmg_i8["conv_i8"])
+    launches = {k: launches[k] + i8_axis_launches.get(k, 0) for k in KERNELS}
+    i8_launches = {k: i8_launches[k] + i8_axis_launches.get(k, 0) for k in i8_launches}
 
     # each kernel's bound over the pass its times sum: the serving forward
     # (conv3x3, maxpool2) or the training step (the other two)
@@ -4160,7 +4587,10 @@ def main() -> None:
             "bound_ms": i8_bound[2], "bound_by": i8_bound[3], "library_ms": None,
             "sm90_ms": i8_ms["sm90"], "simple_ms": i8_ms["simple"],
             "simple_design_at_all_ms": i8_ms["simple_all"], "bf16_conv3x3_ms": i8_ms["conv3x3"],
-            "bf16_cudnn_ms": i8_ms["cudnn"], "int32_1x1": i8_1x1},
+            "bf16_cudnn_ms": i8_ms["cudnn"], "int32_1x1": i8_1x1,
+            "halo_mode": {key: i8_halo[key] for key in (
+                "launches", "ms", "plain_ms", "whole_ms", "max_abs_err", "bound_ms",
+                "bound_by")}},
            {"name": "quant_i8", **KERNELS_I8["quant_i8"], "launches": i8_launches["quant_i8"],
             "max_abs_err": float(qstats["max_abs_err"]), "ms": i8_ms["quant_i8"],
             "plain_ms": i8_ms["quant_plain"], "bound_ms": q_bound, "bound_by": "bytes",

@@ -4,6 +4,13 @@
 //   y = relu?( [y_in +] cast(float(acc) * (sx * scale[co])) [+ cast(bias[co])] )
 // rounded where torch rounds the int8 layers' sequence (see finish).
 //
+// Per-side H padding: pad_top and pad_bottom (0..p each; p, p is the
+// plain conv, the same launch bit for bit) are the zero rows above and
+// below x; where one is below p, x holds the neighbour's rows there
+// instead (the halo rows of an H-slab, under -spatial). x has h rows, y
+// (h + pad_top + pad_bottom - k) / s + 1, and output row o reads input
+// rows o * s - pad_top .. + k - 1. W keeps p on both sides.
+//
 // Replaces no TPU kernel. The JAX package's int8 serving conv,
 // mgtpu/ops/quant.py::conv_i8, is an int8 conv_general_dilated with an
 // int32 result that XLA lowers, and XLA fuses the dequant, the part sums
@@ -157,10 +164,11 @@ __device__ __forceinline__ void store_pair(void* y, const Epi& e, float sx, int 
 // for a dequantized output or given for an int32 one, y or y_in not
 // aligned for the pair stores
 bool bad_args(const Epi& e, const void* y, int n, int h, int wd, int ci, int co, int k, int s,
-              int p, int out_kind) {
+              int p, int pad_top, int pad_bottom, int out_kind) {
   const bool deq = out_kind == OUT_F32 || out_kind == OUT_BF16;
   return n <= 0 || h <= 0 || wd <= 0 || ci <= 0 || co <= 0 || k <= 0 || s <= 0 || p < 0 ||
-         h + 2 * p < k || wd + 2 * p < k || (!deq && out_kind != OUT_S32) ||
+         pad_top < 0 || pad_top > p || pad_bottom < 0 || pad_bottom > p ||
+         h + pad_top + pad_bottom < k || wd + 2 * p < k || (!deq && out_kind != OUT_S32) ||
          (deq && (e.sx == nullptr || e.scale == nullptr)) ||
          (!deq && (e.y_in != nullptr || e.bias != nullptr || e.relu)) ||
          (e.relu != 0 && e.relu != 1) || !aligned(y, 8) || !aligned(e.y_in, 8);
@@ -174,8 +182,10 @@ constexpr int BK = 32;       // K slots per step
 constexpr int PITCH = 48;    // bytes per shared-memory row (32 + 16: no bank conflicts)
 constexpr int THREADS = 256;
 
+// p pads W on both sides; pad_top is the zero rows above x (its H
+// padding below is in oh)
 struct Shape {
-  int n, h, w, ci, co, k, s, p, oh, ow;
+  int n, h, w, ci, co, k, s, p, pad_top, oh, ow;
   long long tap_stride;
 };
 
@@ -220,7 +230,7 @@ __global__ void __launch_bounds__(THREADS)
     const int img = static_cast<int>(m / per_img);
     const int r = static_cast<int>(m - img * per_img);
     const int oh = r / sh.ow;
-    ih0 = oh * sh.s - sh.p;
+    ih0 = oh * sh.s - sh.pad_top;
     iw0 = (r - oh * sh.ow) * sh.s - sh.p;
     x_img = x + static_cast<long long>(img) * sh.h * sh.w * sh.ci;
   }
@@ -588,7 +598,7 @@ template <int BK, int BN>
 __global__ void __launch_bounds__(THREADS, 1)
     conv_i8_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
                         const __grid_constant__ CUtensorMap wmap, Epi e, void* y, int out,
-                        int H, int W, int Ci, int Co, int M) {
+                        int H, int W, int Ci, int Co, int M, int pad_top) {
   using C = Cfg<BK, BN>;
   extern __shared__ uint8_t smem_raw[];
   // the swizzles repeat every 1024 bytes or less: align the stages to it
@@ -627,9 +637,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
             for (int t = 0; t < C::TAPS; ++t) {
               const int tap = tap0 + t;
-              // the base pixel is one row up and one column left of the
+              // the base pixel is pad_top rows up (input row h - pad_top:
+              // one row up, or the halo row) and one column left of the
               // output pixel; the offsets pick the tap
-              load_im2col(a + t * C::A_SUB, &xmap, fb, c * BK, w - 1, h - 1, img,
+              load_im2col(a + t * C::A_SUB, &xmap, fb, c * BK, w - 1, h - pad_top, img,
                           (uint16_t)(tap % 3), (uint16_t)(tap / 3));
               load_3d(a + C::A_BYTES + t * C::B_SUB, &wmap, fb, c * BK, tap, n0);
             }
@@ -699,7 +710,8 @@ int pick_bn(long long m, int co, int sms) {
 
 template <int BK, int BN>
 int launch_cfg(const CUtensorMap& xmap, const CUtensorMap& wmap, const Epi& e, void* y, int out,
-               int h, int wd, int ci, int co, long long m, int dev, int sms, cudaStream_t s) {
+               int h, int wd, int ci, int co, long long m, int pad_top, int dev, int sms,
+               cudaStream_t s) {
   using C = Cfg<BK, BN>;
   auto kernel = conv_i8_sm90_kernel<BK, BN>;
   // allow this instantiation its dynamic shared memory, once per device
@@ -712,29 +724,32 @@ int launch_cfg(const CUtensorMap& xmap, const CUtensorMap& wmap, const Epi& e, v
   }
   const long long tiles = (m + BM - 1) / BM * ((co + BN - 1) / BN);
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
-  kernel<<<grid, THREADS, C::SMEM, s>>>(xmap, wmap, e, y, out, h, wd, ci, co, (int)m);
+  kernel<<<grid, THREADS, C::SMEM, s>>>(xmap, wmap, e, y, out, h, wd, ci, co, (int)m, pad_top);
   return (int)cudaGetLastError();
 }
 
 template <int BK>
 int launch_bk(const CUtensorMap& xmap, const CUtensorMap& wmap, const Epi& e, void* y, int out,
-              int h, int wd, int ci, int co, long long m, int dev, int sms, cudaStream_t s) {
+              int h, int wd, int ci, int co, long long m, int pad_top, int dev, int sms,
+              cudaStream_t s) {
   switch (pick_bn(m, co, sms)) {
     case 32:
-      return launch_cfg<BK, 32>(xmap, wmap, e, y, out, h, wd, ci, co, m, dev, sms, s);
+      return launch_cfg<BK, 32>(xmap, wmap, e, y, out, h, wd, ci, co, m, pad_top, dev, sms, s);
     case 64:
-      return launch_cfg<BK, 64>(xmap, wmap, e, y, out, h, wd, ci, co, m, dev, sms, s);
+      return launch_cfg<BK, 64>(xmap, wmap, e, y, out, h, wd, ci, co, m, pad_top, dev, sms, s);
     default:
-      return launch_cfg<BK, 128>(xmap, wmap, e, y, out, h, wd, ci, co, m, dev, sms, s);
+      return launch_cfg<BK, 128>(xmap, wmap, e, y, out, h, wd, ci, co, m, pad_top, dev, sms, s);
   }
 }
 
 // w: the K-major packed weight (Co, 9, ci_total) bytes from the slice's
 // first input channel; ci_total (the tap stride) and that offset
-// multiples of 16
+// multiples of 16. x has h rows, y oh = h - 2 + pad_top + pad_bottom
+// (pads 0 or 1: the caller checks)
 int launch(const void* x, const void* w, const Epi& e, void* y, int out, int n, int h, int wd,
-           int ci, int co, long long ci_total, cudaStream_t s) {
-  const long long m = (long long)n * h * wd;
+           int ci, int co, long long ci_total, int pad_top, int pad_bottom, cudaStream_t s) {
+  const int oh = h - 2 + pad_top + pad_bottom;
+  const long long m = (long long)n * oh * wd;
   if (ci % 16 != 0 || co % 16 != 0 || ci_total % 16 != 0 || ci_total < ci || !aligned(x, 16) ||
       !aligned(w, 16) || m >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
@@ -758,10 +773,14 @@ int launch(const void* x, const void* w, const Epi& e, void* y, int out, int n, 
   const cuuint32_t ones[4] = {1, 1, 1, 1};
   CUtensorMap xmap, wmap;
   // x (C, W, H, N), im2col: bk channels of 128 pixels per load; the
-  // bounding box of the base pixel runs from -1 to (size - 2) in W and H
+  // bounding box of the base pixel (corners {W, H}) runs from -1 to W - 2
+  // in W and from -pad_top to h - 3 + pad_bottom (= oh - 1 - pad_top) in
+  // H: oh positions, so M stays N*oh*W output pixels, and TMA's zero fill
+  // outside x is the padding on the sides that have it (a halo row is
+  // inside x, and loaded)
   const cuuint64_t xdim[4] = {(cuuint64_t)ci, (cuuint64_t)wd, (cuuint64_t)h, (cuuint64_t)n};
   const cuuint64_t xstride[3] = {(cuuint64_t)ci, (cuuint64_t)ci * wd, (cuuint64_t)ci * wd * h};
-  const int lower[2] = {-1, -1}, upper[2] = {-1, -1};
+  const int lower[2] = {-1, -pad_top}, upper[2] = {-1, -1 - (1 - pad_bottom)};
   CUresult r = im2col(&xmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(x), xdim,
                       xstride, lower, upper, (cuuint32_t)bk, BM, ones,
                       CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -776,9 +795,11 @@ int launch(const void* x, const void* w, const Epi& e, void* y, int out, int n, 
               wbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
-  if (bk == 128) return launch_bk<128>(xmap, wmap, e, y, out, h, wd, ci, co, m, dev, sms, s);
-  if (bk == 64) return launch_bk<64>(xmap, wmap, e, y, out, h, wd, ci, co, m, dev, sms, s);
-  return launch_bk<32>(xmap, wmap, e, y, out, h, wd, ci, co, m, dev, sms, s);
+  if (bk == 128)
+    return launch_bk<128>(xmap, wmap, e, y, out, oh, wd, ci, co, m, pad_top, dev, sms, s);
+  if (bk == 64)
+    return launch_bk<64>(xmap, wmap, e, y, out, oh, wd, ci, co, m, pad_top, dev, sms, s);
+  return launch_bk<32>(xmap, wmap, e, y, out, oh, wd, ci, co, m, pad_top, dev, sms, s);
 }
 
 }  // namespace sm90
@@ -786,7 +807,9 @@ int launch(const void* x, const void* w, const Epi& e, void* y, int out, int n, 
 }  // namespace
 
 // Both entry points take the same arguments. x (n, h, wd, ci) int8 NHWC,
-// contiguous; y (n, oh, ow, co) contiguous, oh = (h + 2p - k) / s + 1:
+// contiguous; y (n, oh, ow, co) contiguous, oh = (h + pad_top +
+// pad_bottom - k) / s + 1, ow = (wd + 2p - k) / s + 1 (pad_top and
+// pad_bottom 0..p; p, p the plain conv):
 // the int32 sums (out_kind 0), or the epilogue above in f32 (1) or bf16
 // (2) with sx (1,) and scale (co,) f32, y_in (the output type, y's shape;
 // may be y) and bias (co,) f32 optional (null), relu 0 or 1. Each returns
@@ -797,27 +820,31 @@ int launch(const void* x, const void* w, const Epi& e, void* y, int out, int n, 
 extern "C" int mg_conv_i8(const void* x, const void* w, const void* sx, const void* scale,
                           const void* y_in, const void* bias, void* y, int n, int h, int wd,
                           int ci, int co, int k, int s, int p, long long w_tap_stride,
-                          int out_kind, int relu, void* stream) {
+                          int out_kind, int relu, int pad_top, int pad_bottom, void* stream) {
   const Epi e{static_cast<const float*>(sx), static_cast<const float*>(scale), y_in,
               static_cast<const float*>(bias), relu};
-  if (bad_args(e, y, n, h, wd, ci, co, k, s, p, out_kind)) return cudaErrorInvalidValue;
-  const simple::Shape sh{n, h, wd, ci, co, k, s, p, (h + 2 * p - k) / s + 1,
-                         (wd + 2 * p - k) / s + 1, w_tap_stride};
+  if (bad_args(e, y, n, h, wd, ci, co, k, s, p, pad_top, pad_bottom, out_kind))
+    return cudaErrorInvalidValue;
+  const simple::Shape sh{n, h, wd, ci, co, k, s, p, pad_top,
+                         (h + pad_top + pad_bottom - k) / s + 1, (wd + 2 * p - k) / s + 1,
+                         w_tap_stride};
   return simple::launch(static_cast<const int8_t*>(x), static_cast<const int8_t*>(w), e, y,
                         out_kind, sh, static_cast<cudaStream_t>(stream));
 }
 
-// The sm90 design, 3x3/s1/p1 only: w the K-major packed weight (co, 9,
-// w_tap_stride) bytes, from the slice's first input channel
-// (w_tap_stride: the whole weight's input channels).
+// The sm90 design, 3x3/s1/p1 only (pad_top, pad_bottom 0 or 1): w the
+// K-major packed weight (co, 9, w_tap_stride) bytes, from the slice's
+// first input channel (w_tap_stride: the whole weight's input channels).
 extern "C" int mg_conv_i8_sm90(const void* x, const void* w, const void* sx, const void* scale,
                                const void* y_in, const void* bias, void* y, int n, int h,
                                int wd, int ci, int co, int k, int s, int p,
-                               long long w_tap_stride, int out_kind, int relu, void* stream) {
+                               long long w_tap_stride, int out_kind, int relu, int pad_top,
+                               int pad_bottom, void* stream) {
   const Epi e{static_cast<const float*>(sx), static_cast<const float*>(scale), y_in,
               static_cast<const float*>(bias), relu};
-  if (bad_args(e, y, n, h, wd, ci, co, k, s, p, out_kind) || k != 3 || s != 1 || p != 1)
+  if (bad_args(e, y, n, h, wd, ci, co, k, s, p, pad_top, pad_bottom, out_kind) || k != 3 ||
+      s != 1 || p != 1)
     return cudaErrorInvalidValue;
-  return sm90::launch(x, w, e, y, out_kind, n, h, wd, ci, co, w_tap_stride,
+  return sm90::launch(x, w, e, y, out_kind, n, h, wd, ci, co, w_tap_stride, pad_top, pad_bottom,
                       static_cast<cudaStream_t>(stream));
 }

@@ -53,10 +53,11 @@ ROUTES: dict[tuple[str, str], int] = {
     **{("maxpool2_bwd", r): 0 for r in ("group", "simple")}}
 
 # (kernel, design) -> the convs' launches in halo mode (per-side padding
-# other than (1, 1): an H-slab's, under -spatial) since the last
+# other than (pad, pad): an H-slab's, under -spatial) since the last
 # reset_launches(); each is also counted in LAUNCHES and ROUTES
 PADDED: dict[tuple[str, str], int] = {
-    (k, r): 0 for k in ("conv3x3", "conv3x3_bn_relu_in") for r in ("sm90", "tile")}
+    **{(k, r): 0 for k in ("conv3x3", "conv3x3_bn_relu_in") for r in ("sm90", "tile")},
+    **{("conv_i8", r): 0 for r in ("sm90", "simple")}}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -82,12 +83,13 @@ _SIGNATURES = {
     "mg_maxpool2_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # table (a cuda_pool._Table), table_bytes, grid, first_only, is_bf16, stream
     "mg_maxpool2_bwd_group": (_P, _I, _I, _I, _I, _P),
-    # x, w, sx, scale, y_in, bias, y, n, h, w, ci, co, k, stride, pad,
-    # w_tap_stride, out_kind, relu, stream
-    "mg_conv_i8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L, _I, _I, _P),
+    # x, w, sx, scale, y_in, bias, y, n, h (of x), w, ci, co, k, stride, pad,
+    # w_tap_stride, out_kind, relu, pad_top, pad_bottom, stream
+    "mg_conv_i8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L, _I, _I, _I, _I,
+                   _P),
     # the sm90 design: the same arguments (w the packed K-major weight)
     "mg_conv_i8_sm90": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L, _I, _I,
-                        _P),
+                        _I, _I, _P),
     # x, sx, absmax, sx_out, y, n, h, w, c, oh, ow, up, is_bf16, stream
     "mg_quant_i8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, absmax, n, is_bf16, stream

@@ -17,7 +17,8 @@ inside :func:`running_stats_held`.
 
 Under the mesh's second axis (`mgtpu_torch.parallel.axis`, active within
 :func:`batch_group`): -spatial runs a layer on an H-slab with the halo
-rows its window needs, the 3x3 kernels with the slab's per-side padding;
+rows its window needs, the 3x3 kernels and the int8 conv with the slab's
+per-side padding;
 -tensor runs a layer whose output channels are sliced (``module.tp``) on
 its slice, its input through ``axis.copy_t`` and its output, after its
 BatchNorm and ReLU, through ``axis.gather_c``.
@@ -75,24 +76,56 @@ def _int8_part(conv, slot: int, xp, w8, kind: str = "same", oh=None, ow=None, y_
                bias=None, relu=False):
     """One input of a quantized conv, as the JAX layers compute it: the
     raw part (no compute-dtype cast first) quantized with slot ``slot``'s
-    static scale, or a dynamic one reported to a running calibration; an
-    "up" part quantized at coarse resolution and its int8 values
-    nearest-upsampled (nearest only copies values, so this equals
-    quantizing the upsampled part): one `quant.quant_i8` call. Then one
-    `conv_i8` launch against ``w8`` (the weight or its input-channel
-    slice; the sm90 design reads its packed copy ``conv.wk``) whose
-    epilogue dequantizes to the compute dtype with ``sx * conv.scale``,
-    adds the result into the running part sum ``y_in`` and adds ``bias``
-    [and applies the ReLU]: the torch sequence of the JAX layers, rounded
-    where it rounds."""
+    static scale, or a dynamic one (the whole tensor's across ranks)
+    reported to a running calibration; an "up" part quantized at coarse
+    resolution and its int8 values nearest-upsampled (nearest only
+    copies values, so this equals quantizing the upsampled part): one
+    `quant.quant_i8` call. Then one `conv_i8` launch against ``w8`` (the
+    weight or its input-channel slice; the sm90 design reads its packed
+    copy ``conv.wk``) whose epilogue dequantizes to the compute dtype
+    with ``sx * conv.scale``, adds the result into the running part sum
+    ``y_in`` and adds ``bias`` [and applies the ReLU]: the torch sequence
+    of the JAX layers, rounded where it rounds (`_int8_conv`). An
+    H-slab's int8 values are a slab of the same rows (an up part's, of
+    twice the coarse slab's)."""
     sx_cal = conv.sx
-    x8, sx = quant.quant_i8(xp, None if sx_cal is None else sx_cal[slot],
-                            (oh, ow) if kind == "up" else None)
+    up = (oh, ow) if kind == "up" else None
+    x8, sx = quant.quant_i8(xp, None if sx_cal is None else sx_cal[slot], up)
     if sx_cal is None:
         quant.record_scale(conv, slot, sx)
-    return cuda_conv_i8.conv_i8(x8, w8, conv.stride, conv.pad, conv.scale,
-                                conv.compute_dtype or torch.float32, sx=sx, y_in=y_in,
-                                bias=bias, relu=relu, wk=conv.wk)
+    g = axis.rows(xp)
+    if g is not None:
+        axis.mark(x8, 2 * g if up else g)
+    return _int8_conv(conv, x8, w8, sx=sx, y_in=y_in, bias=bias, relu=relu)
+
+
+def _int8_conv(conv, x8, w8, **epilogue):
+    """`conv_i8` of the int8 values ``x8`` against ``w8`` with ``conv``'s
+    stride, padding, dequant vector and compute dtype, and ``epilogue``'s
+    operands. On an H-slab (-spatial) as `conv2d_nhwc` on one: the halo
+    rows its window needs come from the neighbours as int8 values (a
+    quantize is elementwise once its scale is the whole tensor's, so
+    these are the neighbours' rows quantized), left out at the image's
+    edges, where the kernel pads (per-side padding); the output is the
+    slab of the output rows, a strided conv's brought to the rule's
+    layout; a window that does not divide the slab takes the gathered
+    whole tensor."""
+    s, p = conv.stride, conv.pad
+    args = (w8, s, p, conv.scale, conv.compute_dtype or torch.float32)
+    g = axis.rows(x8)
+    if g is None:
+        return cuda_conv_i8.conv_i8(x8, *args, wk=conv.wk, **epilogue)
+    k = w8.shape[0]
+    if x8.shape[1] % s or (g + 2 * p - k) // s + 1 != g // s:
+        return _int8_conv(conv, axis.gather_h(x8), w8, **epilogue)
+    top, bottom = axis.window_rows(k, s, p)
+    pads = (p, p)
+    if top or bottom:
+        x8, at_top, at_bottom = axis.halo(x8, top, bottom)
+        pads = (top * at_top, bottom * at_bottom)
+    y = axis.mark(cuda_conv_i8.conv_i8(x8, *args, wk=conv.wk, pad_top=pads[0],
+                                       pad_bottom=pads[1], **epilogue), g // s)
+    return y if s == 1 else axis.canonical(y)
 
 
 class Conv(nn.Module):
@@ -608,7 +641,9 @@ class ConvBN(nn.Module):
         compute dtype in part order, then the bias is added [and the
         ReLU applied]: each part's `conv_i8` launch adds into the sum, the
         last one adds the bias. Dropout does not apply: the int8 path
-        serves only."""
+        serves only. On H-slabs (-spatial) each launch reads the slab
+        with its neighbours' int8 edge rows and pads at the image's edges
+        (`_int8_conv`), and the sum is the output rows' slab."""
         conv = self.conv
         oh = ow = None
         for kind, xp in parts:

@@ -16,7 +16,15 @@ sequence). Two designs, ``sm90`` (TMA + wgmma s8, 3x3/s1/p1 parts with
 channel counts and offsets multiples of 16, reading the weight from its
 K-major copy, :func:`pack_weight`) and ``simple`` (everything else, from
 the HWIO weight); :func:`_route` picks one from shape and alignment
-alone, and counts in ``kernels.ROUTES[("conv_i8", design)]``. CPU tensors
+alone, and counts in ``kernels.ROUTES[("conv_i8", design)]``.
+
+Per-side H padding (``pad_top``, ``pad_bottom``, each 0..``pad``; None
+is ``pad``): an H-slab under -spatial carries its neighbours' rows
+where a side has no zero padding, so x has the slab's rows and the
+halo's, and the output (H + pad_top + pad_bottom - k) // stride + 1
+rows; W keeps ``pad``. (pad, pad) is the plain launch, bit for bit;
+any other pair is the halo mode, counted in
+``kernels.PADDED[("conv_i8", design)]``. CPU tensors
 take the plain version; CUDA tensors launch the kernel or raise. Under
 ``torch.export`` the call is the custom op ``mgtpu::conv_i8``
 (`mgtpu_torch.ops.library`), which writes a new tensor instead of the
@@ -37,9 +45,20 @@ from mgtpu_torch.ops.resample import nchw, nhwc
 _OUT_KINDS = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 
 
-def out_size(n: int, k: int, stride: int, pad: int) -> int:
-    """Output extent of a k-tap, zero-padded conv along a side of n."""
-    return (n + 2 * pad - k) // stride + 1
+def out_size(n: int, k: int, stride: int, pad: int, pad_end: int | None = None) -> int:
+    """Output extent of a k-tap, zero-padded conv along a side of n:
+    ``pad`` zeros before it and ``pad_end`` (None: ``pad``) after."""
+    return (n + pad + (pad if pad_end is None else pad_end) - k) // stride + 1
+
+
+def _pads(pad: int, pad_top, pad_bottom) -> tuple[int, int]:
+    """(pad_top, pad_bottom), None taken as ``pad``; raises outside
+    0..pad."""
+    pads = tuple(pad if p is None else p for p in (pad_top, pad_bottom))
+    if not all(0 <= p <= pad for p in pads):
+        raise ValueError(f"conv_i8: pad_top {pads[0]} and pad_bottom {pads[1]} must be in "
+                         f"0..{pad}")
+    return pads
 
 
 def pack_weight(w8: torch.Tensor) -> torch.Tensor:
@@ -59,8 +78,9 @@ def _slice(w8) -> tuple[int, int]:
 
 
 def conv_i8_plain(x8, w8, stride: int, pad: int, v=None, dtype=torch.int32, *, sx=None,
-                  y_in=None, bias=None, relu=False):
-    """``F.conv2d`` in float64 on the int8 values, converted to int32.
+                  y_in=None, bias=None, relu=False, pad_top=None, pad_bottom=None):
+    """``F.conv2d`` in float64 on the int8 values, converted to int32
+    (``pad_top`` / ``pad_bottom`` zero rows added first, then H unpadded).
     Exact: every product is at most 127^2 and every sum (at most 7*7*512
     taps of them here) far below 2^53, so no order of summation rounds.
     The round before the conversion only guards against a library
@@ -71,8 +91,12 @@ def conv_i8_plain(x8, w8, stride: int, pad: int, v=None, dtype=torch.int32, *, s
     added into ``y_in`` (in place, as the kernel does), ``+ bias.to(dtype)``
     and ReLU (:func:`epilogue_plain`). ``sx`` is a 0-d f32 tensor; without it the dequant vector is
     ``v`` itself."""
-    y = F.conv2d(nchw(x8).double(), w8.permute(3, 2, 0, 1).double(), stride=stride,
-                 padding=pad)
+    pads = _pads(pad, pad_top, pad_bottom)
+    xd = nchw(x8).double()
+    if pads != (pad, pad):
+        xd = F.pad(xd, (0, 0, *pads))
+    y = F.conv2d(xd, w8.permute(3, 2, 0, 1).double(), stride=stride,
+                 padding=pad if pads == (pad, pad) else (0, pad))
     acc = nhwc(y.round()).to(torch.int32)
     if v is None:
         return acc
@@ -114,9 +138,9 @@ def _one(device: torch.device) -> torch.Tensor:
     return torch.ones((), device=device)
 
 
-def _check(x8, w8, stride, pad, v, dtype, sx, y_in, bias, wk):
-    """Raise unless the CUDA kernel takes these operands. Returns the
-    output's shape."""
+def _check(x8, w8, stride, pad, v, dtype, sx, y_in, bias, wk, pads):
+    """Raise unless the CUDA kernel takes these operands (``pads``: the
+    per-side H padding, `_pads`). Returns the output's shape."""
     if x8.device.type != "cuda":
         raise ValueError(f"conv_i8: unsupported device {x8.device}")
     if x8.dtype != torch.int8 or w8.dtype != torch.int8:
@@ -133,7 +157,7 @@ def _check(x8, w8, stride, pad, v, dtype, sx, y_in, bias, wk):
     s0, s1, s2, s3 = w8.stride()
     if not (s3 == 1 and s2 == co and s0 == k * s1):
         raise ValueError(f"conv_i8: w strides {w8.stride()} are not an HWIO input-channel slice")
-    oh, ow = out_size(h, k, stride, pad), out_size(w, k, stride, pad)
+    oh, ow = out_size(h, k, stride, *pads), out_size(w, k, stride, pad)
     if stride < 1 or pad < 0 or min(oh, ow) < 1:
         raise ValueError(f"conv_i8: stride {stride}, pad {pad} and a {k}x{k} kernel leave no "
                          f"output of a {h}x{w} map")
@@ -162,7 +186,7 @@ def _check(x8, w8, stride, pad, v, dtype, sx, y_in, bias, wk):
     return shape
 
 
-def _launch(x8, w8, stride, pad, v, dtype, sx, y_in, bias, relu, wk, route, shape,
+def _launch(x8, w8, stride, pad, v, dtype, sx, y_in, bias, relu, wk, route, shape, pads,
             in_place=True):
     n, h, w, ci = x8.shape
     k, co = w8.shape[0], w8.shape[3]
@@ -185,12 +209,12 @@ def _launch(x8, w8, stride, pad, v, dtype, sx, y_in, bias, relu, wk, route, shap
                    x8.data_ptr(), w_ptr, sx_ptr, v.data_ptr() if deq else 0,
                    0 if y_in is None else y_in.data_ptr(), 0 if bias is None else bias.data_ptr(),
                    y.data_ptr(), n, h, w, ci, co, k, stride, pad, tap_stride, _OUT_KINDS[dtype],
-                   int(relu), route=route)
+                   int(relu), *pads, route=route, padded=pads != (pad, pad))
     return y
 
 
 def conv_i8(x8, w8, stride: int, pad: int, v=None, dtype=torch.int32, *, sx=None, y_in=None,
-            bias=None, relu=False, wk=None):
+            bias=None, relu=False, wk=None, pad_top=None, pad_bottom=None):
     """x8 (N, H, W, Ci) int8 NHWC, w8 (k, k, Ci, Co) int8 HWIO (or its
     slice along Ci) -> (N, OH, OW, Co) int32 sums of the conv with
     ``stride`` and zero padding ``pad``; with ``v`` (Co,) f32 and
@@ -200,7 +224,10 @@ def conv_i8(x8, w8, stride: int, pad: int, v=None, dtype=torch.int32, *, sx=None
     part sum ``y_in`` (which takes the result: the output is ``y_in``
     itself), plus ``bias`` (Co,) f32 rounded to ``dtype``, then ReLU.
     ``wk`` is :func:`pack_weight` of the whole weight ``w8`` slices (its
-    ``sm90`` operand; without it the slice is packed per call). The kernel
+    ``sm90`` operand; without it the slice is packed per call).
+    ``pad_top`` / ``pad_bottom`` (0..``pad``, None: ``pad``) replace
+    ``pad`` above and below x: the halo mode of an H-slab whose
+    neighbours' rows x carries (see the module's head). The kernel
     rounds each step as the plain version does: the two are equal bit for
     bit. CPU tensors take the plain version; CUDA tensors launch the
     kernel (the design :func:`_route` picks) or raise; under
@@ -208,13 +235,15 @@ def conv_i8(x8, w8, stride: int, pad: int, v=None, dtype=torch.int32, *, sx=None
     if torch.compiler.is_exporting():
         from mgtpu_torch.ops import library  # noqa: F401 (registers the op)
 
-        return torch.ops.mgtpu.conv_i8(x8, w8, stride, pad, v, dtype, sx, y_in, bias, relu, wk)
+        return torch.ops.mgtpu.conv_i8(x8, w8, stride, pad, v, dtype, sx, y_in, bias, relu, wk,
+                                       pad_top, pad_bottom)
     return conv_i8_forward(x8, w8, stride, pad, v, dtype, sx=sx, y_in=y_in, bias=bias,
-                           relu=relu, wk=wk)
+                           relu=relu, wk=wk, pad_top=pad_top, pad_bottom=pad_bottom)
 
 
 def conv_i8_forward(x8, w8, stride: int, pad: int, v=None, dtype=torch.int32, *, sx=None,
-                    y_in=None, bias=None, relu=False, wk=None, in_place=True):
+                    y_in=None, bias=None, relu=False, wk=None, in_place=True, pad_top=None,
+                    pad_bottom=None):
     """`conv_i8` without the export branch: the op ``mgtpu::conv_i8``'s
     implementation. With ``in_place`` False the result is a new tensor
     and ``y_in`` is only read."""
@@ -226,16 +255,19 @@ def conv_i8_forward(x8, w8, stride: int, pad: int, v=None, dtype=torch.int32, *,
         if y_in is not None and not in_place:
             y_in = y_in.clone()
         return conv_i8_plain(x8, w8, stride, pad, v, dtype, sx=sx, y_in=y_in, bias=bias,
-                             relu=relu)
-    shape = _check(x8, w8, stride, pad, v, dtype, sx, y_in, bias, wk)
+                             relu=relu, pad_top=pad_top, pad_bottom=pad_bottom)
+    pads = _pads(pad, pad_top, pad_bottom)
+    shape = _check(x8, w8, stride, pad, v, dtype, sx, y_in, bias, wk, pads)
     return _launch(x8, w8, stride, pad, v, dtype, sx, y_in, bias, relu, wk,
-                   _route(x8, w8, stride, pad, wk), shape, in_place)
+                   _route(x8, w8, stride, pad, wk), shape, pads, in_place)
 
 
 def _simple_forward(x8, w8, stride: int, pad: int, v=None, dtype=torch.int32, *, sx=None,
-                    y_in=None, bias=None, relu=False):
+                    y_in=None, bias=None, relu=False, pad_top=None, pad_bottom=None):
     """`conv_i8` on a CUDA tensor through the simple design at any shape
     (for comparisons: the main path takes the design :func:`_route`
     picks)."""
-    shape = _check(x8, w8, stride, pad, v, dtype, sx, y_in, bias, None)
-    return _launch(x8, w8, stride, pad, v, dtype, sx, y_in, bias, relu, None, "simple", shape)
+    pads = _pads(pad, pad_top, pad_bottom)
+    shape = _check(x8, w8, stride, pad, v, dtype, sx, y_in, bias, None, pads)
+    return _launch(x8, w8, stride, pad, v, dtype, sx, y_in, bias, relu, None, "simple", shape,
+                   pads)

@@ -37,6 +37,11 @@ tensor where the eager call adds into the part sum ``y_in`` in place
 the bits are the same), and ``quant_i8`` returns, beside the int8
 values, the (absmax, scale) pair of a dynamic quantize, or an empty
 tensor where the scale was given (the caller keeps its own).
+
+The convs' per-side H padding (an H-slab's halo mode) is in the schemas
+with defaults: ``conv3x3``'s ``pad_top=1, pad_bottom=1``, ``conv_i8``'s
+``pad_top=None, pad_bottom=None`` (its ``pad``), so a program traced
+before they existed, or without a mesh, keeps the symmetric launch.
 """
 
 from __future__ import annotations
@@ -78,16 +83,21 @@ def _maxpool2_fake(x):
     return x.new_empty((n, -(-h // 2), -(-w // 2), c))
 
 
-def conv_i8(x8, w8, stride, pad, v, dtype, sx, y_in, bias, relu, wk):
+def conv_i8(x8, w8, stride, pad, v, dtype, sx, y_in, bias, relu, wk, pad_top=None,
+            pad_bottom=None):
     return cuda_conv_i8.conv_i8_forward(x8, w8, stride, pad, v, dtype, sx=sx, y_in=y_in,
-                                        bias=bias, relu=relu, wk=wk, in_place=False)
+                                        bias=bias, relu=relu, wk=wk, in_place=False,
+                                        pad_top=pad_top, pad_bottom=pad_bottom)
 
 
-def _conv_i8_fake(x8, w8, stride, pad, v, dtype, sx, y_in, bias, relu, wk):
+def _conv_i8_fake(x8, w8, stride, pad, v, dtype, sx, y_in, bias, relu, wk, pad_top=None,
+                  pad_bottom=None):
     n, h, w, _ = x8.shape
     k, co = w8.shape[0], w8.shape[3]
     size = cuda_conv_i8.out_size
-    return x8.new_empty((n, size(h, k, stride, pad), size(w, k, stride, pad), co), dtype=dtype)
+    pad_top, pad_bottom = cuda_conv_i8._pads(pad, pad_top, pad_bottom)
+    return x8.new_empty((n, size(h, k, stride, pad_top, pad_bottom), size(w, k, stride, pad), co),
+                        dtype=dtype)
 
 
 def quant_i8(x, sx, up):
@@ -112,7 +122,8 @@ for _schema, _impl, _fake in (
          _conv3x3_bn_relu_in_fake),
         ("maxpool2(Tensor x) -> Tensor", maxpool2, _maxpool2_fake),
         ("conv_i8(Tensor x8, Tensor w8, int stride, int pad, Tensor? v, ScalarType dtype,"
-         " Tensor? sx, Tensor? y_in, Tensor? bias, bool relu, Tensor? wk) -> Tensor", conv_i8,
+         " Tensor? sx, Tensor? y_in, Tensor? bias, bool relu, Tensor? wk, int? pad_top=None,"
+         " int? pad_bottom=None) -> Tensor", conv_i8,
          _conv_i8_fake),
         ("quant_i8(Tensor x, Tensor? sx, int[]? up) -> (Tensor, Tensor)", quant_i8,
          _quant_i8_fake)):

@@ -25,6 +25,16 @@ kernel launch with a static scale) and one
 `mgtpu_torch.ops.cuda_conv_i8.conv_i8` launch whose epilogue
 dequantizes, adds the part sum and, on a conv's last part, the bias; on
 a CUDA tensor both launch their kernels or raise.
+
+Across ranks (`mgtpu_torch.nn.batch_group`, which every eval step
+enters): a dynamic scale is the whole tensor's, as JAX's ``jnp.max``
+over a batch- or H-sharded array is. Each rank holds its rows of the
+batch, its H-slab, or a whole (replicated) tensor, so the absmax is
+all-reduced with MAX over every rank of the mesh before the divide
+(:func:`mesh_absmax`): one scalar all-reduce a dynamic conv part. A max
+over copies of one tensor is that tensor's, so the rule is the same for
+all three. Static scales, `calibrate` (whole batches, no group) and the
+``torch.export`` op (one device) take none.
 """
 
 from __future__ import annotations
@@ -33,11 +43,13 @@ import functools
 import itertools
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from mgtpu_torch import kernels
 from mgtpu_torch.ops.cuda_conv_i8 import conv_i8, conv_i8_plain  # noqa: F401 (re-exported)
 from mgtpu_torch.ops.resample import upsample_nearest2
+from mgtpu_torch.parallel import axis
 
 
 @functools.cache
@@ -58,14 +70,25 @@ def quantize_kernel(w: torch.Tensor) -> dict:
     return {"w8": w8, "scale": scale}
 
 
+def mesh_absmax(absmax: torch.Tensor) -> torch.Tensor:
+    """This rank's absmax (f32, one element, on the rank's device) made
+    the mesh's, in place: all-reduced with MAX over every rank (data x
+    model) of the mesh active in `batch_group`; as it is without one."""
+    mesh = axis.ACTIVE
+    if mesh is not None:
+        dist.all_reduce(absmax, dist.ReduceOp.MAX, group=mesh.all_ranks)
+    return absmax
+
+
 def quantize_act(x: torch.Tensor, sx: torch.Tensor | None = None):
     """Per-tensor symmetric int8 of ``x``: (x8, sx). Without ``sx`` (a
     0-d f32 tensor, a calibrated static scale) the scale is the absmax of
-    the whole tensor, the batch included, over 127. ``x`` goes to f32
-    before the divide."""
+    the whole tensor, the batch included, over 127; across ranks the
+    whole tensor's (:func:`mesh_absmax` between the max and the divide).
+    ``x`` goes to f32 before the divide."""
     xf = x.float()
     if sx is None:
-        sx = torch.clamp_min(xf.abs().amax() / _127(x.device), 1e-12)
+        sx = torch.clamp_min(mesh_absmax(xf.abs().amax()) / _127(x.device), 1e-12)
     x8 = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
     return x8, sx
 
@@ -83,9 +106,10 @@ def quant_i8(x: torch.Tensor, sx: torch.Tensor | None = None, up=None):
     """:func:`quant_i8_plain` in one pass: (x8, sx). On a CUDA tensor the
     `mgtpu_torch/csrc/quant_i8.cu` kernels: with a static ``sx`` (a 0-d
     f32 tensor on the card) one ``mg_quant_i8`` launch; without, a
-    dynamic scale, ``mg_absmax`` (the |x| max into a zeroed f32) then
-    ``mg_quant_i8``, which computes ``sx`` from it as `quantize_act`
-    does and returns it as a 0-d tensor on the card (no synchronisation).
+    dynamic scale, ``mg_absmax`` (the |x| max into a zeroed f32), across
+    ranks `mesh_absmax` of it, then ``mg_quant_i8``, which computes
+    ``sx`` from it as `quantize_act` does and returns it as a 0-d tensor
+    on the card (no synchronisation without a mesh).
     Both launches count as ``quant_i8``. ``x`` is a contiguous NHWC f32
     or bf16 tensor. Bit-equal to the plain version; a NaN quantizes to 0
     on both. CPU tensors take the plain version; CUDA tensors launch the
@@ -137,6 +161,7 @@ def _launch(x: torch.Tensor, sx: torch.Tensor | None, up):
     scales = torch.empty(2, device=x.device)  # the absmax, then sx
     kernels.launch("quant_i8", "mg_absmax", x.device, x.data_ptr(), scales.data_ptr(), x.numel(),
                    is_bf16)
+    mesh_absmax(scales[:1])  # mg_quant_i8 reads the absmax from scales[0]
     kernels.launch("quant_i8", "mg_quant_i8", x.device, x.data_ptr(), 0, scales.data_ptr(),
                    scales.data_ptr() + 4, x8.data_ptr(), *shape)
     return x8, scales

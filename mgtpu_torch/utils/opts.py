@@ -12,9 +12,7 @@ ignored. ``-int8`` with ``-train`` stops the run as the JAX Session does
 (int8 is an inference-only path); ``-int8Calib`` without ``-int8`` is
 ignored, as the JAX Session ignores it. The mesh's second axis takes the
 JAX Session's refusals in its words (:data:`CLASHES`): ``-spatial`` with
-``-tensor``, ``-zero1`` with ``-tensor``, ``-int8`` with ``-tensor``;
-``-int8`` with ``-spatial``, which JAX runs, is refused with its ROADMAP
-item.
+``-tensor``, ``-zero1`` with ``-tensor``, ``-int8`` with ``-tensor``.
 """
 
 from __future__ import annotations
@@ -24,8 +22,6 @@ import os
 import time
 from typing import Optional, Sequence
 
-SPATIAL_INT8 = ("ROADMAP Queue 1 item 8 (-spatial under -int8: conv_i8 with per-side H "
-                "padding, quant_i8's dynamic absmax over the model group)")
 # flag -> (is it asked for, given the parsed options; what ports it)
 REFUSED = {
     "-allowPickleCkpt": (lambda o: o.allowPickleCkpt,
@@ -33,7 +29,7 @@ REFUSED = {
                          "unpickles"),
 }
 # (do the options clash; the message the run stops with): the JAX
-# Session's refusals, in its words, and the port's one
+# Session's refusals, in its words
 CLASHES = (
     (lambda o: o.spatial > 1 and o.tensor > 1,
      "-spatial and -tensor both shard the second mesh axis; use one or the other"),
@@ -43,8 +39,6 @@ CLASHES = (
     (lambda o: o.int8 and o.tensor > 1,
      "-int8 does not compose with -tensor (channel-sharding rules assume float kernel "
      "leaves)"),
-    (lambda o: o.int8 and o.spatial > 1,
-     f"-int8 with -spatial is not ported yet: {SPATIAL_INT8}"),
 )
 
 

@@ -681,9 +681,121 @@ def test_conv_i8_refuses_what_it_does_not_take(dev):
     # the sm90 design refuses what _route never gives it: a 7x7 kernel, Ci = 8
     for x, w in ((torch.zeros((1, 9, 9, 16), dtype=torch.int8, device=dev),
                   torch.zeros((7, 7, 16, 16), dtype=torch.int8, device=dev)), (x8, w8)):
-        shape = _check(x, w, 1, 1, None, torch.int32, None, None, None, None)
+        shape = _check(x, w, 1, 1, None, torch.int32, None, None, None, None, (1, 1))
         with pytest.raises(RuntimeError, match="mg_conv_i8_sm90"):
-            _launch(x, w, 1, 1, None, torch.int32, None, None, None, False, None, "sm90", shape)
+            _launch(x, w, 1, 1, None, torch.int32, None, None, None, False, None, "sm90", shape,
+                    (1, 1))
+
+
+# conv_i8's halo mode (-spatial): (n, h, w, ci, co, k, stride, pad) of the
+# image and the slab's (pad_top, pad_bottom) pairs: 3x3/s1 parts that sm90
+# takes (R-MG-34's 56-row scale at 64 channels, its 28-row one at 128) and
+# one only simple takes (Ci 24); the 7x7/2 stem on 3 channels (simple),
+# whose slab reads 3 rows above and 2 below
+I8_HALO = [((2, 16, 56, 64, 64, 3, 1, 1), [(1, 0), (0, 1), (0, 0)]),
+           ((2, 14, 28, 128, 128, 3, 1, 1), [(1, 0), (0, 1), (0, 0)]),
+           ((2, 12, 9, 24, 40, 3, 1, 1), [(1, 0), (0, 1), (0, 0)]),
+           ((2, 32, 30, 3, 16, 7, 2, 3), [(3, 0), (0, 2), (0, 0)])]
+I8_HALO_CASES = [(shape, pads) for shape, pairs in I8_HALO for pads in pairs]
+
+
+@pytest.mark.parametrize("shape,pads", I8_HALO_CASES,
+                         ids=[f"{'x'.join(map(str, s))}-pads{a}{b}" for s, (a, b) in I8_HALO_CASES])
+@pytest.mark.parametrize("design", ["routed", "simple"])
+def test_conv_i8_halo_launch_matches_plain_and_whole_image(dev, shape, pads, design):
+    """A slab's conv_i8 launch under per-side padding (output rows 4 // s
+    .. on, with the halo rows its pads leave out of the padding) equals
+    the plain version of the same slab and the rows of the whole image's
+    launch through the same design, bit for bit, for the int32 sums and
+    the bf16 epilogue with a part sum, the bias and the ReLU; each
+    launch in halo mode is counted in kernels.PADDED."""
+    from mgtpu_torch.ops.cuda_conv_i8 import (_route, _simple_forward, conv_i8, conv_i8_plain,
+                                              epilogue_plain, out_size)
+    from mgtpu_torch.parallel.axis import window_rows
+
+    n, h, w_, ci, co, k, s, p = shape
+    pt, pb = pads
+    x8, w8, wk, v, _, _ = _i8_operands((n, h, w_, ci, co, k, s, p, ci, 0), dev, seed=11)
+    top, bottom = window_rows(k, s, p)
+    o0, o1 = (0 if pt else 4 // s), (out_size(h, k, s, p) if pb else out_size(h, k, s, p) - 2)
+    xs = x8[:, o0 * s - top if not pt else 0:
+            o1 * s + bottom if not pb else h].contiguous()
+    assert out_size(xs.shape[1], k, s, pt, pb) == o1 - o0
+    g = torch.Generator(device=dev).manual_seed(12)
+    sx = 0.5 + torch.rand((), generator=g, device=dev)
+    bias = torch.randn(co, generator=g, device=dev)
+    part = torch.randn((n, o1 - o0, out_size(w_, k, s, p), co), generator=g,
+                       device=dev).to(torch.bfloat16)
+    routed = _route(xs, w8, s, p, wk)
+    want_design = "simple" if design == "simple" else routed
+    if design == "simple":
+        fn = lambda x, **kw: _simple_forward(x, w8, s, p, **kw)  # noqa: E731
+    else:
+        fn = lambda x, **kw: conv_i8(x, w8, s, p, wk=wk, **kw)  # noqa: E731
+    epi = dict(v=v, dtype=torch.bfloat16, sx=sx, bias=bias, relu=True)
+    kernels.reset_launches()
+    acc = fn(xs, pad_top=pt, pad_bottom=pb)
+    y = fn(xs, pad_top=pt, pad_bottom=pb, y_in=part.clone(), **epi)
+    padded = (pt, pb) != (p, p)
+    assert kernels.ROUTES[("conv_i8", want_design)] == 2
+    assert kernels.PADDED[("conv_i8", want_design)] == 2 * padded
+    acc_all = fn(x8)
+    y_all = fn(x8, **epi)
+    assert kernels.PADDED[("conv_i8", want_design)] == 2 * padded
+    torch.cuda.synchronize()
+    assert torch.equal(acc, conv_i8_plain(xs, w8, s, p, pad_top=pt, pad_bottom=pb))
+    assert torch.equal(y, conv_i8_plain(xs, w8, s, p, pad_top=pt, pad_bottom=pb,
+                                        y_in=part.clone(), **epi))
+    # the whole image's launch at the slab's rows
+    assert torch.equal(acc, acc_all[:, o0:o1])
+    assert torch.equal(y, epilogue_plain(acc_all[:, o0:o1], v, torch.bfloat16, sx=sx,
+                                         y_in=part.clone(), bias=bias, relu=True))
+    assert torch.equal(y_all[:, o0:o1], epilogue_plain(acc_all[:, o0:o1], v, torch.bfloat16,
+                                                       sx=sx, bias=bias, relu=True))
+    if design == "routed":
+        assert routed == ("sm90" if k == 3 and ci % 16 == 0 else "simple")
+
+
+def test_conv_i8_pad_pad_is_the_plain_launch(dev):
+    """(pad, pad) passed explicitly is the default launch, bit for bit,
+    through both designs, and no halo-mode launch."""
+    from mgtpu_torch.ops.cuda_conv_i8 import _simple_forward, conv_i8
+
+    for shape in ((2, 14, 14, 64, 64, 3, 1, 1, 64, 0), (2, 32, 30, 3, 16, 7, 2, 3, 3, 0)):
+        x8, w8, wk, v, s, p = _i8_operands(shape, dev, seed=13)
+        kernels.reset_launches()
+        for fn in (lambda **kw: conv_i8(x8, w8, s, p, wk=wk, **kw),
+                   lambda **kw: _simple_forward(x8, w8, s, p, **kw)):
+            assert torch.equal(fn(), fn(pad_top=p, pad_bottom=p))
+        torch.cuda.synchronize()
+        assert not any(kernels.PADDED.values())
+
+
+def test_quant_i8_dynamic_takes_the_reduced_scale(dev):
+    """The dynamic quantizer of a slab whose absmax is made the whole
+    tensor's between its two launches (quant.mesh_absmax, here fed the
+    other slab's absmax as an all-reduce over two ranks would) gives the
+    whole tensor's scale and its int8 rows, bit for bit; and those are the
+    kernel's static launch fed that scale."""
+    from mgtpu_torch.ops import quant
+
+    x = _quant_input(2, 28, 28, 128, torch.bfloat16, dev, seed=3).float().nan_to_num(
+        posinf=0, neginf=0).to(torch.bfloat16)
+    x[:, 20:] *= 8  # the larger absmax in the second slab
+    whole8, whole_sx = quant.quant_i8(x)
+    other = x[:, 14:].float().abs().amax()
+    original = quant.mesh_absmax
+    quant.mesh_absmax = lambda t: t.copy_(torch.maximum(t, other))
+    try:
+        kernels.reset_launches()
+        top8, top_sx = quant.quant_i8(x[:, :14].contiguous())
+        assert kernels.LAUNCHES["quant_i8"] == 2
+    finally:
+        quant.mesh_absmax = original
+    static8, _ = quant.quant_i8(x[:, :14].contiguous(), whole_sx.reshape(()))
+    torch.cuda.synchronize()
+    assert torch.equal(top_sx.reshape(()), whole_sx.reshape(()))
+    assert torch.equal(top8, whole8[:, :14]) and torch.equal(static8, whole8[:, :14])
 
 
 # (n, h, w, c, up): R-MG-34's part widths, 16-channel groups and not (c

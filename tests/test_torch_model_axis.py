@@ -497,6 +497,46 @@ def test_plain_versions_under_per_side_padding(pads, prologue):
                                rtol=1e-5)
 
 
+# conv_i8's per-side padding: (k, stride, pad) -> the (pad_top,
+# pad_bottom) pairs; the 7x7/2 stem's halo is 3 rows above and 2 below
+# (axis.window_rows(7, 2, 3)), so an H-slab pads 0..3 and 0..2
+I8_PADS = ([((3, 1, 1), pads) for pads in [(0, 1), (1, 0), (0, 0)]]
+           + [((7, 2, 3), (t, b)) for t in range(4) for b in range(3)]
+           + [((1, 1, 0), (0, 0))])
+
+
+@pytest.mark.parametrize("kernel,pads", I8_PADS,
+                         ids=[f"k{k[0]}s{k[1]}-pads{a}{b}" for k, (a, b) in I8_PADS])
+def test_conv_i8_plain_under_per_side_padding(kernel, pads):
+    """The int8 conv's plain version on a slab's rows, with ``pad_top``
+    zero rows above and ``pad_bottom`` below in place of ``pad``, gives
+    the whole image's output rows bit for bit: the slab starts at the
+    first input row of its first output row after the pads (the rows the
+    pads stand for are the image's own zero padding, or rows of it set to
+    0), and every other row it reads is the image's."""
+    from mgtpu_torch.ops.cuda_conv_i8 import conv_i8_plain, out_size
+
+    (k, s, p), (pt, pb) = kernel, pads
+    rng = np.random.default_rng(k * 10 + pt * 3 + pb)
+    h = 24
+    x = rng.integers(-127, 128, (2, h, 9, 5)).astype(np.int8)
+    w = torch.from_numpy(rng.integers(-127, 128, (k, k, 5, 4)).astype(np.int8))
+    o0 = -(-(p - pt) // s) + 1  # an output row whose window starts at or below the slab
+    r0 = o0 * s - p + pt  # the slab's first row
+    r1 = r0 + 11
+    x[:, max(r0 - pt, 0):r0] = 0  # what the pads stand for
+    x[:, r1:r1 + pb] = 0
+    x = torch.from_numpy(x)
+    whole = conv_i8_plain(x, w, s, p)
+    y = conv_i8_plain(x[:, r0:r1].contiguous(), w, s, p, pad_top=pt, pad_bottom=pb)
+    n = out_size(r1 - r0, k, s, pt, pb)
+    assert y.shape[1] == n >= 3 and o0 + n <= whole.shape[1]
+    np.testing.assert_array_equal(y.numpy(), whole[:, o0:o0 + n].numpy())
+    # (pad, pad) is the plain launch, bit for bit
+    np.testing.assert_array_equal(conv_i8_plain(x, w, s, p, pad_top=p, pad_bottom=p).numpy(),
+                                  whole.numpy())
+
+
 # ------------------------------------------------------------- the CLI
 
 def _cli(extra, tmp):
@@ -521,15 +561,82 @@ def test_cli_runs_train_and_test(flags, tmp_path):
     assert len(list(tmp_path.rglob("model_1.ckpt"))) == 1
 
 
+# the CLI on the narrowed cifar/nmg: a launcher script that narrows the
+# port's plan at import, so the ranks it spawns (which run its top level
+# again) build the same net
+NARROW_MAIN = """import sys
+
+import mgtpu_torch.models.cifar.nmg as tnmg
+
+tnmg.BLOCKS = {blocks!r}
+if __name__ == "__main__":
+    from mgtpu_torch.main import main
+
+    main(sys.argv[1:])
+"""
+I8_NMG = ["-netType", "cifar/nmg", "-dataset", "cifar100-whitened", "-data", "synthetic",
+          "-synthSize", "20", "-batchSize", "8", "-imageSize", "36", "-imageCrop", "32",
+          "-nDonkeys", "0", "-nEpochs", "1", "-test", "-int8", "-int8Calib", "2"]
+
+
+def test_cli_int8_spatial_matches_one_rank_and_jax(tmp_path, capsys):
+    """``-nGPU 2 -spatial 2 -test -int8 -int8Calib 2`` on the narrowed
+    cifar/nmg from one checkpoint (two ranks of one data index, H-slabs
+    at 32 and 16 rows, a tail of 4 in the test split): the test loss is
+    the one-rank run's and the JAX Session's (one device) within rtol
+    1e-4 (tests/test_torch_int8_serve.py's bound for the JAX Session;
+    the lines print 5 decimals)."""
+    import re
+
+    from mgtpu.pipelines import standard as jax_standard
+    from mgtpu.utils import opts as jax_opts
+    from mgtpu_torch.main import main
+    from mgtpu_torch.models import NetOpts, create_model
+    from mgtpu_torch.utils.bridge import export_jax_tree
+    from mgtpu_torch.utils.checkpoint import write_checkpoint
+    from test_torch_pipeline import _run
+
+    import mgtpu.models.cifar.nmg as jnmg
+
+    model = create_model(NetOpts(netType="cifar/nmg", dataset="cifar100"),
+                         generator=torch.Generator().manual_seed(0))
+    start = str(tmp_path / "start.ckpt")
+    write_checkpoint(start, *export_jax_tree(model), None, epoch=0,
+                     meta={"netType": "cifar/nmg", "dataset": "cifar100-whitened",
+                           "dtype": "float32"})
+    script = tmp_path / "narrow_main.py"
+    script.write_text(NARROW_MAIN.format(blocks=CIFAR_BLOCKS["cifar/nmg"]))
+    argv = I8_NMG + ["-retrain", start]
+    env = {**os.environ, "PYTHONPATH": REPO, "JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": "1"}
+    proc = subprocess.Popen([sys.executable, str(script), *argv, "-device", "cpu", "-nGPU", "2",
+                             "-spatial", "2", "-cache", str(tmp_path / "mesh")], cwd=REPO,
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        main(argv + ["-device", "cpu", "-cache", str(tmp_path / "one")])
+        one = capsys.readouterr().out
+        with pytest.MonkeyPatch.context() as mpatch:
+            mpatch.setattr(jnmg, "BLOCKS", CIFAR_BLOCKS["cifar/nmg"])
+            ref = _run(jax_standard, jax_opts.parse(argv + ["-cache", str(tmp_path / "jax")]),
+                       capsys)[1]
+        out, err = proc.communicate(timeout=DEADLINE)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    assert proc.returncode == 0, err[-3000:]
+    assert "==> 1 data-parallel ranks x 2 model" in out
+    loss = re.compile(r"\[TESTING\].*avg\.loss:([0-9.]+)")
+    got, want, jax_loss = (float(loss.search(t).group(1)) for t in (out, one, ref))
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    np.testing.assert_allclose(got, jax_loss, rtol=1e-4)
+
+
 @pytest.mark.parametrize("flags,message", [
     (["-spatial", "2", "-tensor", "2"], "both shard the second mesh axis"),
     (["-zero1", "-tensor", "2"], "-zero1 and -tensor are mutually exclusive"),
     (["-int8", "-tensor", "2"], "-int8 does not compose with -tensor"),
-    (["-int8", "-spatial", "2"], "Queue 1 item 8"),
-], ids=["spatial+tensor", "zero1+tensor", "int8+tensor", "int8+spatial"])
+], ids=["spatial+tensor", "zero1+tensor", "int8+tensor"])
 def test_clashes_are_refused(flags, message):
-    """The JAX Session's refusals, in its words, and -int8 -spatial with
-    its ROADMAP item."""
+    """The JAX Session's refusals, in its words."""
     from mgtpu_torch.utils import opts
 
     with pytest.raises(SystemExit, match=message):
