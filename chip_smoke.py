@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (`mgtpu_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py        # from the repository root; needs one CUDA card and nvcc
+    python3 chip_smoke.py           # from the repository root; needs one CUDA card and nvcc
+    python3 chip_smoke.py --convs   # the two convs' checks and timings alone (conv_phases)
 
 Builds the port's CUDA kernels from `mgtpu_torch/csrc/`, holds each one
 against its plain PyTorch version at the shapes R-MG-34, the six CIFAR
@@ -28,8 +29,9 @@ Phases:
   3 conv3x3  kernel vs conv3x3_plain at every (H, W, Ci, Co) of the slice,
              batch 8, bf16 and f32, relu_out and with_stats on and off,
              each launch through the design cuda_conv._route picks (sm90:
-             TMA + wgmma, for bf16 with Ci, Co multiples of 64; tile:
-             the rest)
+             TMA + wgmma, for bf16 with Ci, Co multiples of 64; window:
+             the rest), and each shape also through the window design
+             (where sm90 takes it) and the first design, tile
   4 maxpool2 kernel vs maxpool2_plain, exact, with odd sizes, NaN and -inf,
              each launch through the design cuda_pool._route picks (sm90:
              bulk copies into a ring, 16-byte lanes, for even H and
@@ -44,8 +46,11 @@ Phases:
   6 times    each kernel vs its plain version (cuDNN) at batch 128 bf16,
              on the card's clock (queued behind a sleep kernel, so the
              host's launch rate does not set the pace), in turns, with the
-             tile design beside the sm90 one at every shape routed to
-             sm90 and cuDNN's one call (library); the pool at each shape
+             window design (where sm90 takes the shape) and the tile design
+             beside the routed one at every shape and cuDNN's one call
+             (library), and the sum of the launches routed to window
+             (the forward's 42 narrow ones) through window, tile and
+             cuDNN; the pool at each shape
              through sm90, simple, its plain version and F.max_pool2d,
              each call on the next of enough copies of its input (over
              100 MB) that it reads from device memory, not the 50 MB L2,
@@ -59,7 +64,8 @@ Phases:
              Co) of the training step, batch 8, bf16 and f32, relu_out
              and with_stats on and off, some shifts positive (the halo);
              at the shapes routed to sm90 also with exact zeros in the
-             border rows and columns of x
+             border rows and columns of x; each shape also through the
+             window design (where sm90 takes it) and the tile design
   8 maxpool2_bwd  the group design (one launch for a multigrid layer's
              pools) vs maxpool2_bwd_plain member by member, exact, both
              tie rules, at every group the training step forms and at
@@ -77,7 +83,8 @@ Phases:
              one f32 step on the card vs the plain CPU step
  11 times    the training step in images/s at batch 128 bf16; each new
              kernel's summed time per step vs its plain version (and the
-             tile design's, as in phase 6); the pool backward at each
+             window and tile designs', as in phase 6, and the launches
+             routed to window summed); the pool backward at each
              group of the step on rotated inputs as in phase 6, the group
              design beside the simple one summed over the members, the
              plain version and aten's max_pool2d_with_indices_backward
@@ -88,8 +95,9 @@ Phases:
              at their recipes' depths: their kernel calls recorded on the
              CPU and held to the pinned counts; each kernel vs its plain
              version at every shape they give it (serving at batch 128,
-             training at the recipe's micro-batch), the tile conv also
-             with weight slices off a 16-byte boundary
+             training at the recipe's micro-batch), the window conv also
+             with weight slices off a 16-byte boundary, each shape also
+             through the window and tile designs
  13 cifar serve  each net BN-folded bf16 at batch 128: (B, 100) finite
              log-probs that are distributions, the pinned launches per
              forward through the predicted designs; cifar/prnmg's f32
@@ -112,8 +120,8 @@ Phases:
  17 seg kernels  each kernel vs its plain version at every shape they
              give it (and pnmg.mnist's on mnist-seg: Co = 10), at each
              serving batch and the recipe's micro-batch, bf16 and f32,
-             the convs also through the tile design where sm90 takes
-             the shape
+             the convs also through the window design where sm90 takes
+             the shape, and through the tile design
  18 seg serve  each net BN-folded bf16 at its recipe's batch (64; 32 for
              prnmg.mnist; 1 and 128 for PR-MG-30) and PR-MG-52 at batch
              8: probabilities in [0, 1] or log-probs that are
@@ -303,11 +311,18 @@ function (null where there is none) in one batch-128 bf16 serving
 forward (conv3x3, maxpool2) or training step (conv3x3_bn_relu_in,
 maxpool2_bwd). ``bound_ms`` is the least time the card could take for
 the same launches (:func:`path_bounds`), ``bound_by`` which bound sets
-most of it. ``maxpool2_bwd`` names its ``design`` (group) and gives the
-simple design's time for the same pools (``simple_ms``). The two convs
-give, under ``halo_mode``, rank 0's halo-mode launches of one R-MG-34
-step under -spatial 2 at batch 128 (phase 31): their count, time, plain
-version's time, the whole-image launches' time at their shapes, largest
+most of it. The two convs name their ``designs`` (launches a pass by
+design: sm90 in ``source``, window in ``window_source``) and give
+``window_ms`` and ``tile_ms`` (the same launches, each through that
+design) and, under ``narrow``, the launches routed to window: their
+count a pass and their times through window, tile, the plain version
+and cuDNN (null where there is none). ``maxpool2_bwd`` names its
+``design`` (group) and gives the simple design's time for the same
+pools (``simple_ms``). The two convs give, under ``halo_mode``, rank
+0's halo-mode launches of one R-MG-34 step under -spatial 2 at batch
+128 (phase 31): their count, time, plain version's time, the
+whole-image launches' time at their shapes, one PyTorch call's (conv3x3:
+F.conv2d with padding 1 on the slab, its last row dropped), largest
 error and bound. Under the key "cifar/prnmg" each kernel has the same
 numbers for cifar/prnmg: its launches in phases 13 and 14 (cifar/prnmg's
 own), its times and bounds per batch-128 forward or 64 x 2 step (phase
@@ -346,7 +361,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from collections import Counter
+from collections import Counter, defaultdict
 from pathlib import Path
 
 import numpy as np
@@ -393,9 +408,11 @@ RMG34_POOLS = [(14, 14, 16), (14, 14, 32), (14, 14, 64), (14, 14, 128), (14, 14,
                (28, 28, 32), (28, 28, 64), (28, 28, 128), (56, 56, 64)]
 KERNELS = {
     "conv3x3": dict(route="cuda", source="mgtpu_torch/csrc/conv3x3.cu",
-                    replaces="mgtpu/ops/pallas_conv.py:220"),
+                    replaces="mgtpu/ops/pallas_conv.py:220",
+                    window_source="mgtpu_torch/csrc/conv3x3_window.cu"),
     "conv3x3_bn_relu_in": dict(route="cuda", source="mgtpu_torch/csrc/conv3x3.cu",
-                               replaces="mgtpu/ops/pallas_conv.py:259"),
+                               replaces="mgtpu/ops/pallas_conv.py:259",
+                               window_source="mgtpu_torch/csrc/conv3x3_window.cu"),
     "maxpool2": dict(route="cuda", source="mgtpu_torch/csrc/maxpool2.cu",
                      replaces="mgtpu/ops/pallas_pool.py:63"),
     "maxpool2_bwd": dict(route="cuda", source="mgtpu_torch/csrc/maxpool2.cu",
@@ -684,14 +701,25 @@ def pool_equal(y, y_ref):
     return bool(same.all()) and y.shape == y_ref.shape, err.max().item()
 
 
-def tiled(kernel, fn):
-    """fn(), which must launch `kernel` once, through the tile design."""
+def designed(kernel, design, fn):
+    """fn(), which must launch `kernel` once, through `design` (the
+    window or the tile design, whose own forwards take any shape)."""
     before = dict(kernels.ROUTES)
     out = fn()
-    want = {k: int(k == (kernel, "tile")) for k in kernels.ROUTES}
+    want = {k: int(k == (kernel, design)) for k in kernels.ROUTES}
     check(routes_since(before) == want, f"{kernel}: launched {routes_since(before)} through "
-          f"_tile_forward, expected {want}")
+          f"_{design}_forward, expected {want}")
     return out
+
+
+DESIGN_FORWARDS = {"window": cuda_conv._window_forward, "tile": cuda_conv._tile_forward}
+
+
+def conv_designs(x, wt):
+    """The designs a check or a timing takes a conv shape through: the
+    routed one, the window design where sm90 is routed, and tile."""
+    route = cuda_conv._route(x, wt)
+    return ["routed"] + (["window"] if route == "sm90" else []) + ["tile"]
 
 
 def pooled(x, design):
@@ -713,64 +741,67 @@ POOL_EDGE_SHAPES = [(2, 7, 9, 3), (3, 15, 14, 130), (1, 1, 1, 4), (2, 57, 55, 64
                     (40, 14, 14, 16), (1, 4, 300, 64)]
 
 
-def check_conv(cases, max_err, what="", slices=False, both=False) -> None:
+def check_conv(cases, max_err, what="", slices=False) -> None:
     """3: conv3x3 vs plain at each ((H, W, Ci, Co), batch). Reference: the
     plain version in f32 on the same (bf16-rounded) inputs. f32 differs
     by summation order only; bf16 adds one rounding of the f32
     accumulator to bf16, up to 2^-8 relative (8 significant bits), so
     its bound is twice that. Stats sum N*H*W values with atomics in a
-    varying order. With ``slices``, each shape routed to the tile design
-    is also taken with its weight a slice of a wider one at input
+    varying order. Each shape goes through its routed design, through
+    the window design where sm90 is routed, and through the tile design
+    (conv_designs). With ``slices``, each shape routed to the window
+    design is also taken with its weight a slice of a wider one at input
     channel 3, whose start is off a 16-byte boundary for most Co (the
-    exchange passes such slices). With ``both``, each shape routed to
-    sm90 is also taken through the tile design."""
-    n_cases = n_slices = n_tile = 0
+    exchange passes such slices)."""
+    n_cases, n_slices, n_design = 0, 0, Counter()
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}  # largest error / its bound
     for k, ((h, w, ci, co), batch) in enumerate(sorted(cases)):
         for dtype in (torch.bfloat16, torch.float32):
             x, wt, b = conv_inputs(batch, h, w, ci, co, dtype, seed=k)
             weights = [wt]
-            if slices and cuda_conv._route(x, wt) == "tile":
+            if slices and cuda_conv._route(x, wt) == "window":
                 wide = torch.cat([torch.randn((3, 3, 3, co), device="cuda").to(dtype), wt], dim=2)
                 weights.append(wide[:, :, 3:])
-            designs = ["routed"] + (["tile"] if both and cuda_conv._route(x, wt) == "sm90" else [])
-            for wi, design in itertools.product(weights, designs):
+            for wi in weights:
                 for relu_out in (False, True):
                     for with_stats in (False, True):
-                        if design == "tile":
-                            y, st = tiled("conv3x3", lambda: cuda_conv._tile_forward(
-                                x, wi, b, relu_out=relu_out, with_stats=with_stats))
-                        else:
-                            y, st = routed("conv3x3", x, wi, lambda: conv3x3(
-                                x, wi, b, relu_out=relu_out, with_stats=with_stats))
                         y_ref, st_ref = conv3x3_plain(x.float(), wi.float(), b,
                                                       relu_out=relu_out, with_stats=with_stats)
-                        torch.cuda.synchronize()
                         scale = y_ref.abs().max().item()
-                        rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
-                        err = (y.float() - y_ref).abs()
-                        share = (err / (rtol * y_ref.abs() + 1e-5 * scale)).max().item()
-                        what_ = (f"conv3x3 {batch}x{h}x{w}x{ci}->{co} {dtype} relu={relu_out} "
-                                 f"stats={with_stats} w slice={wi is not wt} {design}")
-                        check(y.dtype == dtype and share <= 1.0,
-                              f"{what_}: max abs err {err.max().item():.3g} (scale {scale:.3g})")
-                        worst[dtype] = max(worst[dtype], share)
-                        if with_stats:
-                            st_err = (st - st_ref).abs()
-                            st_tol = 1e-4 * st_ref.abs() + 1e-5 * st_ref.abs().max()
-                            check(bool((st_err <= st_tol).all()),
-                                  f"{what_}: stats max abs err {st_err.max().item():.3g}")
-                        else:
-                            check(not st.any(), f"{what_}: stats not zero")
-                        max_err["conv3x3"] = max(max_err["conv3x3"], err.max().item())
-                        n_cases += 1
-                        n_slices += wi is not wt
-                        n_tile += design == "tile"
+                        for design in conv_designs(x, wi):
+                            kw = dict(relu_out=relu_out, with_stats=with_stats)
+                            if design == "routed":
+                                y, st = routed("conv3x3", x, wi, lambda: conv3x3(x, wi, b, **kw))
+                            else:
+                                y, st = designed("conv3x3", design, lambda: DESIGN_FORWARDS[
+                                    design](x, wi, b, **kw))
+                            torch.cuda.synchronize()
+                            rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+                            err = (y.float() - y_ref).abs()
+                            share = (err / (rtol * y_ref.abs() + 1e-5 * scale)).max().item()
+                            what_ = (f"conv3x3 {batch}x{h}x{w}x{ci}->{co} {dtype} "
+                                     f"relu={relu_out} stats={with_stats} w slice={wi is not wt} "
+                                     f"{design}")
+                            check(y.dtype == dtype and share <= 1.0,
+                                  f"{what_}: max abs err {err.max().item():.3g} (scale "
+                                  f"{scale:.3g})")
+                            worst[dtype] = max(worst[dtype], share)
+                            if with_stats:
+                                st_err = (st - st_ref).abs()
+                                st_tol = 1e-4 * st_ref.abs() + 1e-5 * st_ref.abs().max()
+                                check(bool((st_err <= st_tol).all()),
+                                      f"{what_}: stats max abs err {st_err.max().item():.3g}")
+                            else:
+                                check(not st.any(), f"{what_}: stats not zero")
+                            max_err["conv3x3"] = max(max_err["conv3x3"], err.max().item())
+                            n_cases += 1
+                            n_slices += wi is not wt
+                            n_design[design] += 1
     phase("conv3x3", f"{what}{n_cases} cases at {len(cases)} shapes and batches ({n_slices} with a "
-          f"weight slice; {n_tile} through the tile design at shapes routed to sm90), the "
-          f"others each through its routed design: match the plain version (max abs "
-          f"err {max_err['conv3x3']:.3g}; largest error {worst[torch.bfloat16]:.2f} of its bound "
-          f"in bf16, {worst[torch.float32]:.2f} in f32)")
+          f"weight slice; {n_design['routed']} through the routed design, {n_design['window']} "
+          f"through window at shapes routed to sm90, {n_design['tile']} through tile): match the "
+          f"plain version (max abs err {max_err['conv3x3']:.3g}; largest error "
+          f"{worst[torch.bfloat16]:.2f} of its bound in bf16, {worst[torch.float32]:.2f} in f32)")
 
 
 def check_pool(shapes, max_err, what="") -> None:
@@ -851,26 +882,76 @@ def device_ms(fns, windows=5):
     return [(statistics.median(p), (max(p) - min(p)) / statistics.median(p)) for p in per]
 
 
-def time_conv(kname, shape, count, unit, fns, ms, plain_ms, tile_ms, library_ms,
+def conv_fns(x, wt, b, vec=()):
+    """The calls timed at one conv shape (vec: the prologue's scale and
+    shift): the routed design, the window design where sm90 is routed,
+    the tile design, the plain version and, for conv3x3, cuDNN's one call
+    (library); the first key names the routed design."""
+    fn, plain = (conv3x3_bn_relu_in, conv3x3_bn_relu_in_plain) if vec else (conv3x3, conv3x3_plain)
+    fns = {cuda_conv._route(x, wt): lambda: fn(x, wt, b, *vec, with_stats=False)}
+    for design in conv_designs(x, wt)[1:]:
+        fns[design] = (lambda d=design: DESIGN_FORWARDS[d](x, wt, b, *vec, with_stats=False))
+    fns["plain"] = lambda: plain(x, wt, b, *vec, with_stats=False)
+    if not vec:
+        w_lib = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        b_lib = b.to(x.dtype)
+        fns["library"] = lambda: F.conv2d(nchw(x), w_lib, b_lib, padding=1)
+    return fns
+
+
+def time_conv(kname, shape, count, unit, fns, ms, plain_ms, alt, library_ms,
               batch=TIME_BATCH, windows=5) -> None:
-    """Times of one conv shape at ``batch``, in turns: the routed kernel,
-    its plain version, cuDNN's one call where there is one (library)
-    and, where the kernel is routed to sm90 and ``fns`` has it, the tile
-    design, with their rates in the operations kernel_work counts. Adds
-    count x each to the per-forward (or per-step) sums."""
+    """Times of one conv shape at ``batch``, in turns (conv_fns: the
+    routed design, the window design where sm90 is routed, the tile
+    design, the plain version, cuDNN's one call where there is one), with
+    their rates in the operations kernel_work counts. Adds count x each
+    to the per-forward (or per-step) sums: ``ms`` (routed), ``plain_ms``,
+    ``library_ms`` by kernel; ``alt[(design, kernel)]`` for window and
+    tile; and, where window is the routed design, ``alt[("narrow", name,
+    kernel)]`` for each call and ``alt[("narrow", "launches", kernel)]``."""
     flops = kernel_work(kname, shape, batch)[0]
     names = list(fns)
     res = dict(zip(names, device_ms([fns[k] for k in names], windows)))
     route = names[0]
     ms[kname] += count * res[route][0]
     plain_ms[kname] += count * res["plain"][0]
-    tile_ms[kname] += count * res["tile" if "tile" in res else route][0]
+    for design in ("window", "tile"):
+        alt[(design, kname)] += count * res[design][0]
     if "library" in res:
         library_ms[kname] += count * res["library"][0]
+    if route == "window":
+        alt[("narrow", "launches", kname)] += count
+        for k, (t, _) in res.items():
+            alt[("narrow", k, kname)] += count * t
     h, w, ci, co = shape
     phase("times", f"{kname} {batch}x{h}x{w}x{ci}->{co} (x{count}/{unit}): " + ", ".join(
         f"{k} {t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s, spread {sp:.1%})"
         for k, (t, sp) in res.items()))
+
+
+def design_times(alt, kname):
+    """The JSON's per-design numbers of one conv kernel from time_conv's
+    sums: window_ms, tile_ms and the narrow launches' (those routed to
+    window) count and times."""
+    narrow = alt[("narrow", "launches", kname)]
+    return {"window_ms": alt[("window", kname)], "tile_ms": alt[("tile", kname)],
+            "narrow": {"launches": narrow,
+                       **{f"{k}_ms": alt[("narrow", k, kname)] if narrow else None
+                          for k in ("window", "tile", "plain")},
+                       "library_ms": (alt[("narrow", "library", kname)]
+                                      if narrow and kname == "conv3x3" else None)}}
+
+
+def narrow_line(label, alt, kname, unit) -> None:
+    """The line of a pass's launches routed to window, summed: through
+    window, tile, the plain version and cuDNN's one call."""
+    d = design_times(alt, kname)["narrow"]
+    if not d["launches"]:
+        return
+    lib = "none" if d["library_ms"] is None else f"{d['library_ms']:.3f} ms"
+    phase("times", f"{label} {kname} narrow launches (routed to window, {d['launches']} a "
+          f"{unit}): window {d['window_ms']:.3f} ms, tile {d['tile_ms']:.3f} ms, plain "
+          f"{d['plain_ms']:.3f} ms, cuDNN's one call {lib}")
 
 
 def time_pool(pool_shapes, ms, plain_ms, library_ms) -> None:
@@ -916,14 +997,14 @@ def time_pool(pool_shapes, ms, plain_ms, library_ms) -> None:
         launch_split(f"maxpool2 {d}", pts, empty)
 
 
-def check_prologue(cases, max_err, what="", both=False) -> None:
+def check_prologue(cases, max_err, what="") -> None:
     """7: conv3x3_bn_relu_in vs its plain version at each ((H, W, Ci, Co),
     batch). Reference: the plain version in f32 on the same inputs, its
     normalized input rounded to the kernel's operand type first
     (bn_relu_plain, then conv3x3_plain in f32), so that the bounds are
-    conv3x3's (phase 3). With ``both``, each shape routed to sm90 is also
-    taken through the tile design."""
-    n_cases = n_halo = n_tile = 0
+    conv3x3's (phase 3). Each shape goes through its routed design, the
+    window design where sm90 is routed, and the tile design."""
+    n_cases, n_halo, n_design = 0, 0, Counter()
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     for k, ((h, w, ci, co), batch) in enumerate(sorted(cases)):
         scale, shift = bn_inputs(ci, seed=100 + k)
@@ -933,8 +1014,7 @@ def check_prologue(cases, max_err, what="", both=False) -> None:
             # rows and columns: TMA fills the halo with zeros too, and only
             # the position tells the two apart (relu(shift) > 0 inside)
             halos = (False, True) if cuda_conv._route(x, wt) == "sm90" else (False,)
-            designs = ["routed"] + (["tile"] if both and cuda_conv._route(x, wt) == "sm90" else [])
-            for halo, design in itertools.product(halos, designs):
+            for halo in halos:
                 if halo:
                     x = x.clone()
                     x[:, [0, -1]] = 0
@@ -942,39 +1022,46 @@ def check_prologue(cases, max_err, what="", both=False) -> None:
                 xn = bn_relu_plain(x, scale, shift).float()
                 for relu_out in (False, True):
                     for with_stats in (False, True):
-                        if design == "tile":
-                            y, st = tiled("conv3x3_bn_relu_in", lambda: cuda_conv._tile_forward(
-                                x, wt, b, scale, shift, relu_out=relu_out, with_stats=with_stats))
-                        else:
-                            y, st = routed("conv3x3_bn_relu_in", x, wt, lambda: conv3x3_bn_relu_in(
-                                x, wt, b, scale, shift, relu_out=relu_out, with_stats=with_stats))
                         y_ref, st_ref = conv3x3_plain(xn, wt.float(), b, relu_out=relu_out,
                                                       with_stats=with_stats)
-                        torch.cuda.synchronize()
-                        case = (f"conv3x3_bn_relu_in {batch}x{h}x{w}x{ci}->{co} {dtype} "
-                                f"relu={relu_out} stats={with_stats} zero border={halo} {design}")
-                        share = rel_share(y, y_ref,
-                                          2.0 ** -7 if dtype == torch.bfloat16 else 1e-5)
-                        err = (y.float() - y_ref).abs().max().item()
-                        check(y.dtype == dtype and share <= 1.0, f"{case}: max abs err {err:.3g}")
-                        worst[dtype] = max(worst[dtype], share)
-                        if with_stats:
-                            st_err = (st - st_ref).abs()
-                            st_tol = 1e-4 * st_ref.abs() + 1e-5 * st_ref.abs().max()
-                            check(bool((st_err <= st_tol).all()),
-                                  f"{case}: stats max abs err {st_err.max().item():.3g}")
-                        else:
-                            check(not st.any(), f"{case}: stats not zero")
-                        max_err["conv3x3_bn_relu_in"] = max(max_err["conv3x3_bn_relu_in"], err)
-                        n_cases += 1
-                        n_halo += halo
-                        n_tile += design == "tile"
+                        for design in conv_designs(x, wt):
+                            kw = dict(relu_out=relu_out, with_stats=with_stats)
+                            if design == "routed":
+                                y, st = routed("conv3x3_bn_relu_in", x, wt,
+                                               lambda: conv3x3_bn_relu_in(x, wt, b, scale, shift,
+                                                                          **kw))
+                            else:
+                                y, st = designed("conv3x3_bn_relu_in", design,
+                                                 lambda: DESIGN_FORWARDS[design](
+                                                     x, wt, b, scale, shift, **kw))
+                            torch.cuda.synchronize()
+                            case = (f"conv3x3_bn_relu_in {batch}x{h}x{w}x{ci}->{co} {dtype} "
+                                    f"relu={relu_out} stats={with_stats} zero border={halo} "
+                                    f"{design}")
+                            share = rel_share(y, y_ref,
+                                              2.0 ** -7 if dtype == torch.bfloat16 else 1e-5)
+                            err = (y.float() - y_ref).abs().max().item()
+                            check(y.dtype == dtype and share <= 1.0,
+                                  f"{case}: max abs err {err:.3g}")
+                            worst[dtype] = max(worst[dtype], share)
+                            if with_stats:
+                                st_err = (st - st_ref).abs()
+                                st_tol = 1e-4 * st_ref.abs() + 1e-5 * st_ref.abs().max()
+                                check(bool((st_err <= st_tol).all()),
+                                      f"{case}: stats max abs err {st_err.max().item():.3g}")
+                            else:
+                                check(not st.any(), f"{case}: stats not zero")
+                            max_err["conv3x3_bn_relu_in"] = max(max_err["conv3x3_bn_relu_in"],
+                                                                err)
+                            n_cases += 1
+                            n_halo += halo
+                            n_design[design] += 1
     phase("conv3x3_bn_relu_in", f"{what}{n_cases} cases at {len(cases)} shapes and batches "
-          f"({n_halo} with a zero border; {n_tile} through the tile design at shapes routed to "
-          f"sm90), the others each through its routed design: match the "
-          f"plain version (max abs err {max_err['conv3x3_bn_relu_in']:.3g}; largest "
-          f"error {worst[torch.bfloat16]:.2f} of its bound in bf16, "
-          f"{worst[torch.float32]:.2f} in f32)")
+          f"({n_halo} with a zero border; {n_design['routed']} through the routed design, "
+          f"{n_design['window']} through window at shapes routed to sm90, {n_design['tile']} "
+          f"through tile): match the plain version (max abs err "
+          f"{max_err['conv3x3_bn_relu_in']:.3g}; largest error {worst[torch.bfloat16]:.2f} of its "
+          f"bound in bf16, {worst[torch.float32]:.2f} in f32)")
 
 
 def pool_bwd_case(shapes, dtype, seed, ties):
@@ -1232,7 +1319,7 @@ def launch_split(what, points, empty) -> None:
           f"(torch.cuda._sleep(0)) takes {empty * 1e3:.2f} us back to back")
 
 
-def time_train(name, train_shapes, ms, plain_ms, tile_ms, library_ms, simple_ms) -> None:
+def time_train(name, train_shapes, ms, plain_ms, alt, library_ms, simple_ms) -> None:
     """11: the training step and the two kernels it adds, at batch 128
     bf16; the pool backward on rotated inputs (cold L2), as the forward
     in phase 6, each group of the step through both designs
@@ -1250,23 +1337,19 @@ def time_train(name, train_shapes, ms, plain_ms, tile_ms, library_ms, simple_ms)
     del trainer
     for k, ((h, w, ci, co), count) in enumerate(sorted(train_shapes["conv3x3_bn_relu_in"].items())):
         x, wt, b = conv_inputs(TIME_BATCH, h, w, ci, co, torch.bfloat16, seed=400 + k)
-        scale, shift = bn_inputs(ci, seed=400 + k)
-        fns = {cuda_conv._route(x, wt): lambda: conv3x3_bn_relu_in(x, wt, b, scale, shift,
-                                                                   with_stats=False),
-               "plain": lambda: conv3x3_bn_relu_in_plain(x, wt, b, scale, shift,
-                                                         with_stats=False)}
-        if "sm90" in fns:
-            fns["tile"] = lambda: cuda_conv._tile_forward(x, wt, b, scale, shift,
-                                                          with_stats=False)
-        time_conv("conv3x3_bn_relu_in", (h, w, ci, co), count, "step", fns, ms, plain_ms, tile_ms,
+        fns = conv_fns(x, wt, b, bn_inputs(ci, seed=400 + k))
+        time_conv("conv3x3_bn_relu_in", (h, w, ci, co), count, "step", fns, ms, plain_ms, alt,
                   library_ms)
     pool = time_pool_bwd(train_shapes["maxpool2_bwd"], TIME_BATCH, 1, 500, "step", split=True)
     ms["maxpool2_bwd"], plain_ms["maxpool2_bwd"] = pool["group"], pool["plain"]
     library_ms["maxpool2_bwd"], simple_ms["maxpool2_bwd"] = pool["library"], pool["simple"]
     bound_ms = path_bounds(train_shapes, TIME_BATCH)["maxpool2_bwd"][2]
     phase("times", f"conv3x3_bn_relu_in per batch-{TIME_BATCH} training step: kernel "
-          f"{ms['conv3x3_bn_relu_in']:.3f} ms (the tile design alone "
-          f"{tile_ms['conv3x3_bn_relu_in']:.3f} ms), plain {plain_ms['conv3x3_bn_relu_in']:.3f} ms")
+          f"{ms['conv3x3_bn_relu_in']:.3f} ms (the window design alone "
+          f"{alt[('window', 'conv3x3_bn_relu_in')]:.3f} ms, the tile design alone "
+          f"{alt[('tile', 'conv3x3_bn_relu_in')]:.3f} ms), plain "
+          f"{plain_ms['conv3x3_bn_relu_in']:.3f} ms")
+    narrow_line(f"R-MG-{DEPTH}", alt, "conv3x3_bn_relu_in", f"batch-{TIME_BATCH} step")
     phase("times", f"maxpool2_bwd per batch-{TIME_BATCH} training step, cold L2: group "
           f"{ms['maxpool2_bwd']:.3f} ms in {PER_STEP['maxpool2_bwd']} launches "
           f"({bound_ms / ms['maxpool2_bwd']:.0%} of its {bound_ms:.4f} ms bound), simple "
@@ -1618,41 +1701,31 @@ def time_kernels(label, serve, train, serve_batch, micro, iters, seed=600, alter
     at ``serve_batch``; ``train``: its training micro-batch's, at
     ``micro``, ``iters`` a step) beside its plain version, one PyTorch
     call of the same function (cuDNN's conv, F.max_pool2d, aten's pool
-    backward) and, with ``alternatives``, the tile design (conv) or the
-    simple one (pool) where the routed design is sm90; each the median of
+    backward); the convs also through the window design (where sm90 is
+    routed) and the tile design (conv_fns), with the launches routed to
+    window summed (narrow_line); with ``alternatives`` the pool forward's
+    simple design where the routed design is sm90; each the median of
     ``windows`` windows; the pool backward by group (time_pool_bwd:
     the group design, the simple one summed over the members, the plain
     version, aten's; with ``alternatives`` the fixed-cost split). Returns
     ({kernel: ms}, {kernel: plain ms}, {kernel: library ms}, {"maxpool2_bwd":
-    the simple design's ms}) per forward (conv3x3, maxpool2) or per step
-    (the other two); a kernel the net does not launch is left out."""
+    the simple design's ms}, {conv kernel: design_times}) per forward
+    (conv3x3, maxpool2) or per step (the other two); a kernel the net
+    does not launch is left out."""
     ms, plain_ms = dict.fromkeys(KERNELS, 0.0), dict.fromkeys(KERNELS, 0.0)
     alt_ms, library_ms = dict.fromkeys(KERNELS, 0.0), dict.fromkeys(KERNELS, 0.0)
     library_ms["conv3x3_bn_relu_in"] = None
+    alt = defaultdict(float)  # the convs' designs (time_conv)
     itemsize = torch.empty((), dtype=dtype).element_size()
     for k, ((h, w, ci, co), count) in enumerate(sorted(serve["conv3x3"].items())):
         xc, wt, b = conv_inputs(serve_batch, h, w, ci, co, dtype, seed=seed + k)
-        w_lib = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        b_lib = b.to(xc.dtype)
-        cfns = {cuda_conv._route(xc, wt): lambda: conv3x3(xc, wt, b, with_stats=False),
-                "plain": lambda: conv3x3_plain(xc, wt, b, with_stats=False),
-                "library": lambda: F.conv2d(nchw(xc), w_lib, b_lib, padding=1)}
-        if "sm90" in cfns and alternatives:
-            cfns["tile"] = lambda: cuda_conv._tile_forward(xc, wt, b, with_stats=False)
-        time_conv("conv3x3", (h, w, ci, co), count, "forward", cfns, ms, plain_ms, alt_ms,
-                  library_ms, serve_batch, windows)
+        time_conv("conv3x3", (h, w, ci, co), count, "forward", conv_fns(xc, wt, b), ms, plain_ms,
+                  alt, library_ms, serve_batch, windows)
     for k, ((h, w, ci, co), count) in enumerate(sorted(train["conv3x3_bn_relu_in"].items())):
         xc, wt, b = conv_inputs(micro, h, w, ci, co, torch.bfloat16, seed=seed + 100 + k)
-        scale, shift = bn_inputs(ci, seed=seed + 100 + k)
-        cfns = {cuda_conv._route(xc, wt): lambda: conv3x3_bn_relu_in(xc, wt, b, scale, shift,
-                                                                     with_stats=False),
-                "plain": lambda: conv3x3_bn_relu_in_plain(xc, wt, b, scale, shift,
-                                                          with_stats=False)}
-        if "sm90" in cfns and alternatives:
-            cfns["tile"] = lambda: cuda_conv._tile_forward(xc, wt, b, scale, shift,
-                                                           with_stats=False)
-        time_conv("conv3x3_bn_relu_in", (h, w, ci, co), iters * count, "step", cfns, ms,
-                  plain_ms, alt_ms, library_ms, micro, windows)
+        time_conv("conv3x3_bn_relu_in", (h, w, ci, co), iters * count, "step",
+                  conv_fns(xc, wt, b, bn_inputs(ci, seed=seed + 100 + k)), ms, plain_ms, alt,
+                  library_ms, micro, windows)
     for k, ((h, w, c), count) in enumerate(sorted(serve["maxpool2"].items())):
         xp = pool_input((serve_batch, h, w, c), dtype, seed=seed + 200 + k)
         route = cuda_pool._route(xp)
@@ -1680,14 +1753,17 @@ def time_kernels(label, serve, train, serve_batch, micro, iters, seed=600, alter
         unit = (f"batch-{serve_batch} forward" if k in ("conv3x3", "maxpool2")
                 else f"{micro} x {iters} step")
         lib = "none" if library_ms[k] is None else f"{library_ms[k]:.3f} ms"
-        alt = (f", the tile design alone {alt_ms[k]:.3f} ms"
-               if k.startswith("conv") and alternatives else
-               f" (group design), the simple design {alt_ms[k]:.3f} ms" if k == "maxpool2_bwd"
-               else "")
-        phase("times", f"{label} {k} per {unit}: kernel {ms[k]:.3f} ms{alt}, plain "
+        other = (f", the window design alone {alt[('window', k)]:.3f} ms, the tile design alone "
+                 f"{alt[('tile', k)]:.3f} ms" if k.startswith("conv") else
+                 f" (group design), the simple design {alt_ms[k]:.3f} ms" if k == "maxpool2_bwd"
+                 else "")
+        phase("times", f"{label} {k} per {unit}: kernel {ms[k]:.3f} ms{other}, plain "
               f"{plain_ms[k]:.3f} ms, one PyTorch call {lib}")
+        if k.startswith("conv"):
+            narrow_line(label, alt, k, unit)
     return ({k: ms[k] for k in used}, {k: plain_ms[k] for k in used},
-            {k: library_ms[k] for k in used}, {"maxpool2_bwd": alt_ms["maxpool2_bwd"]})
+            {k: library_ms[k] for k in used}, {"maxpool2_bwd": alt_ms["maxpool2_bwd"]},
+            {k: design_times(alt, k) for k in used if k.startswith("conv")})
 
 
 def time_cifar(name, rec):
@@ -1824,7 +1900,8 @@ def check_seg_kernels(rec, extra, max_err) -> None:
     """17: each kernel vs its plain version at every shape the five nets
     (and pnmg.mnist on mnist-seg) give it, at each serving batch and at
     the recipe's micro-batch: bf16 and f32, the convs also through the
-    tile design where sm90 takes the shape, the pool forward through
+    window design where sm90 takes the shape and through the tile
+    design, the pool forward through
     both designs where sm90 takes it. New here: Ci = 1 (the 1-channel
     stems), Co = 1 and 10 (pnmg.mnist's output conv), widths 8-32 on
     7x7 and 14x14 grids, pools of 64 px maps."""
@@ -1841,9 +1918,9 @@ def check_seg_kernels(rec, extra, max_err) -> None:
         pool_bwd |= {tuple((micro, *shape) for shape in key) for key in train["maxpool2_bwd"]}
     check({ci for (_, _, ci, _), _ in conv} >= {1} and {co for (*_, co), _ in conv} >= {1, 10},
           "the seg shapes lack Ci = 1 or Co = 1, 10")
-    check_conv(sorted(conv), max_err, "seg: ", slices=True, both=True)
+    check_conv(sorted(conv), max_err, "seg: ", slices=True)
     check_pool(sorted(pool), max_err, "seg: ")
-    check_prologue(sorted(pro), max_err, "seg: ", both=True)
+    check_prologue(sorted(pro), max_err, "seg: ")
     check_pool_bwd(sorted(pool_bwd), max_err, "seg: ")
 
 
@@ -2001,8 +2078,9 @@ def time_seg(name, rec) -> dict:
     cut to 2), interleaved on the card's clock, with the card's busy
     share from a profile; then each kernel at the net's shapes beside its
     plain version and one PyTorch call, the median of 3 windows (as
-    :func:`time_kernels`, without the other design: the run's time).
-    Returns {net: (ms, plain_ms, library_ms, bounds)}."""
+    :func:`time_kernels`, without the pool's other design: the run's
+    time). Returns {net: (ms, plain_ms, library_ms, simple_ms,
+    design_times, bounds)}."""
     out = {}
     for k, (net, (opt, micro, iters, batches)) in enumerate(SEG_RECIPES.items()):
         serve, train = rec[net]
@@ -3006,7 +3084,7 @@ def check_saliency(name) -> tuple[dict, dict]:
           f"f32, as the path calls it: largest error {worst:.2f} of its bound; maxpool2 at its "
           f"{pool_ok} shapes: equal to the plain version")
     label = f"mnist-saliency ({SAL_NET}, {n_img} a forward)"
-    t_ms, t_plain, t_lib, t_simple = time_kernels(
+    t_ms, t_plain, t_lib, t_simple, t_designs = time_kernels(
         label, shapes, {k: Counter() for k in KERNELS}, n_img, 1, 1, seed=900,
         alternatives=False, windows=3, dtype=torch.float32)
     # (the bounds at the f32 peak outside the tensor cores: main prints them)
@@ -3014,7 +3092,7 @@ def check_saliency(name) -> tuple[dict, dict]:
     shutil.rmtree(cache)
     phase("saliency", f"phase 27 took {time.perf_counter() - t0:.1f} s")
     return dict(launches), (label, (f"{n_img}-image forward", ""), t_ms, t_plain, t_lib,
-                            t_simple, bounds)
+                            t_simple, t_designs, bounds)
 
 
 # ----------------------------------------------- the remat step (phase 28)
@@ -3674,16 +3752,19 @@ def time_halo(train_shapes) -> dict:
     -spatial 2 at AXIS_BATCH (the recorded shapes at the heights
     spatial_split splits, H/2 + 1 input rows, pads (1, 0)): each held
     against its plain version on the same slab, then timed in turns with
-    the plain version and the whole-image launch at the same shape
+    the plain version, the whole-image launch at the same shape and, for
+    conv3x3, one PyTorch call: F.conv2d with padding 1 on the slab, its
+    last output row (the zero pad's, below the halo row) dropped as a view
     (device_ms). Returns {kernel: launches, ms, plain_ms, whole_ms,
-    max_abs_err, bound_ms, bound_by}, the times summed over the step."""
+    library_ms (None for the prologue), max_abs_err, bound_ms, bound_by},
+    the times summed over the step."""
     from mgtpu_torch.parallel import spatial_split
 
     out = {}
     for k, fn, plain in (("conv3x3", conv3x3, conv3x3_plain),
                          ("conv3x3_bn_relu_in", conv3x3_bn_relu_in, conv3x3_bn_relu_in_plain)):
         tot = dict(launches=0, ms=0.0, plain_ms=0.0, whole_ms=0.0, max_abs_err=0.0, flops=0,
-                   nbytes=0)
+                   nbytes=0, library_ms=0.0 if k == "conv3x3" else None)
         for i, ((h, w, ci, co), n) in enumerate(sorted(train_shapes[k].items())):
             if not spatial_split(h, 2):
                 continue
@@ -3697,10 +3778,20 @@ def time_halo(train_shapes) -> dict:
             err = float((y.float() - y_ref).abs().max())
             check(err <= 2.0 ** -7 * float(y_ref.abs().max()) + 1e-3,
                   f"{k} halo mode at {(AXIS_BATCH, h // 2 + 1, w, ci, co)}: max abs err {err:.3g}")
-            (t, _), (tp, _), (tw, _) = device_ms([
-                lambda: fn(xs, wt, b, *vec, with_stats=False, pad_top=1, pad_bottom=0),
-                lambda: plain(xs, wt, b, *vec, with_stats=False, pad_top=1, pad_bottom=0),
-                lambda: fn(x, wt, b, *vec, with_stats=False)], windows=3)
+            fns = [lambda: fn(xs, wt, b, *vec, with_stats=False, pad_top=1, pad_bottom=0),
+                   lambda: plain(xs, wt, b, *vec, with_stats=False, pad_top=1, pad_bottom=0),
+                   lambda: fn(x, wt, b, *vec, with_stats=False)]
+            if k == "conv3x3":
+                w_lib = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                b_lib = b.to(xs.dtype)
+                fns.append(lambda: F.conv2d(nchw(xs), w_lib, b_lib, padding=1)[:, :, :h // 2])
+                y_lib = fns[-1]()
+                check(tuple(y_lib.shape[2:]) == tuple(y.shape[1:3]),
+                      f"conv3x3 halo mode's PyTorch call gives {tuple(y_lib.shape)}")
+            times = device_ms(fns, windows=3)
+            (t, _), (tp, _), (tw, _) = times[:3]
+            if k == "conv3x3":
+                tot["library_ms"] += n * times[3][0]
             flops, nbytes = halo_work(k, (h, w, ci, co), AXIS_BATCH)
             tot["launches"] += n
             tot["ms"] += n * t
@@ -3904,8 +3995,10 @@ def check_axis(name, power, train_shapes) -> dict:
               f"{power}: {t['flops'] / 1e9:.1f} GFLOP, {t['nbytes'] / 1e6:.1f} MB, bound "
               f"{t['bound_ms']:.4f} ms (by {t['bound_by']}); kernel {t['ms']:.3f} ms "
               f"({t['bound_ms'] / t['ms']:.0%} of the bound), plain {t['plain_ms']:.3f} ms, the "
-              f"whole-image launches at the same shapes {t['whole_ms']:.3f} ms; max abs err vs "
-              f"plain {t['max_abs_err']:.3g}")
+              f"whole-image launches at the same shapes {t['whole_ms']:.3f} ms, one PyTorch "
+              f"call " + ("none" if t["library_ms"] is None else
+                          f"(F.conv2d, padding 1, its last row dropped) {t['library_ms']:.3f} ms")
+              + f"; max abs err vs plain {t['max_abs_err']:.3g}")
     phase("axis", f"phase 31 took {time.perf_counter() - t_phase:.1f} s")
     return dict(total), halo
 
@@ -4300,6 +4393,43 @@ def check_i8_axis(name, power, shapes) -> tuple[dict, dict]:
     return dict(total), halo
 
 
+def conv_phases(name) -> None:
+    """``--convs``: the two convs' phases alone. Phases 3 and 7's checks
+    (R-MG-34's shapes at batch 8 through every design), phase 6 and 11's
+    conv timings at batch 128 (R-MG-34's forward and training step, with
+    their launches routed to window summed) and phase 27's conv timings
+    at the saliency forward's shapes (3,368 images, f32)."""
+    serve, train = record_kernel_shapes(False), record_kernel_shapes(True)
+    max_err = dict.fromkeys(KERNELS, 0.0)
+    check_conv([(shape, CHECK_BATCH) for shape in serve["conv3x3"]], max_err)
+    check_prologue([(shape, CHECK_BATCH) for shape in train["conv3x3_bn_relu_in"]], max_err)
+    ms, plain_ms, alt = dict.fromkeys(KERNELS, 0.0), dict.fromkeys(KERNELS, 0.0), defaultdict(float)
+    library_ms = {k: None if k == "conv3x3_bn_relu_in" else 0.0 for k in KERNELS}
+    for k, ((h, w, ci, co), count) in enumerate(sorted(serve["conv3x3"].items())):
+        x, wt, b = conv_inputs(TIME_BATCH, h, w, ci, co, torch.bfloat16, seed=k)
+        time_conv("conv3x3", (h, w, ci, co), count, "forward", conv_fns(x, wt, b), ms, plain_ms,
+                  alt, library_ms)
+    for k, ((h, w, ci, co), count) in enumerate(sorted(train["conv3x3_bn_relu_in"].items())):
+        x, wt, b = conv_inputs(TIME_BATCH, h, w, ci, co, torch.bfloat16, seed=400 + k)
+        time_conv("conv3x3_bn_relu_in", (h, w, ci, co), count, "step",
+                  conv_fns(x, wt, b, bn_inputs(ci, seed=400 + k)), ms, plain_ms, alt, library_ms)
+    for kname, unit in (("conv3x3", "forward"), ("conv3x3_bn_relu_in", "step")):
+        lib = "none" if library_ms[kname] is None else f"{library_ms[kname]:.3f} ms"
+        phase("times", f"{kname} per batch-{TIME_BATCH} {unit}: kernel {ms[kname]:.3f} ms (window "
+              f"{alt[('window', kname)]:.3f} ms, tile {alt[('tile', kname)]:.3f} ms), plain "
+              f"{plain_ms[kname]:.3f} ms, cuDNN's one call {lib}")
+        narrow_line(f"R-MG-{DEPTH}", alt, kname, f"batch-{TIME_BATCH} {unit}")
+    from mgtpu_torch.data.mnist import occlusion_masks
+
+    sal = record_kernel_shapes(False, SEG_RECIPES[SAL_NET][0])
+    n_img = SAL_GROUP * (1 + len(occlusion_masks()))
+    empty = {k: Counter() for k in KERNELS}
+    time_kernels(f"mnist-saliency ({SAL_NET}, {n_img} a forward)",
+                 {**empty, "conv3x3": sal["conv3x3"]}, empty, n_img, 1, 1, seed=900, windows=3,
+                 dtype=torch.float32)
+    phase("convs", f"the conv phases alone on {name} took {time.perf_counter() - T0:.1f} s")
+
+
 def main() -> None:
     # 1 device
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: this smoke run "
@@ -4327,6 +4457,11 @@ def main() -> None:
             entry = line.split("'")[1] if "'" in line else line.strip()
         if "registers" in line or ("spill" in line and " 0 bytes spill stores" not in line):
             phase("build", f"{entry}: {line.strip()}")
+    if sys.argv[1:] == ["--convs"]:
+        conv_phases(name)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
 
     serve_shapes, train_shapes = record_kernel_shapes(False), record_kernel_shapes(True)
     for what, shapes, want in (("serving forward", serve_shapes, PER_FORWARD),
@@ -4402,24 +4537,21 @@ def main() -> None:
     # 6 times at batch 128, bf16
     ms = dict.fromkeys(KERNELS, 0.0)
     plain_ms = dict.fromkeys(KERNELS, 0.0)
-    tile_ms = dict.fromkeys(KERNELS, 0.0)  # the same launches, all through the tile design
+    # the same conv launches, all through the window or the tile design,
+    # and the launches routed to window (time_conv)
+    alt = defaultdict(float)
     simple_ms = {"maxpool2_bwd": 0.0}  # the pool backward's launches through the simple design
     # one PyTorch call of the same function; conv3x3_bn_relu_in has none
     library_ms = {k: None if k == "conv3x3_bn_relu_in" else 0.0 for k in KERNELS}
     for k, ((h, w, ci, co), count) in enumerate(sorted(conv_shapes.items())):
         x, wt, b = conv_inputs(TIME_BATCH, h, w, ci, co, torch.bfloat16, seed=k)
-        w_lib = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        b_lib = b.to(x.dtype)
-        fns = {cuda_conv._route(x, wt): lambda: conv3x3(x, wt, b, with_stats=False),
-               "plain": lambda: conv3x3_plain(x, wt, b, with_stats=False),
-               "library": lambda: F.conv2d(nchw(x), w_lib, b_lib, padding=1)}
-        if "sm90" in fns:
-            fns["tile"] = lambda: cuda_conv._tile_forward(x, wt, b, with_stats=False)
-        time_conv("conv3x3", (h, w, ci, co), count, "forward", fns, ms, plain_ms, tile_ms,
-                  library_ms)
+        time_conv("conv3x3", (h, w, ci, co), count, "forward", conv_fns(x, wt, b), ms, plain_ms,
+                  alt, library_ms)
     phase("times", f"conv3x3 per batch-{TIME_BATCH} forward: kernel {ms['conv3x3']:.3f} ms "
-          f"(the tile design alone {tile_ms['conv3x3']:.3f} ms), plain "
-          f"{plain_ms['conv3x3']:.3f} ms, cuDNN's one call {library_ms['conv3x3']:.3f} ms")
+          f"(the window design alone {alt[('window', 'conv3x3')]:.3f} ms, the tile design alone "
+          f"{alt[('tile', 'conv3x3')]:.3f} ms), plain {plain_ms['conv3x3']:.3f} ms, cuDNN's one "
+          f"call {library_ms['conv3x3']:.3f} ms")
+    narrow_line(f"R-MG-{DEPTH}", alt, "conv3x3", f"batch-{TIME_BATCH} forward")
     time_pool(pool_shapes, ms, plain_ms, library_ms)
     images = torch.from_numpy(np.random.default_rng(2).standard_normal(
         (TIME_BATCH, *IMAGE_SHAPE), dtype=np.float32)).cuda()
@@ -4438,7 +4570,7 @@ def main() -> None:
     check_grads()
     train_launches = check_train(name, train_routes)
     launches = {k: launches[k] + train_launches[k] for k in KERNELS}
-    time_train(name, train_shapes, ms, plain_ms, tile_ms, library_ms, simple_ms)
+    time_train(name, train_shapes, ms, plain_ms, alt, library_ms, simple_ms)
 
     # 12-15 the CIFAR zoo
     rec = record_cifar()
@@ -4449,7 +4581,7 @@ def main() -> None:
     for k in KERNELS:  # every kernel ran on the CIFAR path (the prologue in rnmg and prnmg)
         check(sum(c[k] for c in cifar_launches.values()) > 0, f"{k} never launched on the "
               f"CIFAR path")
-    c_ms, c_plain_ms, c_library_ms, c_simple_ms = time_cifar(name, rec)
+    c_ms, c_plain_ms, c_library_ms, c_simple_ms, c_designs = time_cifar(name, rec)
 
     # 16-20 the segmentation nets and PR-MG
     seg_rec, seg_extra = record_seg()
@@ -4545,26 +4677,30 @@ def main() -> None:
     bounds = {k: (fwd_bounds if PER_FORWARD[k] else step_bounds)[k] for k in KERNELS}
     micro, iters = CIFAR_RECIPES[CIFAR_TIMED][1:]
     # net -> (its launches, units, ms, plain ms, library ms, the pool
-    # backward's simple-design ms, bounds)
+    # backward's simple-design ms, the convs' design times, bounds)
+    designs = {k: design_times(alt, k) for k in ("conv3x3", "conv3x3_bn_relu_in")}
     nets = {f"R-MG-{DEPTH}": (None, (f"batch-{TIME_BATCH} forward", f"batch-{TIME_BATCH} step"),
-                              ms, plain_ms, library_ms, simple_ms, bounds),
+                              ms, plain_ms, library_ms, simple_ms, designs, bounds),
             CIFAR_TIMED: (cifar_launches[CIFAR_TIMED], (f"batch-{CIFAR_SERVE_BATCH} forward",
                                                         f"{micro} x {iters} step"),
-                          c_ms, c_plain_ms, c_library_ms, c_simple_ms, cifar_bounds(rec))}
-    for net, (n_ms, n_plain, n_lib, n_simple, n_bounds) in seg_times.items():
+                          c_ms, c_plain_ms, c_library_ms, c_simple_ms, c_designs,
+                          cifar_bounds(rec))}
+    for net, (n_ms, n_plain, n_lib, n_simple, n_designs, n_bounds) in seg_times.items():
         _, micro, iters, batches = SEG_RECIPES[net]
         nets[net] = (seg_launches[net], (f"batch-{batches[-1]} forward", f"{micro} x {iters} step"),
-                     n_ms, n_plain, n_lib, n_simple, n_bounds)
+                     n_ms, n_plain, n_lib, n_simple, n_designs, n_bounds)
     nets[sal_times[0]] = (sal_launches, *sal_times[1:])
-    for net, (_, units, kms, kplain, klib, ksimple, bds) in nets.items():
+    for net, (_, units, kms, kplain, klib, ksimple, kdesigns, bds) in nets.items():
         for k in kms:
             flops, nbytes, t_bound, by = bds[k]
             lib = "none" if klib[k] is None else f"{klib[k]:.3f} ms"
-            simple = (f" (group design; the simple design {ksimple[k]:.3f} ms)"
-                      if k == "maxpool2_bwd" else "")
+            other = (f" (group design; the simple design {ksimple[k]:.3f} ms)"
+                     if k == "maxpool2_bwd" else
+                     f" (window {kdesigns[k]['window_ms']:.3f} ms, tile "
+                     f"{kdesigns[k]['tile_ms']:.3f} ms)" if k in kdesigns else "")
             phase("bounds", f"{net} {k} per {units[0] if PER_FORWARD[k] else units[1]}: "
                   f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB, bound {t_bound:.4f} ms (by "
-                  f"{by}); kernel {kms[k]:.3f} ms{simple} ({t_bound / kms[k]:.0%} of the bound), "
+                  f"{by}); kernel {kms[k]:.3f} ms{other} ({t_bound / kms[k]:.0%} of the bound), "
                   f"plain {kplain[k]:.3f} ms, library {lib}")
     # the top-level numbers are R-MG-34's; under each other net's name the
     # same keys for its path, for the kernels it launches; launches count
@@ -4575,12 +4711,17 @@ def main() -> None:
          "bound_by": bounds[k][3], "library_ms": library_ms[k],
          **({"simple_ms": simple_ms[k]} if k in simple_ms else {}),
          **({"halo_mode": {key: halo[k][key] for key in (
-             "launches", "ms", "plain_ms", "whole_ms", "max_abs_err", "bound_ms", "bound_by")}}
+             "launches", "ms", "plain_ms", "whole_ms", "library_ms", "max_abs_err", "bound_ms",
+             "bound_by")}}
             if k in halo else {}),
+         **({"designs": {r: n for (kk, r), n in (serve_routes if PER_FORWARD[k]
+                                                  else train_routes).items() if kk == k and n},
+             **designs[k]} if k in designs else {}),
          **{net: {"launches": n_launches[k], "ms": kms[k], "plain_ms": kplain[k],
                   "bound_ms": bds[k][2], "bound_by": bds[k][3], "library_ms": klib[k],
-                  **({"simple_ms": ksimple[k]} if k in ksimple else {})}
-            for net, (n_launches, _, kms, kplain, klib, ksimple, bds) in nets.items()
+                  **({"simple_ms": ksimple[k]} if k in ksimple else {}),
+                  **(kdesigns[k] if k in kdesigns else {})}
+            for net, (n_launches, _, kms, kplain, klib, ksimple, kdesigns, bds) in nets.items()
             if n_launches is not None and k in kms}} for k in KERNELS]
         + [{"name": "conv_i8", **KERNELS_I8["conv_i8"], "launches": i8_launches["conv_i8"],
             "max_abs_err": max_err["conv_i8"], "ms": i8_ms["kernel"], "plain_ms": i8_ms["plain"],

@@ -23,16 +23,21 @@
 // (989 TFLOP/s dense) and f32 on the CUDA cores (67 TFLOP/s).
 //
 // Two designs of one implicit GEMM, M = N*H*W output pixels, N = Co and
-// K = 9*Ci, walked as 9 taps x Ci chunks. The HWIO weight is already a
-// (9*Ci, Co) row-major matrix; the exchange passes a slice of a wider
-// weight along Ci, so taps are w_tap_stride elements apart. Which design
-// a launch takes is a fixed function of dtype, shape and alignment,
-// decided by the wrapper (mgtpu_torch/ops/cuda_conv.py::_route):
-//   sm90  (mg_conv3x3_sm90, mg_conv3x3_bn_relu_in_sm90; section "sm90"
-//         below): TMA + wgmma, for bf16 with Ci and Co multiples of 64
-//         and 16-byte aligned x and w: every large shape of R-MG-34;
-//   tile  (mg_conv3x3, mg_conv3x3_bn_relu_in): the first design, for
-//         everything else (narrow channel counts, f32).
+// K = 9*Ci, walked as 9 taps x Ci chunks, and a third in
+// conv3x3_window.cu. The HWIO weight is already a (9*Ci, Co) row-major
+// matrix; the exchange passes a slice of a wider weight along Ci, so taps
+// are w_tap_stride elements apart. Which design a launch takes is a fixed
+// function of dtype, shape and alignment, decided by the wrapper
+// (mgtpu_torch/ops/cuda_conv.py::_route):
+//   sm90   (mg_conv3x3_sm90, mg_conv3x3_bn_relu_in_sm90; section "sm90"
+//          below): TMA + wgmma, for bf16 with Ci and Co multiples of 64
+//          and 16-byte aligned x and w: every large shape of R-MG-34;
+//   window (mg_conv3x3_window, mg_conv3x3_bn_relu_in_window;
+//          conv3x3_window.cu): everything else (narrow channel counts,
+//          f32);
+//   tile   (mg_conv3x3, mg_conv3x3_bn_relu_in): the first design, which
+//          took what window takes now; launched only to hold the designs
+//          against each other (cuda_conv.py::_tile_forward).
 //
 // The tile design. A block
 // computes a 64-pixel x 64-channel output tile, staging A (gathered on

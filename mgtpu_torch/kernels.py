@@ -42,13 +42,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: dict[str, int] = {"conv3x3": 0, "conv3x3_bn_relu_in": 0, "maxpool2": 0,
                             "maxpool2_bwd": 0, "conv_i8": 0, "quant_i8": 0}
 # (kernel, design) -> launches since the last reset_launches(), for the
-# kernels with two designs: the convs' (mgtpu_torch/ops/cuda_conv.py::_route),
+# kernels with several designs: the convs' ("sm90" and "window" on the
+# port's path, mgtpu_torch/ops/cuda_conv.py::_route; "tile" only through
+# cuda_conv._tile_forward),
 # the pool forward's (mgtpu_torch/ops/cuda_pool.py::_route), the int8
 # conv's (mgtpu_torch/ops/cuda_conv_i8.py::_route) and the pool
 # backward's ("group" on the port's path; "simple" only through
 # cuda_pool._simple_backward)
 ROUTES: dict[tuple[str, str], int] = {
-    **{(k, r): 0 for k in ("conv3x3", "conv3x3_bn_relu_in") for r in ("sm90", "tile")},
+    **{(k, r): 0 for k in ("conv3x3", "conv3x3_bn_relu_in") for r in ("sm90", "window", "tile")},
     **{(k, r): 0 for k in ("maxpool2", "conv_i8") for r in ("sm90", "simple")},
     **{("maxpool2_bwd", r): 0 for r in ("group", "simple")}}
 
@@ -56,7 +58,7 @@ ROUTES: dict[tuple[str, str], int] = {
 # other than (pad, pad): an H-slab's, under -spatial) since the last
 # reset_launches(); each is also counted in LAUNCHES and ROUTES
 PADDED: dict[tuple[str, str], int] = {
-    **{(k, r): 0 for k in ("conv3x3", "conv3x3_bn_relu_in") for r in ("sm90", "tile")},
+    **{(k, r): 0 for k in ("conv3x3", "conv3x3_bn_relu_in") for r in ("sm90", "window", "tile")},
     **{("conv_i8", r): 0 for r in ("sm90", "simple")}}
 
 _P = ctypes.c_void_p
@@ -75,6 +77,12 @@ _SIGNATURES = {
     "mg_conv3x3_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _P),
     "mg_conv3x3_bn_relu_in_sm90": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I,
                                    _I, _I, _I, _P),
+    # the window designs: the same arguments, then the plan of
+    # cuda_conv._window_plan (ti, th, tw, bn, kc, stages, grid_x, smem)
+    "mg_conv3x3_window": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I,
+                          *(_I,) * 8, _P),
+    "mg_conv3x3_bn_relu_in_window": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I,
+                                     _I, _I, _I, *(_I,) * 8, _P),
     # x, y, n, h, w, c, is_bf16, stream
     "mg_maxpool2": (_P, _P, _I, _I, _I, _I, _I, _P),
     # x, y, n, h, w, c, k (row pairs a chunk), grid, stage_limit, is_bf16, stream

@@ -5,12 +5,16 @@ their plain versions, and the autograd Functions around them.
 Ports of `mgtpu/ops/pallas_conv.py::conv3x3` (its ``rows`` and ``slab``
 variants compute the same function) and ``conv3x3_bn_relu_in`` (the
 BatchNorm-apply + ReLU prologue); the signatures drop ``variant``,
-``th`` and ``interpret``. Both kernels are in
-`mgtpu_torch/csrc/conv3x3.cu`, each in two designs: ``sm90`` (TMA and
-wgmma, for bf16 with Ci and Co multiples of 64: the large shapes) and
-``tile`` (WMMA or FMA tiles: everything else). :func:`_route` picks one
-from dtype, shape and alignment alone; it is not a fallback, and a
-launch that fails raises.
+``th`` and ``interpret``. Both kernels have three designs:
+``sm90`` (TMA and wgmma, for bf16 with Ci and Co multiples of 64: the
+large shapes; `mgtpu_torch/csrc/conv3x3.cu`), ``window`` (a tile's input
+window in shared memory once, its 9 taps shifted views of it; mma.sync
+in bf16, FMAs in f32: everything else; `csrc/conv3x3_window.cu`, planned
+by :func:`_window_plan`) and ``tile`` (the first design, WMMA or FMA
+tiles that gather every tap from device memory; `conv3x3.cu`), which the
+port no longer launches: :func:`_tile_forward` runs it for comparisons.
+:func:`_route` picks sm90 or window from dtype, shape and alignment
+alone; it is not a fallback, and a launch that fails raises.
 
 Per-side H padding (``pad_top``, ``pad_bottom``, each 0 or 1; default
 1): where one is 0, ``x`` carries the neighbour's row on that side (the
@@ -30,6 +34,9 @@ ops ``mgtpu::conv3x3`` and ``mgtpu::conv3x3_bn_relu_in``
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -130,14 +137,137 @@ def _route(x, w):
     wgmma) for bf16 with Ci and Co multiples of 64 (one 128-byte
     swizzled row of the tiles), at most 2048 (the block keeps per-channel
     sums and the prologue's scale and shift in shared memory), and x and
-    w on 16-byte boundaries (TMA's rule); "tile" for everything else. A
-    fixed function of dtype, shape and alignment: a launch on either
-    route that fails raises."""
+    w on 16-byte boundaries (TMA's rule); "window" for everything else
+    (every shape the first design, tile, took before it). A fixed
+    function of dtype, shape and alignment: a launch on either route that
+    fails raises."""
     ci, co = x.shape[3], w.shape[3]
     if (x.dtype == torch.bfloat16 and ci % 64 == 0 and co % 64 == 0 and max(ci, co) <= 2048
             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0):
         return "sm90"
-    return "tile"
+    return "window"
+
+
+# The window design's plan (csrc/conv3x3_window.cu; its Layout mirrors
+# _window_smem): 128 threads a block, a tile of at most 128 output pixels
+_WINDOW_PIXELS = 128
+_SMEM_BLOCK = 232_448  # a block's largest dynamic shared memory on the H100
+_SMEM_SM = 233_472  # an SM's, of which the card keeps 1 KB a block
+_SMEM_TWO = _SMEM_SM // 2 - 1024  # the most a block may take for two to share an SM
+_F32_RESIDENT = 49_152  # f32: the 9 taps' weights stay in shared memory up to this
+
+
+class WindowPlan(NamedTuple):
+    """ti images x th output rows x tw columns a tile; bn output channels
+    a block (grid_y slices of Co); kc input channels a chunk (chunks of
+    them; bf16 with Ci < 16 packs the taps: kc = Ci); stages of the window
+    (bf16: 2 overlaps the next tile's load with this one's math); smem,
+    the dynamic shared memory; tiles, the pixel tiles of a channel slice,
+    which grid_x persistent blocks walk."""
+    ti: int
+    th: int
+    tw: int
+    bn: int
+    kc: int
+    chunks: int
+    stages: int
+    smem: int
+    tiles: int
+    grid_x: int
+    grid_y: int
+
+
+def _up(v, m):
+    return -(-v // m) * m
+
+
+def _window_smem(bf16, ci, bn, kc, stages, slots):
+    """(dynamic shared memory, chunks) of a window-design block: the C
+    side's make_layout (csrc/conv3x3_window.cu), which refuses a launch
+    whose plan says other bytes."""
+    if bf16:
+        packed = ci < 16
+        kc = ci if packed else kc
+        cp = ci if packed else kc + 8
+        chunks = 1 if packed else -(-_up(ci, 16) // kc)
+        rows = _up(9 * ci, 16) if packed else 9 * kc
+        bnp = bn + 8 if (bn // 8) % 2 == 0 else bn
+        win, wts = _up(slots * cp * 2, 16), _up(rows * bnp * 2, 16)
+        stage = win if chunks == 1 else win + wts
+        smem = (wts if chunks == 1 else 0) + stages * stage + (rows * 4 if packed else 0)
+    else:
+        cp = kc + 4 if (kc // 4) % 2 == 0 else kc
+        chunks = -(-_up(ci, 4) // kc)
+        tap = _up(kc * bn * 4, 16)
+        resident = chunks == 1 and 9 * tap <= _F32_RESIDENT  # all 9 taps' weights kept
+        smem = _up(slots * cp * 4, 16) + (9 if resident else 2) * tap
+    return smem + 2 * bn * 4, chunks
+
+
+@functools.cache
+def _window_plan(n, h, w, ci, co, bf16, sms) -> WindowPlan:
+    """The window design's tiling of an (n, h, w) output of ci -> co
+    channels on a card of ``sms`` SMs, a fixed function of them:
+    - the tile: whole images where one fits in 128 pixels (several
+      images a tile: 2 at 7x7 and 8x8, 8 at 4x4), else rows of at most
+      16 columns (tw = ceil(w / ceil(w / 16)): 14 at 28, 16 at 32 and 64)
+      and as many rows as fit;
+    - bn: Co rounded up to 8, 16, 32 or 64 in bf16 (an n8 tile of
+      mma.sync each 8), to 1, 8, 16, 32 or 64 in f32 (a thread's register
+      tile), 64 a block and several blocks along Co above;
+    - then, while fewer than two blocks an SM would have work, fewer
+      images a tile (not narrower bn: at R-MG-34's 7x7 and 14x14 shapes
+      the card ran 32 and 64 channels a block faster than 16 and 32 with
+      twice the blocks, NVIDIA H100 80GB HBM3 at 700 W);
+    - kc, bn and the stages: the whole Ci in one chunk with the weights
+      kept (bf16) where that fits two blocks an SM; else narrower bn,
+      one stage, chunks of 64, 32, 16 channels; then one block an SM; then
+      fewer images a tile. f32 takes chunks of up to 64 channels (one
+      chunk, and tile's f32 order, up to Ci = 64) and one window stage.
+    Raises ValueError where no plan fits a block's shared memory."""
+    tw = -(-w // -(-w // 16))
+    th = min(h, _WINDOW_PIXELS // tw)
+    ti = min(n, max(1, _WINDOW_PIXELS // (th * tw))) if th == h else 1
+    if bf16 or co > 1:
+        bn = min(64, max(8, 1 << (co - 1).bit_length()))
+    else:
+        bn = 1
+
+    def pixel_tiles(ti):
+        return -(-n // ti) * -(-h // th) * -(-w // tw)
+
+    while ti > 1 and pixel_tiles(ti) * -(-co // bn) < 2 * sms:
+        ti = -(-ti // 2)
+    if bf16:
+        kcs = [ci] if ci < 16 else [_up(ci, 16)] + [k for k in (64, 32, 16) if k < _up(ci, 16)]
+        bns = [bn >> i for i in range(4) if bn >> i >= 8]
+    else:
+        kc = min(64, _up(ci, 4))
+        kcs = [kc] + [k for k in (32, 16, 8, 4) if k < kc]
+        bns = [bn]
+    while True:
+        slots = ti * (th + 2) * (tw + 2)
+        for budget in (_SMEM_TWO, _SMEM_BLOCK):
+            for kc in kcs:
+                for b in bns:
+                    for stages in ((2, 1) if bf16 else (1,)):
+                        smem, chunks = _window_smem(bf16, ci, b, kc, stages, slots)
+                        if smem > budget:
+                            continue
+                        tiles, grid_y = pixel_tiles(ti), -(-co // b)
+                        per_sm = min(4, _SMEM_SM // (smem + 1024))
+                        grid_x = min(tiles, max(1, -(-per_sm * sms // grid_y)))
+                        return WindowPlan(ti, th, tw, b, kc, chunks, stages, smem, tiles,
+                                          grid_x, grid_y)
+        if ti == 1:
+            raise ValueError(f"conv3x3 window design: no plan fits {_SMEM_BLOCK} bytes of "
+                             f"shared memory at {n}x{h}x{w}x{ci}->{co}")
+        ti = -(-ti // 2)
+
+
+@functools.cache
+def _sms(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _launch(kernel, route, x, w, b, vectors, relu_out, with_stats, pads=(1, 1)):
@@ -149,12 +279,16 @@ def _launch(kernel, route, x, w, b, vectors, relu_out, with_stats, pads=(1, 1)):
     y = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
     stats = torch.zeros((2, co), dtype=torch.float32, device=x.device)
     if y.numel():
-        entry = "mg_" + kernel + ("_sm90" if route == "sm90" else "")
+        bf16 = x.dtype == torch.bfloat16
+        plan = ()
+        if route == "window":
+            p = _window_plan(n, h, wd, ci, co, bf16, _sms(x.device.index or 0))
+            plan = (p.ti, p.th, p.tw, p.bn, p.kc, p.stages, p.grid_x, p.smem)
+        entry = "mg_" + kernel + {"sm90": "_sm90", "window": "_window", "tile": ""}[route]
         kernels.launch(kernel, entry, x.device, x.data_ptr(), w.data_ptr(), b.data_ptr(),
                        *(v.data_ptr() for v in vectors), y.data_ptr(), stats.data_ptr(), n, h,
-                       wd, ci, co, w.stride(1), int(relu_out), int(with_stats),
-                       int(x.dtype == torch.bfloat16), *pads, route=route,
-                       padded=tuple(pads) != (1, 1))
+                       wd, ci, co, w.stride(1), int(relu_out), int(with_stats), int(bf16), *pads,
+                       *plan, route=route, padded=tuple(pads) != (1, 1))
     return y, stats
 
 
@@ -184,19 +318,31 @@ def conv3x3_bn_relu_in_forward(x, w, b, scale, shift, *, relu_out=False, with_st
                    with_stats, (pad_top, pad_bottom))
 
 
+def _design_forward(design, x, w, b, scale, shift, relu_out, with_stats, pads):
+    if scale is None:
+        _check("conv3x3", x, w, b)
+        return _launch("conv3x3", design, x, w, b, (), relu_out, with_stats, pads)
+    _check("conv3x3_bn_relu_in", x, w, b, (("scale", scale), ("shift", shift)))
+    return _launch("conv3x3_bn_relu_in", design, x, w, b, (scale, shift), relu_out, with_stats,
+                   pads)
+
+
 def _tile_forward(x, w, b, scale=None, shift=None, *, relu_out=False, with_stats=True,
                   pad_top=1, pad_bottom=1):
     """The forward of conv3x3 (or of conv3x3_bn_relu_in, given scale and
     shift) through the tile design at any shape, on CUDA tensors.
-    Private: only for holding the two designs against each other and
+    Private: only for holding the designs against each other and
     timing them at one shape (chip_smoke.py, tests/test_torch_cuda.py)."""
-    pads = (pad_top, pad_bottom)
-    if scale is None:
-        _check("conv3x3", x, w, b)
-        return _launch("conv3x3", "tile", x, w, b, (), relu_out, with_stats, pads)
-    _check("conv3x3_bn_relu_in", x, w, b, (("scale", scale), ("shift", shift)))
-    return _launch("conv3x3_bn_relu_in", "tile", x, w, b, (scale, shift), relu_out, with_stats,
-                   pads)
+    return _design_forward("tile", x, w, b, scale, shift, relu_out, with_stats,
+                           (pad_top, pad_bottom))
+
+
+def _window_forward(x, w, b, scale=None, shift=None, *, relu_out=False, with_stats=True,
+                    pad_top=1, pad_bottom=1):
+    """As :func:`_tile_forward`, through the window design at any shape
+    (also where :func:`_route` picks sm90)."""
+    return _design_forward("window", x, w, b, scale, shift, relu_out, with_stats,
+                           (pad_top, pad_bottom))
 
 
 def _conv_grads(gy, x, w, need_x, need_w, pads=(1, 1)):

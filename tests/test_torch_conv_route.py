@@ -1,5 +1,6 @@
 """Which design of the port's 3x3 convs a CUDA launch takes
-(`mgtpu_torch.ops.cuda_conv._route`): "sm90" (TMA + wgmma) or "tile".
+(`mgtpu_torch.ops.cuda_conv._route`): "sm90" (TMA + wgmma) or "window"
+(the first design, "tile", is launched only through `_tile_forward`).
 
 The route is a fixed function of dtype, shape and alignment, so it is
 checked here on the CPU: against the kernel calls of one R-MG-34
@@ -44,10 +45,11 @@ def test_route_sends_the_wide_convs_of_rmg34_to_sm90(recorded, pass_, kernel, at
     routes = predicted_routes(recorded[pass_])
     # exactly the calls with Ci, Co % 64 == 0 go to sm90, in bf16
     assert routes[(kernel, "sm90")] == wide
-    assert routes[(kernel, "tile")] == sum(shapes.values()) - wide
+    assert routes[(kernel, "window")] == sum(shapes.values()) - wide
+    assert routes[(kernel, "tile")] == 0
     for (h, w, ci, co) in shapes:
         assert _route(*_operands(ci, co)) == ("sm90" if ci % 64 == 0 and co % 64 == 0
-                                              else "tile")
+                                              else "window")
 
 
 @pytest.mark.parametrize("pass_, kernel", [("serve", "conv3x3"), ("train", "conv3x3"),
@@ -62,14 +64,16 @@ def test_route_counts_per_pass(recorded):
     """The counts chip_smoke.py holds the card's launches to (the pool's
     are tests/test_torch_pool_route.py's)."""
     assert predicted_routes(recorded["serve"]) == {
-        ("conv3x3", "sm90"): 70, ("conv3x3", "tile"): 42,
-        ("conv3x3_bn_relu_in", "sm90"): 0, ("conv3x3_bn_relu_in", "tile"): 0,
+        ("conv3x3", "sm90"): 70, ("conv3x3", "window"): 42, ("conv3x3", "tile"): 0,
+        ("conv3x3_bn_relu_in", "sm90"): 0, ("conv3x3_bn_relu_in", "window"): 0,
+        ("conv3x3_bn_relu_in", "tile"): 0,
         ("maxpool2", "sm90"): 46, ("maxpool2", "simple"): 0,
         ("conv_i8", "sm90"): 0, ("conv_i8", "simple"): 0,
         ("maxpool2_bwd", "group"): 0, ("maxpool2_bwd", "simple"): 0}
     assert predicted_routes(recorded["train"]) == {
-        ("conv3x3", "sm90"): 44, ("conv3x3", "tile"): 32,
-        ("conv3x3_bn_relu_in", "sm90"): 26, ("conv3x3_bn_relu_in", "tile"): 10,
+        ("conv3x3", "sm90"): 44, ("conv3x3", "window"): 32, ("conv3x3", "tile"): 0,
+        ("conv3x3_bn_relu_in", "sm90"): 26, ("conv3x3_bn_relu_in", "window"): 10,
+        ("conv3x3_bn_relu_in", "tile"): 0,
         ("maxpool2", "sm90"): 46, ("maxpool2", "simple"): 0,
         ("conv_i8", "sm90"): 0, ("conv_i8", "simple"): 0,
         ("maxpool2_bwd", "group"): 29, ("maxpool2_bwd", "simple"): 0}
@@ -106,7 +110,7 @@ def test_route_keeps_the_rest_on_the_tile_design(case):
     if case.endswith("misaligned"):
         assert _route(x, w) == "sm90"  # aligned, the same operands take sm90
         x, w = (misaligned(x), w) if case == "x_misaligned" else (x, misaligned(w))
-    assert _route(x, w) == "tile"
+    assert _route(x, w) == "window"
 
 
 def test_route_takes_an_aligned_weight_slice():

@@ -13,9 +13,10 @@ import torch
 
 from chip_smoke import RMG34_POOLS, misaligned, pool_bwd_case
 from mgtpu_torch import kernels
-from mgtpu_torch.ops.cuda_conv import (_route, _tile_forward, bn_relu_plain, conv3x3,
-                                       conv3x3_bn_relu_in, conv3x3_bn_relu_in_plain,
-                                       conv3x3_plain)
+from mgtpu_torch.ops import cuda_conv
+from mgtpu_torch.ops.cuda_conv import (_route, _tile_forward, _window_forward, _window_plan,
+                                       bn_relu_plain, conv3x3, conv3x3_bn_relu_in,
+                                       conv3x3_bn_relu_in_plain, conv3x3_plain)
 from mgtpu_torch.ops.cuda_pool import (MAX_MEMBERS, SM90_STAGE_BYTES, _route as _pool_route,
                                        _simple_backward, _simple_forward, maxpool2,
                                        maxpool2_backward, maxpool2_backward_group,
@@ -70,10 +71,10 @@ def _run(kernel, design, x, w, fn):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("relu_out", [False, True])
 @pytest.mark.parametrize("with_stats", [False, True])
-@pytest.mark.parametrize("design", ["routed", "tile"])
+@pytest.mark.parametrize("design", ["routed", "window", "tile"])
 def test_conv3x3_kernel_matches_plain(dev, shape, dtype, relu_out, with_stats, design):
     x, w, b = _conv_inputs(*shape, dtype, dev)
-    fn = conv3x3 if design == "routed" else _tile_forward
+    fn = {"routed": conv3x3, "window": _window_forward, "tile": _tile_forward}[design]
     y, st = _run("conv3x3", design, x, w,
                  lambda: fn(x, w, b, relu_out=relu_out, with_stats=with_stats))
     # reference: the plain version in f32 on the same (bf16-rounded) inputs
@@ -173,14 +174,15 @@ def test_sm90_small_grids_match_plain(dev, shape, prologue, zero_border):
 @pytest.mark.parametrize("ci, co, start", [(3, 64, 0), (3, 10, 1), (10, 20, 3), (10, 10, 7),
                                            (20, 40, 5), (102, 102, 1)])
 def test_tile_conv_at_cifar_widths_with_unaligned_slices(dev, dtype, ci, co, start):
-    """The tile design at the CIFAR stems' 3-channel image, rnmg's widths
-    10 and 20 and VGG's 102, with the weight a slice of a wider one at
-    input channel ``start``: start * Co elements in, off a 16-byte
-    boundary in both dtypes at (3, 10, 1), (10, 10, 7) and (102, 102, 1),
-    in bf16 at (10, 20, 3), as the exchange's slices can be."""
+    """The design these shapes route to (window; tile before it) at the
+    CIFAR stems' 3-channel image, rnmg's widths 10 and 20 and VGG's 102,
+    with the weight a slice of a wider one at input channel ``start``:
+    start * Co elements in, off a 16-byte boundary in both dtypes at (3,
+    10, 1), (10, 10, 7) and (102, 102, 1), in bf16 at (10, 20, 3), as the
+    exchange's slices can be."""
     x, w, b = _conv_inputs(4, 8, 8, ci, co, dtype, dev, ci_total=ci + start + 2)
     ws = w[:, :, start:start + ci, :]
-    y, st = _run("conv3x3", "tile", x, ws, lambda: conv3x3(x, ws, b))
+    y, st = _run("conv3x3", "window", x, ws, lambda: conv3x3(x, ws, b))
     y_ref, st_ref = conv3x3_plain(x.float(), ws.float().contiguous(), b)
     torch.cuda.synchronize()
     rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
@@ -190,8 +192,8 @@ def test_tile_conv_at_cifar_widths_with_unaligned_slices(dev, dtype, ci, co, sta
 
 # halo mode (-spatial): (pad_top, pad_bottom) of a slab's launch, and the
 # shapes: the sm90 design's (bf16, Ci and Co multiples of 64: R-MG-34's
-# 56-row scale and its 28-row one at 128 channels) and the tile design's
-# (narrow channels, in bf16 and f32)
+# 56-row scale and its 28-row one at 128 channels) and the window
+# design's (narrow channels, in bf16 and f32)
 PADS = [(1, 1), (1, 0), (0, 1), (0, 0)]
 HALO_SHAPES = [(2, 16, 56, 64, 64), (2, 14, 28, 128, 128), (2, 12, 9, 24, 40)]
 
@@ -200,7 +202,7 @@ HALO_SHAPES = [(2, 16, 56, 64, 64), (2, 14, 28, 128, 128), (2, 12, 9, 24, 40)]
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pads", PADS, ids=[f"pads{a}{b}" for a, b in PADS])
 @pytest.mark.parametrize("prologue", [False, True])
-@pytest.mark.parametrize("design", ["routed", "tile"])
+@pytest.mark.parametrize("design", ["routed", "window", "tile"])
 def test_halo_launch_matches_plain_and_whole_image(dev, shape, dtype, pads, prologue, design):
     """A slab's launch under per-side padding (rows 4..h-4 of the image,
     with the halo rows its pads leave out of the padding) against the
@@ -220,7 +222,7 @@ def test_halo_launch_matches_plain_and_whole_image(dev, shape, dtype, pads, prol
     if design == "routed":
         fn = conv3x3_bn_relu_in if prologue else conv3x3
     else:
-        fn = _tile_forward
+        fn = _window_forward if design == "window" else _tile_forward
 
     y, st = _run(kernel, design, xs, w, lambda: fn(xs, w, b, *vectors, pad_top=pt,
                                                    pad_bottom=pb))
@@ -235,6 +237,95 @@ def test_halo_launch_matches_plain_and_whole_image(dev, shape, dtype, pads, prol
     torch.testing.assert_close(st, st_ref, rtol=1e-4, atol=1e-5 * st_ref.abs().max().item())
     # the whole image's launch: the same taps in the same order per pixel
     torch.testing.assert_close(y, y_all[:, lo:hi], rtol=0, atol=0)
+
+
+# the window design (csrc/conv3x3_window.cu) at the widths it takes: every
+# Ci of the zoo's narrow convs (packed taps below 16, chunks above 64 in
+# f32) against every Co (n8 tiles of 8 to 64, several blocks above 64), M
+# no multiple of a tile
+WINDOW_CI = [1, 3, 8, 16, 24, 32, 64, 96]
+WINDOW_CO = [1, 8, 10, 16, 32, 64, 128]
+
+
+@pytest.mark.parametrize("ci", WINDOW_CI)
+@pytest.mark.parametrize("co", WINDOW_CO)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_window_design_matches_plain(dev, ci, co, dtype, prologue):
+    """Both kernels through the window design against the plain version
+    in f32 (the prologue's normalized input rounded as the kernel rounds
+    it), under all four pad pairs (a slab with its halo rows), the
+    prologue's shift positive so a normalized pad would show; with the
+    stats; M = 3 x 9 x 11 rows on no tile boundary."""
+    x, w, b = _conv_inputs(3, 11, 11, ci, co, dtype, dev, seed=ci * 131 + co)
+    kernel = "conv3x3_bn_relu_in" if prologue else "conv3x3"
+    vectors = ()
+    if prologue:
+        scale, shift = _bn(ci, dev)
+        vectors = (scale, shift.abs() + 0.5)
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    for pt, pb in PADS:
+        # a slab of 9 output rows: its halo rows where a pad is 0
+        xs = x[:, pt:x.shape[1] - pb].contiguous()
+        y, st = _run(kernel, "window", xs, w, lambda: _window_forward(
+            xs, w, b, *vectors, relu_out=True, pad_top=pt, pad_bottom=pb))
+        xr = bn_relu_plain(xs, *vectors) if prologue else xs
+        y_ref, st_ref = conv3x3_plain(xr.float(), w.float(), b, relu_out=True, pad_top=pt,
+                                      pad_bottom=pb)
+        torch.cuda.synchronize()
+        assert y.shape == (3, 9, 11, co)
+        torch.testing.assert_close(y.float(), y_ref, rtol=rtol,
+                                   atol=1e-5 * y_ref.abs().max().item())
+        torch.testing.assert_close(st, st_ref, rtol=1e-4, atol=1e-5 * st_ref.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ci, co, ci_total, start", [(3, 10, 8, 1), (10, 20, 16, 3),
+                                                     (24, 32, 40, 5), (96, 128, 101, 3),
+                                                     (64, 1, 70, 5), (1, 64, 4, 1)])
+def test_window_design_takes_unaligned_slices(dev, dtype, ci, co, ci_total, start):
+    """Weight slices at unaligned starts (start * Co elements in: off 16
+    bytes, so the weights load element by element) at M = 2 x 13 x 7,
+    against the plain version on the sliced weight."""
+    x, w, b = _conv_inputs(2, 13, 7, ci, co, dtype, dev, seed=start, ci_total=ci_total)
+    ws = w[:, :, start:start + ci, :]
+    y, st = _run("conv3x3", "window", x, ws, lambda: _window_forward(x, ws, b))
+    y_ref, st_ref = conv3x3_plain(x.float(), ws.float().contiguous(), b)
+    torch.cuda.synchronize()
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(y.float(), y_ref, rtol=rtol, atol=1e-5 * y_ref.abs().max().item())
+    torch.testing.assert_close(st, st_ref, rtol=1e-4, atol=1e-5 * st_ref.abs().max().item())
+
+
+@pytest.mark.parametrize("ci, co", [(1, 64), (3, 10), (8, 8), (16, 8), (24, 10), (32, 16),
+                                    (40, 40), (64, 1), (64, 32), (64, 64)])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_window_f32_equals_tile_bit_for_bit(dev, ci, co, prologue):
+    """In f32 each output is one fmaf chain from its bias, taps outer,
+    channels inner, in both designs: up to Ci = 64 (one chunk of the
+    window design) they give the same bits, at the saliency forward's
+    widths and M on no tile boundary."""
+    x, w, b = _conv_inputs(3, 19, 21, ci, co, torch.float32, dev, seed=ci + co)
+    vectors = _bn(ci, dev) if prologue else ()
+    assert _window_plan(3, 19, 21, ci, co, False, cuda_conv._sms(0)).chunks == 1
+    y_w, _ = _window_forward(x, w, b, *vectors, relu_out=True)
+    y_t, _ = _tile_forward(x, w, b, *vectors, relu_out=True)
+    torch.cuda.synchronize()
+    assert torch.equal(y_w, y_t)
+
+
+def test_window_refuses_a_plan_of_other_shared_memory(dev):
+    """The C side recomputes the plan's shared-memory layout and refuses
+    a launch whose plan says other bytes (every launch checks it)."""
+    x, w, b = _conv_inputs(2, 7, 7, 32, 32, torch.bfloat16, dev)
+    p = _window_plan(2, 7, 7, 32, 32, True, cuda_conv._sms(0))
+    y = torch.empty((2, 7, 7, 32), dtype=torch.bfloat16, device=dev)
+    st = torch.zeros((2, 32), device=dev)
+    with pytest.raises(RuntimeError, match="mg_conv3x3_window"):
+        kernels.launch("conv3x3", "mg_conv3x3_window", x.device, x.data_ptr(), w.data_ptr(),
+                       b.data_ptr(), y.data_ptr(), st.data_ptr(), 2, 7, 7, 32, 32, w.stride(1),
+                       0, 1, 1, 1, 1, p.ti, p.th, p.tw, p.bn, p.kc, p.stages, p.grid_x,
+                       p.smem + 16, route="window")
 
 
 def test_halo_launch_one_one_is_the_pad_one_launch(dev):

@@ -214,7 +214,7 @@ def test_kernel_calls_per_forward_and_micro_batch(net):
 def test_new_kernel_shapes_and_their_designs():
     """The shapes this slice brings to the kernels, and the designs that
     take them: the 1-channel stems (Ci = 1) and pnmg.mnist's output conv
-    (Co = 1; 10 on mnist-seg) go to tile, as do the 8-32 wide 7x7 and
+    (Co = 1; 10 on mnist-seg) go to window, as do the 8-32 wide 7x7 and
     14x14 grids of prnmgseg; its 64-512 wide ones go to sm90; every pool
     of a 64 px net goes to sm90; PR-MG-52's forward makes the pinned
     calls."""
@@ -229,9 +229,9 @@ def test_new_kernel_shapes_and_their_designs():
         return predicted_routes({"conv3x3": {shape: 1}, "conv3x3_bn_relu_in": {},
                                  "maxpool2": {}, "maxpool2_bwd": {}})
 
-    for shape, design in (((64, 64, 1, 64), "tile"), ((64, 64, 64, 1), "tile"),
-                          ((64, 64, 64, 10), "tile"), ((7, 7, 8, 16), "tile"),
-                          ((14, 14, 16, 32), "tile"), ((7, 7, 64, 128), "sm90")):
+    for shape, design in (((64, 64, 1, 64), "window"), ((64, 64, 64, 1), "window"),
+                          ((64, 64, 64, 10), "window"), ((7, 7, 8, 16), "window"),
+                          ((14, 14, 16, 32), "window"), ((7, 7, 64, 128), "sm90")):
         assert route(*shape)[("conv3x3", design)] == 1, shape
     assert sorted(unet["maxpool2"]) == [(16, 16, 256), (32, 32, 128), (64, 64, 64)]
     assert predicted_routes(unet)[("maxpool2", "sm90")] == 3
