@@ -165,17 +165,24 @@ Phases:
              each epilogue variant of I8_VARIANTS (int32 sums; f32 and bf16
              dequants with the scale read on the card; with the part sum,
              the bias and the ReLU) equal bit for bit, full-range int8
-             operands, the batch-1 cases also with x off a 16-byte boundary
+             operands, the batch-1 cases also with x off a 16-byte boundary;
+             then the activation quantizer's group design (one launch a
+             multigrid layer) vs quant_i8_group_plain, int8 values and
+             scales bit for bit, static and dynamic scales, at every member
+             table those forwards give it and at QUANT_EDGE_GROUPS (odd C,
+             a 1x1 map upsampled, f32 and bf16 in one launch, misaligned
+             members, MAX_MEMBERS + 1 members in two launches), each member
+             also through the per-part design (mg_quant_i8)
  24 i8 serve each of those nets served under int8 through Server (BN
              folded, then quantized; bf16) at those batches with static
              scales (I8_CALIB batches) and, R-MG-34, dynamic ones:
-             outputs checked, the pinned launches per forward (quant_i8
-             and conv_i8 once a conv part, quant_i8 twice with dynamic
+             outputs checked, the pinned launches per forward (conv_i8
+             once a conv part, quant_i8 once a layer, twice with dynamic
              scales; the pools as in the float forward; no 3x3 conv
              kernel) and conv_i8's pinned designs; a second forward in
              which every quantizer call is held to quantize_act's torch
-             ops (and the nearest upsample) on the same activation on the
-             card, int8 values and scales equal; the distance from the
+             ops (and the nearest upsample) on the same activations on
+             the card, int8 values and scales equal; the distance from the
              bf16 forward of the same weights (prnmg and unmg: one median
              time of each, int8 and bf16, interleaved); the f32 int8
              forward on the card vs the plain CPU one with the same frozen
@@ -197,9 +204,12 @@ Phases:
              at the sm90 shapes, the simple design, beside its plain
              version and, a different function, the bf16 conv3x3 kernel
              (3x3/s1 shapes) and cuDNN's bf16 conv; its bound at the int8
-             peak; quant_i8 at each quantizer shape of that forward beside
-             its plain torch ops and, a different function on an f32 copy,
-             torch.quantize_per_tensor; its bound at HBM's rate
+             peak; quant_i8 at each quantizer group of that forward (a
+             layer's parts) through the group design beside the per-part
+             design's launches of the same members, its plain torch ops
+             and, a different function on f32 copies,
+             torch.quantize_per_tensor; its bound at HBM's rate; the host
+             us a call of the group wrapper and of the per-part wrappers
  27 saliency the saliency harness: a pnmg.mnist checkpoint
              (scripts/mnist-cluttered/pnmg.mnist.sh's options, seeded,
              BNs calibrated) written by the port; scripts/mnist-cluttered/
@@ -284,7 +294,9 @@ Phases:
              forward's and the calibrated ones the same bits on every
              rank; each rank's launches the pins of I8_PER_FORWARD through
              I8_ROUTES' designs, its halo-mode conv_i8 launches
-             (kernels.PADDED) those of the split calls; a rank's forward
+             (kernels.PADDED) those of the split calls, one scale
+             all-reduce a layer in a dynamic forward (33), none in a
+             static one; a rank's forward
              ms, its scale all-reduces' count and ms, its collectives'
              bytes and ms; rank 0's halo-mode conv_i8 launches of one
              forward timed against their plain version and the whole
@@ -342,7 +354,9 @@ the simple design's at every shape, and, a different function at the
 same shapes, the bf16 conv3x3 kernel's and cuDNN's bf16 times, and under
 ``halo_mode`` rank 0's halo-mode launches of one int8 forward under
 -spatial 2 at batch 128 (phase 32), as the two convs give theirs; for
-``quant_i8`` torch.quantize_per_tensor's (a different function).
+``quant_i8`` torch.quantize_per_tensor's (a different function) and,
+under ``designs``, the group design's (the main path's) and the per-part
+design's launches per forward, card ms and host ms of their wrappers.
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -472,9 +486,17 @@ def i8_key(x8, w8, stride, pad, *args, y_in=None, bias=None, **kw):
 
 
 def quant_key(x, sx=None, up=None):
-    """A quant_i8 call's recorded shape: (H, W, C of the input, the
+    """A quantized part's recorded shape: (H, W, C of the input, the
     output's (OH, OW))."""
     return (*x.shape[1:], *(x.shape[1:3] if up is None else up))
+
+
+def quant_group_keys(members) -> list:
+    """The launches of a quant_i8_group call on the card with static
+    scales, each as the quant_key of its members, MAX_MEMBERS a launch
+    (a layer's parts, or a single conv's input)."""
+    keys = [quant_key(*m) for m in members]
+    return [tuple(keys[i:i + quant.MAX_MEMBERS]) for i in range(0, len(keys), quant.MAX_MEMBERS)]
 
 
 def pool_group_keys(xs, ys, gs, *a) -> list:
@@ -506,7 +528,7 @@ def record_kernel_shapes(train: bool, opt: NetOpts = RMG34, fold: bool = True,
              (cuda_pool, "maxpool2_forward"): ("maxpool2", one(lambda x, *a: tuple(x.shape[1:]))),
              (cuda_pool, "maxpool2_backward_group"): ("maxpool2_bwd", pool_group_keys),
              (cuda_conv_i8, "conv_i8"): ("conv_i8", one(i8_key)),
-             (quant, "quant_i8"): ("quant_i8", one(quant_key))}
+             (quant, "quant_i8_group"): ("quant_i8", quant_group_keys)}
     originals = {key: getattr(*key) for key in hooks}
 
     def recording(key):
@@ -2317,14 +2339,17 @@ def check_harness_chain(name) -> dict:
 I8_SERVE = {"ilsvrc/rnmg": (RMG34, (1, 128)),
             "cifar/prnmg": (cifar_opts("cifar/prnmg"), (CIFAR_SERVE_BATCH,)),
             "mnist-cluttered/unmg": (SEG_RECIPES["mnist-cluttered/unmg"][0], (64,))}
-# launches per int8 serving forward with static scales: one quant_i8 and
-# one conv_i8 per quantized conv part (the 3x3 down, same and up parts,
-# the 1x1 shortcuts and heads, the 7x7 stems); the pools as in the float
-# forward; no 3x3 conv kernel (i8_pins: dynamic scales add an absmax
-# launch of quant_i8 a part)
-I8_PER_FORWARD = {"ilsvrc/rnmg": launch_counts(0, 0, 46, 0, 155, 155),
-                  "cifar/prnmg": launch_counts(0, 0, 32, 0, 77, 77),
-                  "mnist-cluttered/unmg": launch_counts(0, 0, 16, 0, 40, 40)}
+# launches per int8 serving forward with static scales: one conv_i8 per
+# quantized conv part (the 3x3 down, same and up parts, the 1x1 shortcuts
+# and heads, the 7x7 and 3x3 stems) and one quant_i8 (the group design) a
+# layer: a stem's images, an MgConv's or a residual stage's parts, a conv
+# outside a multigrid layer (R-MG-34: the stem and 32 stages, of 7, 4 and
+# 1 parts; cifar/prnmg 77 parts in 15, unmg 40 in 8); the pools as in the
+# float forward; no 3x3 conv kernel (i8_pins: dynamic scales add an
+# absmax launch of quant_i8 a layer)
+I8_PER_FORWARD = {"ilsvrc/rnmg": launch_counts(0, 0, 46, 0, 155, 33),
+                  "cifar/prnmg": launch_counts(0, 0, 32, 0, 77, 15),
+                  "mnist-cluttered/unmg": launch_counts(0, 0, 16, 0, 40, 8)}
 # conv_i8's designs per int8 forward (cuda_conv_i8._route): sm90 takes
 # the 3x3/s1 parts whose channel counts and weight offsets are multiples
 # of 16; simple the 7x7/2 and 3x3 stems on 3 and 1 channels, the 1x1
@@ -2356,7 +2381,7 @@ I8_VARIANTS = [(torch.int32, ()), (torch.float32, ("sx",)), (torch.bfloat16, ("s
 
 def i8_pins(net, dynamic=False) -> dict:
     """The launches of one int8 forward of ``net``: I8_PER_FORWARD, with
-    two quant_i8 launches a part under dynamic scales."""
+    two quant_i8 launches a layer under dynamic scales."""
     pins = dict(I8_PER_FORWARD[net])
     pins["quant_i8"] *= 2 if dynamic else 1
     return pins
@@ -2376,6 +2401,23 @@ def i8_routes(shapes) -> dict:
         wk = torch.empty((co, k * k * ci_total), dtype=torch.int8)
         got[cuda_conv_i8._route(x8, w8, stride, pad, wk)] += count
     return got
+
+
+def int8_layers(model) -> int:
+    """The quantize calls (quant_i8_group) of one int8 forward of
+    ``model``: one a multigrid layer (a stem's images, an MgConv's parts,
+    each stage of an MgResidual) and one a quantized conv outside one
+    (the 1x1 shortcuts, the heads, the plain nets' convs)."""
+    from mgtpu_torch.ops.mg import MgConv, MgConvInput, MgResidual, MgStem7x7
+
+    calls, grouped = 0, set()
+    for m in model.modules():
+        stages = ([m.convs] if isinstance(m, (MgConv, MgConvInput, MgStem7x7))
+                  else [m.stage1, m.stage2] if isinstance(m, MgResidual) else [])
+        calls += len(stages)
+        grouped.update(id(layer.conv) for stage in stages for layer in stage)
+    return calls + sum(getattr(m, "quantized", False) and id(m) not in grouped
+                       for m in model.modules())
 
 
 def record_i8() -> dict:
@@ -2434,11 +2476,103 @@ def quant_dtype(key):
     return torch.float32 if key[2] == 3 else torch.bfloat16
 
 
-def quant_bytes(key, batch):
-    """Bytes one quant_i8 launch must move: the input read once, the
-    int8 output (upsampled for an "up" part) written once."""
-    h, w, c, oh, ow = key
-    return batch * c * (h * w * quant_dtype(key).itemsize + oh * ow)
+def quant_bytes(keys, batch):
+    """Bytes one quant_i8 group launch must move: each member's input
+    read once, its int8 output (upsampled for an "up" part) written
+    once."""
+    return sum(batch * c * (h * w * quant_dtype(key).itemsize + oh * ow)
+               for key in keys for h, w, c, oh, ow in (key,))
+
+
+# values on the quantize's edges, in units of the scale: ties (to even),
+# +-0, past +-127 steps, +-inf, NaN (0 on both sides)
+QUANT_SPECIALS = (0.5, 1.5, 2.5, -2.5, 0.0, -0.0, 126.5, -127.5, 1e4, -1e4, float("inf"),
+                  float("-inf"), float("nan"))
+
+
+def quant_members(keys, batch, seed, static, dtypes=None, misalign=()):
+    """One quant_i8_group call's members [(x, sx, up)] on the card at
+    recorded member shapes ``keys`` and ``batch``: values 40 * N(0, 1)
+    led by QUANT_SPECIALS (without inf and NaN for dynamic scales, which
+    would make the scale inf or NaN and every value 0), in the forward's
+    dtype (quant_dtype) or ``dtypes``; static scales views of one vector,
+    as a conv's ``sx`` slots are; the members in ``misalign`` 4 bytes
+    off a 16-byte boundary."""
+    sxv = torch.linspace(0.5, 1.5, len(keys), device="cuda")
+    specials = torch.tensor(QUANT_SPECIALS if static else QUANT_SPECIALS[:-3], device="cuda")
+    members = []
+    for j, key in enumerate(keys):
+        h, w, c, oh, ow = key
+        g = torch.Generator(device="cuda").manual_seed(seed + j)
+        x = 40 * torch.randn((batch, h, w, c), generator=g, device="cuda")
+        k = min(x.numel(), specials.numel())
+        x.view(-1)[:k] = specials[:k]
+        x = x.to(quant_dtype(key) if dtypes is None else dtypes[j])
+        members.append((misaligned(x) if j in misalign else x, sxv[j] if static else None,
+                        None if (oh, ow) == (h, w) else (oh, ow)))
+    return members
+
+
+# quant_i8_group tables beyond the forwards': odd C, a 1x1 map upsampled,
+# odd crops, f32 and bf16 in one launch, members off a 16-byte boundary;
+# and MAX_MEMBERS + 1 members (two launches a pass), the last misaligned
+QUANT_EDGE_GROUPS = [
+    ([(7, 7, 3, 7, 7), (5, 6, 24, 9, 12), (4, 4, 5, 8, 8), (1, 1, 64, 2, 2), (3, 5, 16, 5, 10),
+      (9, 9, 17, 9, 9)], (torch.float32, torch.bfloat16) * 3, (1, 3)),
+    ([(4, 4, 16, 8, 8), (2, 3, 32, 4, 6)] * (quant.MAX_MEMBERS // 2) + [(6, 6, 48, 6, 6)], None,
+     (quant.MAX_MEMBERS,))]
+
+
+def check_quant_group(members, what, stats) -> None:
+    """quant_i8_group on ``members`` vs quant_i8_group_plain, int8 values
+    and scales bit for bit, in the launches the group design takes
+    (MAX_MEMBERS a launch, twice with dynamic scales); each member also
+    through the per-part design (quant._part_forward) against it."""
+    before, routes = dict(kernels.LAUNCHES), dict(kernels.ROUTES)
+    got = quant.quant_i8_group(members)
+    n_launch = kernels.LAUNCHES["quant_i8"] - before["quant_i8"]
+    n_group = routes_since(routes)[("quant_i8", "group")]
+    ref = quant.quant_i8_group_plain(members)
+    chunks = -(-len(members) // quant.MAX_MEMBERS)
+    dynamic = sum(sx is None for _, sx, _ in members)
+    want = chunks + -(-dynamic // quant.MAX_MEMBERS)
+    check(n_launch == n_group == want, f"{what}: {n_launch} quant_i8 launches ({n_group} group), "
+          f"expected {want}")
+    for j, ((x8, s), (r8, rs), (x, sx, up)) in enumerate(zip(got, ref, members)):
+        p8, ps = quant._part_forward(x, sx, up)
+        ok = (torch.equal(x8, r8) and pool_equal(s.reshape(()), rs.reshape(()))[0]
+              and torch.equal(p8, r8) and pool_equal(ps.reshape(()), rs.reshape(()))[0])
+        stats["members"] += 1
+        stats["elements"] += x8.numel()
+        if not ok:
+            stats["bad"] += 1
+            check(False, f"{what}: member {j} {tuple(x.shape)} {x.dtype} up {up} "
+                  f"{'static' if sx is not None else 'dynamic'}: group or per-part design "
+                  f"differs from quant_i8_group_plain (values equal: group "
+                  f"{torch.equal(x8, r8)}, part {torch.equal(p8, r8)}; scales {float(s)} "
+                  f"{float(ps)} {float(rs)})")
+    stats["tables"] += 1
+
+
+def check_quant_groups(i8_rec) -> Counter:
+    """23: the quantizer's group design vs quant_i8_group_plain at every
+    member table the int8 forwards of I8_SERVE give it (each net's
+    recorded groups at its serving batches) and at QUANT_EDGE_GROUPS,
+    static and dynamic scales (check_quant_group)."""
+    stats = Counter()
+    cases = sorted({(keys, batch) for net, (_, batches) in I8_SERVE.items()
+                    for keys in i8_rec[net]["quant_i8"] for batch in batches})
+    for i, (keys, batch) in enumerate(cases):
+        for static in (True, False):
+            check_quant_group(quant_members(keys, batch, 700 + 20 * i, static),
+                              f"quant_i8 group {batch} x {keys}", stats)
+    for i, (keys, dtypes, off) in enumerate(QUANT_EDGE_GROUPS):
+        for static in (True, False):
+            check_quant_group(quant_members(keys, 3, 500 + 20 * i, static, dtypes, off),
+                              f"quant_i8 edge group {i}", stats)
+    torch.cuda.synchronize()
+    stats["cases"] = len(cases)
+    return stats
 
 
 def i8_operands(key, batch, seed):
@@ -2510,32 +2644,35 @@ def check_conv_i8(cases, max_err) -> Counter:
 
 @contextlib.contextmanager
 def checked_quant(stats):
-    """Within: every quant.quant_i8 call (the layers' quantizer) also runs
-    its plain version, quant_i8_plain (quantize_act's torch ops and the
-    nearest upsample), on the same input on the card, and ``stats``
-    counts the calls, the elements, and those whose int8 value or scale
+    """Within: every quant.quant_i8_group call (the layers' quantizer, a
+    layer's parts or a single conv's input) also runs its plain version,
+    quant_i8_group_plain (quantize_act's torch ops and the nearest
+    upsample), on the same inputs on the card, and ``stats`` counts the
+    calls, the parts, the elements, and those whose int8 value or scale
     differ, and keeps the largest difference of an int8 value."""
-    original = quant.quant_i8
+    original = quant.quant_i8_group
 
-    def fn(x, sx=None, up=None):
-        x8, s = original(x, sx, up)
-        ref8, ref_s = quant.quant_i8_plain(x, sx, up)
+    def fn(members):
+        out = original(members)
         stats["calls"] += 1
-        stats["dynamic"] += sx is None
-        stats["elements"] += x8.numel()
-        same = x8.shape == ref8.shape
-        stats["bad_values"] += int((x8 != ref8).sum()) if same else x8.numel()
-        if same and x8.numel():
-            diff = int((x8.int() - ref8.int()).abs().max())
-            stats["max_abs_err"] = max(stats["max_abs_err"], diff)
-        stats["bad_scales"] += int(not torch.equal(s.reshape(()), ref_s.reshape(())))
-        return x8, s
+        for (x8, s), (ref8, ref_s), (_, sx, _) in zip(out, quant.quant_i8_group_plain(members),
+                                                      members):
+            stats["parts"] += 1
+            stats["dynamic"] += sx is None
+            stats["elements"] += x8.numel()
+            same = x8.shape == ref8.shape
+            stats["bad_values"] += int((x8 != ref8).sum()) if same else x8.numel()
+            if same and x8.numel():
+                diff = int((x8.int() - ref8.int()).abs().max())
+                stats["max_abs_err"] = max(stats["max_abs_err"], diff)
+            stats["bad_scales"] += int(not torch.equal(s.reshape(()), ref_s.reshape(())))
+        return out
 
-    quant.quant_i8 = fn
+    quant.quant_i8_group = fn
     try:
         yield stats
     finally:
-        quant.quant_i8 = original
+        quant.quant_i8_group = original
 
 
 def i8_images(net, batch, seed):
@@ -2598,7 +2735,8 @@ def check_i8_serve(name) -> tuple[dict, Counter]:
                       f"batch {batch} on {name} (built in {built:.1f} s): {tuple(y.shape)} "
                       f"finite f32 outputs in range; launches {got}, conv_i8 designs "
                       f"{I8_ROUTES[net]}; quantizer vs its plain torch ops at the forward's "
-                      f"activations: {q['calls']} calls, {q['elements']} int8 values, "
+                      f"activations: {q['calls']} calls of {q['parts']} parts, {q['elements']} "
+                      f"int8 values, "
                       f"{q['bad_values']} differ, {q['bad_scales']} scales differ; against the "
                       f"bf16 forward of the same weights: max abs {d:.4g} (scale "
                       f"{y_bf16.abs().max().item():.4g}){agree}")
@@ -2691,11 +2829,15 @@ def time_i8(name, shapes, qshapes):
     simple design, beside its plain version and, as a different function
     (bf16 operands), the conv3x3 kernel at the 3x3/s1 shapes and cuDNN's
     bf16 conv at every shape; then quant_i8 at each of the forward's
-    quantizer shapes (static scale; bf16 parts, f32 stem images) beside
-    its plain torch ops and, a different function on an f32 copy,
-    torch.quantize_per_tensor (qint8). Returns ms per forward: {conv_i8
-    by design and in total, simple design at all, plain, conv3x3 bf16,
-    cuDNN bf16, quant_i8, its plain ops, quantize_per_tensor}."""
+    quantizer groups (static scales; bf16 parts, f32 stem images): the
+    group design's launch beside the per-part design's launches of the
+    same members, its plain torch ops and, a different function on f32
+    copies, torch.quantize_per_tensor (qint8) of each member; and the
+    host us a call of the group wrapper and of the per-part wrappers.
+    Returns ms per forward: {conv_i8 by design and in total, simple
+    design at all, plain, conv3x3 bf16, cuDNN bf16, quant_i8 (group),
+    quant_part, its plain ops, quantize_per_tensor, and the host ms of
+    the group and the per-part wrappers}."""
     server8 = Server(RMG34, seed=0, device="cuda", compute_dtype=torch.bfloat16, int8=True,
                      int8_calib=I8_CALIB)
     dynamic = Server(RMG34, seed=0, device="cuda", compute_dtype=torch.bfloat16, int8=True)
@@ -2729,7 +2871,8 @@ def time_i8(name, shapes, qshapes):
                       f"{k[:60]} x{n} {t:.3f} ms" for k, (n, t) in top))
     del server8, dynamic, server16, images
     ms = dict.fromkeys(("kernel", "sm90", "simple", "simple_all", "plain", "conv3x3", "cudnn",
-                        "quant_i8", "quant_plain", "quantize_per_tensor"), 0.0)
+                        "quant_i8", "quant_part", "quant_plain", "quantize_per_tensor",
+                        "host_quant_i8", "host_quant_part"), 0.0)
     for i, (key, count) in enumerate(sorted(shapes.items())):
         h, w, ci, co, k, stride, pad = key[:7]
         x8, w8, wk, v, sx = i8_operands(key, TIME_BATCH, seed=900 + i)
@@ -2764,33 +2907,38 @@ def time_i8(name, shapes, qshapes):
               f"(x{count}/forward; {ops / 1e9:.1f} GOP): " + ", ".join(
                   f"{kk} {t:.4f} ms ({ops / t / 1e9:.1f} TOP/s, spread {sp:.1%})"
                   for kk, (t, sp) in kres.items()))
-    for i, (key, count) in enumerate(sorted(qshapes.items())):
-        h, w, c, oh, ow = key
-        up = None if (oh, ow) == (h, w) else (oh, ow)
-        g = torch.Generator(device="cuda").manual_seed(960 + i)
-        x = torch.randn((TIME_BATCH, h, w, c), generator=g, device="cuda").to(quant_dtype(key))
-        xf = x.float()
-        sx = torch.full((), 0.05, device="cuda")
-        qfns = {"quant_i8": lambda: quant.quant_i8(x, sx, up),
-                "quant_plain": lambda: quant.quant_i8_plain(x, sx, up)}
+    for i, (keys, count) in enumerate(sorted(qshapes.items())):
+        members = quant_members(keys, TIME_BATCH, 960 + 20 * i, static=True)
+        xfs = [x.float() for x, _, _ in members]
+        qfns = {"quant_i8": lambda: quant.quant_i8_group(members),
+                "quant_part": lambda: [quant._part_forward(*m) for m in members],
+                "quant_plain": lambda: quant.quant_i8_group_plain(members)}
         if ms["quantize_per_tensor"] is not None:
             try:  # a yardstick only: where this build refuses it, not measured
-                torch.quantize_per_tensor(xf, 0.05, 0, torch.qint8)
-                qfns["quantize_per_tensor"] = lambda: torch.quantize_per_tensor(
-                    xf, 0.05, 0, torch.qint8)
+                torch.quantize_per_tensor(xfs[0], 0.05, 0, torch.qint8)
+                qfns["quantize_per_tensor"] = lambda: [
+                    torch.quantize_per_tensor(xf, 0.05, 0, torch.qint8) for xf in xfs]
             except RuntimeError as err:
                 phase("i8 times", f"torch.quantize_per_tensor on the card: {err}"[:300])
                 ms["quantize_per_tensor"] = None
-        check(torch.equal(qfns["quant_i8"]()[0], qfns["quant_plain"]()[0]),
-              f"quant_i8 at batch {TIME_BATCH} x {key} differs from its plain version")
+        check(all(torch.equal(a[0], b[0]) and torch.equal(a[0], c[0]) for a, b, c in zip(
+            qfns["quant_i8"](), qfns["quant_plain"](), qfns["quant_part"]())),
+              f"quant_i8 at batch {TIME_BATCH} x {keys}: the group or per-part design differs "
+              f"from the plain version")
         qres = dict(zip(qfns, device_ms(list(qfns.values()), windows=3)))
         for kk, (t, _) in qres.items():
             ms[kk] += count * t
-        nbytes = quant_bytes(key, TIME_BATCH)
-        phase("i8 times", f"quant_i8 {TIME_BATCH}x{h}x{w}x{c} -> {oh}x{ow} "
-              f"{str(x.dtype)[6:]} (x{count}/forward; {nbytes / 1e6:.1f} MB): " + ", ".join(
+        host = {d: host_us(qfns[d], n=100) for d in ("quant_i8", "quant_part")}
+        for d, t in host.items():
+            ms[f"host_{d}"] += count * t / 1e3
+        nbytes = quant_bytes(keys, TIME_BATCH)
+        phase("i8 times", f"quant_i8 group of {len(keys)} at batch {TIME_BATCH}: "
+              f"{'; '.join(f'{h}x{w}x{c}->{oh}x{ow}' for h, w, c, oh, ow in keys)} "
+              f"(x{count}/forward; {nbytes / 1e6:.1f} MB): " + ", ".join(
                   f"{kk} {t:.4f} ms ({nbytes / t / 1e6:.0f} GB/s, spread {sp:.1%})"
-                  for kk, (t, sp) in qres.items()))
+                  for kk, (t, sp) in qres.items())
+              + f"; host us a call: the group wrapper {host['quant_i8']:.1f}, the per-part "
+              f"wrappers {host['quant_part']:.1f} ({host['quant_part'] / len(keys):.1f} a part)")
     return ms
 
 
@@ -3427,7 +3575,7 @@ def check_dp(name, power) -> dict:
 # 30: the tools on the card (mgtpu_torch/tools)
 TOOLS_RMG34_PARAMS, TOOLS_RMG34_MACS = 32_899_176, 5_760_277_760  # the published counts
 # the exported programs' pinned launches per forward: Server.predict's
-TOOLS_I8_PER_FORWARD = launch_counts(0, 0, 46, 0, 155, 155)
+TOOLS_I8_PER_FORWARD = launch_counts(0, 0, 46, 0, 155, 33)
 # the serving side of the exported programs, in one fresh process. First
 # it imports what registers the mgtpu:: ops and nothing of the model code:
 # each program runs one forward to build and warm up, one counted
@@ -4165,19 +4313,18 @@ def time_i8_halo(shapes) -> dict:
 def dynamic_scales(out: list):
     """Within it, the layers' dynamic activation scales (0-d f32 on the
     card, in call order) go to ``out``; no synchronization."""
-    original = quant.quant_i8
+    original = quant.quant_i8_group
 
-    def fn(x, sx=None, up=None):
-        x8, s = original(x, sx, up)
-        if sx is None:
-            out.append(s.reshape(()))
-        return x8, s
+    def fn(members):
+        res = original(members)
+        out.extend(s.reshape(()) for (_, s), (_, sx, _) in zip(res, members) if sx is None)
+        return res
 
-    quant.quant_i8 = fn
+    quant.quant_i8_group = fn
     try:
         yield out
     finally:
-        quant.quant_i8 = original
+        quant.quant_i8_group = original
 
 
 @contextlib.contextmanager
@@ -4335,6 +4482,10 @@ def check_i8_axis(name, power, shapes) -> tuple[dict, dict]:
                       f"-{mesh_name} rank {r} {mode}: conv_i8 designs {got_routes}, expected "
                       f"{want_routes}; halo-mode launches {rk['padded']}, expected {want_padded}")
                 total.update(rk["launches"])
+                n_red = I8_PER_FORWARD["ilsvrc/rnmg"]["quant_i8"] if mode == "dynamic" else 0
+                check(len(rk["reduces"]) == n_red, f"-{mesh_name} rank {r} {mode}: "
+                      f"{len(rk['reduces'])} scale all-reduces in a forward, expected {n_red} "
+                      f"(one a layer)")
                 ref = one[mode]
                 scales = arrays[f"{mode}/scales"]
                 bad = (int((scales != ref["scales"]).sum()) if scales.shape == ref["scales"].shape
@@ -4374,7 +4525,8 @@ def check_i8_axis(name, power, shapes) -> tuple[dict, dict]:
                   f"{statistics.median(rk[1]['fwd_ms']):.1f} ms (median of {I8_AXIS_REPS}, host "
                   f"clock to the synchronized output), one rank's "
                   f"{statistics.median(one[mode]['fwd_ms']):.1f} ms; "
-                  + (f"{len(red)} scale all-reduces in rank 0's forward, {sum(red):.1f} ms "
+                  + (f"{len(red)} scale all-reduces in rank 0's forward (one a layer), "
+                     f"{sum(red):.1f} ms "
                      f"(each synchronized, median {statistics.median(red):.3f} ms)"
                      if red else "no scale all-reduce (static scales)")
                   + "; the mesh's collectives in one forward of rank 0 (each synchronized): "
@@ -4615,19 +4767,29 @@ def main() -> None:
           f"also with x off a 16-byte boundary; {len(I8_VARIANTS)} epilogue variants each): "
           f"int32 sums and f32 and bf16 epilogues equal the plain version bit for bit (max abs "
           f"err {max_err['conv_i8']:.3g})")
+    gstats = check_quant_groups(i8_rec)
+    phase("quant_i8", f"the group design vs quant_i8_group_plain at {gstats['tables']} tables "
+          f"({gstats['cases']} recorded groups of R-MG-34's, cifar/prnmg's and unmg's int8 "
+          f"forwards at their serving batches and {len(QUANT_EDGE_GROUPS)} edge groups: odd C, "
+          f"misaligned members, f32 and bf16 in one launch, MAX_MEMBERS + 1 = "
+          f"{quant.MAX_MEMBERS + 1} members; static and dynamic scales): {gstats['members']} "
+          f"members, {gstats['elements']} int8 values and every scale bit for bit, each member "
+          f"through the per-part design too; {gstats['bad']} differ")
     (i8_served, qstats), i8_cli = check_i8_serve(name), check_i8_run_loop(name)
     i8_launches = {k: sum(c[k] for c in i8_served.values()) + i8_cli[k]
                    for k in ("conv_i8", "quant_i8")}
     check(all(i8_launches.values()) and all(c["conv3x3"] == 0 for c in i8_served.values()),
           f"int8 launches: served {i8_served}, run loop {i8_cli}")
-    phase("quant_i8", f"{qstats['calls']} calls ({qstats['dynamic']} with a dynamic scale) "
+    phase("quant_i8", f"{qstats['calls']} calls of {qstats['parts']} parts ({qstats['dynamic']} "
+          f"with a dynamic scale) "
           f"of the quantizer in phase 24's int8 forwards held to quantize_act's torch ops (and "
           f"the nearest upsample) on the same activations on the card: {qstats['elements']} "
           f"int8 values, {qstats['bad_values']} differ; {qstats['bad_scales']} scales differ")
     rmg_i8 = i8_rec["ilsvrc/rnmg"]
     i8_ms = time_i8(name, rmg_i8["conv_i8"], rmg_i8["quant_i8"])
     i8_bound = i8_bounds(rmg_i8["conv_i8"], TIME_BATCH)
-    q_bytes = sum(count * quant_bytes(key, TIME_BATCH) for key, count in rmg_i8["quant_i8"].items())
+    q_bytes = sum(count * quant_bytes(keys, TIME_BATCH)
+                  for keys, count in rmg_i8["quant_i8"].items())
     q_bound = q_bytes / PEAK_HBM_BYTES * 1e3
     phase("bounds", f"R-MG-{DEPTH} conv_i8 per batch-{TIME_BATCH} int8 forward: "
           f"{i8_bound[0] / 1e9:.1f} GOP, {i8_bound[1] / 1e6:.1f} MB, bound {i8_bound[2]:.4f} ms "
@@ -4640,13 +4802,18 @@ def main() -> None:
           f"a different function (bf16 operands) at the same shapes: the conv3x3 kernel at the "
           f"3x3/s1 ones {i8_ms['conv3x3']:.3f} ms, cuDNN bf16 at all {i8_ms['cudnn']:.3f} ms")
     qpt = i8_ms["quantize_per_tensor"]
+    q_parts = sum(len(keys) * n for keys, n in rmg_i8["quant_i8"].items())
     phase("bounds", f"R-MG-{DEPTH} quant_i8 per batch-{TIME_BATCH} int8 forward (static "
-          f"scales, {sum(rmg_i8['quant_i8'].values())} launches): {q_bytes / 1e6:.1f} MB, bound "
-          f"{q_bound:.4f} ms (bytes); kernel {i8_ms['quant_i8']:.3f} ms "
-          f"({q_bound / i8_ms['quant_i8']:.0%} of the bound), plain torch ops "
-          f"{i8_ms['quant_plain']:.3f} ms; a different function (qint8, no upsample, an f32 "
-          f"input): torch.quantize_per_tensor "
-          + ("not measured" if qpt is None else f"{qpt:.3f} ms"))
+          f"scales, {sum(rmg_i8['quant_i8'].values())} group launches of {q_parts} parts): "
+          f"{q_bytes / 1e6:.1f} MB, bound {q_bound:.4f} ms (bytes); the group design "
+          f"{i8_ms['quant_i8']:.3f} ms ({q_bound / i8_ms['quant_i8']:.0%} of the bound), the "
+          f"per-part design ({q_parts} launches) {i8_ms['quant_part']:.3f} ms "
+          f"({q_bound / i8_ms['quant_part']:.0%}), plain torch ops "
+          f"{i8_ms['quant_plain']:.3f} ms; a different function (qint8, no upsample, f32 "
+          f"inputs): torch.quantize_per_tensor "
+          + ("not measured" if qpt is None else f"{qpt:.3f} ms")
+          + f"; host time a forward: the group wrappers {i8_ms['host_quant_i8']:.3f} ms, the "
+          f"per-part wrappers {i8_ms['host_quant_part']:.3f} ms")
     i8_1x1 = time_i8_1x1(i8_rec)
     phase("i8 times", f"phases 23-26 took {time.perf_counter() - t0:.1f} s")
 
@@ -4735,7 +4902,12 @@ def main() -> None:
            {"name": "quant_i8", **KERNELS_I8["quant_i8"], "launches": i8_launches["quant_i8"],
             "max_abs_err": float(qstats["max_abs_err"]), "ms": i8_ms["quant_i8"],
             "plain_ms": i8_ms["quant_plain"], "bound_ms": q_bound, "bound_by": "bytes",
-            "library_ms": None, "quantize_per_tensor_ms": qpt}]}), flush=True)
+            "library_ms": None, "quantize_per_tensor_ms": qpt,
+            "designs": {"group": {"launches_per_forward": I8_PER_FORWARD["ilsvrc/rnmg"][
+                                      "quant_i8"], "ms": i8_ms["quant_i8"],
+                                  "host_ms": i8_ms["host_quant_i8"]},
+                        "part": {"launches_per_forward": q_parts, "ms": i8_ms["quant_part"],
+                                 "host_ms": i8_ms["host_quant_part"]}}}]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -37,8 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel name -> launches since the last reset_launches()
-# (quant_i8 counts both of its entry points: the quantize and, for a
-# dynamic scale, the absmax before it)
+# (quant_i8 counts both of its launches: the quantize and, for dynamic
+# scales, the absmax before it)
 LAUNCHES: dict[str, int] = {"conv3x3": 0, "conv3x3_bn_relu_in": 0, "maxpool2": 0,
                             "maxpool2_bwd": 0, "conv_i8": 0, "quant_i8": 0}
 # (kernel, design) -> launches since the last reset_launches(), for the
@@ -46,13 +46,16 @@ LAUNCHES: dict[str, int] = {"conv3x3": 0, "conv3x3_bn_relu_in": 0, "maxpool2": 0
 # port's path, mgtpu_torch/ops/cuda_conv.py::_route; "tile" only through
 # cuda_conv._tile_forward),
 # the pool forward's (mgtpu_torch/ops/cuda_pool.py::_route), the int8
-# conv's (mgtpu_torch/ops/cuda_conv_i8.py::_route) and the pool
+# conv's (mgtpu_torch/ops/cuda_conv_i8.py::_route), the pool
 # backward's ("group" on the port's path; "simple" only through
-# cuda_pool._simple_backward)
+# cuda_pool._simple_backward) and the activation quantizer's ("group" on
+# the port's path; "part", one launch a part, only through
+# quant._part_forward)
 ROUTES: dict[tuple[str, str], int] = {
     **{(k, r): 0 for k in ("conv3x3", "conv3x3_bn_relu_in") for r in ("sm90", "window", "tile")},
     **{(k, r): 0 for k in ("maxpool2", "conv_i8") for r in ("sm90", "simple")},
-    **{("maxpool2_bwd", r): 0 for r in ("group", "simple")}}
+    **{("maxpool2_bwd", r): 0 for r in ("group", "simple")},
+    **{("quant_i8", r): 0 for r in ("group", "part")}}
 
 # (kernel, design) -> the convs' launches in halo mode (per-side padding
 # other than (pad, pad): an H-slab's, under -spatial) since the last
@@ -102,6 +105,10 @@ _SIGNATURES = {
     "mg_quant_i8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, absmax, n, is_bf16, stream
     "mg_absmax": (_P, _P, _L, _I, _P),
+    # table (a quant._Table), table_bytes, grid, absmax, sx_out, n_slots, stream
+    "mg_quant_i8_group": (_P, _I, _I, _P, _P, _I, _P),
+    # table, table_bytes, grid, absmax, n_slots, zero (floats zeroed first), stream
+    "mg_absmax_group": (_P, _I, _I, _P, _I, _I, _P),
 }
 
 

@@ -72,31 +72,74 @@ def conv2d_nhwc(x, w, stride: int = 1, pad: int = 0):
     return y if stride == 1 else axis.canonical(y)
 
 
-def _int8_part(conv, slot: int, xp, w8, kind: str = "same", oh=None, ow=None, y_in=None,
-               bias=None, relu=False):
-    """One input of a quantized conv, as the JAX layers compute it: the
-    raw part (no compute-dtype cast first) quantized with slot ``slot``'s
-    static scale, or a dynamic one (the whole tensor's across ranks)
-    reported to a running calibration; an "up" part quantized at coarse
-    resolution and its int8 values nearest-upsampled (nearest only
-    copies values, so this equals quantizing the upsampled part): one
-    `quant.quant_i8` call. Then one `conv_i8` launch against ``w8`` (the
-    weight or its input-channel slice; the sm90 design reads its packed
-    copy ``conv.wk``) whose epilogue dequantizes to the compute dtype
-    with ``sx * conv.scale``, adds the result into the running part sum
-    ``y_in`` and adds ``bias`` [and applies the ReLU]: the torch sequence
-    of the JAX layers, rounded where it rounds (`_int8_conv`). An
-    H-slab's int8 values are a slab of the same rows (an up part's, of
-    twice the coarse slab's)."""
-    sx_cal = conv.sx
-    up = (oh, ow) if kind == "up" else None
-    x8, sx = quant.quant_i8(xp, None if sx_cal is None else sx_cal[slot], up)
-    if sx_cal is None:
-        quant.record_scale(conv, slot, sx)
-    g = axis.rows(xp)
-    if g is not None:
-        axis.mark(x8, 2 * g if up else g)
-    return _int8_conv(conv, x8, w8, sx=sx, y_in=y_in, bias=bias, relu=relu)
+class Int8Part:
+    """A conv part already quantized: its int8 values ``x8`` at the conv's
+    resolution (an "up" part's upsampled) and their scale ``sx``, as
+    `quantize_layer` hands them to `ConvBN.apply_parts`."""
+
+    __slots__ = ("x8", "sx")
+
+    def __init__(self, x8: torch.Tensor, sx: torch.Tensor):
+        self.x8, self.sx = x8, sx
+
+
+def _int8_quantize(items) -> list:
+    """The int8 inputs of quantized convs, all in one `quant.quant_i8_group`
+    call (one launch a layer on the card with static scales): ``items``
+    is [(conv, slot, xp, up)], each the raw part ``xp`` (no compute-dtype
+    cast first) quantized as the JAX layers do, with slot ``slot``'s
+    static scale or a dynamic one (the whole tensor's across ranks)
+    reported to a running calibration; an "up" part (``up`` (oh, ow))
+    quantized at coarse resolution and its int8 values nearest-upsampled
+    (nearest only copies values, so this equals quantizing the upsampled
+    part). Returns an `Int8Part` an item. An H-slab's int8 values are a
+    slab of the same rows (an up part's, of twice the coarse slab's)."""
+    out = quant.quant_i8_group([(xp, None if conv.sx is None else conv.sx[slot], up)
+                                for conv, slot, xp, up in items])
+    for (conv, slot, xp, up), (x8, sx) in zip(items, out):
+        if conv.sx is None:
+            quant.record_scale(conv, slot, sx)
+        g = axis.rows(xp)
+        if g is not None:
+            axis.mark(x8, 2 * g if up else g)
+    return [Int8Part(x8, sx) for x8, sx in out]
+
+
+def quantize_layer(layers, parts_list) -> list:
+    """The conv parts of a multigrid layer, ``layers[i]`` (a `ConvBN`)
+    taking ``parts_list[i]`` (`mgtpu_torch.ops.mg.exchange_parts`' lists),
+    with every part of a quantized conv replaced by its `Int8Part`: all
+    of the layer's in one `_int8_quantize` call, before any conv runs
+    (each input of a layer exists before its first conv). An
+    un-normalized part is materialized with `bn_relu_plain` first. The
+    lists of float convs come back as they are."""
+    items, where = [], []
+    for i, (layer, parts) in enumerate(zip(layers, parts_list)):
+        if not layer.conv.quantized:
+            continue
+        oh, ow = _fine_size(parts)
+        for slot, (kind, xp) in enumerate(parts):
+            if isinstance(xp, tuple):  # un-normalized: (y_raw, scale, shift)
+                xp = bn_relu_plain(*xp)
+            items.append((layer.conv, slot, xp, (oh, ow) if kind == "up" else None))
+            where.append((i, slot))
+    if not items:
+        return list(parts_list)
+    out = [list(parts) for parts in parts_list]
+    for (i, slot), q in zip(where, _int8_quantize(items)):
+        out[i][slot] = (out[i][slot][0], q)
+    return out
+
+
+def _fine_size(parts) -> tuple:
+    """(oh, ow) of a conv's parts: the size of its "same" and "down" parts
+    (an "up" part is upsampled to it)."""
+    oh = ow = None
+    for kind, xp in parts:
+        if kind != "up":
+            xr = xp[0] if isinstance(xp, tuple) else xp
+            oh, ow = xr.shape[1], xr.shape[2]
+    return oh, ow
 
 
 def _int8_conv(conv, x8, w8, **epilogue):
@@ -135,8 +178,8 @@ class Conv(nn.Module):
     ``scale`` (and, once calibrated, ``sx``: one static activation scale
     a slot) and the non-persistent ``wk``, ``w8`` packed K-major for the
     int8 kernel's sm90 design; quantized, it runs the int8 path
-    (`_int8_part`, slot 0), whose conv launch adds the bias in the
-    compute dtype."""
+    (`_int8_quantize` of slot 0, then `_int8_conv`), whose conv launch
+    adds the bias in the compute dtype."""
 
     calibration = None  # the calibration pass running on this conv, if any
     tp = None  # the -tensor mesh, where the weight holds this rank's output channels (ConvBN)
@@ -154,7 +197,8 @@ class Conv(nn.Module):
 
     def forward(self, x):
         if self.quantized:
-            return _int8_part(self, 0, x, self.w8, bias=self.b)
+            q, = _int8_quantize([(self, 0, x, None)])
+            return _int8_conv(self, q.x8, self.w8, sx=q.sx, bias=self.b)
         y = conv2d_nhwc(cast_to(x, self.compute_dtype),
                         cast_to(self.w, self.compute_dtype), self.stride, self.pad)
         return y + self.b.to(y.dtype)
@@ -635,29 +679,26 @@ class ConvBN(nn.Module):
     def _int8_parts(self, parts, relu=False):
         """`conv_parts` of a quantized conv, as the JAX layer's int8 branch
         computes it: slot i is part i; each part is quantized with its own
-        scale against its slice of ``w8`` (int32 sums of slices add up to
-        the sums of the concat), an un-normalized part first materialized
-        with `bn_relu_plain`; the dequantized parts are summed in the
-        compute dtype in part order, then the bias is added [and the
-        ReLU applied]: each part's `conv_i8` launch adds into the sum, the
-        last one adds the bias. Dropout does not apply: the int8 path
-        serves only. On H-slabs (-spatial) each launch reads the slab
-        with its neighbours' int8 edge rows and pads at the image's edges
-        (`_int8_conv`), and the sum is the output rows' slab."""
+        scale (`quantize_layer`, unless the layer already did: its parts
+        are then `Int8Part`s) against its slice of ``w8`` (int32 sums of
+        slices add up to the sums of the concat), an un-normalized part
+        first materialized with `bn_relu_plain`; the dequantized parts
+        are summed in the compute dtype in part order, then the bias is
+        added [and the ReLU applied]: each part's `conv_i8` launch adds
+        into the sum, the last one adds the bias. Dropout does not apply:
+        the int8 path serves only. On H-slabs (-spatial) each launch reads
+        the slab with its neighbours' int8 edge rows and pads at the
+        image's edges (`_int8_conv`), and the sum is the output rows'
+        slab."""
         conv = self.conv
-        oh = ow = None
-        for kind, xp in parts:
-            if kind != "up":
-                xr = xp[0] if isinstance(xp, tuple) else xp
-                oh, ow = xr.shape[1], xr.shape[2]
+        if not all(isinstance(q, Int8Part) for _, q in parts):
+            parts = quantize_layer([self], [parts])[0]
         y = None
         ofs = 0
-        for slot, (kind, xp) in enumerate(parts):
-            if isinstance(xp, tuple):  # un-normalized: (y_raw, scale, shift)
-                xp = bn_relu_plain(*xp)
-            c = xp.shape[-1]
+        for slot, (_, q) in enumerate(parts):
+            c = q.x8.shape[-1]
             last = slot == len(parts) - 1
-            y = _int8_part(conv, slot, xp, conv.w8[:, :, ofs:ofs + c], kind, oh, ow, y_in=y,
+            y = _int8_conv(conv, q.x8, conv.w8[:, :, ofs:ofs + c], sx=q.sx, y_in=y,
                            bias=conv.b if last else None, relu=relu and last)
             ofs += c
         if ofs != conv.w8.shape[2]:

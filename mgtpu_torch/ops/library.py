@@ -8,6 +8,7 @@ traces and a saved ``.pt2`` program launches them when it runs
     mgtpu::maxpool2             `cuda_pool.maxpool2_forward`
     mgtpu::conv_i8              `cuda_conv_i8.conv_i8`, out of place
     mgtpu::quant_i8             `quant.quant_i8`
+    mgtpu::quant_i8_group       `quant.quant_i8_group`
 
 Each op's implementation is the wrapper's own forward: on a CUDA tensor
 it launches the kernel through `mgtpu_torch.kernels.launch` (built at
@@ -36,7 +37,10 @@ tensor where the eager call adds into the part sum ``y_in`` in place
 (the kernel reads ``y_in`` and writes the output through two pointers;
 the bits are the same), and ``quant_i8`` returns, beside the int8
 values, the (absmax, scale) pair of a dynamic quantize, or an empty
-tensor where the scale was given (the caller keeps its own).
+tensor where the scale was given (the caller keeps its own);
+``quant_i8_group`` the (absmax, scale) rows of its dynamic members, a
+(2, 0) tensor where every scale was given. A group's "up" sizes travel
+as one flat list, (oh, ow) a member, (0, 0) for a part without up.
 
 The convs' per-side H padding (an H-slab's halo mode) is in the schemas
 with defaults: ``conv3x3``'s ``pad_top=1, pad_bottom=1``, ``conv_i8``'s
@@ -112,6 +116,23 @@ def _quant_i8_fake(x, sx, up):
             x.new_empty((0 if sx is not None else 2,), dtype=torch.float32))
 
 
+def _group_members(xs, sxs, ups):
+    return [(x, sx, None if not ups[2 * j] else (ups[2 * j], ups[2 * j + 1]))
+            for j, (x, sx) in enumerate(zip(xs, sxs))]
+
+
+def quant_i8_group(xs, sxs, ups):
+    x8s, scales = quant.quant_i8_group_forward(_group_members(xs, sxs, ups))
+    return x8s, (xs[0].new_empty((2, 0), dtype=torch.float32) if scales is None else scales)
+
+
+def _quant_i8_group_fake(xs, sxs, ups):
+    members = _group_members(xs, sxs, ups)
+    return ([x.new_empty((x.shape[0], *(x.shape[1:3] if up is None else up), x.shape[3]),
+                         dtype=torch.int8) for x, _, up in members],
+            xs[0].new_empty((2, sum(sx is None for sx in sxs)), dtype=torch.float32))
+
+
 _LIB = torch.library.Library("mgtpu", "DEF")
 for _schema, _impl, _fake in (
         ("conv3x3(Tensor x, Tensor w, Tensor b, bool relu_out, bool with_stats,"
@@ -126,7 +147,9 @@ for _schema, _impl, _fake in (
          " int? pad_bottom=None) -> Tensor", conv_i8,
          _conv_i8_fake),
         ("quant_i8(Tensor x, Tensor? sx, int[]? up) -> (Tensor, Tensor)", quant_i8,
-         _quant_i8_fake)):
+         _quant_i8_fake),
+        ("quant_i8_group(Tensor[] xs, Tensor?[] sxs, int[] ups) -> (Tensor[], Tensor)",
+         quant_i8_group, _quant_i8_group_fake)):
     _LIB.define(_schema)
     _LIB.impl(_impl.__name__, _impl, "CPU")
     _LIB.impl(_impl.__name__, _impl, "CUDA")

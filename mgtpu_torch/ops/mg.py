@@ -5,6 +5,9 @@ half the spatial extent of scale i. Only the fused-exchange formulation
 is ported: each exchange conv takes its scale's parts through
 `ConvBN.apply_parts` and the resample-concat is never built. Every block
 runs in eval mode (serving) and in train mode (the training step).
+Under int8 a layer (the stems, `MgConv`, each stage of `MgResidual`)
+quantizes all of its conv parts in one call (`nn.quantize_layer`: one
+launch a layer on the card) before its first conv runs.
 
 Under -spatial (`mgtpu_torch.parallel.axis`) each scale is an H-slab or
 whole by JAX's `constrain_spatial` rule of its height: the ops that
@@ -21,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mgtpu_torch.nn import ConvBN, Dropout, UpConvBN
+from mgtpu_torch.nn import ConvBN, Dropout, UpConvBN, quantize_layer
 from mgtpu_torch.ops.cuda_conv import bn_relu_plain
 from mgtpu_torch.parallel import axis
 from mgtpu_torch.ops.resample import (avgpool, maxpool, maxpool2_ceil, maxpool2_ceil_group,
@@ -97,12 +100,11 @@ class MgConvInput(nn.Module):
         self.out_widths = list(widths)
 
     def forward(self, x):
-        out = []
-        for i, conv in enumerate(self.convs):
-            if i > 0:
-                x = avgpool(x, 2)
-            out.append(conv(x))
-        return tuple(out)
+        xs = [x]
+        for _ in self.convs[1:]:
+            xs.append(avgpool(xs[-1], 2))
+        parts = quantize_layer(self.convs, [[("same", xi)] for xi in xs])
+        return tuple(conv.apply_parts(p) for conv, p in zip(self.convs, parts))
 
 
 class MgStem7x7(nn.Module):
@@ -120,13 +122,11 @@ class MgStem7x7(nn.Module):
         self.out_widths = list(widths)
 
     def forward(self, x):
-        out = []
-        xi = x
-        for i, conv in enumerate(self.convs):
-            if i > 0:  # progressive dyadic pyramid (== avgpool(2^i) of x)
-                xi = avgpool(xi, 2)
-            out.append(maxpool(conv(xi), 3, 2, 1))
-        return tuple(out)
+        xs = [x]
+        for _ in self.convs[1:]:  # progressive dyadic pyramid (== avgpool(2^i) of x)
+            xs.append(avgpool(xs[-1], 2))
+        parts = quantize_layer(self.convs, [[("same", xi)] for xi in xs])
+        return tuple(maxpool(conv.apply_parts(p), 3, 2, 1) for conv, p in zip(self.convs, parts))
 
 
 class MgConv(nn.Module):
@@ -152,8 +152,9 @@ class MgConv(nn.Module):
 
     def forward(self, pyr):
         down = pool_finer(pyr)
-        return tuple(conv.apply_parts(exchange_parts(pyr, i, down=down))
-                     for i, conv in enumerate(self.convs))
+        parts = quantize_layer(self.convs, [exchange_parts(pyr, i, down=down)
+                                            for i in range(len(self.convs))])
+        return tuple(conv.apply_parts(p) for conv, p in zip(self.convs, parts))
 
 
 class DropCoarsest(nn.Module):
@@ -233,16 +234,17 @@ class MgResidual(nn.Module):
         self.drop = Dropout(dropout, generator) if dropout > 0 else None
 
     def _stage(self, layers, pyr):
-        out = []
         down = pool_finer(pyr)
-        for i, layer in enumerate(layers):
+        stage = []
+        for i in range(len(layers)):
             parts = exchange_parts(pyr, i, down=down)
             if self.drop is not None and self.training:
                 oh, ow = pyr[i].shape[1], pyr[i].shape[2]
                 parts = [("same", self.drop(materialize_part(kind, xp, oh, ow)))
                          for kind, xp in parts]
-            out.append(layer.apply_parts(parts))
-        return tuple(out)
+            stage.append(parts)
+        return tuple(layer.apply_parts(parts)
+                     for layer, parts in zip(layers, quantize_layer(layers, stage)))
 
     def _train_stages(self, pyr):
         """Both stages in train mode. Stage 1 stops at each scale's raw

@@ -7,6 +7,8 @@ that has only the port's dependencies:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -961,6 +963,95 @@ def test_quant_i8_refuses(dev):
         quant_i8(x, torch.ones(2, device=dev))
 
 
+@pytest.mark.parametrize("net", ["ilsvrc/rnmg", "cifar/prnmg", "mnist-cluttered/unmg"])
+@pytest.mark.parametrize("mode", ["static", "dynamic"])
+def test_quant_i8_group_equals_plain_at_every_forward_table(dev, net, mode):
+    """The group design at every member table an int8 forward of the net
+    gives it (batch 2): one launch a table (two with dynamic scales),
+    bit for bit the plain group and the per-part design
+    (chip_smoke.check_quant_group)."""
+    from chip_smoke import I8_SERVE, check_quant_group, quant_members, record_kernel_shapes
+
+    stats = Counter()
+    for i, keys in enumerate(record_kernel_shapes(False, I8_SERVE[net][0],
+                                                  int8=True)["quant_i8"]):
+        check_quant_group(quant_members(keys, 2, 100 + 20 * i, mode == "static"), str(keys),
+                          stats)
+    torch.cuda.synchronize()
+    assert stats["tables"] > 0 and stats["bad"] == 0
+
+
+@pytest.mark.parametrize("mode", ["static", "dynamic"])
+def test_quant_i8_group_edge_tables(dev, mode):
+    """Odd C, a 1x1 map upsampled, odd crops, f32 and bf16 in one launch,
+    members off a 16-byte boundary, and MAX_MEMBERS + 1 members (two
+    launches a pass); ties, +-0, +-inf, NaN and values past +-127 steps
+    under static scales."""
+    from chip_smoke import QUANT_EDGE_GROUPS, check_quant_group, quant_members
+
+    stats = Counter()
+    for i, (keys, dtypes, off) in enumerate(QUANT_EDGE_GROUPS):
+        check_quant_group(quant_members(keys, 3, 40 * i, mode == "static", dtypes, off),
+                          f"edge group {i}", stats)
+    torch.cuda.synchronize()
+    assert stats["tables"] == len(QUANT_EDGE_GROUPS) and stats["bad"] == 0
+
+
+def test_quant_i8_group_reduces_its_absmaxes_once(dev):
+    """A group's dynamic absmaxes reach quant.mesh_absmax once, as one
+    vector between the two launches; the scales it leaves (here another
+    rank's larger maxima) are the ones the quantize takes, bit for bit
+    the static launch fed them."""
+    from chip_smoke import quant_members
+    from mgtpu_torch.ops import quant
+
+    keys = [(14, 14, 64, 14, 14), (7, 7, 128, 14, 14), (7, 7, 32, 7, 7)]
+    members = quant_members(keys, 2, 9, static=False)
+    other = torch.tensor([1e3, 0.0, 2e3], device=dev)
+    calls = []
+    original = quant.mesh_absmax
+    quant.mesh_absmax = lambda t: calls.append(t.clone()) or t.copy_(torch.maximum(t, other))
+    try:
+        got = quant.quant_i8_group(members)
+    finally:
+        quant.mesh_absmax = original
+    assert len(calls) == 1 and calls[0].shape == (3,)
+    assert torch.equal(calls[0], torch.stack([x.float().abs().amax() for x, _, _ in members]))
+    static = quant.quant_i8_group([(x, s.reshape(()), up) for (x, _, up), (_, s) in zip(members,
+                                                                                           got)])
+    for j, ((x, _, _), (x8, s), (s8, _)) in enumerate(zip(members, got, static)):
+        want = torch.clamp_min(torch.maximum(x.float().abs().amax(), other[j])
+                               / torch.full((), 127.0, device=dev), 1e-12)
+        assert torch.equal(x8, s8) and torch.equal(s.reshape(()), want)
+
+
+def test_quant_i8_group_refuses(dev):
+    """Members the kernels do not take, a group on two devices, and a
+    member table the wrapper would not plan (refused by the C side)."""
+    import ctypes
+
+    from mgtpu_torch.ops import quant
+
+    x = torch.zeros((1, 4, 4, 16), device=dev)
+    sx = torch.ones((), device=dev)
+    for members, match in (([(x, None, None), (x.transpose(1, 2), None, None)], "contiguous"),
+                           ([(x.half(), None, None)], "contiguous NHWC"),
+                           ([(x, None, (9, 8))], "up"),
+                           ([(x, torch.ones(2, device=dev), None)], "one f32"),
+                           ([(x, sx, None), (x.cpu(), None, None)], "a group on")):
+        with pytest.raises(ValueError, match=match):
+            quant.quant_i8_group(members)
+    x8 = torch.empty((1, 4, 4, 16), dtype=torch.int8, device=dev)
+    table, grid = quant._group_table([(x, x8, sx, -1, None)], quant._sms(0))
+    table.m[0].tile0 = 1
+    with pytest.raises(RuntimeError, match="mg_quant_i8_group"):
+        kernels.launch("quant_i8", "mg_quant_i8_group", x.device, ctypes.byref(table),
+                       ctypes.sizeof(table), grid, None, None, 0)
+    with pytest.raises(RuntimeError, match="mg_quant_i8_group"):
+        kernels.launch("quant_i8", "mg_quant_i8_group", x.device, ctypes.byref(table),
+                       ctypes.sizeof(table) - 4, grid, None, None, 0)
+
+
 def test_int8_server_launches_conv_i8_per_part(dev):
     """An int8 R-MG-18 served on the card launches conv_i8 once a conv
     part and no 3x3 conv kernel, and its f32 forward gives the CPU's with
@@ -1070,6 +1161,10 @@ def test_custom_ops_launch_the_kernels(dev):
          lambda: quant.quant_i8(x, sx, (27, 28))[0], 1),
         ("quant_i8", lambda: (lambda r: (r[0], r[1][1]))(ops.quant_i8(x, None, None)),
          lambda: quant.quant_i8(x), 2),
+        ("quant_i8", lambda: (lambda r: (*r[0], r[1][1, 0]))(ops.quant_i8_group(
+            [x, x[:, :7].contiguous()], [None, sx], [27, 28, 0, 0])),
+         lambda: (lambda r: (r[0][0], r[1][0], r[0][1]))(quant.quant_i8_group(
+             [(x, None, (27, 28)), (x[:, :7].contiguous(), sx, None)])), 2),
     ]
     with torch.no_grad():
         for kernel, op, wrapper, n in cases:

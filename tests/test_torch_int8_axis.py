@@ -120,22 +120,31 @@ def _port_model(net, path=None):
 @contextlib.contextmanager
 def _dynamic_scales():
     """Within it, every dynamic scale the layers quantize with, in call
-    order (f32 values)."""
+    order (f32 values), and the MAX all-reduces of the scales' absmaxes
+    (``got.reduces``: the quantizer's only MAX; one a layer)."""
     from mgtpu_torch.ops import quant
 
-    got, original = [], quant.quant_i8
+    got, original, reduce = _Scales(), quant.quant_i8_group, dist.all_reduce
 
-    def fn(x, sx=None, up=None):
-        x8, s = original(x, sx, up)
-        if sx is None:
-            got.append(s.reshape(()).item())
-        return x8, s
+    def fn(members):
+        res = original(members)
+        got.extend(s.reshape(()).item() for (_, s), (_, sx, _) in zip(res, members)
+                   if sx is None)
+        return res
 
-    quant.quant_i8 = fn
+    def all_reduce(tensor, op=dist.ReduceOp.SUM, *a, **kw):
+        got.reduces += op == dist.ReduceOp.MAX
+        return reduce(tensor, op, *a, **kw)
+
+    quant.quant_i8_group, dist.all_reduce = fn, all_reduce
     try:
         yield got
     finally:
-        quant.quant_i8 = original
+        quant.quant_i8_group, dist.all_reduce = original, reduce
+
+
+class _Scales(list):
+    reduces = 0
 
 
 def _batches(path):
@@ -153,10 +162,12 @@ def _serve(mesh, net, path):
     from mgtpu_torch.parallel import shard_batch
     from mgtpu_torch.train.step import make_eval_step
 
+    from chip_smoke import int8_layers
+
     model, spec = _port_model(net, path)
     step = make_eval_step(model, spec.create_loss(_opts(net)), spec, "test", mesh)
     batches, calib = _batches(path)
-    res = {}
+    res = {"layers": int8_layers(model)}
     for case in CASES:
         if case == "static":
             calibrate(model, calib)  # whole batches, no group: every rank alike
@@ -174,6 +185,7 @@ def _serve(mesh, net, path):
             out = step({"x": x, "y": y})[1]
         res[f"{case}/out"] = out.numpy()
         res[f"{case}/scales"] = np.array(scales, dtype=np.float32)
+        res[f"{case}/reduces"] = scales.reduces
     return res
 
 
@@ -340,6 +352,20 @@ def test_dynamic_scales_are_the_global_batchs(int8_runs, name, net, case):
     assert want.size and np.all(want > 0)
     for r, rk in enumerate(int8_runs.results[(name, net)]):
         np.testing.assert_array_equal(rk[f"{case}/scales"], want, err_msg=f"rank {r}")
+
+
+@pytest.mark.parametrize("name,net", GRID, ids=IDS)
+def test_one_scale_all_reduce_a_layer(int8_runs, name, net):
+    """A rank's dynamic forward all-reduces its scales' absmaxes with MAX
+    once a layer (each multigrid layer's parts in one vector; a conv
+    outside a layer alone), not once a part; a static one never."""
+    layers = int8_runs.one[net]["layers"]
+    assert layers < int8_runs.one[net]["dynamic/scales"].size
+    for r, rk in enumerate(int8_runs.results[(name, net)]):
+        assert rk["layers"] == layers
+        for case in CASES:
+            want = 0 if case == "static" else layers
+            assert rk[f"{case}/reduces"] == want, (r, case, rk[f"{case}/reduces"], want)
 
 
 @pytest.mark.parametrize("case", CASES)

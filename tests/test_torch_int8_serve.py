@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import I8_PER_FORWARD, I8_SERVE, PER_FORWARD, record_kernel_shapes
+from chip_smoke import (I8_PER_FORWARD, I8_SERVE, PER_FORWARD, int8_layers,
+                        record_kernel_shapes)
 from mgtpu.models import get_net as jax_get_net
 from mgtpu.ops import quant as jq
 from mgtpu.ops.fold import fold_batchnorm as jax_fold
@@ -131,16 +132,19 @@ def _calls(shapes):
 
 @pytest.mark.parametrize("net", sorted(I8_PER_FORWARD))
 def test_int8_forward_launches_are_pinned(net):
-    """One int8 serving forward (BN folded, quantized) calls quant_i8 and
-    conv_i8 once a quantized conv part and neither 3x3 conv kernel; it pools as the
+    """One int8 serving forward (BN folded, quantized) calls conv_i8 once a
+    quantized conv part, quant_i8 once a layer (every part of a multigrid
+    layer in one group) and neither 3x3 conv kernel; it pools as the
     float forward does. The run loop's order (quantize the unfolded net)
     makes the same calls at the same shapes."""
     opt = I8_SERVE[net][0]
     got = record_kernel_shapes(False, opt, int8=True)
     assert _calls(got) == I8_PER_FORWARD[net]
-    # one quantizer call a conv part (one launch with static scales, two
-    # with dynamic ones: chip_smoke.i8_pins)
-    assert I8_PER_FORWARD[net]["quant_i8"] == I8_PER_FORWARD[net]["conv_i8"]
+    # one quantizer call a layer (one launch with static scales, two with
+    # dynamic ones: chip_smoke.i8_pins), each conv part in one of them
+    assert I8_PER_FORWARD[net]["quant_i8"] == int8_layers(quantize_model(create_model(opt)))
+    assert sum(len(key) * n for key, n in got["quant_i8"].items()) == I8_PER_FORWARD[net][
+        "conv_i8"]
     assert record_kernel_shapes(False, opt, fold=False, int8=True) == got
     floats = _calls(record_kernel_shapes(False, opt))
     assert floats["conv_i8"] == 0 and floats["maxpool2"] == I8_PER_FORWARD[net]["maxpool2"]

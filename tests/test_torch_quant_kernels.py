@@ -236,7 +236,7 @@ def test_int8_conv_routes_are_pinned(net):
     Co, weight width and slice offset are multiples of 16 (all of
     R-MG-34's but its three 7x7/2 stems), simple for the rest (the stems
     on 3 and 1 channels, the 1x1 shortcuts and heads); the quantizer once
-    a conv part (twice under dynamic scales)."""
+    a layer, its group of parts (twice under dynamic scales)."""
     shapes = record_kernel_shapes(False, I8_SERVE[net][0], int8=True)
     assert i8_routes(shapes["conv_i8"]) == I8_ROUTES[net]
     assert sum(I8_ROUTES[net].values()) == I8_PER_FORWARD[net]["conv_i8"]

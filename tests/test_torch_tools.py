@@ -94,10 +94,12 @@ def test_model_info_cifar_sweep_matches_the_jax_tool(capsys):
 NMG_FLAGS = ["-netType", "cifar/nmg", "-nLayer", "1", "-batch", "2", "-imageCrop", "32",
              "-dtype", "float32", "-device", "cpu"]
 # mgtpu:: ops a cifar/nmg nLayer 1 forward calls: one conv3x3 a 3x3 same or
-# down part, one maxpool2 a pool; under int8 one quant_i8 and one conv_i8 a
-# conv part
+# down part, one maxpool2 a pool; under int8 one conv_i8 a conv part and
+# one quant_i8_group a layer (its 28 parts in 5: the input pyramid's
+# three images, then four MgConvs' parts; no conv outside a layer takes
+# a single quant_i8)
 EXPORT_OPS = {"f32": {"mgtpu.conv3x3.default": 17, "mgtpu.maxpool2.default": 19},
-              "int8": {"mgtpu.quant_i8.default": 28, "mgtpu.conv_i8.default": 28,
+              "int8": {"mgtpu.quant_i8_group.default": 5, "mgtpu.conv_i8.default": 28,
                        "mgtpu.maxpool2.default": 19}}
 SERVE_CHILD = r"""
 import json, sys
