@@ -149,11 +149,14 @@ Phases:
              batch)
  22 harness  unmg's recipe (mnist-seg, 64 a step, f32) through
              mgtpu_torch.main, 3 iterations and the test pass, with its
-             pinned launches; then, where h5py is installed,
-             mnist-cluttered/mnist-test -retrain on its checkpoint: the
-             same test loss and meanIU within 1e-5 and NHWC predictions
-             in testOutput_1.h5 (the card's machine has no h5py: there
-             tests/test_torch_cli.py holds the chain on the CPU)
+             pinned launches; then mnist-cluttered/mnist-test -retrain
+             on its checkpoint: the same test loss and meanIU within
+             1e-5, its pinned launches, and testOutput_1.h5 read back
+             through mgtpu_torch.utils.h5 (the port's own HDF5 layer):
+             NHWC f32 predictions in [0, 1] of every test sample; then
+             python -m mgtpu_torch.tools.seg_metrics on it (mean IU and
+             Acc held to utils.metrics' per-class counts) and
+             render_predictions (the panel's size)
  23 conv_i8  the int8 conv kernel vs conv_i8_plain at every (shape, k,
              stride, pad, weight slice) the int8 serving forwards of
              R-MG-34 (batches 1 and 128), cifar/prnmg (128) and unmg (64)
@@ -216,13 +219,21 @@ Phases:
              mnist-saliency.sh through the port's Session (8 synthetic
              samples, -saliencyBatch 4: 3,368 images of 64x64x1 a forward,
              f32) at -saliencyDumpStack 1 and 0, through
-             saliency.saliency_samples (no h5py on the card's machine): 50
+             saliency.saliency_samples: 50
              conv3x3 and 18 maxpool2 launches a forward through the
              designs predicted at batch 1; samples/s, ms a group, peak
              memory, the card's time by kernel and its idle share; sample
              1's 842 outputs vs the plain CPU forward (phase 18's gate),
              its valid, points and saliency vs the CPU's probe of those,
-             the card's probe vs the host's on the same outputs; conv3x3
+             the card's probe vs the host's on the same outputs; then
+             the recipe through python -m mgtpu_torch.main (saliency.run)
+             at both dump modes: its launches, testOutput.h5 read back
+             through mgtpu_torch.utils.h5 (exactly the kept samples'
+             groups, points and input equal to saliency_samples',
+             saliency within its gate, outputs within the forward's), the
+             run's samples/s beside saliency_samples', the dump's MB and
+             the writer's MB/s alone; render_saliency on the dump-1 file
+             (10 PNGs a sample); conv3x3
              and maxpool2 at the forward's shapes at N = 3,368 vs their
              plain versions, then timed beside them and one PyTorch call
  28 remat    the train step's -remat: R-MG-34 bf16 at batch 128 and
@@ -364,7 +375,6 @@ The last line is
 from __future__ import annotations
 
 import contextlib
-import importlib.util
 import io
 import itertools
 import json
@@ -396,7 +406,9 @@ from mgtpu_torch.ops.cuda_pool import (maxpool2, maxpool2_backward_group, maxpoo
 from mgtpu_torch.ops.resample import nchw
 from mgtpu_torch.serve import CALIB_BATCH, Server, image_shape
 from mgtpu_torch.train.step import rematerialized
+from mgtpu_torch.tools import soak_chain
 from mgtpu_torch.trainer import Trainer, synthetic_batch
+from mgtpu_torch.utils import h5
 from mgtpu_torch.utils.bridge import export_jax_tree
 
 DEPTH = 34
@@ -468,12 +480,19 @@ def check(ok: bool, what: str) -> None:
 
 
 T0 = time.perf_counter()
+# the seconds of the run by phase tag: the time up to each line, summed
+# by the tag of the line that ends it
+SECONDS: dict = {}
+_LAST_LINE = [T0]
 
 
 def phase(name: str, msg: str) -> None:
     """One line of the run's log, tagged with the phase and the seconds
     since the script started."""
-    print(f"[{name} {time.perf_counter() - T0:.0f}s] {msg}", flush=True)
+    now = time.perf_counter()
+    SECONDS[name] = SECONDS.get(name, 0.0) + now - _LAST_LINE[0]
+    _LAST_LINE[0] = now
+    print(f"[{name} {now - T0:.0f}s] {msg}", flush=True)
 
 
 def i8_key(x8, w8, stride, pad, *args, y_in=None, bias=None, **kw):
@@ -2138,14 +2157,20 @@ EPOCH_LINE = re.compile(r"Epoch: \[(\d+)\]\[(TRAINING|TESTING)\] Total Time\(s\)
 
 
 def recipe_argv(path):
-    """The `python -m mgtpu.main ...` argv of a recipe under scripts/, its
-    ${DATA_PREFIX:-synthetic} resolved and the trailing "$@" dropped (as
-    tests/test_scripts.py extracts it; the script is not run)."""
-    body = (Path(__file__).resolve().parent / path).read_text()
-    m = re.search(r"python -m mgtpu\.main(.*)", body, re.S)
-    check(m is not None, f"{path}: no mgtpu.main invocation")
-    txt = re.sub(r"\$\{DATA_PREFIX:-([^}]*)\}", r"\1", m.group(1).replace("\\\n", " "))
-    return [t for t in txt.split() if t != '"$@"']
+    """The argv of a recipe under scripts/ (`soak_chain.recipe_argv`),
+    each ${NAME:-default} at its default: -data synthetic."""
+    return soak_chain.recipe_argv(Path(__file__).resolve().parent / path, env={})
+
+
+def run_tool(name, *args) -> str:
+    """``python -m mgtpu_torch.tools.<name> args``, as a user runs it, in
+    a process of its own: its standard output (a non-zero exit fails)."""
+    r = subprocess.run([sys.executable, "-m", f"mgtpu_torch.tools.{name}", *map(str, args)],
+                       capture_output=True, text=True, timeout=300,
+                       cwd=Path(__file__).resolve().parent)
+    check(r.returncode == 0, f"mgtpu_torch.tools.{name} exited {r.returncode}: "
+          f"{r.stdout[-1000:]}{r.stderr[-2000:]}")
+    return r.stdout
 
 
 def run_main(argv):
@@ -2285,10 +2310,17 @@ def check_recipe(name) -> dict:
 def check_harness_chain(name) -> dict:
     """22: mnist-cluttered/unmg's recipe (scripts/mnist-cluttered/unmg.sh,
     mnist-seg, 64 a step, f32) trained 3 iterations and tested through
-    mgtpu_torch.main, each batch through the kernels; then, where h5py is
-    installed, mnist-cluttered/mnist-test -retrain on its checkpoint: the
-    same test loss and meanIU within 1e-5, and NHWC predictions in
-    testOutput_1.h5. Returns the launches."""
+    mgtpu_torch.main, each batch through the kernels; then
+    mnist-cluttered/mnist-test -retrain on its checkpoint: the same test
+    loss and meanIU within 1e-5, its launches, and testOutput_1.h5 read
+    back through mgtpu_torch.utils.h5: NHWC f32 predictions in [0, 1] of
+    every test sample; then the port's seg_metrics and render_predictions
+    on that file (mean IU and Acc held to the per-class counts of
+    utils.metrics.seg_mean_iu_mean_acc on the same arrays; the panel's
+    size). Returns the launches."""
+    from mgtpu_torch.utils.metrics import seg_mean_iu_mean_acc
+
+    t0 = time.perf_counter()
     net = "mnist-cluttered/unmg"
     cache = tempfile.mkdtemp(prefix="chip_smoke_unmg_")
     recipe = recipe_argv(SEG_RECIPE)
@@ -2305,30 +2337,59 @@ def check_harness_chain(name) -> dict:
           + f"; test {fmt(test)}; launches {got}")
     ckpt = Path(opt.save) / "model_1.ckpt"
     del sess
-    launches = got
-    if importlib.util.find_spec("h5py") is None:
-        phase("harness", "mnist-test not run: this machine has no h5py, which the test "
-              "pass's dump needs (the chain is held on the CPU by tests/test_torch_cli.py)")
-    else:
-        import h5py
 
-        argv = [a for a in recipe if a not in ("-train", "-netType", net)] + [
-            "-netType", "mnist-cluttered/mnist-test", "-nEpochs", "1", "-retrain", str(ckpt),
-            "-synthSize", str(SEG_SYNTH), "-cache", cache]
-        sess, out2, got2, wall2 = run_main(argv)
-        _, epochs2 = metric_lines(out2, "mnist-test")
-        again = epochs2[(1, "TESTING")][1]
-        check(all(abs(again[k] - test[k]) <= 1e-5 for k in ("avg.loss", "avg.meanIU")),
-              f"mnist-test {fmt(again)} vs the training run's test {fmt(test)}")
-        with h5py.File(Path(sess.opt.save) / "testOutput_1.h5", "r") as f:
-            shape = f["prediction"].shape
-        check(shape == (sess.loaders["test"].size(), 64, 64, 10),
-              f"prediction {shape}, expected NHWC (N, 64, 64, 10)")
-        phase("harness", f"mnist-test -retrain {ckpt.name} in {wall2:.1f} s: {fmt(again)} "
-              f"(the training run's test: {fmt(test)}), NHWC prediction {shape}")
-        launches = {k: got[k] + got2[k] for k in KERNELS}
-        del sess
+    argv = [a for a in recipe if a not in ("-train", "-netType", net)] + [
+        "-netType", "mnist-cluttered/mnist-test", "-nEpochs", "1", "-retrain", str(ckpt),
+        "-synthSize", str(SEG_SYNTH), "-cache", cache]
+    sess, out2, got2, wall2 = run_main(argv)
+    want2 = expected_launches(SEG_PER_MICRO[net], 0, SEG_PER_FORWARD[net], n_test)
+    check(got2 == want2, f"mnist-test: launches {got2}, expected {want2}")
+    _, epochs2 = metric_lines(out2, "mnist-test")
+    again = epochs2[(1, "TESTING")][1]
+    check(all(abs(again[k] - test[k]) <= 1e-5 for k in ("avg.loss", "avg.meanIU")),
+          f"mnist-test {fmt(again)} vs the training run's test {fmt(test)}")
+    dump = Path(sess.opt.save) / "testOutput_1.h5"
+    check(f"stored outputs -> {dump}" in out2, f"mnist-test: no dump line in {out2[-500:]}")
+    loader = sess.loaders["test"]
+    with h5.File(dump, "r") as f:
+        check(f.keys() == ["prediction"], f"{dump.name}: datasets {f.keys()}")
+        pred = np.asarray(f["prediction"])
+    check(pred.shape == (loader.size(), 64, 64, 10) and pred.dtype == np.float32,
+          f"prediction {pred.shape} {pred.dtype}, expected NHWC (N, 64, 64, 10) f32")
+    check(bool(np.isfinite(pred).all()) and 0.0 <= pred.min() and pred.max() <= 1.0,
+          f"prediction values in [{pred.min()}, {pred.max()}], expected [0, 1]")
+    phase("harness", f"mnist-test -retrain {ckpt.name} in {wall2:.1f} s: {fmt(again)} "
+          f"(the training run's test: {fmt(test)}); launches {got2}; {dump.name} "
+          f"({dump.stat().st_size} bytes) read back through mgtpu_torch.utils.h5: NHWC f32 "
+          f"prediction {pred.shape} in [{pred.min():.4f}, {pred.max():.4f}]")
+    # the offline tools on the dump, against the test split the run read
+    targets = Path(cache) / "mnist_segmentation.npz"
+    np.savez_compressed(targets, test_inputs=loader.inputs, test_targets=loader.targets)
+    report = run_tool("seg_metrics", dump, "--targets", targets)
+    got_iu, got_acc = (float(re.search(rf"mean {k}: ([0-9.]+)", report).group(1))
+                       for k in ("IU", "Acc"))
+    tp, fp, fn = (c.double() for c in seg_mean_iu_mean_acc(
+        torch.from_numpy(pred), torch.from_numpy(loader.targets.astype(np.float32))))
+    iu = float((tp / (tp + fp + fn).clamp_min(1e-12)).mean())
+    acc = float((tp / (tp + fp).clamp_min(1e-12)).mean())
+    check(abs(got_iu - iu) <= 1e-6 and abs(got_acc - acc) <= 1e-6, f"seg_metrics: mean IU "
+          f"{got_iu}, Acc {got_acc}; the per-class counts give {iu:.6f}, {acc:.6f}")
+    panel = Path(cache) / "viz" / "predictions.png"
+    drawn = run_tool("render_predictions", dump, "--targets", targets, "--out", panel)
+    from PIL import Image
+
+    with Image.open(panel) as im:
+        size = im.size
+    rows = min(8, loader.size())  # 3 cells of 64 px a row, 2 px apart, 3x upscaled
+    check(size == (3 * (3 * 64 + 4 * 2), 3 * (rows * 64 + (rows + 1) * 2)),
+          f"render_predictions: a {size} panel for {rows} rows")
+    phase("harness", f"mgtpu_torch.tools.seg_metrics on {dump.name}: "
+          + "; ".join(report.split("\n")[:2]) + f" (the per-class counts: {iu:.6f}, {acc:.6f}); "
+          f"render_predictions: {drawn.strip()} ({size[0]}x{size[1]} px)")
+    launches = {k: got[k] + got2[k] for k in KERNELS}
+    del sess
     shutil.rmtree(cache)
+    phase("harness", f"phase 22 took {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -3008,6 +3069,90 @@ def impacts(outputs, points):
                      for j in range(len(points))], 1)
 
 
+def check_saliency_runs(ckpt, cache, runs, res, per_forward, tol, sal_close) -> Counter:
+    """27, the recipe through the entry point a user calls: python -m
+    mgtpu_torch.main with mnist-saliency.sh's flags at the phase's sizes,
+    at -saliencyDumpStack 1 and 0, whose saliency.run writes testOutput.h5
+    through mgtpu_torch.utils.h5. Each file read back: exactly the groups
+    of the samples ``runs[dump]`` kept (saliency_samples on the same
+    checkpoint), points and input equal to theirs, saliency within
+    ``sal_close``, outputs within ``tol``; the run's samples/s beside
+    saliency_samples' (``res[dump]["wall"]``), the dump's MB and the
+    writer's MB/s alone (the same arrays written again); then
+    render_saliency on the dump-1 file. Returns the runs' launches."""
+    launches = Counter()
+    n_groups = -(-SAL_SAMPLES // SAL_GROUP)
+    dumps = {}
+    for dump in (1, 0):
+        sess, out, got, wall = run_main(saliency_argv(ckpt, dump, cache))
+        want = {k: n_groups * v for k, v in per_forward.items()}
+        check(got == want, f"mnist-saliency through main, dump {dump}: launches {got}, "
+              f"expected {want}")
+        launches.update(got)
+        path = Path(sess.opt.save) / "testOutput.h5"
+        rate = re.search(rf"saliency: {SAL_SAMPLES} samples in [0-9.]+s \(([0-9.]+) samples/s, "
+                         rf"group size {SAL_GROUP}\)", out)
+        check(rate is not None and f"saliency maps -> {path}" in out,
+              f"mnist-saliency through main, dump {dump}: no rate or dump line in {out[-600:]}")
+        kept = runs[dump]
+        n_read = 0
+        with h5.File(path, "r") as f:
+            check(f.keys() == [f"id{i:05d}" for i in sorted(kept)], f"{path.name} at dump "
+                  f"{dump}: groups {f.keys()}, the kept samples {sorted(kept)}")
+            for i, ref in kept.items():
+                g = f[f"id{i:05d}"]
+                check(sorted(g.keys()) == sorted(ref), f"id{i:05d}: datasets {g.keys()}")
+                arrays = {k: np.asarray(g[k]) for k in ref}
+                n_read += sum(a.nbytes for a in arrays.values())
+                check(all(arrays[k].shape == ref[k].shape and arrays[k].dtype == ref[k].dtype
+                          for k in ref), f"id{i:05d} at dump {dump}: shapes or dtypes differ")
+                check(np.array_equal(arrays["points"], ref["points"])
+                      and np.array_equal(arrays["input"], ref["input"])
+                      and sal_close(arrays["saliency"], ref["saliency"]),
+                      f"id{i:05d} at dump {dump}: points, input or saliency differ from "
+                      f"saliency_samples' (saliency max abs err "
+                      f"{np.abs(arrays['saliency'] - ref['saliency']).max():.3g})")
+                if dump:
+                    err = float(np.abs(arrays["output"] - ref["output"]).max())
+                    check(err <= tol, f"id{i:05d}: outputs {err:.3g} from saliency_samples' "
+                          f"(bound {tol:.3g})")
+        size = path.stat().st_size
+        # the writer alone: the same arrays written again, timed (page cache, warm)
+        again = Path(cache) / f"written_again_{dump}.h5"
+        t1 = time.perf_counter()
+        with h5.File(again, "w") as f:
+            for i, ref in kept.items():
+                for k, v in ref.items():
+                    f.create_dataset(f"id{i:05d}/{k}", data=v)
+        write_s = time.perf_counter() - t1
+        check(again.stat().st_size == size, f"the same arrays written again: "
+              f"{again.stat().st_size} bytes, the run's dump {size}")
+        dumps[dump] = path
+        samples_rate = SAL_SAMPLES / res[dump]["wall"]
+        phase("saliency", f"{SAL_RECIPE} through mgtpu_torch.main, -saliencyDumpStack {dump}, "
+              f"in {wall:.1f} s: launches {got}; {path.name} read back through "
+              f"mgtpu_torch.utils.h5: the {len(kept)} kept samples' groups, points and input "
+              f"equal to saliency_samples', saliency within its gate; the run "
+              f"{float(rate.group(1)):.3f} samples/s (its loop, writes included) beside "
+              f"saliency_samples' {samples_rate:.3f} on this card; the dump {size / 1e6:.2f} MB "
+              f"({n_read / 1e6:.2f} MB of arrays), written again alone in {write_s * 1e3:.1f} ms "
+              f"= {size / 1e6 / write_s:.0f} MB/s")
+        res[dump].update(run_rate=float(rate.group(1)), samples_rate=samples_rate,
+                         dump_mb=size / 1e6, write_mb_s=size / 1e6 / write_s)
+        del sess
+    viz = Path(cache) / "viz"
+    drawn = run_tool("render_saliency", "--h5", dumps[1], "--out", viz).splitlines()
+    gids = [f"id{i:05d}" for i in sorted(runs[1])]
+    check(drawn == gids + [f"renders -> {viz}"], f"render_saliency printed {drawn}")
+    pngs = sorted(p.name for p in viz.glob("*.png"))
+    check(len(pngs) == 10 * len(gids), f"render_saliency wrote {len(pngs)} PNGs for "
+          f"{len(gids)} samples (10 each)")
+    phase("saliency", f"mgtpu_torch.tools.render_saliency on the -saliencyDumpStack 1 dump: "
+          f"{len(pngs)} PNGs for {len(gids)} samples")
+
+    return launches
+
+
 def check_saliency(name) -> tuple[dict, dict]:
     """27: the saliency harness on the card. A checkpoint of pnmg.mnist
     with scripts/mnist-cluttered/pnmg.mnist.sh's options (seeded weights,
@@ -3017,8 +3162,7 @@ def check_saliency(name) -> tuple[dict, dict]:
     samples, -saliencyBatch 4: 3,368 images a forward, f32 as the recipe
     runs) at -saliencyDumpStack 1 (the host probe) and 0 (the stack
     built and probed on the card), each driven through
-    saliency.saliency_samples (the card's machine has no h5py, which
-    run's dump needs): the pinned launches a forward through the designs
+    saliency.saliency_samples: the pinned launches a forward through the designs
     predicted at batch 1, the run's samples/s, ms a group, peak memory,
     the forward's kernel time by kernel and the card's idle share; sample
     1's whole 842-stack held to the port's plain CPU forward (phase 18's
@@ -3030,7 +3174,11 @@ def check_saliency(name) -> tuple[dict, dict]:
     for bit, saliency at test_saliency.py's rtol 1e-5 / atol 1e-6); the
     outputs within the bound of the 0.4 threshold and the
     impacts within it of 0.1 counted; the two modes' samples against each
-    other. Returns (the launches of the two runs, the times for the
+    other; then the recipe through mgtpu_torch.main at both dump modes,
+    its testOutput.h5 read back through mgtpu_torch.utils.h5 and held to
+    the kept samples, its samples/s beside saliency_samples', the dump's
+    size and the writer's rate alone, and render_saliency on the dump-1
+    file. Returns (the launches of the four runs, the times for the
     kernels line)."""
     from mgtpu_torch.data.mnist import occlusion_masks
     from mgtpu_torch.models import net_options
@@ -3210,6 +3358,7 @@ def check_saliency(name) -> tuple[dict, dict]:
           f"{len(runs[1])} kept samples: points and input equal in both dump modes, saliency "
           f"within {sal_err:.3g}; a group takes {res[1]['group_ms'] / res[0]['group_ms']:.2f}x "
           f"as long with the host's probe as with the card's")
+    launches.update(check_saliency_runs(ckpt, cache, runs, res, per_forward, tol, sal_close))
     # conv3x3 and maxpool2 at the saliency forward's shapes, N = 3,368, f32:
     # the path's calls (relu_out and stats off) held to the plain version, then timed
     worst, pool_ok = 0.0, 0
@@ -4869,6 +5018,8 @@ def main() -> None:
                   f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB, bound {t_bound:.4f} ms (by "
                   f"{by}); kernel {kms[k]:.3f} ms{other} ({t_bound / kms[k]:.0%} of the bound), "
                   f"plain {kplain[k]:.3f} ms, library {lib}")
+    phase("seconds", "by phase (the time up to each line, summed by its tag): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in SECONDS.items()) + f"; total {time.perf_counter() - T0:.1f}")
     # the top-level numbers are R-MG-34's; under each other net's name the
     # same keys for its path, for the kernels it launches; launches count
     # every main-path run

@@ -127,6 +127,12 @@ def _avgpool(x: torch.Tensor, r: int, s: int, whole: bool = True) -> torch.Tenso
     return nhwc(F.avg_pool2d(nchw(xf), r, s)).to(x.dtype)
 
 
+def global_avgpool(x: torch.Tensor) -> torch.Tensor:
+    """Mean over H, W -> (N, C), as ``jnp.mean`` takes it: a low-precision
+    input summed and divided in f32, the mean returned in ``x.dtype``."""
+    return x.to(torch.promote_types(x.dtype, torch.float32)).mean(dim=(1, 2)).to(x.dtype)
+
+
 def upsample_nearest2(x: torch.Tensor, out_h: int | None = None,
                       out_w: int | None = None) -> torch.Tensor:
     """Nearest-neighbour 2x upsample; optionally crops to (out_h, out_w)

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from mgtpu_torch.parallel import fetch_global, is_primary, shard_batch
+from mgtpu_torch.utils import h5
 
 
 def interest_point(output: np.ndarray, th: float = 0.4, dp: int = 1) -> Optional[np.ndarray]:
@@ -323,10 +324,9 @@ def run(sess) -> None:
     """The saliency pipeline (`saliency/pipeline.lua:1-2`: EPOCH = 1,
     test()): every test sample through `saliency_samples`, each kept one
     written to ``<save>/testOutput.h5`` as group id%05d, by the primary
-    rank (the others run the groups with it and write nothing). Needs
-    h5py."""
-    import h5py
-
+    rank (the others run the groups with it and write nothing), through
+    the port's own HDF5 writer, each sample's arrays on disk as it
+    comes."""
     opt = sess.opt
     n_test = sess.loaders["test"].size()
     path = os.path.join(opt.save, "testOutput.h5")
@@ -334,7 +334,7 @@ def run(sess) -> None:
     print("==> doing epoch on testing data:")
     print("==> online epoch # 1")
     t0 = time.time()
-    with h5py.File(path, "w") if is_primary() else contextlib.nullcontext() as f:
+    with h5.File(path, "w") if is_primary() else contextlib.nullcontext() as f:
         for ind, arrays in saliency_samples(sess):
             gid = f"id{ind:05d}"
             print(gid)

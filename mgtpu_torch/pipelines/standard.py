@@ -25,6 +25,7 @@ import torch.distributed as dist
 from mgtpu_torch.models.base import NetOpts
 from mgtpu_torch.parallel import (fetch_global, gather_tree, is_primary, make_mesh, replicate,
                                   shard_batch, shard_opt_zero1, shard_params_tp, whole_tensors)
+from mgtpu_torch.utils import h5
 from mgtpu_torch.utils.logging import EpochLogger, fmt_metrics, now
 
 
@@ -382,11 +383,9 @@ def _eval_loop(sess: Session, mode: str):
     sess.logger(mode).add({f"avg.{k} ({mode} set)": v for k, v in means.items()})
 
     if stored:
-        import h5py
-
         path = os.path.join(opt.save, f"testOutput_{sess.epoch}.h5")
         os.makedirs(opt.save, exist_ok=True)
-        with h5py.File(path, "w") as f:
+        with h5.File(path, "w") as f:
             for k, chunks in stored.items():
                 f.create_dataset(k, data=np.concatenate(chunks, axis=0))
         print(f"stored outputs -> {path}")

@@ -1,28 +1,35 @@
-"""The model tools of the port, each run as ``python -m
+"""The tools of the port, each run as ``python -m
 mgtpu_torch.tools.<name>``: the counterparts of the JAX package's
-``tools/*.py`` that load model code (``read_t7``, ``import_t7_model``,
-``model_info``, ``export_model``, ``serve_exported``, ``bench_serving``,
-``bench_step_breakdown``, ``bench_sgd``, ``profile_summary``,
-``bench_data``). Each runs on the card unless given ``-device cpu``."""
+``tools/*.py``. Those that load model code (``read_t7``,
+``import_t7_model``, ``model_info``, ``export_model``, ``serve_exported``,
+``bench_serving``, ``bench_step_breakdown``, ``bench_sgd``,
+``profile_summary``, ``bench_data``) run on the card unless given
+``-device cpu``. The data and file tools (``download_mnist``,
+``generate_mnist_cluttered``, ``ingest_cifar``, ``seg_metrics``,
+``render_predictions``, ``render_saliency``) use no device and import no
+torch; ``soak_chain`` chains ``python -m mgtpu_torch.main`` processes.
+This package imports no torch until a function here is called."""
 
 from __future__ import annotations
 
 import subprocess
 
-import torch
 
-
-def sync(device: torch.device) -> None:
-    """Wait for the work queued on ``device``."""
+def sync(device) -> None:
+    """Wait for the work queued on ``device`` (a torch.device)."""
     if device.type == "cuda":
+        import torch
+
         torch.cuda.synchronize(device)
 
 
-def card(device: torch.device) -> dict:
+def card(device) -> dict:
     """The device a timed line was taken on: a card's name and power
     limit (``nvidia-smi``; None where it cannot be read), or the CPU."""
     if device.type != "cuda":
         return {"device": "cpu", "power_limit": None}
+    import torch
+
     index = device.index if device.index is not None else torch.cuda.current_device()
     try:
         smi = subprocess.run(["nvidia-smi", "-i", str(index), "--query-gpu=power.limit",

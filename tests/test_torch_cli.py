@@ -15,6 +15,7 @@ import h5py
 import numpy as np
 import pytest
 
+from mgtpu_torch.utils import h5
 from mgtpu_torch.utils.checkpoint import load_checkpoint
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -66,7 +67,8 @@ def test_train_and_test_write_the_run_dir(trained):
 
 def test_harness_reproduces_the_test_metrics(trained, tmp_path):
     """mnist-test -retrain gives the training run's test metrics exactly
-    and dumps its predictions NHWC."""
+    and dumps its predictions NHWC, read the same through h5py and the
+    port's HDF5 layer."""
     tmp, out = trained
     out2 = _main("-netType", "mnist-cluttered/mnist-test", *SEG, "-cache", str(tmp_path),
                  "-nEpochs", "1", "-retrain", _one(tmp, "model_1.ckpt"), "-test")
@@ -76,6 +78,10 @@ def test_harness_reproduces_the_test_metrics(trained, tmp_path):
         pred = np.asarray(f["prediction"])
     assert pred.shape == (8, 64, 64, 10)  # synthSize 32 // 4 test samples, NHWC
     assert pred.dtype == np.float32 and 0.0 <= pred.min() and pred.max() <= 1.0
+    with h5.File(_one(tmp_path, "testOutput_1.h5"), "r") as f:  # the port's own reader
+        assert f.keys() == ["prediction"]
+        again = np.asarray(f["prediction"])
+    assert again.dtype == pred.dtype and again.tobytes() == pred.tobytes()
 
 
 def test_resume_equals_the_straight_run(tmp_path):

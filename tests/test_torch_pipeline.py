@@ -15,6 +15,7 @@ import glob
 import os
 import re
 
+import h5py
 import jax
 import numpy as np
 import pytest
@@ -29,7 +30,7 @@ from mgtpu.utils.checkpoint import load_checkpoint as jax_load_checkpoint
 from mgtpu_torch.models import create_model
 from mgtpu_torch.models.base import NetOpts
 from mgtpu_torch.pipelines import standard
-from mgtpu_torch.utils import opts
+from mgtpu_torch.utils import h5, opts
 from mgtpu_torch.utils.bridge import export_jax_tree
 from mgtpu_torch.utils.checkpoint import join_pending_saves, write_checkpoint
 from test_torch_cifar_models import few_torch_threads  # noqa: F401 (autouse fixture)
@@ -128,6 +129,18 @@ def test_port_session_trains_and_tests_as_the_jax_session(tmp_path, capsys, narr
                                rtol=1e-4)
     assert abs(got["avg.meanIU (test set)"] - port["avg.meanIU (test set)"]) <= 1e-3
     assert len(glob.glob(os.path.join(harness.save, "testOutput_1.h5"))) == 1
+    # the two harnesses' dumps (the JAX one written by h5py, the port's by
+    # mgtpu_torch.utils.h5), both read through the port's layer: the same
+    # checkpoint's predictions, within the losses' rtol
+    with h5.File(os.path.join(harness.save, "testOutput_1.h5"), "r") as f:
+        ref = np.asarray(f["prediction"])
+    with h5py.File(os.path.join(harness.save, "testOutput_1.h5"), "r") as f:
+        assert np.asarray(f["prediction"]).tobytes() == ref.tobytes()
+    with h5.File(os.path.join(port_harness.save, "testOutput_1.h5"), "r") as f:
+        assert f.keys() == ["prediction"]
+        pred = np.asarray(f["prediction"])
+    assert pred.shape == ref.shape == (8, 64, 64, 1) and pred.dtype == ref.dtype == np.float32
+    np.testing.assert_allclose(pred, ref, rtol=1e-4, atol=1e-6)
 
 
 def test_seg_counts_are_the_jax_counts():

@@ -196,11 +196,16 @@ def test_port_never_imports_jax(tmp_path):
     """Import every module of the port, run a small multigrid net on the
     CPU, serve and train a CIFAR net (cifar/prnmg with dropout), and run
     the CLI's train and test loop on a small net in a fresh interpreter:
-    neither JAX nor the JAX package gets imported."""
+    neither JAX nor the JAX package gets imported, nor h5py (the port
+    writes and reads its HDF5 files through mgtpu_torch.utils.h5)."""
     code = textwrap.dedent("""
         import sys, numpy as np, torch
         import mgtpu_torch.serve, mgtpu_torch.kernels, mgtpu_torch.trainer
         import mgtpu_torch.main, mgtpu_torch.pipelines.standard, mgtpu_torch.data
+        import mgtpu_torch.pipelines.saliency, mgtpu_torch.utils.h5, mgtpu_torch.ops
+        from mgtpu_torch.tools import (download_mnist, generate_mnist_cluttered, ingest_cifar,
+                                       render_predictions, render_saliency, seg_metrics,
+                                       soak_chain)
         from mgtpu_torch.models import NetOpts
         from mgtpu_torch.models.common import LogSoftmaxClassifier, MgNet
         from mgtpu_torch.ops.fold import fold_batchnorm
@@ -223,7 +228,8 @@ def test_port_never_imports_jax(tmp_path):
                                       "-nEpochs", "1", "-epochSize", "1", "-cache", sys.argv[1],
                                       "-device", "cpu", "-train", "-test"])
         assert sess.epoch == 1
-        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "mgtpu", "ml_dtypes"))
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "mgtpu", "ml_dtypes", "h5py"))
         assert not bad, bad
         print("ok")
     """)
@@ -237,17 +243,24 @@ def test_data_layer_imports_no_torch():
     """The data layer and the native loader import neither torch nor jax
     (process-mode donkeys import them and must not initialise CUDA), nor
     PIL until a loader needs it; the synthetic ILSVRC set needs none of
-    them."""
+    them. Nor do the HDF5 layer and the data and file tools, as their
+    JAX counterparts import no torch (and import PIL only to draw), nor
+    h5py."""
     code = textwrap.dedent("""
         import sys
         import mgtpu_torch.data, mgtpu_torch.native, mgtpu_torch.data.prefetch
+        import mgtpu_torch.utils.h5
+        from mgtpu_torch.tools import (download_mnist, generate_mnist_cluttered, ingest_cifar,
+                                       render_predictions, render_saliency, seg_metrics,
+                                       soak_chain)
         from mgtpu_torch.data import get_loaders
         from types import SimpleNamespace
         opt = SimpleNamespace(dataset="ilsvrc", data="synthetic", synthSize=8, synthClasses=10)
         x, y = get_loaders(opt)["train"].gen_inputs(2, 1, 0)
         assert x.shape == (2, 224, 224, 3), x.shape
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("torch", "jax", "jaxlib", "mgtpu", "ml_dtypes", "PIL"))
+                     if m.split(".")[0] in ("torch", "jax", "jaxlib", "mgtpu", "ml_dtypes", "PIL",
+                                            "h5py"))
         assert not bad, bad
         print("ok")
     """)

@@ -46,6 +46,7 @@ from mgtpu_torch.models import create_model, get_spec
 from mgtpu_torch.models.base import NetOpts
 from mgtpu_torch.pipelines import saliency as sal
 from mgtpu_torch.serve import calibrate_batchnorm
+from mgtpu_torch.utils import h5
 from mgtpu_torch.utils.bridge import export_jax_tree
 from mgtpu_torch.utils.checkpoint import save_checkpoint
 from test_torch_cifar_models import few_torch_threads  # noqa: F401 (autouse fixture)
@@ -129,9 +130,23 @@ def _stub_session(jax_side, save, k, dump, expand):
     return sess
 
 
-def _read(path) -> dict:
-    with h5py.File(path) as f:
+def _read(path, reader=h5py) -> dict:
+    """A dump's arrays through h5py, or through the port's HDF5 layer
+    (``reader=h5``)."""
+    with reader.File(path, "r") as f:
         return {gid: {ds: np.asarray(f[gid][ds]) for ds in f[gid]} for gid in f}
+
+
+def _same_reads(path) -> dict:
+    """The dump read through the port's layer, bit for bit h5py's read."""
+    got, ref = _read(path, h5), _read(path)
+    assert sorted(got) == sorted(ref)
+    for gid in ref:
+        assert sorted(got[gid]) == sorted(ref[gid])
+        for ds, want in ref[gid].items():
+            assert got[gid][ds].dtype == want.dtype and got[gid][ds].shape == want.shape
+            assert got[gid][ds].tobytes() == want.tobytes(), f"{gid}/{ds}"
+    return got
 
 
 def _assert_dumps_match(got, ref, out_atol):
@@ -168,6 +183,9 @@ def test_run_matches_jax_and_the_group_size(dump, expand, tmp_path):
     ref = _read(tmp_path / "jax" / "testOutput.h5")
     got = _read(tmp_path / "k3" / "testOutput.h5")
     _assert_dumps_match(got, ref, out_atol=1e-6)
+    # the same files through the port's HDF5 layer (JAX's written by h5py)
+    _assert_dumps_match(_same_reads(tmp_path / "k3" / "testOutput.h5"),
+                        _same_reads(tmp_path / "jax" / "testOutput.h5"), out_atol=1e-6)
     assert ("output" in next(iter(got.values()))) == bool(dump)
     k1 = _read(tmp_path / "k1" / "testOutput.h5")
     assert sorted(k1) == sorted(got)
@@ -224,7 +242,9 @@ def slice_runs(tmp_path_factory):
     to their inputs as the serving tests calibrate them, in a checkpoint
     written by each package; both packages' mains on them at
     -saliencyDumpStack 1 and 0 (-saliencyBatch 2, one group). Returns
-    {(package, dump, writer): h5 contents} and the port's outputs."""
+    {(package, dump, writer): h5 contents read by h5py, and under
+    (package, dump, writer, h5) the same read through the port's HDF5
+    layer} and the port's outputs."""
     tmp = tmp_path_factory.mktemp("saliency")
     mp = pytest.MonkeyPatch()
     try:
@@ -251,10 +271,12 @@ def slice_runs(tmp_path_factory):
                     sess = tmain.main(flags + ["-trainedNet", path, "-cache", str(cache),
                                                "-device", "cpu"])
                 runs["port", dump, writer] = _read(f"{sess.opt.save}/testOutput.h5")
+                runs["port", dump, writer, h5] = _same_reads(f"{sess.opt.save}/testOutput.h5")
                 outs[dump, writer] = buf.getvalue()
             cache = tmp / f"jax-{dump}"
             jmain.main(flags + ["-trainedNet", ckpts["jax"], "-cache", str(cache)])
             runs["jax", dump, "jax"] = _read(next(cache.rglob("testOutput.h5")))
+            runs["jax", dump, "jax", h5] = _same_reads(next(cache.rglob("testOutput.h5")))
         return runs, outs
     finally:
         mp.undo()
@@ -272,6 +294,9 @@ def test_slice_matches_jax(slice_runs):
         ref = runs["jax", dump, "jax"]
         scale = max(np.abs(a["output"]).max() for a in runs["jax", 1, "jax"].values())
         _assert_dumps_match(runs["port", dump, "port"], ref, out_atol=1e-5 * scale)
+        # through the port's HDF5 layer: its dump against JAX's (h5py's)
+        _assert_dumps_match(runs["port", dump, "port", h5], runs["jax", dump, "jax", h5],
+                            out_atol=1e-5 * scale)
     got = runs["port", 1, "port"]
     for gid, arrays in got.items():
         out = arrays["output"]
