@@ -163,12 +163,15 @@ Phases:
              give it, recorded on the CPU and held to the pins
              (I8_PER_FORWARD, I8_ROUTES): through the design
              cuda_conv_i8._route picks (sm90: TMA + wgmma s8 for the 3x3/s1
-             parts with channels and offsets multiples of 16; simple: the
-             rest) and, at the sm90 shapes, through the simple design too;
-             each epilogue variant of I8_VARIANTS (int32 sums; f32 and bf16
-             dequants with the scale read on the card; with the part sum,
-             the bias and the ReLU) equal bit for bit, full-range int8
-             operands, the batch-1 cases also with x off a 16-byte boundary;
+             parts with channels and offsets multiples of 16; stem: the
+             stems on 3 and 1 channels; 1x1: the 1x1 parts on multiples of
+             16 channels; simple: the rest) and, where that is not simple,
+             through the simple design too; each epilogue variant of
+             I8_VARIANTS (int32 sums; f32 and bf16 dequants with the scale
+             read on the card; with the part sum, the bias and the ReLU)
+             equal bit for bit, full-range int8 operands, the batch-1
+             cases also with x off a 16-byte boundary (the design that x
+             takes there: stem still, 1x1 and sm90 parts simple);
              then the activation quantizer's group design (one launch a
              multigrid layer) vs quant_i8_group_plain, int8 values and
              scales bit for bit, static and dynamic scales, at every member
@@ -203,11 +206,14 @@ Phases:
              counts a kernel a torch op launched twice)
              and, for the int8 forward at 128, its busy time by kernel
              name (top 10) and its kernels per forward; conv_i8 at each
-             shape of the batch-128 int8 forward through its design and,
-             at the sm90 shapes, the simple design, beside its plain
-             version and, a different function, the bf16 conv3x3 kernel
-             (3x3/s1 shapes) and cuDNN's bf16 conv; its bound at the int8
-             peak; quant_i8 at each quantizer group of that forward (a
+             shape of the batch-128 int8 forward through its design and
+             the simple design, beside its plain version and, a different
+             function, the bf16 conv3x3 kernel (3x3/s1 shapes) and cuDNN's
+             bf16 conv; its bound at the int8 peak, split by design (sm90,
+             stem); the stem and 1x1 parts of cifar/prnmg and unmg at their
+             serving batches, in turns: the design, simple, plain, cuDNN's
+             bf16 conv and, at the 1x1 parts with int32 out,
+             torch._int_mm; quant_i8 at each quantizer group of that forward (a
              layer's parts) through the group design beside the per-part
              design's launches of the same members, its plain torch ops
              and, a different function on f32 copies,
@@ -292,7 +298,7 @@ Phases:
              recorded R-MG-34 int8 call whose height spatial_split
              splits (3x3/s1 slabs with pads (1, 0), (0, 1), (0, 0)
              through sm90 and simple; the 7x7/2 stems' (3, 0), (0, 2),
-             (0, 0) through simple), each launch bit for bit the whole
+             (0, 0) through stem and simple), each launch bit for bit the whole
              image's at its rows, the whole image's (pad, pad) launches
              bit for bit the plain version; then R-MG-34 served under
              int8 as phase 24 builds it (Server, I8_CALIB batches), at
@@ -2413,15 +2419,20 @@ I8_PER_FORWARD = {"ilsvrc/rnmg": launch_counts(0, 0, 46, 0, 155, 33),
                   "mnist-cluttered/unmg": launch_counts(0, 0, 16, 0, 40, 8)}
 # conv_i8's designs per int8 forward (cuda_conv_i8._route): sm90 takes
 # the 3x3/s1 parts whose channel counts and weight offsets are multiples
-# of 16; simple the 7x7/2 and 3x3 stems on 3 and 1 channels, the 1x1
-# shortcuts and heads
-I8_ROUTES = {"ilsvrc/rnmg": {"sm90": 152, "simple": 3},
-             "cifar/prnmg": {"sm90": 66, "simple": 11},
-             "mnist-cluttered/unmg": {"sm90": 30, "simple": 10}}
+# of 16; stem the 7x7/2 and 3x3 stems on 3 and 1 channels; 1x1 the 1x1
+# shortcuts and heads on multiples of 16 channels (cifar/prnmg's); simple
+# the rest (unmg's 1x1 heads on 10 channels)
+I8_ROUTES = {"ilsvrc/rnmg": {"sm90": 152, "stem": 3, "1x1": 0, "simple": 0},
+             "cifar/prnmg": {"sm90": 66, "stem": 3, "1x1": 8, "simple": 0},
+             "mnist-cluttered/unmg": {"sm90": 30, "stem": 3, "1x1": 0, "simple": 7}}
 # calibration batches of the static scales (Server's, CALIB_BATCH images each)
 I8_CALIB = 2
 KERNELS_I8 = {"conv_i8": dict(route="cuda", source="mgtpu_torch/csrc/conv_i8.cu",
-                              replaces="mgtpu/ops/quant.py:139"),
+                              replaces="mgtpu/ops/quant.py:139",
+                              design_sources={"sm90": "mgtpu_torch/csrc/conv_i8.cu",
+                                              "stem": "mgtpu_torch/csrc/conv_i8_stem.cu",
+                                              "1x1": "mgtpu_torch/csrc/conv_i8_1x1.cu",
+                                              "simple": "mgtpu_torch/csrc/conv_i8.cu"}),
               "quant_i8": dict(route="cuda", source="mgtpu_torch/csrc/quant_i8.cu",
                                replaces="mgtpu/ops/quant.py:60")}
 # the H100 SXM's published dense int8 tensor-core peak (NVIDIA's data sheet)
@@ -2454,7 +2465,7 @@ def i8_routes(shapes) -> dict:
     weight a slice of its conv's weight, with its packed copy; on the
     card the quantized parts and the buffers are 16-byte aligned as
     these are)."""
-    got = {"sm90": 0, "simple": 0}
+    got = dict.fromkeys(cuda_conv_i8.DESIGNS, 0)
     for key, count in shapes.items():
         h, w, ci, co, k, stride, pad, ci_total, ofs = key[:9]
         x8 = torch.empty((1, h, w, ci), dtype=torch.int8)
@@ -2653,9 +2664,10 @@ def i8_operands(key, batch, seed):
 
 def check_conv_i8(cases, max_err) -> Counter:
     """23: conv_i8 vs conv_i8_plain at each (recorded shape, batch),
-    through the design _route picks and, where that is sm90, through the
-    simple design too; the batch-1 cases also with x off a 16-byte
-    boundary (the simple design's byte loads). Each epilogue variant of
+    through the design _route picks and, where that is not simple,
+    through the simple design too; the batch-1 cases also with x off a
+    16-byte boundary (the design _route picks for it: stem takes any
+    offset; sm90 and 1x1 parts go to simple). Each epilogue variant of
     I8_VARIANTS: the int32 sums, and the f32 and bf16 epilogues equal the
     plain version's bit for bit (the plain conv in float64 on the card is
     exact; the epilogue rounds as torch does). Returns the cases by
@@ -2671,11 +2683,12 @@ def check_conv_i8(cases, max_err) -> Counter:
         route = cuda_conv_i8._route(x8, w8, stride, pad, wk)
         runs = [(route, x8, lambda xi, **kw: cuda_conv_i8.conv_i8(xi, w8, stride, pad, wk=wk,
                                                                   **kw))]
-        if route == "sm90":
+        if route != "simple":
             runs.append(("simple", x8, lambda xi, **kw: cuda_conv_i8._simple_forward(
                 xi, w8, stride, pad, **kw)))
         if batch == 1:
-            runs.append(("simple", misaligned(x8), runs[0][2]))
+            xm = misaligned(x8)
+            runs.append((cuda_conv_i8._route(xm, w8, stride, pad, wk), xm, runs[0][2]))
         for design, xi, fn in runs:
             for dt, ops in I8_VARIANTS:
                 kw = {} if dt == torch.int32 else {"v": v, "dtype": dt, "sx": sx}
@@ -2886,8 +2899,8 @@ def time_i8(name, shapes, qshapes):
     call of each, and for the int8 static forward at 128 its kernels by
     name (top 10) and count; then conv_i8 at each shape of the int8
     forward at batch 128 (bf16 out, the epilogue operands its launch
-    there takes) through its design and, at the sm90 shapes, through the
-    simple design, beside its plain version and, as a different function
+    there takes) through its design and, where that is not simple,
+    through the simple design, beside its plain version and, as a different function
     (bf16 operands), the conv3x3 kernel at the 3x3/s1 shapes and cuDNN's
     bf16 conv at every shape; then quant_i8 at each of the forward's
     quantizer groups (static scales; bf16 parts, f32 stem images): the
@@ -2931,7 +2944,7 @@ def time_i8(name, shapes, qshapes):
                   f"{len(by_name)} names): " + "; ".join(
                       f"{k[:60]} x{n} {t:.3f} ms" for k, (n, t) in top))
     del server8, dynamic, server16, images
-    ms = dict.fromkeys(("kernel", "sm90", "simple", "simple_all", "plain", "conv3x3", "cudnn",
+    ms = dict.fromkeys(("kernel", *cuda_conv_i8.DESIGNS, "simple_all", "plain", "conv3x3", "cudnn",
                         "quant_i8", "quant_part", "quant_plain", "quantize_per_tensor",
                         "host_quant_i8", "host_quant_part"), 0.0)
     for i, (key, count) in enumerate(sorted(shapes.items())):
@@ -2953,7 +2966,7 @@ def time_i8(name, shapes, qshapes):
                     x8, w8, stride, pad, v, torch.bfloat16, sx=sx,
                     y_in=None if y_in is None else y_in.clone(), bias=bias),
                 "cudnn": lambda: F.conv2d(nchw(xb), w_lib, stride=stride, padding=pad)}
-        if route == "sm90":
+        if route != "simple":
             kfns["simple_all"] = lambda: cuda_conv_i8._simple_forward(x8, w8, stride, pad, **epi)
         if (k, stride, pad) == (3, 1, 1):
             kfns["conv3x3"] = lambda: conv3x3(xb, wb, b, with_stats=False)
@@ -3003,42 +3016,94 @@ def time_i8(name, shapes, qshapes):
     return ms
 
 
-def time_i8_1x1(i8_rec) -> dict:
-    """26: the int8 serving forwards' 1x1/s1 launches are plain s8 x s8 ->
-    s32 GEMMs, which torch._int_mm computes in one call (R-MG-34 has none).
-    At each such shape that _int_mm takes (more than 16 rows; K and N
-    multiples of 8), conv_i8 with its int32 out beside _int_mm, checked
-    equal once. Returns {net: {launches covered, kernel ms, _int_mm ms
-    (per forward), launches not covered}} for the nets that have them."""
+def i8_bounds_by_design(shapes, batch) -> dict:
+    """{design: (launches, operations, bytes, bound ms, bound_by)} of the
+    recorded conv_i8 calls ``shapes`` at ``batch``, split by the design
+    _route gives each (i8_bounds of each part)."""
+    parts = defaultdict(Counter)
+    for key, count in shapes.items():
+        design = next(d for d, n in i8_routes({key: 1}).items() if n)
+        parts[design][key] = count
+    return {d: (sum(c.values()), *i8_bounds(c, batch)) for d, c in parts.items()}
+
+
+def time_i8_parts(i8_rec) -> dict:
+    """26: conv_i8 at every stem and 1x1 part of cifar/prnmg's and unmg's
+    int8 forwards (those _route sends to the stem and 1x1 designs;
+    R-MG-34's three stems are time_i8's), at each net's serving batch,
+    bf16 out with the epilogue operands its launch takes there: the design, the simple design, the plain version and, a
+    different function (bf16 operands), cuDNN's bf16 conv, in turns on
+    the card's clock (device_ms); at the 1x1 parts also the int32 sums
+    through the design and simple beside torch._int_mm, which computes
+    the same function (M > 16, K and N multiples of 8), checked equal
+    once. Returns {net: {design: {launches, ms, simple_ms, plain_ms,
+    cudnn_ms, bound_ms, bound_by, and for 1x1: int32_ms,
+    int32_simple_ms, library_ms (torch._int_mm)}}}, per forward."""
     out = {}
     for net, (_, batches) in I8_SERVE.items():
-        batch, shapes = batches[-1], i8_rec[net]["conv_i8"]
-        ones = {key: n for key, n in sorted(shapes.items()) if tuple(key[4:7]) == (1, 1, 0)}
-        if not ones:
+        if net == "ilsvrc/rnmg":
             continue
-        res = {"launches": 0, "ms": 0.0, "library_ms": 0.0, "not_covered": 0}
-        for i, (key, count) in enumerate(ones.items()):
-            h, w, ci, co = key[:4]
-            if batch * h * w <= 16 or ci % 8 or co % 8:
-                res["not_covered"] += count
+        batch = batches[-1]
+        res = {}
+        for i, (key, count) in enumerate(sorted(i8_rec[net]["conv_i8"].items())):
+            h, w, ci, co, k, stride, pad = key[:7]
+            x8, w8, wk, v, sx = i8_operands(key, batch, seed=950 + i)
+            route = cuda_conv_i8._route(x8, w8, stride, pad, wk)
+            if route not in ("stem", "1x1"):
                 continue
-            x8, w8, _, _, _ = i8_operands(key, batch, seed=950 + i)
-            x2, w2 = x8.view(-1, ci), w8.reshape(ci, co)
-            check(torch.equal(torch._int_mm(x2, w2).view(batch, h, w, co),
-                              cuda_conv_i8.conv_i8(x8, w8, 1, 0)),
-                  f"{net}: torch._int_mm and conv_i8 disagree at the 1x1 shape {key}")
-            (t, sp), (tl, spl) = device_ms([lambda: cuda_conv_i8.conv_i8(x8, w8, 1, 0),
-                                            lambda: torch._int_mm(x2, w2)], windows=3)
-            res["launches"] += count
-            res["ms"] += count * t
-            res["library_ms"] += count * tl
-            phase("i8 times", f"{net} conv_i8 1x1 {batch}x{h}x{w}x{ci}->{co} (x{count}/forward), "
-                  f"int32 out: kernel {t:.4f} ms (spread {sp:.1%}), torch._int_mm {tl:.4f} ms "
-                  f"(spread {spl:.1%})")
-        phase("i8 times", f"{net} conv_i8 at its 1x1/s1 launches per batch-{batch} forward: "
-              f"{res['launches']} that _int_mm takes, kernel {res['ms']:.4f} ms, torch._int_mm "
-              f"{res['library_ms']:.4f} ms; {res['not_covered']} it refuses (N or K not a "
-              f"multiple of 8)")
+            oh, ow = cuda_conv_i8.out_size(h, k, stride, pad), cuda_conv_i8.out_size(w, k, stride, pad)
+            y_in = (torch.zeros((batch, oh, ow, co), dtype=torch.bfloat16, device="cuda")
+                    if key[9] else None)
+            bias = torch.zeros(co, device="cuda") if key[10] else None
+            epi = dict(v=v, dtype=torch.bfloat16, sx=sx, y_in=y_in, bias=bias)
+            xb = torch.randn((batch, h, w, ci), device="cuda").to(torch.bfloat16)
+            w_lib = (torch.randn((co, ci, k, k), device="cuda") / (k * ci ** 0.5)).to(
+                torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            fns = {"ms": lambda: cuda_conv_i8.conv_i8(x8, w8, stride, pad, wk=wk, **epi),
+                   "simple_ms": lambda: cuda_conv_i8._simple_forward(x8, w8, stride, pad, **epi),
+                   "plain_ms": lambda: cuda_conv_i8.conv_i8_plain(
+                       x8, w8, stride, pad, v, torch.bfloat16, sx=sx,
+                       y_in=None if y_in is None else y_in.clone(), bias=bias),
+                   "cudnn_ms": lambda: F.conv2d(nchw(xb), w_lib, stride=stride, padding=pad)}
+            if route == "1x1":
+                x2, w2 = x8.view(-1, ci), w8.reshape(ci, co)
+                check(torch.equal(torch._int_mm(x2, w2).view(batch, h, w, co),
+                                  cuda_conv_i8.conv_i8(x8, w8, 1, 0, wk=wk)),
+                      f"{net}: torch._int_mm and conv_i8 disagree at the 1x1 shape {key}")
+                fns.update({"int32_ms": lambda: cuda_conv_i8.conv_i8(x8, w8, 1, 0, wk=wk),
+                            "int32_simple_ms": lambda: cuda_conv_i8._simple_forward(x8, w8, 1, 0),
+                            "library_ms": lambda: torch._int_mm(x2, w2)})
+            times = dict(zip(fns, device_ms(list(fns.values()), windows=3)))
+            ops, nbytes = i8_work(key, batch)
+            bound = max(ops / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES) * 1e3
+            part = res.setdefault(route, Counter())
+            part["launches"] += count
+            part["bound_ms"] += count * bound
+            part["ops_ms"] += count * ops / PEAK_INT8_OPS * 1e3 * (ops / PEAK_INT8_OPS
+                                                                   > nbytes / PEAK_HBM_BYTES)
+            for kk, (t, _) in times.items():
+                part[kk] += count * t
+            phase("i8 times", f"{net} conv_i8 {route} {batch}x{h}x{w}x{ci}->{co} k{k}/s{stride}/"
+                  f"p{pad} (x{count}/forward; bound {bound:.4f} ms by "
+                  f"{'operations' if ops / PEAK_INT8_OPS > nbytes / PEAK_HBM_BYTES else 'bytes'}): "
+                  + ", ".join(f"{kk.removesuffix('_ms').replace('library', 'torch._int_mm')} "
+                              f"{t:.4f} ms (spread {sp:.1%})" for kk, (t, sp) in times.items()))
+        for route, part in res.items():
+            part = dict(part)
+            part["bound_by"] = ("operations" if part["bound_ms"] and 2 * part.pop("ops_ms")
+                                >= part["bound_ms"] else "bytes")
+            part.pop("ops_ms", None)
+            res[route] = part
+            phase("i8 times", f"{net} conv_i8 {route} per batch-{batch} forward "
+                  f"({part['launches']} launches): {part['ms']:.4f} ms, "
+                  f"{part['bound_ms'] / part['ms']:.0%} of its {part['bound_ms']:.4f} ms bound "
+                  f"(by {part['bound_by']}); simple {part['simple_ms']:.4f} ms, plain "
+                  f"{part['plain_ms']:.4f} ms, cuDNN bf16 (a different function) "
+                  f"{part['cudnn_ms']:.4f} ms" + (
+                      f"; int32 out: {route} {part['int32_ms']:.4f} ms, simple "
+                      f"{part['int32_simple_ms']:.4f} ms, torch._int_mm {part['library_ms']:.4f} "
+                      f"ms ({'met' if part['int32_ms'] <= part['library_ms'] else 'missed'}: "
+                      f"{route} at most torch._int_mm)" if route == "1x1" else ""))
         out[net] = res
     return out
 
@@ -4357,8 +4422,8 @@ def i8_axis_epilogue(key, batch, oh, ow, seed):
 def check_i8_halo(shapes, batch=CHECK_BATCH) -> tuple[int, Counter]:
     """32, the kernel: every recorded R-MG-34 int8 conv_i8 call that runs
     in halo mode under -spatial 2 (i8_split), at ``batch``: each slab of
-    I8_HALO_PADS through the design _route picks and, where that is
-    sm90, through simple too, bit for bit the whole image's launch (same
+    I8_HALO_PADS through the design _route picks and, where that is not
+    simple, through simple too, bit for bit the whole image's launch (same
     design) at its rows, in int32 and in the bf16 epilogue of its call;
     the whole image's (pad, pad) launches bit for bit the plain version;
     each slab's launch counted in kernels.PADDED. Returns (cases, cases by
@@ -4372,7 +4437,7 @@ def check_i8_halo(shapes, batch=CHECK_BATCH) -> tuple[int, Counter]:
         acc_plain = cuda_conv_i8.conv_i8_plain(x8, w8, s, p)
         route = cuda_conv_i8._route(x8, w8, s, p, wk)
         fns = {route: lambda x, **kw: cuda_conv_i8.conv_i8(x, w8, s, p, wk=wk, **kw)}
-        if route == "sm90":
+        if route != "simple":
             fns["simple"] = lambda x, **kw: cuda_conv_i8._simple_forward(x, w8, s, p, **kw)
         for design, fn in fns.items():
             epi = dict(v=v, dtype=torch.bfloat16, sx=sx, bias=bias)
@@ -4624,7 +4689,8 @@ def check_i8_axis(name, power, shapes) -> tuple[dict, dict]:
                 got = {k: n for k, n in rk["launches"].items() if n}
                 check(got == {k: n for k, n in want.items() if n},
                       f"-{mesh_name} rank {r} {mode}: launches {got}, expected {want}")
-                want_routes = {f"conv_i8/{d}": n for d, n in I8_ROUTES["ilsvrc/rnmg"].items()}
+                want_routes = {f"conv_i8/{d}": n for d, n in I8_ROUTES["ilsvrc/rnmg"].items()
+                               if n}
                 got_routes = {k: n for k, n in rk["routes"].items() if k.startswith("conv_i8")}
                 want_padded = padded_pin if n_model > 1 else {}
                 check(got_routes == want_routes and rk["padded"] == want_padded,
@@ -4912,7 +4978,7 @@ def main() -> None:
     phase("conv_i8", f"{sum(designs.values())} cases ({dict(designs)} by design) at "
           f"{len(cases)} shapes and batches (R-MG-34's int8 forward at batches 1 and 128, "
           f"cifar/prnmg's at 128, unmg's at 64; weight slices as the exchange passes them; each "
-          f"through its design and, where that is sm90, the simple design; the batch-1 ones "
+          f"through its design and, where that is not simple, the simple design; the batch-1 ones "
           f"also with x off a 16-byte boundary; {len(I8_VARIANTS)} epilogue variants each): "
           f"int32 sums and f32 and bf16 epilogues equal the plain version bit for bit (max abs "
           f"err {max_err['conv_i8']:.3g})")
@@ -4937,6 +5003,7 @@ def main() -> None:
     rmg_i8 = i8_rec["ilsvrc/rnmg"]
     i8_ms = time_i8(name, rmg_i8["conv_i8"], rmg_i8["quant_i8"])
     i8_bound = i8_bounds(rmg_i8["conv_i8"], TIME_BATCH)
+    i8_split_bounds = i8_bounds_by_design(rmg_i8["conv_i8"], TIME_BATCH)
     q_bytes = sum(count * quant_bytes(keys, TIME_BATCH)
                   for keys, count in rmg_i8["quant_i8"].items())
     q_bound = q_bytes / PEAK_HBM_BYTES * 1e3
@@ -4944,10 +5011,11 @@ def main() -> None:
           f"{i8_bound[0] / 1e9:.1f} GOP, {i8_bound[1] / 1e6:.1f} MB, bound {i8_bound[2]:.4f} ms "
           f"(by {i8_bound[3]}; {PEAK_INT8_OPS / 1e12:.0f} TOP/s int8, "
           f"{PEAK_HBM_BYTES / 1e12:.2f} TB/s); kernel {i8_ms['kernel']:.3f} ms "
-          f"({i8_bound[2] / i8_ms['kernel']:.0%} of the bound: sm90 {i8_ms['sm90']:.3f} ms at "
-          f"{I8_ROUTES['ilsvrc/rnmg']['sm90']} launches, simple {i8_ms['simple']:.3f} ms at "
-          f"{I8_ROUTES['ilsvrc/rnmg']['simple']}; the simple design at all "
-          f"{i8_ms['simple_all']:.3f} ms), plain {i8_ms['plain']:.3f} ms, one PyTorch call none; "
+          f"({i8_bound[2] / i8_ms['kernel']:.0%} of the bound; by design: " + "; ".join(
+              f"{d} {i8_ms[d]:.3f} ms at {n} launches, bound {b_ms:.4f} ms by {by} "
+              f"({b_ms / i8_ms[d]:.0%})" for d, (n, _, _, b_ms, by) in i8_split_bounds.items())
+          + f"; the simple design at all {i8_ms['simple_all']:.3f} ms), plain "
+          f"{i8_ms['plain']:.3f} ms, one PyTorch call none; "
           f"a different function (bf16 operands) at the same shapes: the conv3x3 kernel at the "
           f"3x3/s1 ones {i8_ms['conv3x3']:.3f} ms, cuDNN bf16 at all {i8_ms['cudnn']:.3f} ms")
     qpt = i8_ms["quantize_per_tensor"]
@@ -4963,7 +5031,7 @@ def main() -> None:
           + ("not measured" if qpt is None else f"{qpt:.3f} ms")
           + f"; host time a forward: the group wrappers {i8_ms['host_quant_i8']:.3f} ms, the "
           f"per-part wrappers {i8_ms['host_quant_part']:.3f} ms")
-    i8_1x1 = time_i8_1x1(i8_rec)
+    i8_parts = time_i8_parts(i8_rec)
     phase("i8 times", f"phases 23-26 took {time.perf_counter() - t0:.1f} s")
 
     # 27 the saliency harness; 28 the train step's -remat
@@ -5044,9 +5112,11 @@ def main() -> None:
         + [{"name": "conv_i8", **KERNELS_I8["conv_i8"], "launches": i8_launches["conv_i8"],
             "max_abs_err": max_err["conv_i8"], "ms": i8_ms["kernel"], "plain_ms": i8_ms["plain"],
             "bound_ms": i8_bound[2], "bound_by": i8_bound[3], "library_ms": None,
-            "sm90_ms": i8_ms["sm90"], "simple_ms": i8_ms["simple"],
+            "designs": {d: {"launches_per_forward": n, "ms": i8_ms[d], "bound_ms": b_ms,
+                            "bound_by": by}
+                        for d, (n, _, _, b_ms, by) in i8_split_bounds.items()},
             "simple_design_at_all_ms": i8_ms["simple_all"], "bf16_conv3x3_ms": i8_ms["conv3x3"],
-            "bf16_cudnn_ms": i8_ms["cudnn"], "int32_1x1": i8_1x1,
+            "bf16_cudnn_ms": i8_ms["cudnn"], "stem_and_1x1_parts": i8_parts,
             "halo_mode": {key: i8_halo[key] for key in (
                 "launches", "ms", "plain_ms", "whole_ms", "max_abs_err", "bound_ms",
                 "bound_by")}},

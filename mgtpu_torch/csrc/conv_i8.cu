@@ -20,10 +20,11 @@
 //
 // Bound on this card: the zoo's 3x3 parts are GEMMs with K = 9*Ci of 144
 // to 4608 and enough reuse to be bound by arithmetic on the int8 tensor
-// cores (1,979 TOP/s dense); the 7x7/2 stems on 3 channels (K = 147) and
-// the narrow parts move few bytes and are bound by latency.
+// cores (1,979 TOP/s dense); the 7x7/2 stems on 3 channels (K = 147)
+// write far more than they compute and are bound by bytes; the 1x1 parts
+// at M = 128 move few bytes and are bound by latency.
 //
-// Two designs of one implicit GEMM, M = N*OH*OW output pixels, N = Co.
+// Four designs of one implicit GEMM, M = N*OH*OW output pixels, N = Co.
 // Which one a launch takes is a fixed function of shape and alignment,
 // decided by the wrapper (mgtpu_torch/ops/cuda_conv_i8.py::_route); each
 // refuses what it does not take, and nothing falls back:
@@ -31,11 +32,18 @@
 //          3x3/s1/p1 with Ci, Co, the weight's total Ci and its slice
 //          offset multiples of 16 and 16-byte aligned operands: 152 of
 //          R-MG-34's 155 int8 conv parts;
+//   stem   (mg_conv_i8_stem, conv_i8_stem.cu): Ci < 16 with k * k * Ci
+//          <= 160 and Co 16, 32 or 64, x at any byte offset: the 7x7/2
+//          and 3x3 stems on 3 and 1 channels;
+//   1x1    (mg_conv_i8_1x1, conv_i8_1x1.cu): 1x1/s1/p0 with Ci, Co and
+//          the packed weight's row and offset multiples of 16, x 16-byte
+//          aligned: cifar/prnmg's shortcuts and heads;
 //   simple (mg_conv_i8): the first design, with a packed K walk, for
-//          everything else (the stems, 1x1 heads and shortcuts, Ci of 1,
-//          3 and 24, Co = 10).
-// The s32 sums are exact, so neither design's result depends on the order
-// of its K walk: both equal the plain version bit for bit.
+//          everything else (unmg's 1x1 heads on 10 channels; any shape
+//          through cuda_conv_i8._simple_forward, for comparisons).
+// The s32 sums are exact, so no design's result depends on the order of
+// its K walk: all equal the plain version bit for bit. The epilogue's
+// rounding, finish(), and what the designs share are in conv_i8.cuh.
 //
 // The simple design: K is walked as the packed slots tap * Ci + c of all
 // k*k taps, in steps of 32, on mma.sync m16n8k32 s8 x s8 -> s32. With
@@ -58,53 +66,12 @@
 
 #include <cstdint>
 
+#include "conv_i8.cuh"
 #include "sm90_async.cuh"
 
 namespace {
 
-enum Out { OUT_S32 = 0, OUT_F32 = 1, OUT_BF16 = 2 };
-
-// The epilogue's operands: sx (one f32 in device memory: the activation
-// scale) and scale (Co,) f32 give the dequant vector sx * scale[co];
-// y_in (the running part sum, in the output type; may be y itself) and
-// bias (Co,) f32 may be null; relu is 0 or 1
-struct Epi {
-  const float* sx;
-  const float* scale;
-  const void* y_in;
-  const float* bias;
-  int relu;
-};
-
-bool aligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// One output element from its int32 sum, its dequant factor v = sx *
-// scale[co], the running part sum prev and the bias b (f32, unrounded),
-// rounded as torch computes the int8 layers' sequence
-// (mgtpu_torch/nn.py::_int8_part, _int8_parts):
-//   yy = (acc.float() * (sx * scale)).to(dtype)   one rounded product each,
-//                                                  then one rounding to dtype
-//   y  = y_in + yy                                 an add in f32, rounded to dtype
-//   y  = y + bias.to(dtype)                        the bias rounded first
-//   y  = relu(y)                                   exact; NaN stays NaN
-__device__ __forceinline__ float finish(int acc, float v, float prev, float b, bool bf,
-                                        bool has_in, bool has_bias, int relu) {
-  float t = __fmul_rn(__int2float_rn(acc), v);
-  if (bf) t = bf16_round(t);
-  if (has_in) {
-    t = __fadd_rn(prev, t);
-    if (bf) t = bf16_round(t);
-  }
-  if (has_bias) {
-    t = __fadd_rn(t, bf ? bf16_round(b) : b);
-    if (bf) t = bf16_round(t);
-  }
-  return relu && t < 0.f ? 0.f : t;
-}
+using namespace mg_i8;  // Epi, finish, bad_args, mma.sync and ldmatrix
 
 // finish() with its operands loaded here, one element at a time
 __device__ __forceinline__ float epilogue(int acc, float sx, const Epi& e, int out,
@@ -160,20 +127,6 @@ __device__ __forceinline__ void store_pair(void* y, const Epi& e, float sx, int 
   }
 }
 
-// What both designs refuse: a bad shape, an epilogue operand missing
-// for a dequantized output or given for an int32 one, y or y_in not
-// aligned for the pair stores
-bool bad_args(const Epi& e, const void* y, int n, int h, int wd, int ci, int co, int k, int s,
-              int p, int pad_top, int pad_bottom, int out_kind) {
-  const bool deq = out_kind == OUT_F32 || out_kind == OUT_BF16;
-  return n <= 0 || h <= 0 || wd <= 0 || ci <= 0 || co <= 0 || k <= 0 || s <= 0 || p < 0 ||
-         pad_top < 0 || pad_top > p || pad_bottom < 0 || pad_bottom > p ||
-         h + pad_top + pad_bottom < k || wd + 2 * p < k || (!deq && out_kind != OUT_S32) ||
-         (deq && (e.sx == nullptr || e.scale == nullptr)) ||
-         (!deq && (e.y_in != nullptr || e.bias != nullptr || e.relu)) ||
-         (e.relu != 0 && e.relu != 1) || !aligned(y, 8) || !aligned(e.y_in, 8);
-}
-
 namespace simple {
 
 constexpr int BM = 128;      // output pixels per block
@@ -188,22 +141,6 @@ struct Shape {
   int n, h, w, ci, co, k, s, p, pad_top, oh, ow;
   long long tap_stride;
 };
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // VEC: x is read 16 bytes a thread (Ci % 16 == 0, x 16-byte aligned)
 template <bool VEC>
@@ -806,7 +743,8 @@ int launch(const void* x, const void* w, const Epi& e, void* y, int out, int n, 
 
 }  // namespace
 
-// Both entry points take the same arguments. x (n, h, wd, ci) int8 NHWC,
+// Both entry points take the same arguments (as do mg_conv_i8_1x1, and
+// mg_conv_i8_stem with its plan after them). x (n, h, wd, ci) int8 NHWC,
 // contiguous; y (n, oh, ow, co) contiguous, oh = (h + pad_top +
 // pad_bottom - k) / s + 1, ow = (wd + 2p - k) / s + 1 (pad_top and
 // pad_bottom 0..p; p, p the plain conv):

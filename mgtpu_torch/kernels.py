@@ -46,14 +46,17 @@ LAUNCHES: dict[str, int] = {"conv3x3": 0, "conv3x3_bn_relu_in": 0, "maxpool2": 0
 # port's path, mgtpu_torch/ops/cuda_conv.py::_route; "tile" only through
 # cuda_conv._tile_forward),
 # the pool forward's (mgtpu_torch/ops/cuda_pool.py::_route), the int8
-# conv's (mgtpu_torch/ops/cuda_conv_i8.py::_route), the pool
+# conv's ("sm90", "stem", "1x1" and "simple",
+# mgtpu_torch/ops/cuda_conv_i8.py::_route), the pool
 # backward's ("group" on the port's path; "simple" only through
 # cuda_pool._simple_backward) and the activation quantizer's ("group" on
 # the port's path; "part", one launch a part, only through
 # quant._part_forward)
+_I8_DESIGNS = ("sm90", "stem", "1x1", "simple")  # cuda_conv_i8.DESIGNS
 ROUTES: dict[tuple[str, str], int] = {
     **{(k, r): 0 for k in ("conv3x3", "conv3x3_bn_relu_in") for r in ("sm90", "window", "tile")},
-    **{(k, r): 0 for k in ("maxpool2", "conv_i8") for r in ("sm90", "simple")},
+    **{("maxpool2", r): 0 for r in ("sm90", "simple")},
+    **{("conv_i8", r): 0 for r in _I8_DESIGNS},
     **{("maxpool2_bwd", r): 0 for r in ("group", "simple")},
     **{("quant_i8", r): 0 for r in ("group", "part")}}
 
@@ -62,7 +65,7 @@ ROUTES: dict[tuple[str, str], int] = {
 # reset_launches(); each is also counted in LAUNCHES and ROUTES
 PADDED: dict[tuple[str, str], int] = {
     **{(k, r): 0 for k in ("conv3x3", "conv3x3_bn_relu_in") for r in ("sm90", "window", "tile")},
-    **{("conv_i8", r): 0 for r in ("sm90", "simple")}}
+    **{("conv_i8", r): 0 for r in _I8_DESIGNS}}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -98,9 +101,15 @@ _SIGNATURES = {
     # w_tap_stride, out_kind, relu, pad_top, pad_bottom, stream
     "mg_conv_i8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L, _I, _I, _I, _I,
                    _P),
-    # the sm90 design: the same arguments (w the packed K-major weight)
+    # the sm90 and 1x1 designs: the same arguments (w the packed K-major weight)
     "mg_conv_i8_sm90": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L, _I, _I,
                         _I, _I, _P),
+    "mg_conv_i8_1x1": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L, _I, _I,
+                       _I, _I, _P),
+    # the stem design: mg_conv_i8's arguments, then the plan (a
+    # cuda_conv_i8._StemPlan) and its size
+    "mg_conv_i8_stem": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L, _I, _I,
+                        _I, _I, _P, _I, _P),
     # x, sx, absmax, sx_out, y, n, h, w, c, oh, ow, up, is_bf16, stream
     "mg_quant_i8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # x, absmax, n, is_bf16, stream

@@ -12,11 +12,21 @@ fusion: the int32 sums, or in f32 or bf16
     y = relu?([y_in +] cast(float(acc) * (sx * v)) [+ cast(bias)])
 
 each step rounded as torch rounds it (the plain version is that torch
-sequence). Two designs, ``sm90`` (TMA + wgmma s8, 3x3/s1/p1 parts with
-channel counts and offsets multiples of 16, reading the weight from its
-K-major copy, :func:`pack_weight`) and ``simple`` (everything else, from
-the HWIO weight); :func:`_route` picks one from shape and alignment
-alone, and counts in ``kernels.ROUTES[("conv_i8", design)]``.
+sequence). Four designs; :func:`_route` picks one from shape and
+alignment alone, and counts in ``kernels.ROUTES[("conv_i8", design)]``:
+
+- ``sm90`` (`csrc/conv_i8.cu`; TMA + wgmma s8): 3x3/s1/p1 parts with
+  channel counts and offsets multiples of 16, reading the weight from its
+  K-major copy (:func:`pack_weight`);
+- ``stem`` (`csrc/conv_i8_stem.cu`): Ci < 16 with k * k * Ci <= 160 and
+  Co of 16, 32 or 64 (the 7x7/2 and 3x3 stems on 3 and 1 channels), x at
+  any byte offset, the tile's input rows staged in shared memory by the
+  plan of :func:`_stem_plan`;
+- ``1x1`` (`csrc/conv_i8_1x1.cu`): 1x1/s1/p0 parts with Ci, Co and the
+  packed weight's row and offset multiples of 16 and x on a 16-byte
+  boundary, a GEMM of the pixels by the packed weight;
+- ``simple`` (`csrc/conv_i8.cu`, the first design, from the HWIO weight):
+  everything else (the 1x1 heads on 10 channels).
 
 Per-side H padding (``pad_top``, ``pad_bottom``, each 0..``pad``; None
 is ``pad``): an H-slab under -spatial carries its neighbours' rows
@@ -33,7 +43,9 @@ part sum.
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +55,10 @@ from mgtpu_torch.ops.resample import nchw, nhwc
 
 # output dtype -> the kernel's out_kind
 _OUT_KINDS = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
+# design -> its C entry point
+_ENTRIES = {"sm90": "mg_conv_i8_sm90", "stem": "mg_conv_i8_stem", "1x1": "mg_conv_i8_1x1",
+            "simple": "mg_conv_i8"}
+DESIGNS = tuple(_ENTRIES)
 
 
 def out_size(n: int, k: int, stride: int, pad: int, pad_end: int | None = None) -> int:
@@ -115,19 +131,105 @@ def epilogue_plain(acc, v, dtype, *, sx=None, y_in=None, bias=None, relu=False):
     return y.relu_() if relu else y
 
 
+# the stem design's limits: Ci below 16, at most STEM_SLOTS taps x
+# channels, Co one of STEM_CO (the channel tile), a plan within a block's
+# shared memory and 16-bit patch offsets
+STEM_SLOTS = 160
+STEM_CO = (16, 32, 64)
+STEM_SMEM = 227 * 1024
+_STEM_TILE = 128  # output pixels a tile
+_STEM_STEPS = 7   # k32 steps at most: k * round_up(k * Ci, 4) <= 160 + 3k, k <= 12
+
+
+class _StemPlan(ctypes.Structure):
+    """conv_i8_stem.cu StemPlan, field for field"""
+    _fields_ = [*((f, ctypes.c_int) for f in ("run", "steps", "lm", "rm", "pitch", "lead",
+                                              "rows", "patch_bytes", "smem")),
+                ("off", ctypes.c_uint16 * (_STEM_STEPS * 4 * 2))]
+
+
+@functools.cache
+def _stem_plan(w: int, ci: int, co: int, k: int, stride: int, pad: int, es: int) -> _StemPlan:
+    """The stem design's plan of a k x k/``stride``/``pad`` conv of a
+    W = ``w`` wide map of ``ci`` -> ``co`` channels, ``es`` bytes an output
+    element (the kernel recomputes it and refuses one that differs):
+
+    - K: slot kh * run + kw * Ci + c, ``run`` = k * Ci rounded up to 4
+      (weight 0 past k * Ci), ``steps`` k32 steps;
+    - a tile is 128 output pixels in (oh, ow) order within one image; its
+      patch holds the whole input rows they read, ``rows`` at most
+      (tiles start at multiples of gcd(128, OW) within a row);
+    - ``lm`` and ``rm``: the bytes left and right of a row's W * Ci data
+      that taps read (the conv's zero padding), zeroed in the patch;
+    - ``pitch``: W * Ci plus a multiple of 16 that holds both margins and
+      16 bytes of each side's copy (aligned down and up to 16 bytes). As
+      pitch = W * Ci mod 16, every row of a tile lands at the same offset
+      ``lead`` + (address of its first row) % 16, with ``lead`` = ``lm``
+      rounded up to 16, whatever x's byte offset;
+    - ``off`` [step][t][h]: where slot group q = 8 step + 4h + t (slots
+      4q .. 4q + 3, contiguous in input row kh = 4q // run) lies past a
+      pixel's base: kh * pitch + 4q - kh * run; 0 past the k rows (weight
+      0); lane t of a warp loads groups (step, t, 0) and (step, t, 1);
+    - ``patch_bytes`` (one of two buffers) and the block's ``smem``: the
+      two patches, the staged output tile (128 rows of Co * es + 16
+      bytes), the weight (Co x 32 * steps bytes), the dequant
+      factors and biases, four mbarriers."""
+    ow = out_size(w, k, stride, pad)
+    row = w * ci
+    plan = _StemPlan()
+    plan.run = 4 * -(-k * ci // 4)
+    plan.steps = -(-k * plan.run // 32)
+    plan.lm = pad * ci
+    plan.rm = ci * max(0, (ow - 1) * stride - pad + k - w)
+    l16, r16 = max(plan.lm, 16), max(plan.rm, 16)
+    plan.pitch = row + 16 * -(-(l16 + r16) // 16)
+    plan.lead = 16 * -(-plan.lm // 16)
+    g = math.gcd(_STEM_TILE, ow)
+    plan.rows = ((ow - g + _STEM_TILE - 1) // ow) * stride + k
+    plan.patch_bytes = 16 * -(-((plan.rows - 1) * plan.pitch + plan.lead + 15 + row + r16) // 16)
+    plan.smem = (2 * plan.patch_bytes + _STEM_TILE * (co * es + 16) + co * 32 * plan.steps
+                 + 8 * co + 32)
+    for st in range(plan.steps):
+        for t in range(4):
+            for h in range(2):
+                q = 8 * st + 4 * h + t
+                kh = 4 * q // plan.run
+                if kh < k:
+                    plan.off[(st * 4 + t) * 2 + h] = kh * plan.pitch + 4 * q - kh * plan.run
+    return plan
+
+
+def _stem_takes(w: int, ci: int, co: int, k: int, stride: int, pad: int) -> bool:
+    """Whether the stem design takes the shape: Ci < 16, k * k * Ci <=
+    STEM_SLOTS, Co in STEM_CO, the plan (f32 output: the larger) within
+    STEM_SMEM and its offsets within 16 bits."""
+    if not (ci < 16 and k * k * ci <= STEM_SLOTS and co in STEM_CO):
+        return False
+    plan = _stem_plan(w, ci, co, k, stride, pad, 4)
+    return plan.smem <= STEM_SMEM and (k - 1) * plan.pitch + plan.run <= 0xFFFF
+
+
 def _route(x8, w8, stride: int, pad: int, wk=None) -> str:
-    """The design a CUDA launch of these operands takes: "sm90" (TMA and
-    wgmma) for a 3x3/s1/p1 conv with Ci and Co multiples of 16, the
-    K-major weight's row (``wk``'s Ci total, or Ci where no ``wk`` is
-    given and the slice is packed on its own) and the slice's offset in
-    it multiples of 16 (TMA's 16-byte strides and base) and x on a
-    16-byte boundary; "simple" for everything else. A fixed function of
-    shape and alignment: a launch on either route that fails raises."""
+    """The design a CUDA launch of these operands takes, a fixed function
+    of shape and alignment (a launch on any route that fails raises):
+    "sm90" (TMA and wgmma) for a 3x3/s1/p1 conv with Ci and Co multiples
+    of 16, the K-major weight's row (``wk``'s Ci total, or Ci where no
+    ``wk`` is given and the slice is packed on its own) and the slice's
+    offset in it multiples of 16 (TMA's 16-byte strides and base) and x
+    on a 16-byte boundary; "stem" for Ci < 16 where :func:`_stem_takes`
+    (x at any offset); "1x1" for a 1x1/s1/p0 conv with Ci, Co, the
+    weight's row and offset multiples of 16 and x on a 16-byte boundary;
+    "simple" for everything else."""
     k, ci, co = w8.shape[0], x8.shape[3], w8.shape[3]
     ci_total, ofs = _slice(w8) if wk is not None else (ci, 0)
-    if ((k, stride, pad) == (3, 1, 1) and ci % 16 == 0 and co % 16 == 0 and ci_total % 16 == 0
-            and ofs % 16 == 0 and x8.data_ptr() % 16 == 0):
+    sixteens = (ci % 16 == 0 and co % 16 == 0 and ci_total % 16 == 0 and ofs % 16 == 0
+                and x8.data_ptr() % 16 == 0)
+    if (k, stride, pad) == (3, 1, 1) and sixteens:
         return "sm90"
+    if _stem_takes(x8.shape[2], ci, co, k, stride, pad):
+        return "stem"
+    if (k, stride, pad) == (1, 1, 0) and sixteens:
+        return "1x1"
     return "simple"
 
 
@@ -195,7 +297,7 @@ def _launch(x8, w8, stride, pad, v, dtype, sx, y_in, bias, relu, wk, route, shap
                                                                 device=x8.device)
     if not y.numel():
         return y
-    if route == "sm90":
+    if route in ("sm90", "1x1"):
         if wk is None:  # the slice packed on its own
             wk, (ci_total, ofs) = pack_weight(w8), (ci, 0)
         else:
@@ -203,13 +305,17 @@ def _launch(x8, w8, stride, pad, v, dtype, sx, y_in, bias, relu, wk, route, shap
         w_ptr, tap_stride = wk.data_ptr() + ofs, ci_total
     else:
         w_ptr, tap_stride = w8.data_ptr(), w8.stride(1)
+    plan = ()
+    if route == "stem":
+        p = _stem_plan(w, ci, co, k, stride, pad, dtype.itemsize)
+        plan = (ctypes.byref(p), ctypes.sizeof(p))
     deq = v is not None
     sx_ptr = (_one(x8.device) if sx is None else sx).data_ptr() if deq else 0
-    kernels.launch("conv_i8", "mg_conv_i8" + ("_sm90" if route == "sm90" else ""), x8.device,
+    kernels.launch("conv_i8", _ENTRIES[route], x8.device,
                    x8.data_ptr(), w_ptr, sx_ptr, v.data_ptr() if deq else 0,
                    0 if y_in is None else y_in.data_ptr(), 0 if bias is None else bias.data_ptr(),
                    y.data_ptr(), n, h, w, ci, co, k, stride, pad, tap_stride, _OUT_KINDS[dtype],
-                   int(relu), *pads, route=route, padded=pads != (pad, pad))
+                   int(relu), *pads, *plan, route=route, padded=pads != (pad, pad))
     return y
 
 

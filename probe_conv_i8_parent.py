@@ -14,7 +14,8 @@ signature, and at every conv_i8 call of R-MG-34's int8 serving forward
 (recorded on the CPU: chip_smoke.record_i8) at batch 8, in each epilogue
 variant of chip_smoke.I8_VARIANTS, launches the current wrapper (the
 design `_route` picks and, where that is sm90, the simple design too)
-and the earlier kernel through the same design on the same operands.
+and the earlier kernel through the same design on the same operands
+(through its simple design where it had no such design: the stems).
 Prints a line a design, and exits non-zero if any output differs.
 """
 

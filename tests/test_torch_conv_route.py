@@ -68,7 +68,8 @@ def test_route_counts_per_pass(recorded):
         ("conv3x3_bn_relu_in", "sm90"): 0, ("conv3x3_bn_relu_in", "window"): 0,
         ("conv3x3_bn_relu_in", "tile"): 0,
         ("maxpool2", "sm90"): 46, ("maxpool2", "simple"): 0,
-        ("conv_i8", "sm90"): 0, ("conv_i8", "simple"): 0,
+        ("conv_i8", "sm90"): 0, ("conv_i8", "stem"): 0, ("conv_i8", "1x1"): 0,
+        ("conv_i8", "simple"): 0,
         ("maxpool2_bwd", "group"): 0, ("maxpool2_bwd", "simple"): 0,
         ("quant_i8", "group"): 0, ("quant_i8", "part"): 0}
     assert predicted_routes(recorded["train"]) == {
@@ -76,7 +77,8 @@ def test_route_counts_per_pass(recorded):
         ("conv3x3_bn_relu_in", "sm90"): 26, ("conv3x3_bn_relu_in", "window"): 10,
         ("conv3x3_bn_relu_in", "tile"): 0,
         ("maxpool2", "sm90"): 46, ("maxpool2", "simple"): 0,
-        ("conv_i8", "sm90"): 0, ("conv_i8", "simple"): 0,
+        ("conv_i8", "sm90"): 0, ("conv_i8", "stem"): 0, ("conv_i8", "1x1"): 0,
+        ("conv_i8", "simple"): 0,
         ("maxpool2_bwd", "group"): 29, ("maxpool2_bwd", "simple"): 0,
         ("quant_i8", "group"): 0, ("quant_i8", "part"): 0}
 

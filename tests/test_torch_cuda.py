@@ -718,8 +718,21 @@ def test_conv_i8_is_bit_exact(dev, shape):
             assert torch.equal(got, conv_i8_plain(x8, w8, stride, pad, v, dtype))
         design = _route(x, w8, stride, pad, wk)
         assert kernels.LAUNCHES["conv_i8"] == 3 and kernels.ROUTES[("conv_i8", design)] == 3
-    sm90 = shape[5:8] == (3, 1, 1) and all(c % 16 == 0 for c in (shape[3], shape[4], *shape[8:]))
-    assert _route(x8, w8, stride, pad, wk) == ("sm90" if sm90 else "simple")
+    assert _route(x8, w8, stride, pad, wk) == _i8_design(shape)
+
+
+def _i8_design(shape, aligned=True):
+    """The design conv_i8 takes at a CONV_I8_SHAPES-style shape: sm90 for
+    3x3/s1/p1 with channels and offsets multiples of 16 and x aligned;
+    stem for Ci < 16, k * k * Ci <= 160 and Co 16, 32 or 64; 1x1 for
+    1x1/s1/p0 with those multiples and x aligned; else simple."""
+    n, h, w, ci, co, k, stride, pad, ci_total, ofs = shape
+    sixteens = aligned and all(c % 16 == 0 for c in (ci, co, ci_total, ofs))
+    if (k, stride, pad) == (3, 1, 1) and sixteens:
+        return "sm90"
+    if ci < 16 and k * k * ci <= 160 and co in (16, 32, 64):
+        return "stem"
+    return "1x1" if (k, stride, pad) == (1, 1, 0) and sixteens else "simple"
 
 
 @pytest.mark.parametrize("shape", CONV_I8_SHAPES, ids=lambda s: "x".join(map(str, s)))
@@ -778,6 +791,16 @@ def test_conv_i8_refuses_what_it_does_not_take(dev):
         with pytest.raises(RuntimeError, match="mg_conv_i8_sm90"):
             _launch(x, w, 1, 1, None, torch.int32, None, None, None, False, None, "sm90", shape,
                     (1, 1))
+    # nor the stem design Co = 4, nor the 1x1 design a 3x3 kernel
+    shape = _check(x8, w8, 1, 1, None, torch.int32, None, None, None, None, (1, 1))
+    with pytest.raises(RuntimeError, match="mg_conv_i8_stem"):
+        _launch(x8, w8, 1, 1, None, torch.int32, None, None, None, False, None, "stem", shape,
+                (1, 1))
+    x16, w16 = x8.repeat(1, 1, 1, 2), torch.zeros((3, 3, 16, 16), dtype=torch.int8, device=dev)
+    shape = _check(x16, w16, 1, 1, None, torch.int32, None, None, None, None, (1, 1))
+    with pytest.raises(RuntimeError, match="mg_conv_i8_1x1"):
+        _launch(x16, w16, 1, 1, None, torch.int32, None, None, None, False, None, "1x1", shape,
+                (1, 1))
 
 
 # conv_i8's halo mode (-spatial): (n, h, w, ci, co, k, stride, pad) of the
@@ -846,7 +869,84 @@ def test_conv_i8_halo_launch_matches_plain_and_whole_image(dev, shape, pads, des
     assert torch.equal(y_all[:, o0:o1], epilogue_plain(acc_all[:, o0:o1], v, torch.bfloat16,
                                                        sx=sx, bias=bias, relu=True))
     if design == "routed":
-        assert routed == ("sm90" if k == 3 and ci % 16 == 0 else "simple")
+        assert routed == ("sm90" if k == 3 and ci % 16 == 0 else "stem" if ci < 16 else "simple")
+
+
+# the int8 nets' conv_i8 parts that the stem and 1x1 designs take, as
+# chip_smoke.i8_key records them without the epilogue flags: (h, w, ci,
+# co, k, stride, pad, the weight's Ci, the slice's offset); the part sum
+# and the bias as the forwards pass them (tests/test_torch_quant_kernels.py
+# holds the list to the recorded forwards)
+I8_STEM_1X1 = {
+    "ilsvrc/rnmg": [(56, 56, 3, 16, 7, 2, 3, 3, 0), (112, 112, 3, 32, 7, 2, 3, 3, 0),
+                    (224, 224, 3, 64, 7, 2, 3, 3, 0)],
+    "cifar/prnmg": [(1, 1, 64, 128, 1, 1, 0, 192, 128), (1, 1, 128, 128, 1, 1, 0, 192, 0),
+                    (1, 1, 128, 128, 1, 1, 0, 384, 256), (1, 1, 256, 128, 1, 1, 0, 384, 0),
+                    (1, 1, 384, 384, 1, 1, 0, 896, 512), (1, 1, 512, 384, 1, 1, 0, 896, 0),
+                    (8, 8, 3, 16, 3, 1, 1, 3, 0), (16, 16, 3, 32, 3, 1, 1, 3, 0),
+                    (32, 32, 3, 64, 3, 1, 1, 3, 0)],
+    "mnist-cluttered/unmg": [(16, 16, 1, 16, 3, 1, 1, 1, 0), (32, 32, 1, 32, 3, 1, 1, 1, 0),
+                             (64, 64, 1, 64, 3, 1, 1, 1, 0)]}
+I8_STEM_1X1_CASES = [(net, key) for net, keys in I8_STEM_1X1.items() for key in keys]
+
+
+def _at_offset(t, off):
+    """An int8 t's values in a contiguous tensor whose data starts ``off``
+    bytes past a 16-byte boundary"""
+    flat = torch.empty(t.numel() + 32, dtype=t.dtype, device=t.device)
+    start = next(i for i in range(32) if (flat.data_ptr() + i) % 16 == off)
+    view = flat[start:start + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("net,key", I8_STEM_1X1_CASES,
+                         ids=[f"{n.split('/')[1]}-{'x'.join(map(str, k))}"
+                              for n, k in I8_STEM_1X1_CASES])
+@pytest.mark.parametrize("batch", [1, 128])
+def test_conv_i8_stem_and_1x1_equal_plain(dev, net, key, batch):
+    """The stem and 1x1 designs at every part of the int8 nets they take,
+    at batches 1 and 128: the int32 sums and each epilogue variant of
+    chip_smoke.I8_VARIANTS (the part sum updated in place) equal to
+    conv_i8_plain bit for bit, with x aligned and at byte offsets 4 and 7
+    (the stem design takes any; a 1x1 part off 16 bytes goes to simple),
+    under the plain padding and the halo pads of an H-slab (a launch
+    each, counted by its design and, in halo mode, in kernels.PADDED)."""
+    from chip_smoke import I8_VARIANTS
+    from mgtpu_torch.ops.cuda_conv_i8 import _route, conv_i8, conv_i8_plain, epilogue_plain
+
+    h, w_, ci, co, k, s, p, ci_total, ofs = key
+    x8, w8, wk, v, _, _ = _i8_operands((batch, *key), dev, seed=21)
+    g = torch.Generator(device=dev).manual_seed(22)
+    sx = 0.5 + torch.rand((), generator=g, device=dev)
+    bias = torch.randn(co, generator=g, device=dev)
+    pads = [(p, p)] + ([(0, p), (p, 0), (1, 2)] if p == 3 else [(1, 0), (0, 1), (0, 0)]
+                       if p == 1 else [])
+    design = "stem" if ci < 16 else "1x1"
+    for pt, pb in pads:
+        acc = conv_i8_plain(x8, w8, s, p, pad_top=pt, pad_bottom=pb)
+        y0 = torch.randn(acc.shape, generator=g, device=dev)
+        for off in (0, 4, 7):
+            xi = x8 if off == 0 else _at_offset(x8, off)
+            want_design = design if off == 0 or design == "stem" else "simple"
+            assert _route(xi, w8, s, p, wk) == want_design
+            for dt, ops in I8_VARIANTS:
+                kw = {} if dt == torch.int32 else {"v": v, "dtype": dt, "sx": sx}
+                if "bias" in ops:
+                    kw["bias"] = bias
+                kw["relu"] = "relu" in ops
+                y_in = y0.to(dt) if "y_in" in ops else None
+                want = acc if dt == torch.int32 else epilogue_plain(
+                    acc, v, dt, sx=sx, y_in=None if y_in is None else y_in.clone(),
+                    bias=kw.get("bias"), relu=kw["relu"])
+                kernels.reset_launches()
+                got = conv_i8(xi, w8, s, p, wk=wk, y_in=y_in, pad_top=pt, pad_bottom=pb, **kw)
+                assert kernels.ROUTES[("conv_i8", want_design)] == 1
+                assert kernels.PADDED[("conv_i8", want_design)] == int((pt, pb) != (p, p))
+                assert got.dtype == dt and torch.equal(got, want), (pt, pb, off, dt, ops)
+                if y_in is not None:
+                    assert got.data_ptr() == y_in.data_ptr()
+    torch.cuda.synchronize()
 
 
 def test_conv_i8_pad_pad_is_the_plain_launch(dev):

@@ -97,6 +97,21 @@ def test_conv_i8_plain_equals_jax_exactly(k, stride, pad, ci):
     assert _equal(tq.conv_i8(_t(x8), _t(w8), stride, pad), ref)
 
 
+@pytest.mark.parametrize("pads", [(0, 3), (3, 0), (1, 2)])
+def test_conv_i8_plain_halo_stem_equals_jax(pads):
+    """The 7x7/2/p3 stem on 3 channels under the halo pads of an H-slab
+    (pad_top, pad_bottom), batch 2: conv_i8_plain equals JAX's conv_i8 of
+    the slab zero-padded by those rows above and below and 3 columns each
+    side, bit for bit."""
+    pt, pb = pads
+    rng = np.random.default_rng(40 + pt)
+    x8 = rng.integers(-128, 128, (2, 21, 18, 3)).astype(np.int8)
+    w8 = rng.integers(-127, 128, (7, 7, 3, 16)).astype(np.int8)
+    ref = jq.conv_i8(jnp.asarray(np.pad(x8, ((0, 0), (pt, pb), (3, 3), (0, 0)))),
+                     jnp.asarray(w8), 2, 0)
+    assert _equal(conv_i8_plain(_t(x8), _t(w8), 2, 3, pad_top=pt, pad_bottom=pb), ref)
+
+
 @pytest.mark.parametrize("k,pad", [(3, 1), (1, 0)])
 def test_conv_i8_on_weight_slices_and_split_identity(k, pad):
     """A slice of the weight along its input channels (a view, as the

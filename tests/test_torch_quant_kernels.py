@@ -21,6 +21,7 @@ from mgtpu import nn as jnn
 from mgtpu.ops import mg as jmg
 from mgtpu.ops import quant as jq
 from mgtpu.ops.fold import fold_batchnorm as jax_fold
+from mgtpu_torch import kernels
 from mgtpu_torch import nn as tnn
 from mgtpu_torch.ops import cuda_conv_i8 as ci8
 from mgtpu_torch.ops import mg as tmg
@@ -229,26 +230,47 @@ def test_packed_weight_is_rebuilt_with_w8():
 
 # --- the designs the int8 forwards take --------------------------------------
 
+def _want_design(key) -> str:
+    """The design a recorded conv_i8 part takes (x aligned): sm90 for
+    3x3/s1/p1 with Ci, Co, the weight's Ci and the slice's offset
+    multiples of 16; stem for Ci < 16 with k * k * Ci <= 160 and Co 16,
+    32 or 64; 1x1 for 1x1/s1/p0 with those multiples of 16; else simple."""
+    h, w, ci, co, k, stride, pad, ci_total, ofs = key[:9]
+    sixteens = all(n % 16 == 0 for n in (ci, co, ci_total, ofs))
+    if (k, stride, pad) == (3, 1, 1) and sixteens:
+        return "sm90"
+    if ci < 16 and k * k * ci <= 160 and co in (16, 32, 64):
+        return "stem"
+    return "1x1" if (k, stride, pad) == (1, 1, 0) and sixteens else "simple"
+
+
 @pytest.mark.parametrize("net", sorted(I8_SERVE))
 def test_int8_conv_routes_are_pinned(net):
     """_route sends each recorded int8 conv part of the net's serving
     forward to the pinned design: sm90 for the 3x3/s1/p1 parts whose Ci,
     Co, weight width and slice offset are multiples of 16 (all of
-    R-MG-34's but its three 7x7/2 stems), simple for the rest (the stems
-    on 3 and 1 channels, the 1x1 shortcuts and heads); the quantizer once
-    a layer, its group of parts (twice under dynamic scales)."""
+    R-MG-34's but its three 7x7/2 stems), stem for the stems on 3 and 1
+    channels, 1x1 for cifar/prnmg's 1x1 shortcuts and heads, simple for
+    the rest (unmg's 1x1 heads on 10 channels); the quantizer once a
+    layer, its group of parts (twice under dynamic scales). The stem
+    and 1x1 cases of tests/test_torch_cuda.py are exactly the parts that
+    those two designs take."""
+    from test_torch_cuda import I8_STEM_1X1
+
     shapes = record_kernel_shapes(False, I8_SERVE[net][0], int8=True)
+    assert sorted(I8_STEM_1X1[net]) == sorted(
+        key[:9] for key in shapes["conv_i8"] if _want_design(key) in ("stem", "1x1"))
     assert i8_routes(shapes["conv_i8"]) == I8_ROUTES[net]
     assert sum(I8_ROUTES[net].values()) == I8_PER_FORWARD[net]["conv_i8"]
+    assert set(I8_ROUTES[net]) == set(ci8.DESIGNS) == {
+        r for k, r in kernels.ROUTES if k == "conv_i8"} == {
+        r for k, r in kernels.PADDED if k == "conv_i8"}
     for key, _ in shapes["conv_i8"].items():
         h, w, ci, co, k, stride, pad, ci_total, ofs = key[:9]
         x8 = torch.empty((1, h, w, ci), dtype=torch.int8)
         w8 = torch.empty((k, k, ci_total, co), dtype=torch.int8)[:, :, ofs:ofs + ci]
-        sm90 = ((k, stride, pad) == (3, 1, 1)
-                and all(n % 16 == 0 for n in (ci, co, ci_total, ofs)))
         assert ci8._route(x8, w8, stride, pad, ci8.pack_weight(
-            torch.empty((k, k, ci_total, co), dtype=torch.int8))) == (
-                "sm90" if sm90 else "simple"), key
+            torch.empty((k, k, ci_total, co), dtype=torch.int8))) == _want_design(key), key
     assert sum(shapes["quant_i8"].values()) == i8_pins(net)["quant_i8"]
     assert i8_pins(net, dynamic=True)["quant_i8"] == 2 * i8_pins(net)["quant_i8"]
     # one part sum and one bias: every part but a conv's first takes y_in,
@@ -277,3 +299,135 @@ def test_route_takes_misaligned_x_and_odd_slices_to_simple():
                       wk) == "simple"
     narrow = torch.empty((3, 3, 16, 10), dtype=torch.int8)
     assert ci8._route(x, narrow, 1, 1, ci8.pack_weight(narrow)) == "simple"
+
+
+def _x_at(shape, off):
+    """An int8 tensor of ``shape`` whose data starts ``off`` bytes past a
+    16-byte boundary"""
+    n = int(np.prod(shape))
+    flat = torch.empty(n + 32, dtype=torch.int8)
+    start = next(i for i in range(32) if (flat.data_ptr() + i) % 16 == off)
+    return flat[start:start + n].view(shape)
+
+
+def test_route_takes_the_stems_and_1x1_parts_to_their_designs():
+    """Ci = 16 at 3x3/s1/p1 goes to sm90, not stem; a 7x7/2 on 3 channels
+    and a 3x3 on 1 to stem at any byte offset of x; a 1x1 with Ci and Co
+    multiples of 16 to 1x1, and to simple with x off 16 bytes or Co = 10;
+    past the stem's limits (Ci 16, more than 160 taps x channels, Co 48
+    or 128, a map too wide for a block's shared memory) to simple."""
+    w3 = torch.empty((7, 7, 3, 64), dtype=torch.int8)
+    for off in (0, 4, 7, 13):
+        assert ci8._route(_x_at((1, 224, 224, 3), off), w3, 2, 3) == "stem"
+        assert ci8._route(_x_at((1, 64, 64, 1), off),
+                          torch.empty((3, 3, 1, 16), dtype=torch.int8), 1, 1) == "stem"
+    assert ci8._route(_x_at((1, 14, 14, 16), 0),
+                      torch.empty((3, 3, 16, 32), dtype=torch.int8), 1, 1) == "sm90"
+    wide = torch.empty((1, 1, 896, 384), dtype=torch.int8)
+    wk = ci8.pack_weight(wide)
+    assert ci8._route(_x_at((4, 1, 1, 384), 0), wide[:, :, 512:], 1, 0, wk) == "1x1"
+    assert ci8._route(_x_at((4, 1, 1, 384), 0), wide[:, :, 512:], 1, 0) == "1x1"
+    assert ci8._route(_x_at((4, 1, 1, 384), 4), wide[:, :, 512:], 1, 0, wk) == "simple"
+    assert ci8._route(_x_at((4, 1, 1, 384), 0), wide[:, :, 504:888], 1, 0, wk) == "simple"
+    assert ci8._route(_x_at((2, 8, 8, 32), 0),
+                      torch.empty((1, 1, 32, 10), dtype=torch.int8), 1, 0) == "simple"
+    for x, w, s, p in (((1, 9, 9, 16), (3, 3, 16, 16), 2, 1),   # Ci 16, stride 2
+                       ((1, 20, 20, 4), (7, 7, 4, 16), 2, 3),    # 196 taps x channels
+                       ((1, 20, 20, 3), (7, 7, 3, 48), 2, 3),    # Co 48
+                       ((1, 20, 20, 3), (7, 7, 3, 128), 2, 3),
+                       ((1, 9, 8000, 3), (7, 7, 3, 64), 2, 3)):  # rows too wide
+        assert ci8._route(_x_at(x, 0), torch.empty(w, dtype=torch.int8), s, p) == "simple", x
+    assert not ci8._stem_takes(8000, 3, 64, 7, 2, 3) and ci8._stem_takes(224, 3, 64, 7, 2, 3)
+
+
+def _stem_gather(x8, k, s, p, pt, pb, co, off, rng, reverse=False):
+    """The A operand the stem kernel multiplies, (N, OH*OW, 32 * steps)
+    bytes, rebuilt in numpy from the host's plan as conv_i8_stem.cu uses
+    it: x placed ``off`` bytes past a 16-byte boundary among random bytes;
+    each tile's patch buffer full of random bytes, then each input row's
+    bulk copy (its bytes aligned down and up to 16, at a 16-byte boundary
+    of the buffer; ``reverse``: rows in the other order, as the copies
+    land in no order), then the zeroing of what taps read outside x; then
+    each pixel's slot groups at its base plus the plan's offsets. Checks
+    the copies' alignment and that they stay within the buffer."""
+    n, h, w, ci = x8.shape
+    plan = ci8._stem_plan(w, ci, co, k, s, p, 2)
+    oh, ow = ci8.out_size(h, k, s, pt, pb), ci8.out_size(w, k, s, p)
+    row = w * ci
+    mem = rng.integers(0, 256, off + x8.size + 64).astype(np.uint8)
+    mem[off:off + x8.size] = x8.reshape(-1).view(np.uint8)
+    groups = np.zeros(8 * plan.steps, np.int64)
+    for st in range(plan.steps):
+        for t in range(4):
+            for hh in range(2):
+                groups[8 * st + 4 * hh + t] = plan.off[(st * 4 + t) * 2 + hh]
+    a = np.zeros((n, oh * ow, 32 * plan.steps), np.uint8)
+    for img in range(n):
+        for q0 in range(0, oh * ow, ci8._STEM_TILE):
+            q1 = min(q0 + ci8._STEM_TILE, oh * ow)
+            oh0 = q0 // ow
+            rows = ((q1 - 1) // ow - oh0) * s + k
+            assert rows <= plan.rows
+            ih0 = oh0 * s - pt
+            src0 = off + (img * h + ih0) * row
+            c0 = plan.lead + src0 % 16
+            # the buffer and what the kernel may read past its end
+            buf = rng.integers(0, 256, plan.patch_bytes + 64).astype(np.uint8)
+            inside = [r for r in range(rows) if 0 <= ih0 + r < h]
+            for r in reversed(inside) if reverse else inside:
+                src = src0 + r * row
+                first = src - src % 16
+                length = -(-(src + row - first) // 16) * 16
+                dst = r * plan.pitch + c0 - (src - first)
+                assert dst % 16 == 0 and 0 <= dst and dst + length <= plan.patch_bytes
+                buf[dst:dst + length] = mem[first:first + length]
+            for r in range(rows):
+                d = r * plan.pitch + c0
+                assert d - plan.lm >= 0 and d + row + plan.rm <= plan.patch_bytes
+                if r in inside:
+                    buf[d - plan.lm:d] = 0
+                    buf[d + row:d + row + plan.rm] = 0
+                else:
+                    buf[d - plan.lm:d + row + plan.rm] = 0
+            q = np.arange(q0, q1)
+            base = c0 + (q // ow - oh0) * s * plan.pitch + (q % ow * s - p) * ci
+            idx = base[:, None, None] + groups[None, :, None] + np.arange(4)[None, None, :]
+            assert idx.min() >= 0 and idx.max() < buf.size
+            a[img, q0:q1] = buf[idx].reshape(q1 - q0, -1)
+    return a.view(np.int8), plan
+
+
+# (n, h, w, ci, co, k, stride, pad) with H cut: the zoo's stems (R-MG-34's
+# 7x7/2 at its three widths, cifar/prnmg's and unmg's 3x3 on 3 and 1
+# channels) and a 5x5 on 2 channels of a 7-px row (14 bytes a row)
+STEM_PLAN_CASES = [(2, 20, 224, 3, 64, 7, 2, 3), (1, 13, 112, 3, 32, 7, 2, 3),
+                   (2, 30, 56, 3, 16, 7, 2, 3), (2, 12, 32, 3, 64, 3, 1, 1),
+                   (2, 9, 8, 3, 16, 3, 1, 1), (2, 10, 64, 1, 64, 3, 1, 1),
+                   (3, 9, 7, 2, 16, 5, 1, 2)]
+
+
+@pytest.mark.parametrize("case", STEM_PLAN_CASES, ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("off", [0, 4, 7, 13])
+def test_stem_plan_gathers_im2col(case, off):
+    """The stem design's plan (cuda_conv_i8._stem_plan) walked as the
+    kernel walks it, in numpy: for every tile, under the plain padding
+    and the halo pads of an H-slab, x at byte offsets 0, 4, 7 and 13 and
+    the rows' copies landing in either order, each pixel's gathered
+    slots kh * run + kw * Ci + c hold numpy's im2col of the zero-padded x
+    (the padding slots past k * Ci read anything: their weight is 0)."""
+    n, h, w, ci, co, k, s, p = case
+    rng = np.random.default_rng(hash(case) % 2**32 + off)
+    x8 = rng.integers(-128, 128, (n, h, w, ci)).astype(np.int8)
+    pads = [(p, p)] + ([(0, p), (p, 0), (1, p - 1)] if p > 1 else [(1, 0), (0, 1), (0, 0)])
+    for pt, pb in pads:
+        xp = np.pad(x8, ((0, 0), (pt, pb), (p, p), (0, 0)))
+        oh, ow = ci8.out_size(h, k, s, pt, pb), ci8.out_size(w, k, s, p)
+        cols = np.stack([xp[:, i * s:i * s + k, j * s:j * s + k, :]
+                         for i in range(oh) for j in range(ow)], axis=1)  # (n, oh*ow, k, k, ci)
+        for reverse in (False, True):
+            a, plan = _stem_gather(x8, k, s, p, pt, pb, co, off, rng, reverse)
+            assert plan.steps * 32 >= k * plan.run and plan.run % 4 == 0
+            for kh in range(k):
+                got = a[:, :, kh * plan.run:kh * plan.run + k * ci]
+                np.testing.assert_array_equal(got, cols[:, :, kh].reshape(n, oh * ow, k * ci),
+                                              err_msg=f"pads {(pt, pb)} row {kh}")
