@@ -14,7 +14,9 @@ Each launch goes through :func:`launch`, which adds one to that
 kernel's count in :data:`LAUNCHES` and, for a kernel with two designs,
 to the count of the design it took in :data:`ROUTES`; ``chip_smoke.py``
 reads the counts to show that a forward pass or a training step really
-ran through the kernels, and through which design.
+ran through the kernels, and through which design. While spans record
+(`mgtpu_torch.trace`), it also adds one to the innermost open span's
+count, so a launch count is taken at the same boundary as a time.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from mgtpu_torch import trace
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -209,7 +213,8 @@ def launch(kernel: str, entry: str, device: torch.device, *args, route: str | No
     """Call C entry ``entry`` with ``device`` current, on its current
     stream; raise on a launch error, and count one launch of ``kernel``
     (and of its design ``route``, for a kernel with two designs, and in
-    ``PADDED`` where ``padded``: a conv's halo mode)."""
+    ``PADDED`` where ``padded``: a conv's halo mode; and in the
+    innermost open span, while spans record)."""
     fn = getattr(library(), entry)
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
@@ -221,3 +226,4 @@ def launch(kernel: str, entry: str, device: torch.device, *args, route: str | No
         ROUTES[(kernel, route)] += 1
     if padded:
         PADDED[(kernel, route)] += 1
+    trace.count_launch()

@@ -12,6 +12,7 @@ from mgtpu_torch.models.ilsvrc import prnmgseg
 from mgtpu_torch.models.ilsvrc import rnmg as ilsvrc_rnmg
 from mgtpu_torch.models.mnist_cluttered import (mnist_saliency, mnist_test, pnmg_mnist,
                                                 prnmg_mnist, unet, unmg)
+from mgtpu_torch.ops.mg import number_layers
 
 _SPECS = {spec.name: spec for spec in (ilsvrc_rnmg.NET, prnmgseg.NET, nmg.NET, rnmg.NET,
                                        pnmg.NET, prnmg.NET, resnet.NET, vgg.NET, unet.NET,
@@ -39,6 +40,9 @@ def net_options(opt: NetOpts) -> NetOpts:
 def create_model(opt: NetOpts = NetOpts(), compute_dtype=None, device=None, generator=None):
     """The net ``opt`` names (default R-MG-34), its init drawn from
     ``generator`` (a CPU ``torch.Generator``), in eval mode (a trainer
-    calls ``.train()``)."""
-    return get_spec(opt.netType).create_model(net_options(opt), compute_dtype=compute_dtype,
-                                              device=device, generator=generator)
+    calls ``.train()``), its multigrid layers numbered for their spans
+    (`mgtpu_torch.ops.mg.number_layers`)."""
+    model = get_spec(opt.netType).create_model(net_options(opt), compute_dtype=compute_dtype,
+                                               device=device, generator=generator)
+    number_layers(model)
+    return model

@@ -36,6 +36,7 @@ import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 from torch import nn
 
+from mgtpu_torch import trace
 from mgtpu_torch.ops import cuda_conv_i8, quant
 from mgtpu_torch.ops.cuda_conv import bn_relu_plain, conv3x3, conv3x3_bn_relu_in
 from mgtpu_torch.ops.resample import nchw, nhwc, upsample_nearest2
@@ -112,7 +113,8 @@ def quantize_layer(layers, parts_list) -> list:
     of the layer's in one `_int8_quantize` call, before any conv runs
     (each input of a layer exists before its first conv). An
     un-normalized part is materialized with `bn_relu_plain` first. The
-    lists of float convs come back as they are."""
+    lists of float convs come back as they are. The quantize is a span
+    (`mgtpu_torch.trace`), ``quantize_layer``."""
     items, where = [], []
     for i, (layer, parts) in enumerate(zip(layers, parts_list)):
         if not layer.conv.quantized:
@@ -126,8 +128,9 @@ def quantize_layer(layers, parts_list) -> list:
     if not items:
         return list(parts_list)
     out = [list(parts) for parts in parts_list]
-    for (i, slot), q in zip(where, _int8_quantize(items)):
-        out[i][slot] = (out[i][slot][0], q)
+    with trace.span("quantize_layer"):
+        for (i, slot), q in zip(where, _int8_quantize(items)):
+            out[i][slot] = (out[i][slot][0], q)
     return out
 
 

@@ -41,7 +41,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from mgtpu_torch import kernels
+from mgtpu_torch import kernels, trace
 from mgtpu_torch.ops.resample import nchw, nhwc
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -444,12 +444,14 @@ def conv3x3(x, w, b, *, relu_out=False, with_stats=True, pad_top=1, pad_bottom=1
     instead of the zero pad (the module's head).
     Differentiable in x, w and b (not through stats). CPU tensors take
     the plain version; CUDA tensors launch the kernel or raise; under
-    ``torch.export``, the op ``mgtpu::conv3x3`` (inference only)."""
+    ``torch.export``, the op ``mgtpu::conv3x3`` (inference only). A span
+    (`mgtpu_torch.trace`), ``conv3x3``."""
     if torch.compiler.is_exporting():
         from mgtpu_torch.ops import library  # noqa: F401 (registers the op)
 
         return torch.ops.mgtpu.conv3x3(x, w, b, relu_out, with_stats, pad_top, pad_bottom)
-    return _Conv3x3.apply(x, w, b, relu_out, with_stats, pad_top, pad_bottom)
+    with trace.span("conv3x3"):
+        return _Conv3x3.apply(x, w, b, relu_out, with_stats, pad_top, pad_bottom)
 
 
 def conv3x3_bn_relu_in(x, w, b, scale, shift, *, relu_out=False, with_stats=True, pad_top=1,
@@ -463,11 +465,13 @@ def conv3x3_bn_relu_in(x, w, b, scale, shift, *, relu_out=False, with_stats=True
     Differentiable in x, w, b, scale and shift (not through
     stats). CPU tensors take the plain version; CUDA tensors launch the
     kernel or raise; under ``torch.export``, the op
-    ``mgtpu::conv3x3_bn_relu_in`` (inference only)."""
+    ``mgtpu::conv3x3_bn_relu_in`` (inference only). A span
+    (`mgtpu_torch.trace`), ``conv3x3_bn_relu_in``."""
     if torch.compiler.is_exporting():
         from mgtpu_torch.ops import library  # noqa: F401 (registers the op)
 
         return torch.ops.mgtpu.conv3x3_bn_relu_in(x, w, b, scale, shift, relu_out, with_stats,
                                                   pad_top, pad_bottom)
-    return _Conv3x3BnReluIn.apply(x, w, b, scale, shift, relu_out, with_stats, pad_top,
-                                  pad_bottom)
+    with trace.span("conv3x3_bn_relu_in"):
+        return _Conv3x3BnReluIn.apply(x, w, b, scale, shift, relu_out, with_stats, pad_top,
+                                      pad_bottom)

@@ -50,7 +50,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from mgtpu_torch import kernels
+from mgtpu_torch import kernels, trace
 from mgtpu_torch.ops.resample import nchw, nhwc
 
 # output dtype -> the kernel's out_kind
@@ -337,14 +337,16 @@ def conv_i8(x8, w8, stride: int, pad: int, v=None, dtype=torch.int32, *, sx=None
     rounds each step as the plain version does: the two are equal bit for
     bit. CPU tensors take the plain version; CUDA tensors launch the
     kernel (the design :func:`_route` picks) or raise; under
-    ``torch.export``, the op ``mgtpu::conv_i8``."""
+    ``torch.export``, the op ``mgtpu::conv_i8``. A span
+    (`mgtpu_torch.trace`), ``conv_i8``."""
     if torch.compiler.is_exporting():
         from mgtpu_torch.ops import library  # noqa: F401 (registers the op)
 
         return torch.ops.mgtpu.conv_i8(x8, w8, stride, pad, v, dtype, sx, y_in, bias, relu, wk,
                                        pad_top, pad_bottom)
-    return conv_i8_forward(x8, w8, stride, pad, v, dtype, sx=sx, y_in=y_in, bias=bias,
-                           relu=relu, wk=wk, pad_top=pad_top, pad_bottom=pad_bottom)
+    with trace.span("conv_i8"):
+        return conv_i8_forward(x8, w8, stride, pad, v, dtype, sx=sx, y_in=y_in, bias=bias,
+                               relu=relu, wk=wk, pad_top=pad_top, pad_bottom=pad_bottom)
 
 
 def conv_i8_forward(x8, w8, stride: int, pad: int, v=None, dtype=torch.int32, *, sx=None,

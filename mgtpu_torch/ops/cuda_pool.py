@@ -44,7 +44,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from mgtpu_torch import kernels
+from mgtpu_torch import kernels, trace
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -295,28 +295,30 @@ def maxpool2_backward_group(xs, ys, gs, ties: str = "all") -> list:
     (xs[j], ys[j], gs[j]); a member whose g is None gets None. CPU tensors
     take the plain version, member by member; CUDA tensors launch the
     group design once for up to MAX_MEMBERS members (the members of one
-    dtype on one card; more are split) or raise."""
-    _check_ties(ties)
-    if len({len(xs), len(ys), len(gs)}) != 1:
-        raise ValueError(f"maxpool2_bwd: {len(xs)} x, {len(ys)} y, {len(gs)} g")
-    if all(x.device.type == "cpu" for x in xs):
-        return [None if g is None else maxpool2_bwd_plain(x, y, g, ties)
-                for x, y, g in zip(xs, ys, gs)]
-    dxs, members = [], []
-    for x, y, g in zip(xs, ys, gs):
-        if g is None:
-            dxs.append(None)
-            continue
-        x, y, g = _checked(x, y, g, ties)
-        if x.device != xs[0].device or x.dtype != xs[0].dtype:
-            raise ValueError(f"maxpool2_bwd: a group on {x.device} {x.dtype} and "
-                             f"{xs[0].device} {xs[0].dtype}")
-        dxs.append(torch.empty_like(x))
-        if x.numel():
-            members.append((x, y, g, dxs[-1]))
-    for i in range(0, len(members), MAX_MEMBERS):
-        _launch_group(members[i:i + MAX_MEMBERS], ties)
-    return dxs
+    dtype on one card; more are split) or raise. A span
+    (`mgtpu_torch.trace`), ``maxpool2_bwd``."""
+    with trace.span("maxpool2_bwd"):
+        _check_ties(ties)
+        if len({len(xs), len(ys), len(gs)}) != 1:
+            raise ValueError(f"maxpool2_bwd: {len(xs)} x, {len(ys)} y, {len(gs)} g")
+        if all(x.device.type == "cpu" for x in xs):
+            return [None if g is None else maxpool2_bwd_plain(x, y, g, ties)
+                    for x, y, g in zip(xs, ys, gs)]
+        dxs, members = [], []
+        for x, y, g in zip(xs, ys, gs):
+            if g is None:
+                dxs.append(None)
+                continue
+            x, y, g = _checked(x, y, g, ties)
+            if x.device != xs[0].device or x.dtype != xs[0].dtype:
+                raise ValueError(f"maxpool2_bwd: a group on {x.device} {x.dtype} and "
+                                 f"{xs[0].device} {xs[0].dtype}")
+            dxs.append(torch.empty_like(x))
+            if x.numel():
+                members.append((x, y, g, dxs[-1]))
+        for i in range(0, len(members), MAX_MEMBERS):
+            _launch_group(members[i:i + MAX_MEMBERS], ties)
+        return dxs
 
 
 def maxpool2_backward(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
@@ -368,13 +370,17 @@ def maxpool2_group(xs, ties: str = "all") -> tuple:
     cotangents reach autograd together and take one launch of the
     backward. CPU tensors take the plain versions; CUDA tensors launch
     the kernels or raise; under ``torch.export``, one op
-    ``mgtpu::maxpool2`` a member (the forward only)."""
+    ``mgtpu::maxpool2`` a member (the forward only). A span
+    (`mgtpu_torch.trace`), ``maxpool2``."""
     _check_ties(ties)
     if torch.compiler.is_exporting():
         from mgtpu_torch.ops import library  # noqa: F401 (registers the op)
 
         return tuple(torch.ops.mgtpu.maxpool2(x) for x in xs)
-    return _MaxPool2Group.apply(ties, *xs) if len(xs) else ()
+    if not len(xs):
+        return ()
+    with trace.span("maxpool2"):
+        return _MaxPool2Group.apply(ties, *xs)
 
 
 def maxpool2(x: torch.Tensor, ties: str = "all") -> torch.Tensor:

@@ -9,6 +9,10 @@ Under int8 a layer (the stems, `MgConv`, each stage of `MgResidual`)
 quantizes all of its conv parts in one call (`nn.quantize_layer`: one
 launch a layer on the card) before its first conv runs.
 
+Each multigrid layer's forward is a span (`mgtpu_torch.trace`) under its
+class's name, carrying the layer's position in the net (``at``, given by
+`number_layers`).
+
 Under -spatial (`mgtpu_torch.parallel.axis`) each scale is an H-slab or
 whole by JAX's `constrain_spatial` rule of its height: the ops that
 change a height (pools, strided convs, transposed convs) put their
@@ -24,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mgtpu_torch import trace
 from mgtpu_torch.nn import ConvBN, Dropout, UpConvBN, quantize_layer
 from mgtpu_torch.ops.cuda_conv import bn_relu_plain
 from mgtpu_torch.parallel import axis
@@ -84,7 +89,15 @@ def materialize_part(kind: str, xp, oh: int, ow: int):
     return xp
 
 
-class MgConvInput(nn.Module):
+class Layer(nn.Module):
+    """A multigrid layer: its forward is a span under its class's name,
+    carrying ``at``, its position in the net (`number_layers`; None
+    until then)."""
+
+    at = None
+
+
+class MgConvInput(Layer):
     """Input pyramid stem: scale i = avgpool(2^i) of the image (taken
     progressively, each scale the 2x2 average of the one before) followed
     by ConvBN-ReLU, a 3x3 conv of the ``c_in``-channel image on the
@@ -100,14 +113,15 @@ class MgConvInput(nn.Module):
         self.out_widths = list(widths)
 
     def forward(self, x):
-        xs = [x]
-        for _ in self.convs[1:]:
-            xs.append(avgpool(xs[-1], 2))
-        parts = quantize_layer(self.convs, [[("same", xi)] for xi in xs])
-        return tuple(conv.apply_parts(p) for conv, p in zip(self.convs, parts))
+        with trace.span("MgConvInput", self.at):
+            xs = [x]
+            for _ in self.convs[1:]:
+                xs.append(avgpool(xs[-1], 2))
+            parts = quantize_layer(self.convs, [[("same", xi)] for xi in xs])
+            return tuple(conv.apply_parts(p) for conv, p in zip(self.convs, parts))
 
 
-class MgStem7x7(nn.Module):
+class MgStem7x7(Layer):
     """ImageNet input stem: per scale, avgpool(2^i) -> Conv7x7/2 pad 3 ->
     BN -> ReLU -> MaxPool3x3/2 pad 1. 224 -> 56/28/14."""
 
@@ -122,14 +136,16 @@ class MgStem7x7(nn.Module):
         self.out_widths = list(widths)
 
     def forward(self, x):
-        xs = [x]
-        for _ in self.convs[1:]:  # progressive dyadic pyramid (== avgpool(2^i) of x)
-            xs.append(avgpool(xs[-1], 2))
-        parts = quantize_layer(self.convs, [[("same", xi)] for xi in xs])
-        return tuple(maxpool(conv.apply_parts(p), 3, 2, 1) for conv, p in zip(self.convs, parts))
+        with trace.span("MgStem7x7", self.at):
+            xs = [x]
+            for _ in self.convs[1:]:  # progressive dyadic pyramid (== avgpool(2^i) of x)
+                xs.append(avgpool(xs[-1], 2))
+            parts = quantize_layer(self.convs, [[("same", xi)] for xi in xs])
+            return tuple(maxpool(conv.apply_parts(p), 3, 2, 1)
+                         for conv, p in zip(self.convs, parts))
 
 
-class MgConv(nn.Module):
+class MgConv(Layer):
     """Plain multigrid conv layer: per scale, the exchange then ConvBN and
     (unless ``relu`` is False: the mnist nets' output layers) ReLU,
     through ``ConvBN.apply_parts``; ``dropout`` drops each exchange part
@@ -151,10 +167,11 @@ class MgConv(nn.Module):
         self.out_widths = list(out_widths)
 
     def forward(self, pyr):
-        down = pool_finer(pyr)
-        parts = quantize_layer(self.convs, [exchange_parts(pyr, i, down=down)
-                                            for i in range(len(self.convs))])
-        return tuple(conv.apply_parts(p) for conv, p in zip(self.convs, parts))
+        with trace.span("MgConv", self.at):
+            down = pool_finer(pyr)
+            parts = quantize_layer(self.convs, [exchange_parts(pyr, i, down=down)
+                                                for i in range(len(self.convs))])
+            return tuple(conv.apply_parts(p) for conv, p in zip(self.convs, parts))
 
 
 class DropCoarsest(nn.Module):
@@ -194,7 +211,7 @@ class PerScale(nn.Module):
         return tuple(layer(x) for layer, x in zip(self.layers, pyr, strict=True))
 
 
-class MgResidual(nn.Module):
+class MgResidual(Layer):
     """Residual multigrid layer, per scale:
 
         y = relu( shortcut(x) + ConvBN(xc( ConvBNReLU(xc(x)) )) )
@@ -271,25 +288,26 @@ class MgResidual(nn.Module):
                      for i, layer in enumerate(self.stage2))
 
     def forward(self, pyr):
-        if self.training and self.drop is None:
-            h = self._train_stages(pyr)
-        else:
-            h = self._stage(self.stage2, self._stage(self.stage1, pyr))
-        out = []
-        for i, (x, y) in enumerate(zip(pyr, h)):
-            cin, cout = self.in_widths[i], self.out_widths[i]
-            if str(i) in self.shortcuts:
-                short = self.shortcuts[str(i)](x)
-            elif cin == cout:
-                short = x
-            else:  # zero-pad widen
-                short = F.pad(x, (0, cout - cin))
-            z = y + short.to(y.dtype)
-            out.append(torch.relu(z) if self.final_relu else z)
-        return tuple(out)
+        with trace.span("MgResidual", self.at):
+            if self.training and self.drop is None:
+                h = self._train_stages(pyr)
+            else:
+                h = self._stage(self.stage2, self._stage(self.stage1, pyr))
+            out = []
+            for i, (x, y) in enumerate(zip(pyr, h)):
+                cin, cout = self.in_widths[i], self.out_widths[i]
+                if str(i) in self.shortcuts:
+                    short = self.shortcuts[str(i)](x)
+                elif cin == cout:
+                    short = x
+                else:  # zero-pad widen
+                    short = F.pad(x, (0, cout - cin))
+                z = y + short.to(y.dtype)
+                out.append(torch.relu(z) if self.final_relu else z)
+            return tuple(out)
 
 
-class MgPool(nn.Module):
+class MgPool(Layer):
     """Block transition: mode "plain" max-pools (2x2/2, ceil) every
     scale; mode "concat" pools scales 0..n-2 and concatenates the
     untouched coarsest scale onto scale n-2, leaving n-1 scales; mode
@@ -312,15 +330,16 @@ class MgPool(nn.Module):
         self.mode = mode
 
     def forward(self, pyr):
-        if self.mode == "plain":
-            return maxpool2_ceil_group(pyr)
-        out = list(pool_finer(pyr))
-        if self.mode == "concat":
-            out[-1] = torch.cat([out[-1], pyr[-1]], dim=-1)
-        return tuple(out)
+        with trace.span("MgPool", self.at):
+            if self.mode == "plain":
+                return maxpool2_ceil_group(pyr)
+            out = list(pool_finer(pyr))
+            if self.mode == "concat":
+                out[-1] = torch.cat([out[-1], pyr[-1]], dim=-1)
+            return tuple(out)
 
 
-class MgUpConv(nn.Module):
+class MgUpConv(Layer):
     """Per scale, a 2x2/2 transposed conv, BN and ReLU (UpConvBN)."""
 
     def __init__(self, in_widths, out_widths, compute_dtype=None, device=None, generator=None):
@@ -333,4 +352,12 @@ class MgUpConv(nn.Module):
         self.out_widths = list(out_widths)
 
     def forward(self, pyr):
-        return tuple(up(x) for up, x in zip(self.ups, pyr, strict=True))
+        with trace.span("MgUpConv", self.at):
+            return tuple(up(x) for up, x in zip(self.ups, pyr, strict=True))
+
+
+def number_layers(model: nn.Module) -> None:
+    """Give each multigrid `Layer` of ``model`` its position in the net,
+    0, 1, ... in module order: the ``at`` its span carries."""
+    for k, m in enumerate(m for m in model.modules() if isinstance(m, Layer)):
+        m.at = k

@@ -50,7 +50,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from mgtpu_torch import kernels
+from mgtpu_torch import kernels, trace
 from mgtpu_torch.ops.cuda_conv_i8 import conv_i8, conv_i8_plain  # noqa: F401 (re-exported)
 from mgtpu_torch.ops.resample import upsample_nearest2
 from mgtpu_torch.parallel import axis
@@ -148,7 +148,8 @@ def quant_i8_group(members) -> list:
     group's scale vector (no synchronisation without a mesh). Every launch
     counts as ``quant_i8`` and as its design ``group``. Under
     ``torch.export``, the op ``mgtpu::quant_i8_group``
-    (`mgtpu_torch.ops.library`)."""
+    (`mgtpu_torch.ops.library`). A span (`mgtpu_torch.trace`),
+    ``quant_i8``."""
     members = [(x, sx, None if up is None else tuple(up)) for x, sx, up in members]
     if torch.compiler.is_exporting():
         from mgtpu_torch.ops import library  # noqa: F401 (registers the op)
@@ -157,9 +158,10 @@ def quant_i8_group(members) -> list:
             [m[0] for m in members], [m[1] for m in members],
             [v for _, _, up in members for v in (up or (0, 0))])
         return _with_scales(members, x8s, scales)
-    if all(x.device.type == "cpu" for x, _, _ in members):
-        return quant_i8_group_plain(members)
-    return _with_scales(members, *_launch_group(members))
+    with trace.span("quant_i8"):
+        if all(x.device.type == "cpu" for x, _, _ in members):
+            return quant_i8_group_plain(members)
+        return _with_scales(members, *_launch_group(members))
 
 
 def quant_i8(x: torch.Tensor, sx: torch.Tensor | None = None, up=None):

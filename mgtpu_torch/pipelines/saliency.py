@@ -52,6 +52,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from mgtpu_torch import trace
 from mgtpu_torch.parallel import fetch_global, is_primary, shard_batch
 from mgtpu_torch.utils import h5
 
@@ -220,24 +221,32 @@ class GroupStep:
         Returns device tensors: with ``dump_stack`` the outputs (k*(1+N),
         Ho, Wo, Co); else (valid (k,), points (k, 7, Ho, Wo, 1), saliency
         (k, 7, H, W, 1)), and, where the stack is built on the device, the
-        base images (k, H, W, C) after them."""
-        if not self.expand_dev:  # the rows: the variants of the k stacks
-            x = x.reshape(-1, *x.shape[2:])
-        x = self.to_device(x)
-        mine = x if self.mesh is None else shard_batch(self.mesh, {"x": x})["x"]
-        if self.expand_dev:
-            b = mine[:, None]
-            mine = torch.cat([b, self.inv[None] * b + self.offset[None]], 1)
-            mine = mine.reshape(-1, *mine.shape[2:])
-        out = self.model(mine)
-        if self.mesh is not None:
-            out = fetch_global(self.mesh, out)
-        if self.dump_stack:
-            return out
-        outs = out.reshape(self.k, self.n_stack, *out.shape[1:])
-        valid, points = interest_points(outs[:, 0])
-        sal = saliency_maps(outs, points, self.mask)
-        return (valid, points, sal, x) if self.expand_dev else (valid, points, sal)
+        base images (k, H, W, C) after them. Spans (`mgtpu_torch.trace`):
+        ``group``, its ``input`` (the copy to the device and this rank's
+        rows), ``stack`` (the expansion on the device), ``forward`` (with
+        the gather of a mesh's outputs) and ``probe``."""
+        with trace.span("group"):
+            if not self.expand_dev:  # the rows: the variants of the k stacks
+                x = x.reshape(-1, *x.shape[2:])
+            with trace.span("input"):
+                x = self.to_device(x)
+                mine = x if self.mesh is None else shard_batch(self.mesh, {"x": x})["x"]
+            if self.expand_dev:
+                with trace.span("stack"):
+                    b = mine[:, None]
+                    mine = torch.cat([b, self.inv[None] * b + self.offset[None]], 1)
+                    mine = mine.reshape(-1, *mine.shape[2:])
+            with trace.span("forward"):
+                out = self.model(mine)
+                if self.mesh is not None:
+                    out = fetch_global(self.mesh, out)
+            if self.dump_stack:
+                return out
+            with trace.span("probe"):
+                outs = out.reshape(self.k, self.n_stack, *out.shape[1:])
+                valid, points = interest_points(outs[:, 0])
+                sal = saliency_maps(outs, points, self.mask)
+            return (valid, points, sal, x) if self.expand_dev else (valid, points, sal)
 
 
 def group_size(opt, n_test: int) -> int:

@@ -12,6 +12,7 @@ shape (`train.lua:184-199`).
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 import time
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from mgtpu_torch import trace
 from mgtpu_torch.models.base import NetOpts
 from mgtpu_torch.parallel import (fetch_global, gather_tree, is_primary, make_mesh, replicate,
                                   shard_batch, shard_opt_zero1, shard_params_tp, whole_tensors)
@@ -223,14 +225,22 @@ def _start_profile(device: torch.device) -> torch.profiler.profile:
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=acts)
+    trace.drain()  # spans of earlier profiles
     prof.start()
     return prof
 
 
 def _stop_profile(prof: torch.profiler.profile, out_dir: str) -> None:
+    """``out_dir``/trace.json, the profiler's, and spans.json, the
+    program's spans recorded while it ran (`mgtpu_torch.trace`), on its
+    clock."""
     prof.stop()
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        base_ns = int(json.load(f).get("baseTimeNanoseconds", 0))
+    trace.write_chrome(os.path.join(out_dir, "spans.json"), trace.drain(), base_ns)
     print(f"profiler trace -> {out_dir}")
 
 

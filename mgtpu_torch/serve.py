@@ -44,6 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from mgtpu_torch import trace
 from mgtpu_torch.models import create_model, get_spec, list_models, net_options
 from mgtpu_torch.models.base import NetOpts
 from mgtpu_torch.nn import BatchNorm, Conv, ConvTranspose
@@ -168,13 +169,18 @@ class Server:
     def predict(self, images) -> torch.Tensor:
         """images (B, H, W, C) NHWC (numpy or torch; ``self.image_shape``)
         -> on ``self.device``, f32 log-probs (B, classes) of a classifier
-        or per-pixel probabilities (B, H, W, classes) of an mnist net."""
-        x = torch.as_tensor(images).to(self.device,
-                                       torch.float32 if self.int8 else self.compute_dtype)
-        if x.dim() != 4 or tuple(x.shape[1:]) != self.image_shape:
-            raise ValueError(f"expected (B, {', '.join(map(str, self.image_shape))}) NHWC "
-                             f"images, got {tuple(x.shape)}")
-        return self.model(x.contiguous())
+        or per-pixel probabilities (B, H, W, classes) of an mnist net. Spans
+        (`mgtpu_torch.trace`): ``predict``, its ``input`` and ``forward``."""
+        with trace.span("predict"):
+            with trace.span("input"):
+                x = torch.as_tensor(images).to(self.device,
+                                               torch.float32 if self.int8 else self.compute_dtype)
+                if x.dim() != 4 or tuple(x.shape[1:]) != self.image_shape:
+                    raise ValueError(f"expected (B, {', '.join(map(str, self.image_shape))}) "
+                                     f"NHWC images, got {tuple(x.shape)}")
+                x = x.contiguous()
+            with trace.span("forward"):
+                return self.model(x)
 
 
 def _sync(device: torch.device) -> None:

@@ -151,7 +151,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-profile", default="", metavar="DIR",
                    help="capture a torch.profiler trace of train iterations "
                         "2..9 of the first epoch into DIR, as a Chrome "
-                        "trace (chrome://tracing, Perfetto)")
+                        "trace (chrome://tracing, Perfetto), and the "
+                        "program's spans on its clock (DIR/spans.json)")
     p.add_argument("-spatial", type=int, default=1,
                    help="spatial parallelism: split the height of every image-shaped "
                         "activation that keeps >= 8 rows a rank over this many ranks of "

@@ -65,6 +65,24 @@ def test_train_and_test_write_the_run_dir(trained):
         "netType": "mnist-cluttered/unmg", "dataset": "mnist-seg", "dtype": "float32"}
 
 
+def test_profile_writes_the_spans_on_the_trace_clock(trained):
+    """-profile's spans.json: the program's spans of the profiled
+    iteration (the multigrid layers and hand-kernel entries of the
+    training forward), on the clock of the trace.json beside it."""
+    tmp, _ = trained
+    with open(tmp / "trace" / "trace.json") as f:
+        prof = json.load(f)
+    with open(tmp / "trace" / "spans.json") as f:
+        spans = json.load(f)
+    assert spans["baseTimeNanoseconds"] == prof["baseTimeNanoseconds"]
+    events = [e for e in spans["traceEvents"] if e["ph"] == "X"]
+    names = {e["name"].split(".")[0] for e in events}
+    assert {"MgConv", "conv3x3", "maxpool2"} <= names
+    ops = [e for e in prof["traceEvents"] if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
+    lo, hi = min(e["ts"] for e in ops), max(e["ts"] + e["dur"] for e in ops)
+    assert all(lo - 1e6 <= e["ts"] and e["ts"] + e["dur"] <= hi + 1e6 for e in events)
+
+
 def test_harness_reproduces_the_test_metrics(trained, tmp_path):
     """mnist-test -retrain gives the training run's test metrics exactly
     and dumps its predictions NHWC, read the same through h5py and the
