@@ -31,7 +31,14 @@ Phases:
              each launch through the design cuda_conv._route picks (sm90:
              TMA + wgmma, for bf16 with Ci, Co multiples of 64; window:
              the rest), and each shape also through the window design
-             (where sm90 takes it) and the first design, tile
+             (where sm90 takes it) and the first design, tile; then (3b)
+             with torch.backends.cudnn.allow_tf32 True inside the phase
+             alone, conv3x3 and conv3x3_bn_relu_in in f32 through the
+             window design's TF32 branch (route window_tf32: Co >= 8) at
+             its edge shapes and the saliency forward's shapes at batch
+             8, each pad pair at the small ones, vs the plain version on
+             operands rounded to TF32 as the kernel rounds them, within
+             the bound of summation order over K = 9 * Ci
   4 maxpool2 kernel vs maxpool2_plain, exact, with odd sizes, NaN and -inf,
              each launch through the design cuda_pool._route picks (sm90:
              bulk copies into a ring, 16-byte lanes, for even H and
@@ -241,7 +248,12 @@ Phases:
              the writer's MB/s alone; render_saliency on the dump-1 file
              (10 PNGs a sample); conv3x3
              and maxpool2 at the forward's shapes at N = 3,368 vs their
-             plain versions, then timed beside them and one PyTorch call
+             plain versions, then timed beside them and one PyTorch call;
+             with allow_tf32 True inside those two steps alone, the TF32
+             branch at the same shapes vs the TF32-rounded plain version
+             (3b's bound), then the forward's convs timed through it (Co
+             = 1: the FMA branch), the FMA branch, cuDNN in TF32 and in
+             f32, in turns
  28 remat    the train step's -remat: R-MG-34 bf16 at batch 128 and
              cifar/prnmg --isDropout at 64 x 2, one remat step beside two
              plain ones from the same weights: the update and the running
@@ -456,8 +468,9 @@ CHECK_BATCH, TIME_BATCH = 8, 128
 # tensor cores and HBM3 bandwidth. Bounds and shares are against these,
 # whatever power limit the card runs at (printed beside them).
 PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
-# f32 outside the tensor cores (the same data sheet)
-PEAK_F32_FLOPS = 67e12
+# f32 outside the tensor cores, and f32 operands on the TF32 tensor cores
+# (the same data sheet)
+PEAK_F32_FLOPS, PEAK_TF32_FLOPS = 67e12, 495e12
 # a timed pool call reads its input from device memory only if the other
 # inputs it rotates through (more than this in all) have pushed it out of
 # the 50 MB L2
@@ -849,6 +862,165 @@ def check_conv(cases, max_err, what="", slices=False) -> None:
           f"through window at shapes routed to sm90, {n_design['tile']} through tile): match the "
           f"plain version (max abs err {max_err['conv3x3']:.3g}; largest error "
           f"{worst[torch.bfloat16]:.2f} of its bound in bf16, {worst[torch.float32]:.2f} in f32)")
+
+
+@contextlib.contextmanager
+def tf32_convs(on):
+    """``torch.backends.cudnn.allow_tf32`` set to ``on`` inside: PyTorch's
+    switch for its f32 convs, which the port's f32 conv3x3 launches
+    follow too (cuda_conv._route: window_tf32 where it is True)."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+# the TF32 branch's edges: packed K (Ci 1, 3, 5), dense Ci off a multiple
+# of 8 (12, 20), Co off a multiple of 8 (10, 20, 70, 130: three channel
+# slices), several window chunks (Ci 96, 200), two or more images a tile
+# (5x5, 7x7), row and column tails (19x21, 9x13); Ci 10, which TMA does
+# not take, stays on the FMA branch
+TF32_EDGE_CASES = [((19, 21, 5, 10), 3), ((7, 7, 3, 16), 4), ((9, 13, 12, 20), 2),
+                   ((14, 14, 20, 70), 3), ((8, 8, 200, 130), 2), ((28, 28, 96, 64), 2),
+                   ((5, 5, 64, 8), 5), ((16, 16, 1, 16), 2), ((9, 13, 10, 20), 2)]
+
+
+def check_conv_tf32(cases, what="", chunk=256) -> float:
+    """3b: conv3x3 and conv3x3_bn_relu_in in f32 under allow_tf32 True
+    (tf32_convs) at each ((H, W, Ci, Co), batch). A launch with Co >= 8
+    (and Ci < 8 or a multiple of 4) must take the window design's TF32
+    branch, and is held to the plain
+    version on its operands rounded to TF32 as the kernel rounds them
+    (cuda_conv.tf32_round; the prologue's output rounded, as the kernel
+    rounds its window after the prologue), computed in float64 (``chunk``
+    images at a time; cuDNN's f32 may pick Winograd or FFT algorithms,
+    which are no sums of the products), so that the order of the kernel's
+    f32 sums is all that differs: two TF32 values multiply exactly in
+    f32, an output sums K = 9 * Ci products and the bias, and each of
+    the K + 1 additions is off by at most 2^-23 (one unit in the last
+    place, rounded or truncated) of the sum of the terms' magnitudes.
+    The bound is (K + 1) * 2^-22 * (|x| conv |w| + |b|) on the rounded
+    operands, twice that; the stats' bound is that summed over the
+    pixels (for the squares, times 2|y| + the bound) plus check_conv's
+    1e-4 for the atomics' order. Co < 8 (and Ci >= 8 off a multiple of 4)
+    stays on the FMA branch, held to the unrounded plain version at
+    check_conv's f32 tolerance. Each case
+    with and without ReLU and stats, the small ones also under each pad
+    pair; with the flag False the same operands must route to window.
+    Returns the largest error as a share of its bound."""
+    n_cases, worst, n_route = 0, 0.0, Counter()
+    for k, ((h, w, ci, co), batch) in enumerate(sorted(cases)):
+        x, wt, b = conv_inputs(batch, h, w, ci, co, torch.float32, seed=1100 + k)
+        with tf32_convs(False):
+            check(cuda_conv._route(x, wt) == "window", f"conv3x3 f32 {ci}->{co}: allow_tf32 "
+                  f"False routes to {cuda_conv._route(x, wt)}, not window")
+        with tf32_convs(True):
+            route = cuda_conv._route(x, wt)
+        tf32 = co >= 8 and (ci < 8 or ci % 4 == 0)
+        check(route == ("window_tf32" if tf32 else "window"), f"conv3x3 f32 {ci}->{co}: "
+              f"allow_tf32 True routes to {route}")
+        tc = route == "window_tf32"
+        wr = (cuda_conv.tf32_round(wt) if tc else wt).double()
+        pad_pairs = [(1, 1)] + ([(0, 1), (1, 0), (0, 0)] if batch * h * w <= 4096 else [])
+        for prologue in (False, True):
+            vec = bn_inputs(ci, seed=1200 + k) if prologue else ()
+            kname = "conv3x3_bn_relu_in" if prologue else "conv3x3"
+            fn = conv3x3_bn_relu_in if prologue else conv3x3
+            for pads, (relu_out, with_stats) in itertools.product(
+                    pad_pairs, ((False, True), (True, True), (True, False))):
+                kw = dict(pad_top=pads[0], pad_bottom=pads[1])
+                with tf32_convs(True):
+                    y, st = routed(kname, x, wt, lambda: fn(
+                        x, wt, b, *vec, relu_out=relu_out, with_stats=with_stats, **kw))
+                torch.cuda.synchronize()
+                share, st_ref, slack = 0.0, 0.0, 0.0
+                for i in range(0, batch, chunk):
+                    xin = x[i:i + chunk]
+                    xin = bn_relu_plain(xin, *vec) if prologue else xin
+                    xr = (cuda_conv.tf32_round(xin) if tc else xin).double()
+                    y_ref = conv3x3_plain(xr, wr, b.double(), relu_out=relu_out,
+                                          with_stats=False, **kw)[0]
+                    if tc:
+                        mag = conv3x3_plain(xr.abs(), wr.abs(), b.double().abs(),
+                                            with_stats=False, **kw)[0]
+                        tol = (9 * ci + 1) * 2.0 ** -22 * mag
+                    else:
+                        tol = 1e-5 * y_ref.abs() + 1e-5 * y_ref.abs().max()
+                    err = (y[i:i + chunk].double() - y_ref).abs()
+                    share = max(share, (err / tol.clamp_min(1e-300)).max().item())
+                    px = (0, 1, 2)  # every axis but the channels
+                    st_ref = st_ref + torch.stack([y_ref.sum(dim=px),
+                                                   (y_ref * y_ref).sum(dim=px)])
+                    slack = slack + torch.stack([tol.sum(dim=px),
+                                                 ((2 * y_ref.abs() + tol) * tol).sum(dim=px)])
+                    del xin, xr, y_ref, tol, err
+                what_ = (f"{kname} {batch}x{h}x{w}x{ci}->{co} f32 under allow_tf32 ({route}) "
+                         f"pads={pads} relu={relu_out} stats={with_stats}")
+                check(y.dtype == torch.float32 and share <= 1.0, f"{what_}: {share:.3g} of its "
+                      f"bound")
+                worst = max(worst, share)
+                if with_stats:
+                    st_tol = slack + 1e-4 * st_ref.abs() + 1e-5 * st_ref.abs().max()
+                    st_err = (st.double() - st_ref).abs()
+                    check(bool((st_err <= st_tol).all()),
+                          f"{what_}: stats max abs err {st_err.max().item():.3g}")
+                else:
+                    check(not st.any(), f"{what_}: stats not zero")
+                n_cases += 1
+                n_route[route] += 1
+                del y, st
+        del x, wt, b, wr
+    torch.cuda.empty_cache()
+    phase("conv3x3", f"{what}f32 under allow_tf32: {n_cases} cases at {len(cases)} shapes and "
+          f"batches ({dict(n_route)}) match the plain version on TF32-rounded operands within "
+          f"(9 Ci + 1) 2^-22 of |x| conv |w| + |b| (the FMA branch within f32's): largest error "
+          f"{worst:.3g} of its bound")
+    return worst
+
+
+def time_tf32(shapes, n_img, seed=1300) -> dict:
+    """The saliency forward's conv3x3 launches (``shapes``: (H, W, Ci, Co)
+    -> launches a forward) at ``n_img`` images in f32, in turns: routed
+    under allow_tf32 True (window_tf32; window at Co = 1), the window
+    design's FMA branch, cuDNN's one call in TF32 and in f32; rates in
+    kernel_work's operations, shares of the bound at TF32's peak and the
+    HBM's. Returns the per-forward sums (ms) by key, with "bound"."""
+    tot = defaultdict(float)
+    for k, ((h, w, ci, co), count) in enumerate(sorted(shapes.items())):
+        x, wt, b = conv_inputs(n_img, h, w, ci, co, torch.float32, seed=seed + k)
+        w_lib = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+
+        def under(on, fn):
+            def call():
+                with tf32_convs(on):
+                    fn()
+            return call
+
+        fns = {"routed": under(True, lambda: conv3x3(x, wt, b, with_stats=False)),
+               "window": lambda: cuda_conv._window_forward(x, wt, b, with_stats=False),
+               "cudnn_tf32": under(True, lambda: F.conv2d(nchw(x), w_lib, b, padding=1)),
+               "cudnn_f32": under(False, lambda: F.conv2d(nchw(x), w_lib, b, padding=1))}
+        res = dict(zip(fns, device_ms(list(fns.values()), windows=3)))
+        flops, nbytes = kernel_work("conv3x3", (h, w, ci, co), n_img, 4)
+        bnd, by = bound(flops, nbytes, PEAK_TF32_FLOPS)
+        with tf32_convs(True):
+            route = cuda_conv._route(x, wt)
+        for key, (t, _) in res.items():
+            tot[key] += count * t
+        tot["bound"] += count * bnd
+        phase("times", f"saliency conv3x3 {n_img}x{h}x{w}x{ci}->{co} f32 (x{count}/forward, "
+              f"routed {route}; bound at TF32 {bnd:.3f} ms, by {by}): " + ", ".join(
+                  f"{key} {t:.4f} ms ({flops / t / 1e9:.1f} TFLOP/s, {bnd / t:.1%}, spread "
+                  f"{sp:.1%})" for key, (t, sp) in res.items()))
+        del x, wt, b, w_lib
+    torch.cuda.empty_cache()
+    phase("times", f"saliency conv3x3 per {n_img}-image forward in f32 under allow_tf32: routed "
+          f"{tot['routed']:.3f} ms ({tot['bound'] / tot['routed']:.1%} of its bound at TF32, "
+          f"{tot['bound']:.3f} ms), the FMA branch {tot['window']:.3f} ms, cuDNN TF32 "
+          f"{tot['cudnn_tf32']:.3f} ms, cuDNN f32 {tot['cudnn_f32']:.3f} ms")
+    return dict(tot)
 
 
 def check_pool(shapes, max_err, what="") -> None:
@@ -3449,6 +3621,8 @@ def check_saliency(name) -> tuple[dict, dict]:
     t_ms, t_plain, t_lib, t_simple, t_designs = time_kernels(
         label, shapes, {k: Counter() for k in KERNELS}, n_img, 1, 1, seed=900,
         alternatives=False, windows=3, dtype=torch.float32)
+    check_conv_tf32([(shape, n_img) for shape in shapes["conv3x3"]], f"saliency at {n_img}: ")
+    time_tf32(shapes["conv3x3"], n_img)
     # (the bounds at the f32 peak outside the tensor cores: main prints them)
     bounds = path_bounds(shapes, n_img, torch.float32)
     shutil.rmtree(cache)
@@ -4762,13 +4936,20 @@ def check_i8_axis(name, power, shapes) -> tuple[dict, dict]:
 
 def conv_phases(name) -> None:
     """``--convs``: the two convs' phases alone. Phases 3 and 7's checks
-    (R-MG-34's shapes at batch 8 through every design), phase 6 and 11's
-    conv timings at batch 128 (R-MG-34's forward and training step, with
-    their launches routed to window summed) and phase 27's conv timings
-    at the saliency forward's shapes (3,368 images, f32)."""
+    (R-MG-34's shapes at batch 8 through every design), 3b's TF32 checks,
+    phase 6 and 11's conv timings at batch 128 (R-MG-34's forward and
+    training step, with their launches routed to window summed) and phase
+    27's conv timings and TF32 checks at the saliency forward's shapes
+    (3,368 images, f32)."""
+    from mgtpu_torch.data.mnist import occlusion_masks
+
     serve, train = record_kernel_shapes(False), record_kernel_shapes(True)
+    sal = record_kernel_shapes(False, SEG_RECIPES[SAL_NET][0])
+    n_img = SAL_GROUP * (1 + len(occlusion_masks()))
     max_err = dict.fromkeys(KERNELS, 0.0)
     check_conv([(shape, CHECK_BATCH) for shape in serve["conv3x3"]], max_err)
+    check_conv_tf32(TF32_EDGE_CASES + [(shape, CHECK_BATCH) for shape in sal["conv3x3"]],
+                    "edges and the saliency shapes, batch 8: ")
     check_prologue([(shape, CHECK_BATCH) for shape in train["conv3x3_bn_relu_in"]], max_err)
     ms, plain_ms, alt = dict.fromkeys(KERNELS, 0.0), dict.fromkeys(KERNELS, 0.0), defaultdict(float)
     library_ms = {k: None if k == "conv3x3_bn_relu_in" else 0.0 for k in KERNELS}
@@ -4786,14 +4967,12 @@ def conv_phases(name) -> None:
               f"{alt[('window', kname)]:.3f} ms, tile {alt[('tile', kname)]:.3f} ms), plain "
               f"{plain_ms[kname]:.3f} ms, cuDNN's one call {lib}")
         narrow_line(f"R-MG-{DEPTH}", alt, kname, f"batch-{TIME_BATCH} {unit}")
-    from mgtpu_torch.data.mnist import occlusion_masks
-
-    sal = record_kernel_shapes(False, SEG_RECIPES[SAL_NET][0])
-    n_img = SAL_GROUP * (1 + len(occlusion_masks()))
     empty = {k: Counter() for k in KERNELS}
     time_kernels(f"mnist-saliency ({SAL_NET}, {n_img} a forward)",
                  {**empty, "conv3x3": sal["conv3x3"]}, empty, n_img, 1, 1, seed=900, windows=3,
                  dtype=torch.float32)
+    check_conv_tf32([(shape, n_img) for shape in sal["conv3x3"]], f"saliency at {n_img}: ")
+    time_tf32(sal["conv3x3"], n_img)
     phase("convs", f"the conv phases alone on {name} took {time.perf_counter() - T0:.1f} s")
 
 
@@ -4852,6 +5031,9 @@ def main() -> None:
             f"{k} {r} {n}" for (k, r), n in routes.items()))
 
     check_conv([(shape, CHECK_BATCH) for shape in conv_shapes], max_err)
+    sal_shapes = record_kernel_shapes(False, SEG_RECIPES[SAL_NET][0])["conv3x3"]
+    check_conv_tf32(TF32_EDGE_CASES + [(shape, CHECK_BATCH) for shape in sal_shapes],
+                    "edges and the saliency shapes, batch 8: ")
     check_pool([(CHECK_BATCH, *shape) for shape in sorted(pool_shapes)] + POOL_EDGE_SHAPES,
                max_err)
 

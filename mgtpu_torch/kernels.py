@@ -46,8 +46,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: dict[str, int] = {"conv3x3": 0, "conv3x3_bn_relu_in": 0, "maxpool2": 0,
                             "maxpool2_bwd": 0, "conv_i8": 0, "quant_i8": 0}
 # (kernel, design) -> launches since the last reset_launches(), for the
-# kernels with several designs: the convs' ("sm90" and "window" on the
-# port's path, mgtpu_torch/ops/cuda_conv.py::_route; "tile" only through
+# kernels with several designs: the convs' ("sm90", "window" and, for
+# f32 under torch.backends.cudnn.allow_tf32, "window_tf32" on the port's
+# path, mgtpu_torch/ops/cuda_conv.py::_route; "tile" only through
 # cuda_conv._tile_forward),
 # the pool forward's (mgtpu_torch/ops/cuda_pool.py::_route), the int8
 # conv's ("sm90", "stem", "1x1" and "simple",
@@ -58,7 +59,8 @@ LAUNCHES: dict[str, int] = {"conv3x3": 0, "conv3x3_bn_relu_in": 0, "maxpool2": 0
 # quant._part_forward)
 _I8_DESIGNS = ("sm90", "stem", "1x1", "simple")  # cuda_conv_i8.DESIGNS
 ROUTES: dict[tuple[str, str], int] = {
-    **{(k, r): 0 for k in ("conv3x3", "conv3x3_bn_relu_in") for r in ("sm90", "window", "tile")},
+    **{(k, r): 0 for k in ("conv3x3", "conv3x3_bn_relu_in")
+       for r in ("sm90", "window", "window_tf32", "tile")},
     **{("maxpool2", r): 0 for r in ("sm90", "simple")},
     **{("conv_i8", r): 0 for r in _I8_DESIGNS},
     **{("maxpool2_bwd", r): 0 for r in ("group", "simple")},
@@ -68,7 +70,8 @@ ROUTES: dict[tuple[str, str], int] = {
 # other than (pad, pad): an H-slab's, under -spatial) since the last
 # reset_launches(); each is also counted in LAUNCHES and ROUTES
 PADDED: dict[tuple[str, str], int] = {
-    **{(k, r): 0 for k in ("conv3x3", "conv3x3_bn_relu_in") for r in ("sm90", "window", "tile")},
+    **{(k, r): 0 for k in ("conv3x3", "conv3x3_bn_relu_in")
+       for r in ("sm90", "window", "window_tf32", "tile")},
     **{("conv_i8", r): 0 for r in _I8_DESIGNS}}
 
 _P = ctypes.c_void_p

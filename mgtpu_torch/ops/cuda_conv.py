@@ -13,8 +13,14 @@ in bf16, FMAs in f32: everything else; `csrc/conv3x3_window.cu`, planned
 by :func:`_window_plan`) and ``tile`` (the first design, WMMA or FMA
 tiles that gather every tap from device memory; `conv3x3.cu`), which the
 port no longer launches: :func:`_tile_forward` runs it for comparisons.
-:func:`_route` picks sm90 or window from dtype, shape and alignment
-alone; it is not a fallback, and a launch that fails raises.
+The window design's f32 launches have two branches, counted as two
+routes: ``window_tf32`` (TF32 tensor cores, wgmma fed by TMA, mma.sync
+for Ci < 8; each operand rounded to TF32 once: :func:`tf32_round`) where
+``torch.backends.cudnn.allow_tf32`` is True, PyTorch's own switch for
+its convs (so the forward follows cuDNN's backward), and ``window``
+(exact FMAs) where it is False or the shape does not suit TF32.
+:func:`_route` picks from dtype, shape, alignment and that flag alone;
+it is not a fallback, and a launch that fails raises.
 
 Per-side H padding (``pad_top``, ``pad_bottom``, each 0 or 1; default
 1): where one is 0, ``x`` carries the neighbour's row on that side (the
@@ -137,15 +143,37 @@ def _route(x, w):
     wgmma) for bf16 with Ci and Co multiples of 64 (one 128-byte
     swizzled row of the tiles), at most 2048 (the block keeps per-channel
     sums and the prologue's scale and shift in shared memory), and x and
-    w on 16-byte boundaries (TMA's rule); "window" for everything else
-    (every shape the first design, tile, took before it). A fixed
-    function of dtype, shape and alignment: a launch on either route that
-    fails raises."""
+    w on 16-byte boundaries (TMA's rule); "window_tf32" (the window
+    design's TF32 branch) for f32 where ``torch.backends.cudnn.allow_tf32``
+    is True, Co >= 8 (Co = 1 would fill one column of an n8 tile), the
+    branch's weights fit a block (:func:`_tf32_fits`) and, for Ci >= 8,
+    TMA takes x's windows (Ci a multiple of 4, x on 16 bytes); "window"
+    for everything else (every shape the first design, tile, took before
+    it). A fixed function of dtype, shape, alignment and the flag: a
+    launch on any route that fails raises."""
     ci, co = x.shape[3], w.shape[3]
     if (x.dtype == torch.bfloat16 and ci % 64 == 0 and co % 64 == 0 and max(ci, co) <= 2048
             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0):
         return "sm90"
+    if (x.dtype == torch.float32 and co >= 8 and torch.backends.cudnn.allow_tf32
+            and (ci < 8 or (ci % 4 == 0 and x.data_ptr() % 16 == 0))
+            and _tf32_fits(x.shape[1], x.shape[2], ci, co)):
+        return "window_tf32"
     return "window"
+
+
+def tf32_round(t):
+    """f32 ``t`` rounded to TF32 (10 mantissa bits) as the TF32 branch
+    rounds its operands (``cvt.rna.tf32.f32``): to nearest on the low 13
+    bits of the mantissa, ties away from zero; inf and NaN stay as they
+    are, and a finite value past TF32's largest rounds to inf. Plain
+    torch, on any device: the card's comparisons round the plain
+    version's operands with it."""
+    bits = t.contiguous().view(torch.int32)
+    # adding half of the dropped part to the magnitude carries into the
+    # kept bits (and the exponent) exactly where rounding away would
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(t), rounded, t)
 
 
 # The window design's plan (csrc/conv3x3_window.cu; its Layout mirrors
@@ -157,11 +185,20 @@ _SMEM_TWO = _SMEM_SM // 2 - 1024  # the most a block may take for two to share a
 _F32_RESIDENT = 49_152  # f32: the 9 taps' weights stay in shared memory up to this
 
 
+def _tf32_blocks_sm(ci, bn):
+    """Blocks an SM the TF32 kernels' registers allow: the dense kernel's
+    two warpgroups (256 threads) take 189 registers at 64 channels a block
+    (one block), at most 128 below; the packed one's 128 threads at most
+    161 (ptxas on the H100)."""
+    return 1 if ci >= 8 and bn == 64 else 2
+
+
 class WindowPlan(NamedTuple):
     """ti images x th output rows x tw columns a tile; bn output channels
     a block (grid_y slices of Co); kc input channels a chunk (chunks of
-    them; bf16 with Ci < 16 packs the taps: kc = Ci); stages of the window
-    (bf16: 2 overlaps the next tile's load with this one's math); smem,
+    them; bf16 with Ci < 16 and TF32 with Ci < 8 pack the taps: kc = Ci);
+    stages of the window (bf16, TF32: 2 or 3 overlap the next units'
+    loads with this one's math); smem,
     the dynamic shared memory; tiles, the pixel tiles of a channel slice,
     which grid_x persistent blocks walk."""
     ti: int
@@ -181,11 +218,28 @@ def _up(v, m):
     return -(-v // m) * m
 
 
-def _window_smem(bf16, ci, bn, kc, stages, slots):
-    """(dynamic shared memory, chunks) of a window-design block: the C
-    side's make_layout (csrc/conv3x3_window.cu), which refuses a launch
-    whose plan says other bytes."""
-    if bf16:
+def _window_smem(bf16, ci, bn, kc, stages, slots, tf32=False):
+    """(dynamic shared memory, chunks) of a window-design block (``tf32``:
+    the f32 TF32 branch's): the C side's make_layout
+    (csrc/conv3x3_window.cu), which refuses a launch whose plan says
+    other bytes."""
+    if tf32:
+        # the weights of all chunks (K = 9 * Ci8 dense, 9 * Ci rounded up
+        # to 8 packed; packed in K-major rows of K + 4 f32), then the window
+        # stages (packed: slots of Ci f32; dense: of kc f32, on 128 bytes,
+        # with 128 bytes kept to align them), then the packed slot table or
+        # the dense stages' TMA barriers
+        packed = ci < 8
+        ci8 = _up(ci, 8)
+        kc = ci if packed else kc
+        chunks = 1 if packed else -(-ci8 // kc)
+        rows = _up(9 * ci, 8) if packed else 9 * ci8
+        if packed:
+            smem = _up(bn * (rows + 4) * 4, 16) + stages * _up(slots * ci * 4, 16) + rows * 4
+        else:  # two warpgroups, `stages` window stages and barriers each
+            smem = (_up(bn * rows * 4, 128) + 2 * stages * _up(slots * kc * 4, 128)
+                    + 16 * stages + 128)
+    elif bf16:
         packed = ci < 16
         kc = ci if packed else kc
         cp = ci if packed else kc + 8
@@ -205,9 +259,10 @@ def _window_smem(bf16, ci, bn, kc, stages, slots):
 
 
 @functools.cache
-def _window_plan(n, h, w, ci, co, bf16, sms) -> WindowPlan:
+def _window_plan(n, h, w, ci, co, bf16, sms, tf32=False) -> WindowPlan:
     """The window design's tiling of an (n, h, w) output of ci -> co
-    channels on a card of ``sms`` SMs, a fixed function of them:
+    channels on a card of ``sms`` SMs (``tf32``: f32 through the TF32
+    branch), a fixed function of them:
     - the tile: whole images where one fits in 128 pixels (several
       images a tile: 2 at 7x7 and 8x8, 8 at 4x4), else rows of at most
       16 columns (tw = ceil(w / ceil(w / 16)): 14 at 28, 16 at 32 and 64)
@@ -224,11 +279,27 @@ def _window_plan(n, h, w, ci, co, bf16, sms) -> WindowPlan:
       one stage, chunks of 64, 32, 16 channels; then one block an SM; then
       fewer images a tile. f32 takes chunks of up to 64 channels (one
       chunk, and tile's f32 order, up to Ci = 64) and one window stage.
+    - TF32 with Ci >= 8 (wgmma) tiles by m64 units of 8 x 8 pixels of
+      one image: 8 columns, 16 rows, or 2 images of 8 rows where H <= 8
+      (rows and columns past the image computed on zeros, not stored);
+      with Ci < 8 (mma.sync) as f32. Ci >= 8 runs two warpgroups a block
+      on one copy of the weights, each with its own window stages. The
+      weights of all of Ci stay for the block's life, so it tries the
+      widest bn first, then two blocks an SM before one, then the widest
+      chunk of Ci (rounded up to 8), then three window stages (two with
+      Ci < 8) before fewer: at the saliency forward's 64x64x64->64, 64
+      channels a block, one block an SM, one stage of 32 channels a
+      warpgroup (on the card the fastest of the plans that fit, as at its
+      32x32 and 16x16 shapes; NVIDIA H100 80GB HBM3 at 700 W).
     Raises ValueError where no plan fits a block's shared memory."""
-    tw = -(-w // -(-w // 16))
-    th = min(h, _WINDOW_PIXELS // tw)
-    ti = min(n, max(1, _WINDOW_PIXELS // (th * tw))) if th == h else 1
-    if bf16 or co > 1:
+    if tf32 and ci >= 8:
+        tw, th = 8, 8 if h <= 8 else 16
+        ti = min(n, 2) if th == 8 else 1
+    else:
+        tw = -(-w // -(-w // 16))
+        th = min(h, _WINDOW_PIXELS // tw)
+        ti = min(n, max(1, _WINDOW_PIXELS // (th * tw))) if th == h else 1
+    if bf16 or tf32 or co > 1:
         bn = min(64, max(8, 1 << (co - 1).bit_length()))
     else:
         bn = 1
@@ -236,33 +307,51 @@ def _window_plan(n, h, w, ci, co, bf16, sms) -> WindowPlan:
     def pixel_tiles(ti):
         return -(-n // ti) * -(-h // th) * -(-w // tw)
 
-    while ti > 1 and pixel_tiles(ti) * -(-co // bn) < 2 * sms:
+    while ti > 1 and pixel_tiles(ti) * -(-co // bn) < 2 * sms and not tf32:
         ti = -(-ti // 2)
-    if bf16:
-        kcs = [ci] if ci < 16 else [_up(ci, 16)] + [k for k in (64, 32, 16) if k < _up(ci, 16)]
+    if tf32:
+        kcs = [ci] if ci < 8 else [_up(ci, 8)] + [k for k in (64, 32, 16, 8) if k < _up(ci, 8)]
         bns = [bn >> i for i in range(4) if bn >> i >= 8]
+        order = [(b, budget, stages, kc) for b in bns for budget in (_SMEM_TWO, _SMEM_BLOCK)
+                 for kc in kcs for stages in ((2, 1) if ci < 8 else (3, 2, 1))]
     else:
-        kc = min(64, _up(ci, 4))
-        kcs = [kc] + [k for k in (32, 16, 8, 4) if k < kc]
-        bns = [bn]
+        if bf16:
+            kcs = [ci] if ci < 16 else [_up(ci, 16)] + [k for k in (64, 32, 16)
+                                                        if k < _up(ci, 16)]
+            bns = [bn >> i for i in range(4) if bn >> i >= 8]
+        else:
+            kc = min(64, _up(ci, 4))
+            kcs = [kc] + [k for k in (32, 16, 8, 4) if k < kc]
+            bns = [bn]
+        order = [(b, budget, stages, kc) for budget in (_SMEM_TWO, _SMEM_BLOCK) for kc in kcs
+                 for b in bns for stages in ((2, 1) if bf16 else (1,))]
     while True:
         slots = ti * (th + 2) * (tw + 2)
-        for budget in (_SMEM_TWO, _SMEM_BLOCK):
-            for kc in kcs:
-                for b in bns:
-                    for stages in ((2, 1) if bf16 else (1,)):
-                        smem, chunks = _window_smem(bf16, ci, b, kc, stages, slots)
-                        if smem > budget:
-                            continue
-                        tiles, grid_y = pixel_tiles(ti), -(-co // b)
-                        per_sm = min(4, _SMEM_SM // (smem + 1024))
-                        grid_x = min(tiles, max(1, -(-per_sm * sms // grid_y)))
-                        return WindowPlan(ti, th, tw, b, kc, chunks, stages, smem, tiles,
-                                          grid_x, grid_y)
+        for b, budget, stages, kc in order:
+            smem, chunks = _window_smem(bf16, ci, b, kc, stages, slots, tf32)
+            if smem > budget:
+                continue
+            tiles, grid_y = pixel_tiles(ti), -(-co // b)
+            per_sm = min(_tf32_blocks_sm(ci, b) if tf32 else 4, _SMEM_SM // (smem + 1024))
+            grid_x = min(tiles, max(1, -(-per_sm * sms // grid_y)))
+            return WindowPlan(ti, th, tw, b, kc, chunks, stages, smem, tiles, grid_x, grid_y)
         if ti == 1:
             raise ValueError(f"conv3x3 window design: no plan fits {_SMEM_BLOCK} bytes of "
                              f"shared memory at {n}x{h}x{w}x{ci}->{co}")
         ti = -(-ti // 2)
+
+
+@functools.cache
+def _tf32_fits(h, w, ci, co) -> bool:
+    """Whether the TF32 branch has a plan for ci -> co at an h x w grid:
+    its weights stay in shared memory, so very wide Ci does not fit. A
+    tile of one image is the plan's last resort at any batch, so batch 1
+    decides; the input's rows (h) bound the output's."""
+    try:
+        _window_plan(1, h, w, ci, co, False, 1, tf32=True)
+    except ValueError:
+        return False
+    return True
 
 
 @functools.cache
@@ -280,14 +369,17 @@ def _launch(kernel, route, x, w, b, vectors, relu_out, with_stats, pads=(1, 1)):
     stats = torch.zeros((2, co), dtype=torch.float32, device=x.device)
     if y.numel():
         bf16 = x.dtype == torch.bfloat16
+        tf32 = route == "window_tf32"
         plan = ()
-        if route == "window":
-            p = _window_plan(n, h, wd, ci, co, bf16, _sms(x.device.index or 0))
+        if route in ("window", "window_tf32"):
+            p = _window_plan(n, h, wd, ci, co, bf16, _sms(x.device.index or 0), tf32)
             plan = (p.ti, p.th, p.tw, p.bn, p.kc, p.stages, p.grid_x, p.smem)
-        entry = "mg_" + kernel + {"sm90": "_sm90", "window": "_window", "tile": ""}[route]
+        entry = "mg_" + kernel + {"sm90": "_sm90", "window": "_window", "window_tf32": "_window",
+                                  "tile": ""}[route]
+        kind = 2 if tf32 else int(bf16)  # the window entry's branch; tile's is_bf16
         kernels.launch(kernel, entry, x.device, x.data_ptr(), w.data_ptr(), b.data_ptr(),
                        *(v.data_ptr() for v in vectors), y.data_ptr(), stats.data_ptr(), n, h,
-                       wd, ci, co, w.stride(1), int(relu_out), int(with_stats), int(bf16), *pads,
+                       wd, ci, co, w.stride(1), int(relu_out), int(with_stats), kind, *pads,
                        *plan, route=route, padded=tuple(pads) != (1, 1))
     return y, stats
 
@@ -340,7 +432,9 @@ def _tile_forward(x, w, b, scale=None, shift=None, *, relu_out=False, with_stats
 def _window_forward(x, w, b, scale=None, shift=None, *, relu_out=False, with_stats=True,
                     pad_top=1, pad_bottom=1):
     """As :func:`_tile_forward`, through the window design at any shape
-    (also where :func:`_route` picks sm90)."""
+    (also where :func:`_route` picks sm90); f32 through its FMA branch,
+    whatever ``allow_tf32`` says (the TF32 branch runs where the route
+    takes it)."""
     return _design_forward("window", x, w, b, scale, shift, relu_out, with_stats,
                            (pad_top, pad_bottom))
 

@@ -1,6 +1,7 @@
 """Which design of the port's 3x3 convs a CUDA launch takes
-(`mgtpu_torch.ops.cuda_conv._route`): "sm90" (TMA + wgmma) or "window"
-(the first design, "tile", is launched only through `_tile_forward`).
+(`mgtpu_torch.ops.cuda_conv._route`): "sm90" (TMA + wgmma), "window" or,
+for f32 under ``torch.backends.cudnn.allow_tf32``, "window_tf32" (the
+first design, "tile", is launched only through `_tile_forward`).
 
 The route is a fixed function of dtype, shape and alignment, so it is
 checked here on the CPU: against the kernel calls of one R-MG-34
@@ -64,18 +65,20 @@ def test_route_counts_per_pass(recorded):
     """The counts chip_smoke.py holds the card's launches to (the pool's
     are tests/test_torch_pool_route.py's)."""
     assert predicted_routes(recorded["serve"]) == {
-        ("conv3x3", "sm90"): 70, ("conv3x3", "window"): 42, ("conv3x3", "tile"): 0,
+        ("conv3x3", "sm90"): 70, ("conv3x3", "window"): 42, ("conv3x3", "window_tf32"): 0,
+        ("conv3x3", "tile"): 0,
         ("conv3x3_bn_relu_in", "sm90"): 0, ("conv3x3_bn_relu_in", "window"): 0,
-        ("conv3x3_bn_relu_in", "tile"): 0,
+        ("conv3x3_bn_relu_in", "window_tf32"): 0, ("conv3x3_bn_relu_in", "tile"): 0,
         ("maxpool2", "sm90"): 46, ("maxpool2", "simple"): 0,
         ("conv_i8", "sm90"): 0, ("conv_i8", "stem"): 0, ("conv_i8", "1x1"): 0,
         ("conv_i8", "simple"): 0,
         ("maxpool2_bwd", "group"): 0, ("maxpool2_bwd", "simple"): 0,
         ("quant_i8", "group"): 0, ("quant_i8", "part"): 0}
     assert predicted_routes(recorded["train"]) == {
-        ("conv3x3", "sm90"): 44, ("conv3x3", "window"): 32, ("conv3x3", "tile"): 0,
+        ("conv3x3", "sm90"): 44, ("conv3x3", "window"): 32, ("conv3x3", "window_tf32"): 0,
+        ("conv3x3", "tile"): 0,
         ("conv3x3_bn_relu_in", "sm90"): 26, ("conv3x3_bn_relu_in", "window"): 10,
-        ("conv3x3_bn_relu_in", "tile"): 0,
+        ("conv3x3_bn_relu_in", "window_tf32"): 0, ("conv3x3_bn_relu_in", "tile"): 0,
         ("maxpool2", "sm90"): 46, ("maxpool2", "simple"): 0,
         ("conv_i8", "sm90"): 0, ("conv_i8", "stem"): 0, ("conv_i8", "1x1"): 0,
         ("conv_i8", "simple"): 0,
@@ -114,7 +117,16 @@ def test_route_keeps_the_rest_on_the_tile_design(case):
     if case.endswith("misaligned"):
         assert _route(x, w) == "sm90"  # aligned, the same operands take sm90
         x, w = (misaligned(x), w) if case == "x_misaligned" else (x, misaligned(w))
-    assert _route(x, w) == "window"
+    old = torch.backends.cudnn.allow_tf32
+    try:
+        # f32 follows PyTorch's conv switch: its FMA branch without TF32,
+        # the TF32 branch with it; bf16 ignores the switch
+        torch.backends.cudnn.allow_tf32 = False
+        assert _route(x, w) == "window"
+        torch.backends.cudnn.allow_tf32 = True
+        assert _route(x, w) == ("window_tf32" if dtype == torch.float32 else "window")
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
 
 
 def test_route_takes_an_aligned_weight_slice():
