@@ -22,11 +22,21 @@ Every exchange conv is one conv over the materialized concat
 each conv's operands by their quantized values (per-part activation
 scales, per-output-channel weight scales), which is what an int8 or
 fp8 conv computes before its output is rescaled.
+
+A net that `NETS` does not hold comes from its configuration's reference
+module (``"reference": "<module>"``: `reference/<module>.py`, loaded by
+the harness): the module's ``NETS`` ({net: builder}) and ``KINDS``
+({layer type: `Kind`}), added by `register`. The built-in nets and layer
+types are matched first, and a module may not name one. A kind's tree
+builds on `_convbn_tree` and `_indexed`, its forward on `_convbn`,
+`_exchange`, `_maxpool2_ceil` and `_up2`, so `conv_shapes`,
+`macs_per_image`, a `Quant` and BatchNorm calibration see its convs.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -96,8 +106,52 @@ NETS = {"ilsvrc/rnmg": lambda c: rnmg(c["depth"], c["classes"]),
         "mnist-cluttered/pnmg.mnist": lambda c: pnmg_mnist(c["nLayer"], c["classes"])}
 
 
+# the layer types of the chain in `_layer_tree` and `_layer`
+BUILT_IN_KINDS = ("stem7", "input3", "res", "mgconv", "coarsest", "tail", "classifier", "pool",
+                  "drop", "sigmoid")
+
+
+class Kind(NamedTuple):
+    """A layer type that a reference module adds. ``tree(layer)``: its
+    (params, stats) trees of (kind, shape) leaves, in the checkpoint's
+    structure; ``forward(ctx, layer, p, s, pyr)``: its output;
+    ``macs(layer)``: one image's multiply-adds outside its convs (a dense
+    product), for `macs_per_image`."""
+
+    tree: Callable
+    forward: Callable
+    macs: Callable = lambda layer: 0
+
+
+ADDED_NETS = {}  # net -> builder, from the reference modules loaded
+KINDS = {}  # layer type -> Kind, from the reference modules loaded
+
+
+def register(nets: dict, kinds: dict) -> None:
+    """Add a reference module's ``NETS`` and ``KINDS``; a name that is built
+    in raises. Loading a module again registers its names again."""
+    taken = sorted(set(nets) & set(NETS)) + sorted(set(kinds) & set(BUILT_IN_KINDS))
+    if taken:
+        raise ValueError(f"built in, not to be registered again: {taken}")
+    ADDED_NETS.update(nets)
+    KINDS.update(kinds)
+
+
 def build(config: dict):
-    return NETS[config["net"]](config)
+    net = config["net"]
+    if net in NETS:
+        return NETS[net](config)
+    if net in ADDED_NETS:
+        return ADDED_NETS[net](config)
+    raise ValueError(f"configuration {config.get('name', '')!r}: net {net!r} is not built in, "
+                     f"and no reference module registered it (its \"reference\": "
+                     f"{config.get('reference')!r})")
+
+
+def _kind(t):
+    if t not in KINDS:
+        raise ValueError(f"unknown layer {t!r}")
+    return KINDS[t]
 
 
 # --- parameter trees ---------------------------------------------------------
@@ -142,7 +196,9 @@ def _layer_tree(layer):
     if t == "classifier":
         return {"w": ("dense", (layer["c_in"], layer["classes"])),
                 "b": ("bias", (layer["classes"],))}, {}
-    return {}, {}  # pools, drops, heads
+    if t in ("pool", "drop", "sigmoid"):
+        return {}, {}
+    return _kind(t).tree(layer)
 
 
 def shape_tree(net):
@@ -429,7 +485,7 @@ def _layer(ctx, layer, p, s, pyr):
         return torch.log_softmax(x @ p["w"] + p["b"], dim=-1)
     if t == "sigmoid":
         return torch.sigmoid(pyr[layer["scale"]]).permute(0, 2, 3, 1)
-    raise ValueError(f"unknown layer {t!r}")
+    return _kind(t).forward(ctx, layer, p, s, pyr)
 
 
 def forward(net, params, stats, images, mode="eval", quant=None, trace=None):
@@ -480,7 +536,7 @@ def macs_per_image(net, image_shape) -> int:
     """Multiply-adds of one image in the reference formulation: every conv
     as one dense conv over its materialized input (k k taps of all its
     input channels at every output pixel), the dense layer as its
-    product."""
+    product, and what an added kind's ``macs`` counts."""
     total = 0
     for cv in conv_shapes(net, image_shape):
         kind, ci, h, w = cv["parts"][0]
@@ -490,4 +546,6 @@ def macs_per_image(net, image_shape) -> int:
     for layer in net:
         if layer["type"] == "classifier":
             total += layer["c_in"] * layer["classes"]
+        elif layer["type"] in KINDS:
+            total += KINDS[layer["type"]].macs(layer)
     return total

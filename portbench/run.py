@@ -6,7 +6,9 @@ A cell is `cells/<cell>.json`: its configuration (`configs/<config>.json`,
 the net and its options), its traffic (`traffic/<traffic>.json`, whose
 ``driver`` names `drivers/<driver>.py` and whose other keys are that
 driver's parameters), and the limits of the numbers its driver compares
-with the reference. The driver builds the program (`mgtpu_torch`) from
+with the reference. A configuration of a net that `reference/mgnet.py`
+lacks names the `reference/<module>.py` that adds it (``"reference"``).
+The driver builds the program (`mgtpu_torch`) from
 the benchmark's weights, warms up the cell's shapes, measures for
 ``--seconds`` and checks what the window produced against the reference.
 With ``--trace 1`` a short slice is profiled after the window, and every
@@ -51,11 +53,23 @@ def load_module(path: Path):
     return mod
 
 
+def load_config(name: str, root: Path = HERE) -> dict:
+    """Configuration ``name``; the nets and layer kinds of the reference
+    module it names (``"reference"``: `reference/<module>.py` under
+    ``root``) registered with `reference.mgnet`."""
+    config = load_json("configs", name, root)
+    if "reference" in config:
+        from portbench.reference import mgnet
+
+        mod = load_module(root / "reference" / f"{config['reference']}.py")
+        mgnet.register(mod.NETS, mod.KINDS)
+    return config
+
+
 def cell_files(workload: str, root: Path = HERE):
     """(cell, config, traffic) of ``workload``."""
     cell = load_json("cells", workload, root)
-    return (cell, load_json("configs", cell["config"], root),
-            load_json("traffic", cell["traffic"], root))
+    return (cell, load_config(cell["config"], root), load_json("traffic", cell["traffic"], root))
 
 
 def forbidden_modules() -> list:

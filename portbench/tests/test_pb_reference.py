@@ -1,6 +1,9 @@
 """The benchmark's reference and work arithmetic, held to the port's
 plain CPU path at full widths and to the repo's recorded numbers."""
 
+import hashlib
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +28,24 @@ def test_sizes_match_the_recorded_counts():
     assert mgnet.macs_per_image(rmg, (224, 224, 3)) == 5_760_277_760
     assert mgnet.param_count(pn) == 600_507
     assert mgnet.macs_per_image(pn, (64, 64, 1)) == 1_585_304_064
+
+
+@pytest.mark.parametrize("config, mode, digest", [
+    ("rmg34", "eval", "75fcd087636f976e8ff612f001d65e36cd35a25667a0a5fcaa53503235ea1adf"),
+    ("rmg34", "train", "75fcd087636f976e8ff612f001d65e36cd35a25667a0a5fcaa53503235ea1adf"),
+    ("pnmg-mnist", "eval", "04dcadded75096aa3296f40f7b84976c7d5806adb112fb68ce8c2acc61de9523"),
+    ("pnmg-mnist", "train", "04dcadded75096aa3296f40f7b84976c7d5806adb112fb68ce8c2acc61de9523"),
+])
+def test_conv_shapes_match_the_recorded_list(config, mode, digest):
+    """Every conv of a configuration's forward, entry by entry, as the
+    reference listed it before nets and layer kinds could be added by
+    modules: the sha256 of the list's JSON (75 convs for rmg34, 32 for
+    pnmg-mnist)."""
+    from portbench import run
+
+    cfg = run.load_config(config)
+    convs = mgnet.conv_shapes(mgnet.build(cfg), tuple(cfg["image_shape"]), mode)
+    assert hashlib.sha256(json.dumps(convs).encode()).hexdigest() == digest
 
 
 def test_work_matches_the_recorded_bound():
