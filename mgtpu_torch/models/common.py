@@ -7,8 +7,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mgtpu_torch import trace
 from mgtpu_torch.nn import ConvBN, Dense, Sequential
-from mgtpu_torch.ops.mg import MgConv, MgConvInput, MgPool, MgResidual, PerScale, TailOp
+from mgtpu_torch.ops.mg import Layer, MgConv, MgConvInput, MgPool, MgResidual, PerScale, TailOp
 from mgtpu_torch.ops.resample import avgpool, maxpool2_ceil
 from mgtpu_torch.parallel import axis
 
@@ -69,11 +70,12 @@ class Pool2(nn.Module):
         return maxpool2_ceil(x)
 
 
-class ResBlock(nn.Module):
+class ResBlock(Layer):
     """Single-grid residual block: [drop] ConvBN-ReLU [drop] ConvBN, plus
     a shortcut, then ReLU. The shortcut zero-pads channels when
     widening, is the identity at equal widths, and a 1x1 ConvBN when
-    narrowing or with ``shortcut_type`` "C" (always)."""
+    narrowing or with ``shortcut_type`` "C" (always). Its forward is a
+    span, ``ResBlock``, with its ``at`` (`mgtpu_torch.ops.mg.Layer`)."""
 
     jax_keys = {"c1": "conv1", "c2": "conv2", "sc": "shortcut"}
 
@@ -89,14 +91,15 @@ class ResBlock(nn.Module):
                          if c_in > c_out or shortcut_type == "C" else None)
 
     def forward(self, x):
-        h = self.conv2(self.conv1(x))
-        if self.shortcut is not None:
-            short = self.shortcut(x)
-        elif self.c_in == self.c_out:
-            short = x
-        else:
-            short = F.pad(x, (0, self.c_out - self.c_in))
-        return torch.relu(h + short.to(h.dtype))
+        with trace.span("ResBlock", self.at):
+            h = self.conv2(self.conv1(x))
+            if self.shortcut is not None:
+                short = self.shortcut(x)
+            elif self.c_in == self.c_out:
+                short = x
+            else:
+                short = F.pad(x, (0, self.c_out - self.c_in))
+            return torch.relu(h + short.to(h.dtype))
 
 
 class MgNet(nn.Module):

@@ -732,20 +732,22 @@ def _conv_up3(xp, ws, oh: int, ow: int):
     swapped. Exact-2x only: (oh, ow) == (2h, 2w). On a coarse H-slab
     (-spatial) it reads one neighbour row above and below (zeros at the
     image's edges: the fine conv's zero pad) and pads H by 3, which
-    leaves the slab's 2h output rows."""
+    leaves the slab's 2h output rows. The 4x4 kernel's build and the
+    transposed conv are a span (`mgtpu_torch.trace`), ``conv_up3``."""
     if (oh, ow) != (2 * xp.shape[1], 2 * xp.shape[2]):
         raise ValueError(f"_conv_up3 needs an exact 2x output, got {(oh, ow)} "
                          f"for input {tuple(xp.shape[1:3])}")
-    ci, co = ws.shape[2], ws.shape[3]
-    k4 = torch.zeros((4, 4, ci, co), dtype=ws.dtype, device=ws.device)
-    for a in (0, 1):
-        for b in (0, 1):
-            k4[a:a + 3, b:b + 3] += ws
-    wt = k4.flip(0, 1).permute(2, 3, 0, 1)  # (Ci, Co, 4, 4)
-    if axis.rows(xp) is None:
-        return nhwc(F.conv_transpose2d(nchw(xp), wt, stride=2, padding=1))
-    xh = axis.halo(xp, 1, 1, fill=0)[0]
-    return nhwc(F.conv_transpose2d(nchw(xh), wt, stride=2, padding=(3, 1)))
+    with trace.span("conv_up3"):
+        ci, co = ws.shape[2], ws.shape[3]
+        k4 = torch.zeros((4, 4, ci, co), dtype=ws.dtype, device=ws.device)
+        for a in (0, 1):
+            for b in (0, 1):
+                k4[a:a + 3, b:b + 3] += ws
+        wt = k4.flip(0, 1).permute(2, 3, 0, 1)  # (Ci, Co, 4, 4)
+        if axis.rows(xp) is None:
+            return nhwc(F.conv_transpose2d(nchw(xp), wt, stride=2, padding=1))
+        xh = axis.halo(xp, 1, 1, fill=0)[0]
+        return nhwc(F.conv_transpose2d(nchw(xh), wt, stride=2, padding=(3, 1)))
 
 
 def param_count(module: nn.Module) -> int:

@@ -11,7 +11,7 @@ launch a layer on the card) before its first conv runs.
 
 Each multigrid layer's forward is a span (`mgtpu_torch.trace`) under its
 class's name, carrying the layer's position in the net (``at``, given by
-`number_layers`).
+`number_layers`, which numbers the single-grid `ResBlock`s with them).
 
 Under -spatial (`mgtpu_torch.parallel.axis`) each scale is an H-slab or
 whole by JAX's `constrain_spatial` rule of its height: the ops that
@@ -90,9 +90,10 @@ def materialize_part(kind: str, xp, oh: int, ow: int):
 
 
 class Layer(nn.Module):
-    """A multigrid layer: its forward is a span under its class's name,
+    """A layer of the net whose forward is a span under its class's name,
     carrying ``at``, its position in the net (`number_layers`; None
-    until then)."""
+    until then): each multigrid layer here, and the single-grid
+    `models.common.ResBlock`."""
 
     at = None
 
@@ -357,7 +358,8 @@ class MgUpConv(Layer):
 
 
 def number_layers(model: nn.Module) -> None:
-    """Give each multigrid `Layer` of ``model`` its position in the net,
-    0, 1, ... in module order: the ``at`` its span carries."""
+    """Give each `Layer` of ``model`` (the multigrid layers and the
+    `ResBlock`s) its position in the net, 0, 1, ... in module order: the
+    ``at`` its span carries."""
     for k, m in enumerate(m for m in model.modules() if isinstance(m, Layer)):
         m.at = k

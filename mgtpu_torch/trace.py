@@ -6,9 +6,15 @@ A span is a named interval of the host's time inside the program:
   (`pipelines.saliency.GroupStep`); its phases ``input``, ``stack``,
   ``forward`` and ``probe``;
 - a multigrid layer's forward (`ops/mg.py`: ``MgConvInput``,
-  ``MgStem7x7``, ``MgConv``, ``MgResidual``, ``MgPool``, ``MgUpConv``),
-  with its position in the net (``at``, `ops.mg.number_layers`), and a
-  layer's int8 quantize (``quantize_layer``, `nn.quantize_layer`);
+  ``MgStem7x7``, ``MgConv``, ``MgResidual``, ``MgPool``, ``MgUpConv``)
+  and a single-grid residual block's (``ResBlock``,
+  `models.common.ResBlock`), with its position in the net (``at``,
+  `ops.mg.number_layers`), and a layer's int8 quantize
+  (``quantize_layer``, `nn.quantize_layer`);
+- an exchange conv's "up" part at exactly twice its grid
+  (``conv_up3``, `nn._conv_up3`): the 4x4 kernel's build and the
+  stock transposed conv, with no hand kernel and so outside
+  `kernels.LAUNCHES`;
 - the public entry of each hand kernel, under the kernel's name in
   `kernels.LAUNCHES`: its checks, route, plan or table, output and
   launch.

@@ -2,7 +2,8 @@
 kept while nothing records; spans nest with parent, root and times in
 order, close on an exception and leave with `drain`; a CPU
 `Server.predict` and a `GroupStep` call each make one root with their
-phases and the multigrid layers' spans inside; a running profiler turns
+phases and the multigrid layers' spans inside; each exchange up part
+and single-grid ResBlock is a span of its own; a running profiler turns
 recording on; and each hand-kernel launch counts into the innermost open
 span as into `kernels.LAUNCHES`."""
 
@@ -169,6 +170,63 @@ def test_group_step_is_one_root_with_stack_forward_and_probe():
     forward = next(s for s in spans if s["name"] == "forward")
     inside = {s["name"] for s in spans if s["parent"] == forward["id"]}
     assert "MgConv" in inside and inside <= MG_LAYERS | set(kernels.LAUNCHES)  # and the head
+
+
+def recorded_forward(opts, size=224):
+    """The spans of one recorded CPU `Server.predict` of one image."""
+    server = Server(opts, device="cpu", compute_dtype=torch.float32)
+    x = np.random.default_rng(0).standard_normal((1, size, size, 3), dtype=np.float32)
+    with trace.recording():
+        server.predict(x)
+    return trace.drain()
+
+
+@pytest.mark.parametrize("opts, ups, blocks, wrappers", [
+    (NetOpts(netType="ilsvrc/prnmgseg", depth=30, shortcutType="A"), 60, [1, 2],
+     {"conv3x3": 148, "maxpool2": 24}),
+    (NetOpts(), 40, [], {"conv3x3": 112, "maxpool2": 29}),
+], ids=["prmg30", "rmg34"])
+def test_up_parts_and_resblocks_are_spans(opts, ups, blocks, wrappers):
+    """One ``conv_up3`` span an exact-2x up part (60 in PR-MG-30, 40 in
+    R-MG-34), under its layer, with no hand-kernel launch; PR-MG-30's
+    two prefix ResBlocks (the coarsest grid's stage) numbered with the
+    multigrid layers. Neither name is a kernel's, so the wrapper spans
+    that `kernel_host_us.serve` reads stay as they were (one a 3x3 conv
+    part, one a pool or a layer's group of pools), and `launches.serve`'s
+    counts with them."""
+    spans = recorded_forward(opts)
+    ids = by_id(spans)
+    names = Counter(s["name"] for s in spans)
+    assert names["conv_up3"] == ups
+    up = [s for s in spans if s["name"] == "conv_up3"]
+    assert all(ids[s["parent"]]["name"] == "MgResidual" and s["launches"] == 0 for s in up)
+    res = sorted((s for s in spans if s["name"] == "ResBlock"), key=lambda s: s["start_ns"])
+    assert [s["at"] for s in res] == blocks
+    assert all(ids[s["parent"]]["name"] == "forward" for s in res)  # PerScale only routes
+    layers = sorted((s for s in spans if s["name"] in MG_LAYERS | {"ResBlock"}),
+                    key=lambda s: s["start_ns"])
+    assert [s["at"] for s in layers] == list(range(len(layers)))
+    assert not {"conv_up3", "ResBlock"} & set(kernels.LAUNCHES)
+    assert {n: names[n] for n in kernels.LAUNCHES if names[n]} == wrappers
+
+
+@pytest.mark.parametrize("opts, n", [(NetOpts(), 20),
+                                     (NetOpts(netType="mnist-cluttered/pnmg.mnist"), 10),
+                                     (NetOpts(netType="ilsvrc/prnmgseg", depth=30,
+                                              shortcutType="A"), 15)],
+                         ids=["rmg34", "pnmg.mnist", "prmg30"])
+def test_layers_are_numbered_in_module_order(opts, n):
+    """`number_layers` numbers the ResBlocks with the multigrid layers:
+    R-MG-34 and pnmg.mnist have none, so their layers keep the numbers
+    they had (0 .. n - 1 over the multigrid layers alone)."""
+    from mgtpu_torch.models.common import ResBlock
+    from mgtpu_torch.ops.mg import Layer
+
+    model = create_model(opts, generator=torch.Generator().manual_seed(0))
+    layers = [m for m in model.modules() if isinstance(m, Layer)]
+    assert [m.at for m in layers] == list(range(n))
+    blocks = [m.at for m in layers if isinstance(m, ResBlock)]
+    assert blocks == ([1, 2] if opts.netType == "ilsvrc/prnmgseg" else [])
 
 
 @pytest.fixture
