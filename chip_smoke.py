@@ -812,56 +812,69 @@ def check_conv(cases, max_err, what="", slices=False) -> None:
     (conv_designs). With ``slices``, each shape routed to the window
     design is also taken with its weight a slice of a wider one at input
     channel 3, whose start is off a 16-byte boundary for most Co (the
-    exchange passes such slices)."""
-    n_cases, n_slices, n_design = 0, 0, Counter()
+    exchange passes such slices). Each routed launch is also made with a
+    running part sum ``y_in`` (seeded, y's shape; the eval forward's
+    exchange sums so), held to the plain version with that y_in at the
+    same bounds, and counted once in kernels.SUMMED at its design (a
+    launch without it not at all)."""
+    n_cases, n_slices, n_design, n_summed = 0, 0, Counter(), Counter()
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}  # largest error / its bound
     for k, ((h, w, ci, co), batch) in enumerate(sorted(cases)):
         for dtype in (torch.bfloat16, torch.float32):
             x, wt, b = conv_inputs(batch, h, w, ci, co, dtype, seed=k)
+            y_in = torch.randn((batch, h, w, co), device="cuda",
+                               generator=torch.Generator("cuda").manual_seed(k)).to(dtype)
             weights = [wt]
             if slices and cuda_conv._route(x, wt) == "window":
                 wide = torch.cat([torch.randn((3, 3, 3, co), device="cuda").to(dtype), wt], dim=2)
                 weights.append(wide[:, :, 3:])
-            for wi in weights:
-                for relu_out in (False, True):
-                    for with_stats in (False, True):
-                        y_ref, st_ref = conv3x3_plain(x.float(), wi.float(), b,
-                                                      relu_out=relu_out, with_stats=with_stats)
-                        scale = y_ref.abs().max().item()
-                        for design in conv_designs(x, wi):
-                            kw = dict(relu_out=relu_out, with_stats=with_stats)
-                            if design == "routed":
-                                y, st = routed("conv3x3", x, wi, lambda: conv3x3(x, wi, b, **kw))
-                            else:
-                                y, st = designed("conv3x3", design, lambda: DESIGN_FORWARDS[
-                                    design](x, wi, b, **kw))
-                            torch.cuda.synchronize()
-                            rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
-                            err = (y.float() - y_ref).abs()
-                            share = (err / (rtol * y_ref.abs() + 1e-5 * scale)).max().item()
-                            what_ = (f"conv3x3 {batch}x{h}x{w}x{ci}->{co} {dtype} "
-                                     f"relu={relu_out} stats={with_stats} w slice={wi is not wt} "
-                                     f"{design}")
-                            check(y.dtype == dtype and share <= 1.0,
-                                  f"{what_}: max abs err {err.max().item():.3g} (scale "
-                                  f"{scale:.3g})")
-                            worst[dtype] = max(worst[dtype], share)
-                            if with_stats:
-                                st_err = (st - st_ref).abs()
-                                st_tol = 1e-4 * st_ref.abs() + 1e-5 * st_ref.abs().max()
-                                check(bool((st_err <= st_tol).all()),
-                                      f"{what_}: stats max abs err {st_err.max().item():.3g}")
-                            else:
-                                check(not st.any(), f"{what_}: stats not zero")
-                            max_err["conv3x3"] = max(max_err["conv3x3"], err.max().item())
-                            n_cases += 1
-                            n_slices += wi is not wt
-                            n_design[design] += 1
+            for wi, relu_out, with_stats, yi in itertools.product(
+                    weights, (False, True), (False, True), (None, y_in)):
+                y_ref, st_ref = conv3x3_plain(x.float(), wi.float(), b, relu_out=relu_out,
+                                              with_stats=with_stats,
+                                              y_in=None if yi is None else yi.float())
+                scale = y_ref.abs().max().item()
+                route = cuda_conv._route(x, wi)
+                for design in conv_designs(x, wi) if yi is None else ["routed"]:
+                    kw = dict(relu_out=relu_out, with_stats=with_stats)
+                    summed = dict(kernels.SUMMED)
+                    if design == "routed":
+                        y, st = routed("conv3x3", x, wi, lambda: conv3x3(x, wi, b, y_in=yi, **kw))
+                    else:
+                        y, st = designed("conv3x3", design, lambda: DESIGN_FORWARDS[design](
+                            x, wi, b, **kw))
+                    torch.cuda.synchronize()
+                    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+                    err = (y.float() - y_ref).abs()
+                    share = (err / (rtol * y_ref.abs() + 1e-5 * scale)).max().item()
+                    what_ = (f"conv3x3 {batch}x{h}x{w}x{ci}->{co} {dtype} relu={relu_out} "
+                             f"stats={with_stats} w slice={wi is not wt} y_in={yi is not None} "
+                             f"{design}")
+                    got = {r: n - summed[r] for r, n in kernels.SUMMED.items()}
+                    want = {r: int(yi is not None and r == ("conv3x3", route)) for r in got}
+                    check(got == want, f"{what_}: SUMMED counted {got}, expected {want}")
+                    n_summed[route] += yi is not None
+                    check(y.dtype == dtype and share <= 1.0,
+                          f"{what_}: max abs err {err.max().item():.3g} (scale {scale:.3g})")
+                    worst[dtype] = max(worst[dtype], share)
+                    if with_stats:
+                        st_err = (st - st_ref).abs()
+                        st_tol = 1e-4 * st_ref.abs() + 1e-5 * st_ref.abs().max()
+                        check(bool((st_err <= st_tol).all()),
+                              f"{what_}: stats max abs err {st_err.max().item():.3g}")
+                    else:
+                        check(not st.any(), f"{what_}: stats not zero")
+                    max_err["conv3x3"] = max(max_err["conv3x3"], err.max().item())
+                    n_cases += 1
+                    n_slices += wi is not wt
+                    n_design[design] += 1
     phase("conv3x3", f"{what}{n_cases} cases at {len(cases)} shapes and batches ({n_slices} with a "
           f"weight slice; {n_design['routed']} through the routed design, {n_design['window']} "
-          f"through window at shapes routed to sm90, {n_design['tile']} through tile): match the "
-          f"plain version (max abs err {max_err['conv3x3']:.3g}; largest error "
-          f"{worst[torch.bfloat16]:.2f} of its bound in bf16, {worst[torch.float32]:.2f} in f32)")
+          f"through window at shapes routed to sm90, {n_design['tile']} through tile; "
+          f"{sum(n_summed.values())} of the routed with a part sum y_in, by design "
+          f"{dict(n_summed)}, each counted in SUMMED): match the plain version (max abs err "
+          f"{max_err['conv3x3']:.3g}; largest error {worst[torch.bfloat16]:.2f} of its bound in "
+          f"bf16, {worst[torch.float32]:.2f} in f32)")
 
 
 @contextlib.contextmanager
@@ -908,9 +921,11 @@ def check_conv_tf32(cases, what="", chunk=256) -> float:
     stays on the FMA branch, held to the unrounded plain version at
     check_conv's f32 tolerance. Each case
     with and without ReLU and stats, the small ones also under each pad
-    pair; with the flag False the same operands must route to window.
-    Returns the largest error as a share of its bound."""
-    n_cases, worst, n_route = 0, 0.0, Counter()
+    pair; conv3x3 also with a running part sum ``y_in`` (seeded, y's
+    shape), one more term of the sum and of the bound, and counted once
+    in kernels.SUMMED; with the flag False the same operands must route
+    to window. Returns the largest error as a share of its bound."""
+    n_cases, worst, n_route, n_summed = 0, 0.0, Counter(), 0
     for k, ((h, w, ci, co), batch) in enumerate(sorted(cases)):
         x, wt, b = conv_inputs(batch, h, w, ci, co, torch.float32, seed=1100 + k)
         with tf32_convs(False):
@@ -928,24 +943,36 @@ def check_conv_tf32(cases, what="", chunk=256) -> float:
             vec = bn_inputs(ci, seed=1200 + k) if prologue else ()
             kname = "conv3x3_bn_relu_in" if prologue else "conv3x3"
             fn = conv3x3_bn_relu_in if prologue else conv3x3
-            for pads, (relu_out, with_stats) in itertools.product(
-                    pad_pairs, ((False, True), (True, True), (True, False))):
+            for pads, (relu_out, with_stats), summing in itertools.product(
+                    pad_pairs, ((False, True), (True, True), (True, False)),
+                    (False,) if prologue else (False, True)):
                 kw = dict(pad_top=pads[0], pad_bottom=pads[1])
+                yi, extra = None, {}  # the running part sum, y's shape
+                if summing:
+                    yi = torch.randn((batch, cuda_conv.out_rows(x, *pads), w, co), device="cuda",
+                                     generator=torch.Generator("cuda").manual_seed(1250 + k))
+                    extra = dict(y_in=yi)
+                summed = dict(kernels.SUMMED)
                 with tf32_convs(True):
                     y, st = routed(kname, x, wt, lambda: fn(
-                        x, wt, b, *vec, relu_out=relu_out, with_stats=with_stats, **kw))
+                        x, wt, b, *vec, relu_out=relu_out, with_stats=with_stats, **kw, **extra))
                 torch.cuda.synchronize()
+                got = {r: n - summed[r] for r, n in kernels.SUMMED.items()}
+                check(got == {r: int(summing and r == ("conv3x3", route)) for r in got},
+                      f"{kname} {ci}->{co} y_in={summing}: SUMMED counted {got}")
+                n_summed += summing
                 share, st_ref, slack = 0.0, 0.0, 0.0
                 for i in range(0, batch, chunk):
                     xin = x[i:i + chunk]
                     xin = bn_relu_plain(xin, *vec) if prologue else xin
                     xr = (cuda_conv.tf32_round(xin) if tc else xin).double()
+                    yd = None if yi is None else yi[i:i + chunk].double()
                     y_ref = conv3x3_plain(xr, wr, b.double(), relu_out=relu_out,
-                                          with_stats=False, **kw)[0]
-                    if tc:
-                        mag = conv3x3_plain(xr.abs(), wr.abs(), b.double().abs(),
-                                            with_stats=False, **kw)[0]
-                        tol = (9 * ci + 1) * 2.0 ** -22 * mag
+                                          with_stats=False, y_in=yd, **kw)[0]
+                    if tc:  # a part sum is one more term
+                        mag = conv3x3_plain(xr.abs(), wr.abs(), b.double().abs(), with_stats=False,
+                                            y_in=None if yd is None else yd.abs(), **kw)[0]
+                        tol = (9 * ci + 1 + summing) * 2.0 ** -22 * mag
                     else:
                         tol = 1e-5 * y_ref.abs() + 1e-5 * y_ref.abs().max()
                     err = (y[i:i + chunk].double() - y_ref).abs()
@@ -955,9 +982,9 @@ def check_conv_tf32(cases, what="", chunk=256) -> float:
                                                    (y_ref * y_ref).sum(dim=px)])
                     slack = slack + torch.stack([tol.sum(dim=px),
                                                  ((2 * y_ref.abs() + tol) * tol).sum(dim=px)])
-                    del xin, xr, y_ref, tol, err
+                    del xin, xr, yd, y_ref, tol, err
                 what_ = (f"{kname} {batch}x{h}x{w}x{ci}->{co} f32 under allow_tf32 ({route}) "
-                         f"pads={pads} relu={relu_out} stats={with_stats}")
+                         f"pads={pads} relu={relu_out} stats={with_stats} y_in={summing}")
                 check(y.dtype == torch.float32 and share <= 1.0, f"{what_}: {share:.3g} of its "
                       f"bound")
                 worst = max(worst, share)
@@ -970,13 +997,14 @@ def check_conv_tf32(cases, what="", chunk=256) -> float:
                     check(not st.any(), f"{what_}: stats not zero")
                 n_cases += 1
                 n_route[route] += 1
-                del y, st
+                del y, st, yi
         del x, wt, b, wr
     torch.cuda.empty_cache()
     phase("conv3x3", f"{what}f32 under allow_tf32: {n_cases} cases at {len(cases)} shapes and "
-          f"batches ({dict(n_route)}) match the plain version on TF32-rounded operands within "
-          f"(9 Ci + 1) 2^-22 of |x| conv |w| + |b| (the FMA branch within f32's): largest error "
-          f"{worst:.3g} of its bound")
+          f"batches ({dict(n_route)}; {n_summed} conv3x3 with a part sum y_in, counted in "
+          f"SUMMED) match the plain version on TF32-rounded operands within (9 Ci + 1) 2^-22 of "
+          f"|x| conv |w| + |b|, one more term with y_in (the FMA branch within f32's): largest "
+          f"error {worst:.3g} of its bound")
     return worst
 
 
@@ -5057,6 +5085,8 @@ def main() -> None:
         prev = now
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
+    summed = {f"{k}/{r}": n // len(SERVE_BATCHES) for (k, r), n in kernels.SUMMED.items()}
+    check(sum(summed.values()) > 0, f"no conv3x3 launch read a part sum: {summed}")
     for x, y in zip(requests, outs):
         lse = torch.logsumexp(y, dim=-1)
         check(y.shape == (len(x), 1000) and y.dtype == torch.float32,
@@ -5065,7 +5095,7 @@ def main() -> None:
         check(bool((lse.abs() < 1e-3).all()), f"batch {len(x)}: logsumexp {lse.abs().max().item():.3g}")
     phase("serve", f"batches {list(SERVE_BATCHES)}: (B, 1000) finite f32 log-probs, rows sum to 1; "
           f"launches per forward {PER_FORWARD}, total {launches}; conv and pool designs per "
-          f"forward as predicted")
+          f"forward as predicted; conv3x3 launches that read a part sum per forward {summed}")
 
     # the f32 forward on the card (kernels + cuDNN without TF32) against the
     # port's plain path on the CPU, same weights: f32 summation order only,

@@ -3,6 +3,13 @@
 // an optional per-channel (sum, sum of squares) epilogue; optionally
 // with a BatchNorm-apply + ReLU prologue on its input.
 //
+// The running part sum y_in (mg_conv3x3's sm90 and window designs; y's
+// shape and type, null for none; not y itself): added to the f32
+// accumulator before the ReLU, the stats and the one rounding, so
+// y = relu?(round(acc + bias + float(y_in))). The multigrid exchange
+// sums its parts so, one launch a part, instead of a stock add a part.
+// The tile design refuses it.
+//
 // Per-side H padding: pad_top and pad_bottom, each 0 or 1, say whether
 // the image's zero row lies above and below x; where one is 0, x holds
 // the neighbour's row there instead (a halo row of an H-slab, under
@@ -459,11 +466,19 @@ int launch(const void* x, const void* w, const void* b, const void* scale, const
 // stage is awaited. setmaxnreg moves registers from the producer
 // warpgroup (40 a thread) to the consumers (232): 128*40 + 256*232 fits
 // the 65,536 a block of 384 threads holds at 168 a thread.
-// Epilogue: the accumulators start at the bias of their column; then the
-// optional ReLU; then the stats (rows reduced by shuffles, warps by
-// shared-memory atomics into a per-block (2, Co) sum, flushed with one
-// atomicAdd per channel per block at the end); then y in bf16 through a
+// Epilogue: the accumulators start at the bias of their column; then
+// y_in, where given (below); then the optional ReLU; then the stats
+// (rows reduced by shuffles, warps by shared-memory atomics into a
+// per-block (2, Co) sum, flushed with one atomicAdd per channel per
+// block at the end); then y in bf16 through a
 // swizzled staging tile and a TMA store, which clips rows past M.
+// y_in comes into that staging tile by a TMA load of the same boxes as
+// the store's (a map of y_in like y's), which one thread of each consumer
+// warpgroup sends half way through the tile's K steps, once the last
+// tile's stores have read the staging tile; it lands on the warpgroup's own
+// mbarrier while the products run, and each thread adds the elements it
+// will write there before the ReLU. No ring stage is given up: the
+// staging tile was idle during the products.
 // Schedule: persistent, grid = min(tiles, SMs), tiles walked with Co
 // fastest, so the producer loads the next tile while the consumers
 // finish the last one, and blocks in flight share their A tiles in L2.
@@ -498,7 +513,7 @@ struct Cfg {
   static constexpr int STAGE_BYTES = A_BYTES + BK * BN * 2;
   static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
   static constexpr int OUT_BYTES = BM * BN * 2;
-  static constexpr int BAR_BYTES = 2 * STAGES * 8;
+  static constexpr int BAR_BYTES = (2 * STAGES + 2) * 8;  // the ring's, then y_in's two
   // dynamic shared memory of a launch, with 1 KB of slack to align the base
   static size_t smem(int ci, int co) {
     return 1024 + RING_BYTES + OUT_BYTES + BAR_BYTES + 8 * (size_t)co + 8 * (size_t)ci;
@@ -512,6 +527,16 @@ __device__ __forceinline__ void store_2d(const CUtensorMap* map, uint32_t src, i
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// one TMA load of a 2-D tiled map's box at (c0, c1), completing on `bar`
+__device__ __forceinline__ void load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                        int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -584,10 +609,11 @@ template <int BN, bool PRO>
 __global__ void __launch_bounds__(THREADS, 1)
 conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
                     const __grid_constant__ CUtensorMap wmap,
-                    const __grid_constant__ CUtensorMap ymap, const float* __restrict__ bias,
+                    const __grid_constant__ CUtensorMap ymap,
+                    const __grid_constant__ CUtensorMap yinmap, const float* __restrict__ bias,
                     const float* __restrict__ scale, const float* __restrict__ shift,
                     float* __restrict__ stats, int H, int W, int Ci, int Co, int M, int relu,
-                    int with_stats, int pad_top, int Hin) {
+                    int with_stats, int pad_top, int Hin, int has_in) {
   using C = Cfg<BN>;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
@@ -595,7 +621,8 @@ conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
   uint8_t* out = ring + C::RING_BYTES;  // staging tile of y, 64 rows per consumer warpgroup
   uint64_t* full = reinterpret_cast<uint64_t*>(out + C::OUT_BYTES);
   uint64_t* empty = full + C::STAGES;
-  float* ssum = reinterpret_cast<float*>(empty + C::STAGES);  // (2, Co): this block's stats
+  uint64_t* in_full = empty + C::STAGES;  // y_in's tile landed, one per consumer warpgroup
+  float* ssum = reinterpret_cast<float*>(in_full + 2);  // (2, Co): this block's stats
   float* bnp = ssum + 2 * Co;                                  // scale (Ci), then shift (Ci)
 
   const int tid = threadIdx.x;
@@ -614,6 +641,7 @@ conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
       bar_init(saddr(full + s), 1);   // the producer's arrival, plus the bytes of the stage
       bar_init(saddr(empty + s), 2);  // one arrival per consumer warpgroup
     }
+    for (int g = 0; g < 2; ++g) bar_init(saddr(in_full + g), 1);
     bar_init_fence();
   }
   __syncthreads();
@@ -650,9 +678,12 @@ conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
     const int t = tid % 128, lane = t % 32;
     const int r_lo = t / 32 * 16 + lane / 4;  // accumulator rows r_lo and r_lo + 8
     float acc[BN / 2];
-    uint32_t it = 0;
+    uint8_t* o = out + wg * (C::OUT_BYTES / 2);  // this warpgroup's staging tile
+    const uint32_t in_bar = saddr(in_full + wg);
+    uint32_t it = 0, in_loads = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int m0 = tile / n_tiles * BM, n0 = tile % n_tiles * BN;
+      const bool load_in = has_in && m0 + 64 * wg < M;  // rows past M are not stored
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         const int n = n0 + 8 * j + 2 * (lane % 4);
@@ -714,6 +745,17 @@ conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
           mma<BN>(acc, gmma_desc(a + 32 * kk, 16, 1024),
                   gmma_desc(b + 2048 * kk, BOX_BYTES, 1024));
         mma_commit();
+        if (k == k_steps / 2 && load_in && t == 0) {
+          // y_in's boxes into the staging tile, half way through the K steps:
+          // the last tile's stores have long read it (a wait for them here
+          // holds the warpgroup's products), and the load lands while the
+          // other half's products run
+          store_wait_read();
+          bar_expect_tx(in_bar, C::OUT_BYTES / 2);
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            load_2d(saddr(o + j * BOX_BYTES), &yinmap, in_bar, n0 + 64 * j, m0 + 64 * wg);
+        }
         mma_wait<1>();
         fence_regs(acc);
         // the previous step's products are done: release its stage
@@ -723,7 +765,26 @@ conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
       fence_regs(acc);
       if (t == 0) bar_arrive(saddr(empty + (it - 1) % C::STAGES));
 
-      // epilogue: ReLU (NaN stays NaN), stats of the rows < M, y
+      // epilogue: y_in, ReLU (NaN stays NaN), stats of the rows < M, y.
+      // Accumulator 4j + q sits in the staging tile at row r_lo (+ 8 for
+      // q >= 2), 16-byte chunk j % 8 of box j / 8 swizzled by the row,
+      // bytes 4 * (lane % 4): where this thread reads y_in and writes y
+      auto at = [&](int j) {
+        return o + j / 8 * BOX_BYTES + r_lo * 128 + ((j % 8) ^ (r_lo % 8)) * 16 + lane % 4 * 4;
+      };
+      if (load_in) {
+        bar_wait(in_bar, in_loads++ & 1);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(at(j)));
+          const float2 hi =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(at(j) + 8 * 128));
+          acc[4 * j] += lo.x;
+          acc[4 * j + 1] += lo.y;
+          acc[4 * j + 2] += hi.x;
+          acc[4 * j + 3] += hi.y;
+        }
+      }
       if (relu) {
 #pragma unroll
         for (int i = 0; i < BN / 2; ++i) acc[i] = acc[i] < 0.f ? 0.f : acc[i];
@@ -753,14 +814,12 @@ conv3x3_sm90_kernel(const __grid_constant__ CUtensorMap xmap,
         }
       }
       // y: this warpgroup's 64 rows as BN/64 swizzled 64x64 boxes, then
-      // one TMA store per box
-      uint8_t* o = out + wg * (C::OUT_BYTES / 2);
+      // one TMA store per box (each thread writes where it read y_in)
       if (t == 0) store_wait_read();  // the last tile's stores have read the staging tile
       named_sync(1 + wg, 128);
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
-        uint8_t* p = o + j / 8 * BOX_BYTES + r_lo * 128 + ((j % 8) ^ (r_lo % 8)) * 16 +
-                     lane % 4 * 4;
+        uint8_t* p = at(j);
         *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
         *reinterpret_cast<__nv_bfloat162*>(p + 8 * 128) =
             __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
@@ -795,9 +854,9 @@ int pick_bn(long long m, int co, int sms) {
 
 template <int BN, bool PRO>
 int launch_bn(const CUtensorMap& xmap, const CUtensorMap& wmap, const CUtensorMap& ymap,
-              const float* bias, const float* sc, const float* sh, float* st, int h, int wd,
-              int ci, int co, long long m, int relu, int with_stats, int pad_top, int hin,
-              int dev, int sms, cudaStream_t s) {
+              const CUtensorMap& yinmap, const float* bias, const float* sc, const float* sh,
+              float* st, int h, int wd, int ci, int co, long long m, int relu, int with_stats,
+              int pad_top, int hin, int has_in, int dev, int sms, cudaStream_t s) {
   auto kernel = conv3x3_sm90_kernel<BN, PRO>;
   const size_t smem = Cfg<BN>::smem(ci, co);
   // allow this instantiation the card's largest dynamic shared memory,
@@ -813,21 +872,22 @@ int launch_bn(const CUtensorMap& xmap, const CUtensorMap& wmap, const CUtensorMa
   }
   const long long tiles = (m + BM - 1) / BM * (co / BN);
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
-  kernel<<<grid, THREADS, smem, s>>>(xmap, wmap, ymap, bias, sc, sh, st, h, wd, ci, co, (int)m,
-                                     relu, with_stats, pad_top, hin);
+  kernel<<<grid, THREADS, smem, s>>>(xmap, wmap, ymap, yinmap, bias, sc, sh, st, h, wd, ci, co,
+                                     (int)m, relu, with_stats, pad_top, hin, has_in);
   return (int)cudaGetLastError();
 }
 
 template <bool PRO>
 int launch(const void* x, const void* w, const void* b, const void* scale, const void* shift,
-           void* y, void* stats, int n, int h, int wd, int ci, int co, long long w_tap_stride,
-           int relu, int with_stats, int is_bf16, int pad_top, int pad_bottom, cudaStream_t s) {
+           const void* y_in, void* y, void* stats, int n, int h, int wd, int ci, int co,
+           long long w_tap_stride, int relu, int with_stats, int is_bf16, int pad_top,
+           int pad_bottom, cudaStream_t s) {
   const long long m = (long long)n * h * wd;
   const int hin = input_rows(h, pad_top, pad_bottom);
   // the shapes the wrapper routes here; anything else is refused
   if (hin < 0 || !is_bf16 || ci % BK != 0 || co % 64 != 0 || ci > MAX_C || co > MAX_C ||
-      w_tap_stride % 8 != 0 || !aligned16(x) || !aligned16(w) || !aligned16(y) || m <= 0 ||
-      m >= (1ll << 31))
+      w_tap_stride % 8 != 0 || !aligned16(x) || !aligned16(w) || !aligned16(y) ||
+      !aligned16(y_in) || m <= 0 || m >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   static const auto tiled = reinterpret_cast<EncodeTiled>(driver_fn("cuTensorMapEncodeTiled"));
   static const auto im2col =
@@ -870,17 +930,24 @@ int launch(const void* x, const void* w, const void* b, const void* scale, const
     r = tiled(&ymap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, y, ydim, ystride, ybox, ones,
               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
               CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  // y_in as y, loaded (unused without y_in: a copy of y's map then)
+  CUtensorMap yinmap = ymap;
+  if (r == CUDA_SUCCESS && y_in != nullptr)
+    r = tiled(&yinmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(y_in), ydim,
+              ystride, ybox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
 
   const float* bias = static_cast<const float*>(b);
   const float* sc = static_cast<const float*>(scale);
   const float* sh = static_cast<const float*>(shift);
   float* st = static_cast<float*>(stats);
+  const int has_in = y_in != nullptr;
   if (pick_bn(m, co, sms) == 128)
-    return launch_bn<128, PRO>(xmap, wmap, ymap, bias, sc, sh, st, h, wd, ci, co, m, relu,
-                               with_stats, pad_top, hin, dev, sms, s);
-  return launch_bn<64, PRO>(xmap, wmap, ymap, bias, sc, sh, st, h, wd, ci, co, m, relu,
-                            with_stats, pad_top, hin, dev, sms, s);
+    return launch_bn<128, PRO>(xmap, wmap, ymap, yinmap, bias, sc, sh, st, h, wd, ci, co, m,
+                               relu, with_stats, pad_top, hin, has_in, dev, sms, s);
+  return launch_bn<64, PRO>(xmap, wmap, ymap, yinmap, bias, sc, sh, st, h, wd, ci, co, m, relu,
+                            with_stats, pad_top, hin, has_in, dev, sms, s);
 }
 
 }  // namespace sm90
@@ -888,11 +955,13 @@ int launch(const void* x, const void* w, const void* b, const void* scale, const
 }  // namespace
 
 // pad_top, pad_bottom: 0 or 1 each (see the head of this file); (1, 1)
-// is the pad-1 conv
-extern "C" int mg_conv3x3(const void* x, const void* w, const void* b, void* y, void* stats,
-                          int n, int h, int wd, int ci, int co, long long w_tap_stride,
-                          int relu, int with_stats, int is_bf16, int pad_top, int pad_bottom,
-                          void* stream) {
+// is the pad-1 conv. y_in: the running part sum, which this design
+// refuses (cudaErrorInvalidValue) unless it is null
+extern "C" int mg_conv3x3(const void* x, const void* w, const void* b, const void* y_in,
+                          void* y, void* stats, int n, int h, int wd, int ci, int co,
+                          long long w_tap_stride, int relu, int with_stats, int is_bf16,
+                          int pad_top, int pad_bottom, void* stream) {
+  if (y_in != nullptr) return (int)cudaErrorInvalidValue;
   return launch<false>(x, w, b, nullptr, nullptr, y, stats, n, h, wd, ci, co, w_tap_stride, relu,
                        with_stats, is_bf16, pad_top, pad_bottom,
                        static_cast<cudaStream_t>(stream));
@@ -910,14 +979,15 @@ extern "C" int mg_conv3x3_bn_relu_in(const void* x, const void* w, const void* b
                       static_cast<cudaStream_t>(stream));
 }
 
-// The sm90 design of mg_conv3x3 (same arguments; bf16 only): refuses,
-// with cudaErrorInvalidValue, any launch the wrapper would not route here
-extern "C" int mg_conv3x3_sm90(const void* x, const void* w, const void* b, void* y, void* stats,
-                               int n, int h, int wd, int ci, int co, long long w_tap_stride,
-                               int relu, int with_stats, int is_bf16, int pad_top,
-                               int pad_bottom, void* stream) {
-  return sm90::launch<false>(x, w, b, nullptr, nullptr, y, stats, n, h, wd, ci, co, w_tap_stride,
-                             relu, with_stats, is_bf16, pad_top, pad_bottom,
+// The sm90 design of mg_conv3x3 (same arguments; bf16 only; y_in null
+// or y's shape on 16 bytes): refuses, with cudaErrorInvalidValue, any
+// launch the wrapper would not route here
+extern "C" int mg_conv3x3_sm90(const void* x, const void* w, const void* b, const void* y_in,
+                               void* y, void* stats, int n, int h, int wd, int ci, int co,
+                               long long w_tap_stride, int relu, int with_stats, int is_bf16,
+                               int pad_top, int pad_bottom, void* stream) {
+  return sm90::launch<false>(x, w, b, nullptr, nullptr, y_in, y, stats, n, h, wd, ci, co,
+                             w_tap_stride, relu, with_stats, is_bf16, pad_top, pad_bottom,
                              static_cast<cudaStream_t>(stream));
 }
 
@@ -928,7 +998,7 @@ extern "C" int mg_conv3x3_bn_relu_in_sm90(const void* x, const void* w, const vo
                                           long long w_tap_stride, int relu, int with_stats,
                                           int is_bf16, int pad_top, int pad_bottom,
                                           void* stream) {
-  return sm90::launch<true>(x, w, b, scale, shift, y, stats, n, h, wd, ci, co, w_tap_stride, relu,
-                            with_stats, is_bf16, pad_top, pad_bottom,
+  return sm90::launch<true>(x, w, b, scale, shift, nullptr, y, stats, n, h, wd, ci, co,
+                            w_tap_stride, relu, with_stats, is_bf16, pad_top, pad_bottom,
                             static_cast<cudaStream_t>(stream));
 }

@@ -99,8 +99,11 @@
 //         the result equals tile's bit for bit (channel padding adds
 //         fmaf(0, 0, acc) in both).
 //   - The epilogue from registers: the accumulators start at the bias in
-//     registers; ReLU (NaN stays NaN); per-channel sums by warp shuffles
-//     into a per-block (2, BN) sum in shared memory, flushed with one
+//     registers; the running part sum y_in, where given, added in f32
+//     (read by the same threads, at the same places and widths, as y is
+//     written: 4, 8 or 16 bytes a thread); ReLU (NaN stays NaN);
+//     per-channel sums by warp shuffles into a per-block (2, BN) sum in
+//     shared memory, flushed with one
 //     atomicAdd per channel per block at the end (the order of the
 //     atomics varies from run to run, as tile's does); y stored from
 //     registers, 4 bytes (bf16 pairs), 8 bytes (TF32 pairs) or 16 bytes
@@ -341,6 +344,23 @@ struct Place {
   }
 };
 
+// The running part sum y_in at output pixel m, channels n and n + 1 (0
+// past Co; n even), in f32: where the mma.sync epilogues store y's pair
+__device__ __forceinline__ float2 part_sum2(const __nv_bfloat16* y_in, long long m, int n,
+                                            int co) {
+  const __nv_bfloat16* r = y_in + m * co;
+  if (co % 2 == 0)
+    return n < co ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(r + n))
+                  : make_float2(0.f, 0.f);
+  return make_float2(n < co ? __bfloat162float(r[n]) : 0.f,
+                     n + 1 < co ? __bfloat162float(r[n + 1]) : 0.f);
+}
+__device__ __forceinline__ float2 part_sum2(const float* y_in, long long m, int n, int co) {
+  const float* r = y_in + m * co;
+  if (co % 2 == 0) return n < co ? *reinterpret_cast<const float2*>(r + n) : make_float2(0.f, 0.f);
+  return make_float2(n < co ? r[n] : 0.f, n + 1 < co ? r[n + 1] : 0.f);
+}
+
 // Channels c0 .. c0 + kc of the window of the tile at (img0, h0, w0)
 // into win (g.slots x cp): zero outside x and at channels >= Ci. vec:
 // 16-byte cp.async (kc, Ci and x's channel rows multiples of 16 bytes);
@@ -467,9 +487,10 @@ template <int NT, bool PACKED>
 __global__ void __launch_bounds__(THREADS)
 conv3x3_window_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
                     const float* __restrict__ bias, const float* __restrict__ scale,
-                    const float* __restrict__ shift, __nv_bfloat16* __restrict__ y,
-                    float* __restrict__ stats, const Geo g, const int kc, const int stages,
-                    const int relu, const int with_stats, const int vec_x, const int vec_w) {
+                    const float* __restrict__ shift, const __nv_bfloat16* y_in,
+                    __nv_bfloat16* __restrict__ y, float* __restrict__ stats, const Geo g,
+                    const int kc, const int stages, const int relu, const int with_stats,
+                    const int vec_x, const int vec_w) {
   constexpr int BN = 8 * NT;
   extern __shared__ __align__(16) uint8_t smem[];
   const Layout L = make_layout(KIND_BF16, g.ci, BN, kc, stages, g.slots);
@@ -622,7 +643,33 @@ conv3x3_window_bf16(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
       if (stages == 1 && more) issue(nt, nc, 0);
     }
 
-    // epilogue: rows gq and gq + 8 of each m16 tile, channels 8j + 2t4, +1
+    // epilogue: rows gq and gq + 8 of each m16 tile, channels 8j + 2t4, +1.
+    // The part sum first: every load sent before any add and none behind a
+    // branch (a row past the tile reads pixel 0 and adds nothing), so the
+    // tile waits on memory once, not once a row
+    if (y_in != nullptr) {
+      float2 f[2][2][NT];
+      bool ok[2][2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const long long m = out[i][half].out(g, img0, h0, w0);
+          ok[i][half] = warp + 4 * i < mtiles && m >= 0;
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            f[i][half][j] = part_sum2(y_in, ok[i][half] ? m : 0, n0 + 8 * j + 2 * t4, g.co);
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            acc[i][j][2 * half] += ok[i][half] ? f[i][half][j].x : 0.f;
+            acc[i][j][2 * half + 1] += ok[i][half] ? f[i][half][j].y : 0.f;
+          }
+    }
     float ps[NT][2], pq[NT][2];
 #pragma unroll
     for (int j = 0; j < NT; ++j) ps[j][0] = ps[j][1] = pq[j][0] = pq[j][1] = 0.f;
@@ -716,7 +763,7 @@ template <int PM, int PN, int LN>
 __global__ void __launch_bounds__(THREADS)
 conv3x3_window_f32(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ bias, const float* __restrict__ scale,
-                   const float* __restrict__ shift, float* __restrict__ y,
+                   const float* __restrict__ shift, const float* y_in, float* __restrict__ y,
                    float* __restrict__ stats, const Geo g, const int kc, const int relu,
                    const int with_stats, const int vec_x, const int vec_w) {
   constexpr int LM = 32 / LN, BN = PN * LN;
@@ -823,7 +870,35 @@ conv3x3_window_f32(const float* __restrict__ x, const float* __restrict__ w,
       }
     }
 
-    // epilogue
+    // epilogue. The part sum first, 16 bytes a load where y's stores are:
+    // every load sent before any add and none behind a branch (a pixel
+    // past the tile reads pixel 0 and adds nothing), so the tile waits on
+    // memory once, not once a pixel
+    if (y_in != nullptr) {
+#pragma unroll
+      for (int j = 0; j < PM; ++j) {
+        const long long m = Place(g, (warp * PM + j) * LM + pg).out(g, img0, h0, w0);
+        const bool ok = m >= 0;
+        const float* yi = y_in + (ok ? m : 0) * g.co;
+        if constexpr (PN >= 4) {
+          if (g.co % 4 == 0) {
+#pragma unroll
+            for (int gi = 0; gi < PN / 4; ++gi) {
+              const float4 f = ok && chan(4 * gi) < g.co
+                                   ? *reinterpret_cast<const float4*>(yi + chan(4 * gi))
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+              acc[j][4 * gi] += f.x;
+              acc[j][4 * gi + 1] += f.y;
+              acc[j][4 * gi + 2] += f.z;
+              acc[j][4 * gi + 3] += f.w;
+            }
+            continue;
+          }
+        }
+#pragma unroll
+        for (int v = 0; v < PN; ++v) acc[j][v] += ok && chan(v) < g.co ? yi[chan(v)] : 0.f;
+      }
+    }
     float ps[PN], pq[PN];
 #pragma unroll
     for (int v = 0; v < PN; ++v) ps[v] = pq[v] = 0.f;
@@ -1033,11 +1108,34 @@ __device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], uint64_t a, uint6
 template <int NT>
 __device__ __forceinline__ void epilogue_tf32(float (&acc)[2][4 * NT], const Place (&out)[2][2],
                                               const Geo& g, int img0, int h0, int w0, int n0,
-                                              int mtiles, int relu, int with_stats, float* y,
-                                              float* ssum) {
+                                              int mtiles, int relu, int with_stats,
+                                              const float* y_in, float* y, float* ssum) {
   constexpr int BN = 8 * NT;
   const int warp = threadIdx.x % THREADS / 32, lane = threadIdx.x % 32, gq = lane >> 2;
   const int t4 = lane & 3;
+  if (y_in != nullptr) {  // the part sum first, as the bf16 kernel's: one wait on memory
+    float2 f[2][2][NT];
+    bool ok[2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const long long m = out[i][half].out(g, img0, h0, w0);
+        ok[i][half] = warp + 4 * i < mtiles && m >= 0;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          f[i][half][j] = part_sum2(y_in, ok[i][half] ? m : 0, n0 + 8 * j + 2 * t4, g.co);
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          acc[i][4 * j + 2 * half] += ok[i][half] ? f[i][half][j].x : 0.f;
+          acc[i][4 * j + 2 * half + 1] += ok[i][half] ? f[i][half][j].y : 0.f;
+        }
+  }
   float ps[NT][2], pq[NT][2];
 #pragma unroll
   for (int j = 0; j < NT; ++j) ps[j][0] = ps[j][1] = pq[j][0] = pq[j][1] = 0.f;
@@ -1113,9 +1211,9 @@ template <int NT>
 __global__ void __launch_bounds__(2 * THREADS, 1)
 conv3x3_window_f32_tc(const float* __restrict__ x, const float* __restrict__ w,
                       const float* __restrict__ bias, const float* __restrict__ scale,
-                      const float* __restrict__ shift, float* __restrict__ y,
-                      float* __restrict__ stats, const Geo g, const int kc, const int stages,
-                      const int relu, const int with_stats,
+                      const float* __restrict__ shift, const float* y_in,
+                      float* __restrict__ y, float* __restrict__ stats, const Geo g,
+                      const int kc, const int stages, const int relu, const int with_stats,
                       const __grid_constant__ CUtensorMap xmap) {
   constexpr int BN = 8 * NT;
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -1226,7 +1324,8 @@ conv3x3_window_f32_tc(const float* __restrict__ x, const float* __restrict__ w,
     wg_sync();  // every warp is done with this stage; the next operand is everyone's
     if (v + stages < units) fetch(v + stages);
     if (chunk == L.chunks - 1)  // while the copies just sent for fly
-      epilogue_tf32<NT>(acc, out, g, img0, h0, w0, n0, mtiles, relu, with_stats, y, ssum);
+      epilogue_tf32<NT>(acc, out, g, img0, h0, w0, n0, mtiles, relu, with_stats, y_in, y,
+                        ssum);
     if (stages == 1 && v + 1 < units) {
       prep(v + 1);
       wg_sync();
@@ -1288,10 +1387,10 @@ template <int NT>
 __global__ void __launch_bounds__(THREADS, 2)
 conv3x3_window_f32_tc_packed(const float* __restrict__ x, const float* __restrict__ w,
                              const float* __restrict__ bias, const float* __restrict__ scale,
-                             const float* __restrict__ shift, float* __restrict__ y,
-                             float* __restrict__ stats, const Geo g, const int kc,
-                             const int stages, const int relu, const int with_stats,
-                             const int vec_x) {
+                             const float* __restrict__ shift, const float* y_in,
+                             float* __restrict__ y, float* __restrict__ stats, const Geo g,
+                             const int kc, const int stages, const int relu,
+                             const int with_stats, const int vec_x) {
   constexpr int BN = 8 * NT;
   extern __shared__ __align__(16) uint8_t smem[];
   const Layout L = make_layout(KIND_TF32, g.ci, BN, kc, stages, g.slots);
@@ -1385,7 +1484,8 @@ conv3x3_window_f32_tc_packed(const float* __restrict__ x, const float* __restric
     }
     __syncthreads();  // the stage is free
     if (stages == 1 && nt < g.ptiles) fetch(nt, 0);
-    epilogue_tf32<NT>(acc, out, g, img0, h0, w0, n0, mtiles, relu, with_stats, y, ssum);
+    epilogue_tf32<NT>(acc, out, g, img0, h0, w0, n0, mtiles, relu, with_stats, y_in, y,
+                        ssum);
   }
   if (with_stats) {
     __syncthreads();
@@ -1419,7 +1519,7 @@ cudaError_t allow(K kernel, unsigned& allowed) {
 }
 
 struct Args {
-  const void *x, *w, *b, *scale, *shift;
+  const void *x, *w, *b, *scale, *shift, *y_in;
   void *y, *stats;
   Geo g;
   int kc, stages, relu, with_stats, vec_x, vec_w;
@@ -1438,7 +1538,8 @@ int run_bf16(const Args& a) {
   kernel<<<a.grid, THREADS, a.smem, a.s>>>(
       static_cast<const __nv_bfloat16*>(a.x), static_cast<const __nv_bfloat16*>(a.w),
       static_cast<const float*>(a.b), static_cast<const float*>(a.scale),
-      static_cast<const float*>(a.shift), static_cast<__nv_bfloat16*>(a.y),
+      static_cast<const float*>(a.shift), static_cast<const __nv_bfloat16*>(a.y_in),
+      static_cast<__nv_bfloat16*>(a.y),
       static_cast<float*>(a.stats), a.g, a.kc, a.stages, a.relu, a.with_stats, a.vec_x, a.vec_w);
   return (int)cudaGetLastError();
 }
@@ -1452,7 +1553,8 @@ int run_tf32(const Args& a) {
   kernel<<<a.grid, 2 * THREADS, a.smem, a.s>>>(
       static_cast<const float*>(a.x), static_cast<const float*>(a.w),
       static_cast<const float*>(a.b), static_cast<const float*>(a.scale),
-      static_cast<const float*>(a.shift), static_cast<float*>(a.y), static_cast<float*>(a.stats),
+      static_cast<const float*>(a.shift), static_cast<const float*>(a.y_in),
+      static_cast<float*>(a.y), static_cast<float*>(a.stats),
       a.g, a.kc, a.stages, a.relu, a.with_stats, a.xmap);
   return (int)cudaGetLastError();
 }
@@ -1466,7 +1568,8 @@ int run_tf32_packed(const Args& a) {
   kernel<<<a.grid, THREADS, a.smem, a.s>>>(
       static_cast<const float*>(a.x), static_cast<const float*>(a.w),
       static_cast<const float*>(a.b), static_cast<const float*>(a.scale),
-      static_cast<const float*>(a.shift), static_cast<float*>(a.y), static_cast<float*>(a.stats),
+      static_cast<const float*>(a.shift), static_cast<const float*>(a.y_in),
+      static_cast<float*>(a.y), static_cast<float*>(a.stats),
       a.g, a.kc, a.stages, a.relu, a.with_stats, a.vec_x);
   return (int)cudaGetLastError();
 }
@@ -1502,7 +1605,8 @@ int run_f32(const Args& a) {
   kernel<<<a.grid, THREADS, a.smem, a.s>>>(
       static_cast<const float*>(a.x), static_cast<const float*>(a.w),
       static_cast<const float*>(a.b), static_cast<const float*>(a.scale),
-      static_cast<const float*>(a.shift), static_cast<float*>(a.y), static_cast<float*>(a.stats),
+      static_cast<const float*>(a.shift), static_cast<const float*>(a.y_in),
+      static_cast<float*>(a.y), static_cast<float*>(a.stats),
       a.g, a.kc, a.relu, a.with_stats, a.vec_x, a.vec_w);
   return (int)cudaGetLastError();
 }
@@ -1512,11 +1616,14 @@ int run_f32(const Args& a) {
 // planned is refused with cudaErrorInvalidValue. kind: KIND_F32 (f32 on
 // FMAs), KIND_BF16, KIND_TF32 (f32 on TF32 tensor cores)
 int launch(const void* x, const void* w, const void* b, const void* scale, const void* shift,
-           void* y, void* stats, int n, int h, int wd, int ci, int co, long long w_tap_stride,
-           int relu, int with_stats, int kind, int pad_top, int pad_bottom, int ti, int th,
-           int tw, int bn, int kc, int stages, int grid_x, int smem, cudaStream_t s) {
+           const void* y_in, void* y, void* stats, int n, int h, int wd, int ci, int co,
+           long long w_tap_stride, int relu, int with_stats, int kind, int pad_top,
+           int pad_bottom, int ti, int th, int tw, int bn, int kc, int stages, int grid_x,
+           int smem, cudaStream_t s) {
   const int bad = (int)cudaErrorInvalidValue;
   if (pad_top < 0 || pad_top > 1 || pad_bottom < 0 || pad_bottom > 1) return bad;
+  // y_in is read as y is written, up to 16 bytes a thread
+  if (!aligned16(y_in)) return bad;
   if (n < 1 || h < 1 || wd < 1 || ci < 1 || co < 1 || (long long)n * h * wd >= (1ll << 31))
     return bad;
   if (kind == KIND_TF32 && ci >= 8) {
@@ -1567,6 +1674,7 @@ int launch(const void* x, const void* w, const void* b, const void* scale, const
   a.b = b;
   a.scale = scale;
   a.shift = shift;
+  a.y_in = y_in;
   a.y = y;
   a.stats = stats;
   a.kc = kc;
@@ -1617,16 +1725,17 @@ int launch(const void* x, const void* w, const void* b, const void* scale, const
 }  // namespace
 
 // The window design of mg_conv3x3 (conv3x3.cu): its arguments (is_bf16
-// there, here the branch's kind: 0 f32 FMA, 1 bf16, 2 f32 on TF32), then the
-// plan of cuda_conv.py::_window_plan (tile images, rows, columns; output
-// channels a block; input channels a chunk; window stages; blocks along
-// the tiles; the dynamic shared memory it computed)
-extern "C" int mg_conv3x3_window(const void* x, const void* w, const void* b, void* y,
-                                 void* stats, int n, int h, int wd, int ci, int co,
+// there, here the branch's kind: 0 f32 FMA, 1 bf16, 2 f32 on TF32; y_in
+// null or on 16 bytes), then the plan of cuda_conv.py::_window_plan (tile
+// images, rows, columns; output channels a block; input channels a chunk;
+// window stages; blocks along the tiles; the dynamic shared memory it
+// computed)
+extern "C" int mg_conv3x3_window(const void* x, const void* w, const void* b, const void* y_in,
+                                 void* y, void* stats, int n, int h, int wd, int ci, int co,
                                  long long w_tap_stride, int relu, int with_stats, int kind,
                                  int pad_top, int pad_bottom, int ti, int th, int tw, int bn,
                                  int kc, int stages, int grid_x, int smem, void* stream) {
-  return launch(x, w, b, nullptr, nullptr, y, stats, n, h, wd, ci, co, w_tap_stride, relu,
+  return launch(x, w, b, nullptr, nullptr, y_in, y, stats, n, h, wd, ci, co, w_tap_stride, relu,
                 with_stats, kind, pad_top, pad_bottom, ti, th, tw, bn, kc, stages, grid_x, smem,
                 static_cast<cudaStream_t>(stream));
 }
@@ -1639,7 +1748,7 @@ extern "C" int mg_conv3x3_bn_relu_in_window(const void* x, const void* w, const 
                                             int kind, int pad_top, int pad_bottom, int ti,
                                             int th, int tw, int bn, int kc, int stages,
                                             int grid_x, int smem, void* stream) {
-  return launch(x, w, b, scale, shift, y, stats, n, h, wd, ci, co, w_tap_stride, relu,
+  return launch(x, w, b, scale, shift, nullptr, y, stats, n, h, wd, ci, co, w_tap_stride, relu,
                 with_stats, kind, pad_top, pad_bottom, ti, th, tw, bn, kc, stages, grid_x, smem,
                 static_cast<cudaStream_t>(stream));
 }

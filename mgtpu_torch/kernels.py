@@ -74,25 +74,31 @@ PADDED: dict[tuple[str, str], int] = {
        for r in ("sm90", "window", "window_tf32", "tile")},
     **{("conv_i8", r): 0 for r in _I8_DESIGNS}}
 
+# (kernel, design) -> conv3x3's launches that read a running part sum
+# (``y_in``: the multigrid exchange's sum in the epilogue) since the last
+# reset_launches(); each is also counted in LAUNCHES and ROUTES
+SUMMED: dict[tuple[str, str], int] = {("conv3x3", r): 0 for r in ("sm90", "window",
+                                                                     "window_tf32")}
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry point -> argtypes; every function returns cudaGetLastError()
 _SIGNATURES = {
-    # x, w, b, y, stats, n, h (of y), w, ci, co, w_tap_stride, relu,
-    # with_stats, is_bf16, pad_top, pad_bottom, stream
-    "mg_conv3x3": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _P),
+    # x, w, b, y_in (null: none), y, stats, n, h (of y), w, ci, co,
+    # w_tap_stride, relu, with_stats, is_bf16, pad_top, pad_bottom, stream
+    "mg_conv3x3": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _P),
     # x, w, b, scale, shift, y, stats, n, h (of y), w, ci, co, w_tap_stride,
     # relu, with_stats, is_bf16, pad_top, pad_bottom, stream
     "mg_conv3x3_bn_relu_in": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _I,
                               _I, _I, _P),
     # the sm90 designs of the two: the same arguments
-    "mg_conv3x3_sm90": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _P),
+    "mg_conv3x3_sm90": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _P),
     "mg_conv3x3_bn_relu_in_sm90": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I,
                                    _I, _I, _I, _P),
     # the window designs: the same arguments, then the plan of
     # cuda_conv._window_plan (ti, th, tw, bn, kc, stages, grid_x, smem)
-    "mg_conv3x3_window": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I,
+    "mg_conv3x3_window": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I,
                           *(_I,) * 8, _P),
     "mg_conv3x3_bn_relu_in_window": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _I, _I,
                                      _I, _I, _I, *(_I,) * 8, _P),
@@ -135,6 +141,8 @@ def reset_launches() -> None:
         ROUTES[k] = 0
     for k in PADDED:
         PADDED[k] = 0
+    for k in SUMMED:
+        SUMMED[k] = 0
 
 
 def _nvcc() -> str:
@@ -212,11 +220,12 @@ def library() -> ctypes.CDLL:
 
 
 def launch(kernel: str, entry: str, device: torch.device, *args, route: str | None = None,
-           padded: bool = False) -> None:
+           padded: bool = False, summed: bool = False) -> None:
     """Call C entry ``entry`` with ``device`` current, on its current
     stream; raise on a launch error, and count one launch of ``kernel``
     (and of its design ``route``, for a kernel with two designs, and in
-    ``PADDED`` where ``padded``: a conv's halo mode; and in the
+    ``PADDED`` where ``padded``: a conv's halo mode; in ``SUMMED`` where
+    ``summed``: a conv3x3 launch that reads a part sum; and in the
     innermost open span, while spans record)."""
     fn = getattr(library(), entry)
     with torch.cuda.device(device):
@@ -229,4 +238,6 @@ def launch(kernel: str, entry: str, device: torch.device, *args, route: str | No
         ROUTES[(kernel, route)] += 1
     if padded:
         PADDED[(kernel, route)] += 1
+    if summed:
+        SUMMED[(kernel, route)] += 1
     trace.count_launch()

@@ -75,7 +75,9 @@ class ResBlock(Layer):
     a shortcut, then ReLU. The shortcut zero-pads channels when
     widening, is the identity at equal widths, and a 1x1 ConvBN when
     narrowing or with ``shortcut_type`` "C" (always). Its forward is a
-    span, ``ResBlock``, with its ``at`` (`mgtpu_torch.ops.mg.Layer`)."""
+    span, ``ResBlock``, with its ``at`` (`mgtpu_torch.ops.mg.Layer`). In
+    eval mode a second conv that `ConvBN.ends_in_kernel` adds the
+    shortcut and applies the ReLU in its `conv3x3` launch."""
 
     jax_keys = {"c1": "conv1", "c2": "conv2", "sc": "shortcut"}
 
@@ -92,14 +94,16 @@ class ResBlock(Layer):
 
     def forward(self, x):
         with trace.span("ResBlock", self.at):
-            h = self.conv2(self.conv1(x))
-            if self.shortcut is not None:
-                short = self.shortcut(x)
-            elif self.c_in == self.c_out:
-                short = x
-            else:
-                short = F.pad(x, (0, self.c_out - self.c_in))
-            return torch.relu(h + short.to(h.dtype))
+            h = self.conv1(x)
+            return self.conv2.apply_parts([("same", h)], short=lambda: self._shortcut(x),
+                                          relu=True)
+
+    def _shortcut(self, x):
+        if self.shortcut is not None:
+            return self.shortcut(x)
+        if self.c_in == self.c_out:
+            return x
+        return F.pad(x, (0, self.c_out - self.c_in))
 
 
 class MgNet(nn.Module):

@@ -569,16 +569,47 @@ class ConvBN(nn.Module):
     def forward(self, x):
         return self.apply_parts([("same", x)])
 
-    def apply_parts(self, parts):
-        """Fused-exchange path: conv of the channel concat of ``parts``
-        (see `conv_parts`), then BN [and ReLU] [and dropout]. A quantized
-        conv in eval mode whose BN is folded (the identity there, as
-        dropout is) takes its ReLU in the last `conv_i8` launch."""
-        if self.conv.quantized and self.bn.folded and not self.training:
-            return self._int8_parts(parts, relu=self.relu)
-        return self._tail(self.conv_parts(parts))
+    @property
+    def sums_in_kernel(self) -> bool:
+        """Whether `conv_parts` sums the parts in the `conv3x3` kernel's
+        epilogue: eval mode, a 3x3/s1/p1 conv, not quantized."""
+        conv = self.conv
+        return (not self.training and self.k == 3 and conv.stride == 1 and conv.pad == 1
+                and not conv.quantized)
 
-    def conv_parts(self, parts):
+    @property
+    def ends_in_kernel(self) -> bool:
+        """Whether the last `conv3x3` launch of `conv_parts` may finish the
+        layer's output (add a residual shortcut, apply the ReLU): it sums
+        in the kernel, its BN is folded (the identity in eval mode, as
+        dropout is) and it holds all channels (no -tensor)."""
+        return self.sums_in_kernel and self.bn.folded and self.conv.tp is None
+
+    def apply_parts(self, parts, short=None, relu=False):
+        """Fused-exchange path: conv of the channel concat of ``parts``
+        (see `conv_parts`), then BN [and ReLU] [and dropout]. With
+        ``short`` (a residual layer's shortcut, as a function that
+        computes it) the shortcut is added to that, and ``relu`` applied
+        after it. A quantized conv in eval mode whose BN is folded (the
+        identity there, as dropout is) takes its ReLU in the last
+        `conv_i8` launch. A float one that `ends_in_kernel` takes its
+        ReLU, or the shortcut and ``relu``, in the last `conv3x3` launch:
+        the shortcut is computed before the conv there and after it
+        elsewhere, so train mode runs its ops in their old order."""
+        if self.ends_in_kernel and (short is None or not self.relu):
+            if short is None:
+                return self.conv_parts(parts, relu=self.relu)
+            return self.conv_parts(parts, y_in=short(), relu=relu)
+        if self.conv.quantized and self.bn.folded and not self.training:
+            y = self._int8_parts(parts, relu=self.relu)
+        else:
+            y = self._tail(self.conv_parts(parts))
+        if short is None:
+            return y
+        y = y + short().to(y.dtype)
+        return torch.relu(y) if relu else y
+
+    def conv_parts(self, parts, y_in=None, relu=False):
         """The conv (with its bias, before the BN) of the channel concat
         of ``parts`` (a list of ``(kind, tensor)`` from
         `mgtpu_torch.ops.mg.exchange_parts`) without building the concat,
@@ -605,6 +636,16 @@ class ConvBN(nn.Module):
         The first kernel launch carries the conv bias. Other convs go to
         the stock conv on the materialized part. Differentiable.
 
+        Where the conv `sums_in_kernel` (eval mode) the exact-2x "up"
+        part runs first and its output starts the sum, and each `conv3x3`
+        launch adds its part to the running sum in its epilogue (its
+        ``y_in``) instead of a stock add a part; in train mode the parts
+        are summed by stock adds in part order. ``y_in`` (a residual
+        layer's shortcut, cast to the compute dtype) starts the sum,
+        added to the up part by a stock add, and ``relu`` applies the
+        ReLU to the result in the last launch; `apply_parts` passes them
+        where the conv `ends_in_kernel`.
+
         On H-slabs (-spatial; the parts in one layout, `exchange_parts`
         aligns the up part) each 3x3 launch reads the slab with its
         neighbours' edge rows (`axis.halo`) and pads only at the image's
@@ -627,10 +668,20 @@ class ConvBN(nn.Module):
                 xr = xp[0] if isinstance(xp, tuple) else xp
                 oh, ow, g = xr.shape[1], xr.shape[2], axis.rows(xr)
         drop = self.drop if self.dropout_pos == "before" and self.training else None
-        bias = conv.b
-        y = None
+        summing = self.sums_in_kernel
+        slices = []  # (kind, part, its first input channel)
         ofs = 0
         for kind, xp in parts:
+            slices.append((kind, xp, ofs))
+            ofs += (xp[0] if isinstance(xp, tuple) else xp).shape[-1]
+        if ofs != w.shape[2]:
+            raise ValueError(f"parts carry {ofs} channels, the conv takes {w.shape[2]}")
+        if summing:  # the up part's output starts the sum
+            slices.sort(key=lambda s: s[0] != "up")
+        bias = conv.b
+        y = None if y_in is None else cast_to(y_in, dt).contiguous()
+        for j, (kind, xp, ofs) in enumerate(slices):
+            summed = False
             bn_in = None
             if isinstance(xp, tuple):  # un-normalized: (y_raw, scale, shift)
                 xp, *bn_in = xp
@@ -639,9 +690,7 @@ class ConvBN(nn.Module):
             if conv.tp is not None:
                 xp = axis.copy_t(xp, conv.tp)
                 bn_in = None if bn_in is None else [axis.copy_t(v, conv.tp) for v in bn_in]
-            c = xp.shape[-1]
-            ws = w[:, :, ofs:ofs + c, :]
-            ofs += c
+            ws = w[:, :, ofs:ofs + xp.shape[-1], :]
             xp = cast_to(xp, dt)
             if drop is not None:
                 if kind == "up":
@@ -661,18 +710,21 @@ class ConvBN(nn.Module):
                     if g is not None:  # an H-slab: the neighbours' rows, pads at the edges
                         xp, *pads = axis.halo(xp, 1, 1)
                     if bn_in is None:
-                        yy, _ = conv3x3(xp, ws, b, with_stats=False, pad_top=pads[0],
-                                        pad_bottom=pads[1])
+                        summed, relu_out = summing, relu and j == len(slices) - 1
+                        yy, _ = conv3x3(xp, ws, b, relu_out=relu_out, with_stats=False,
+                                        pad_top=pads[0], pad_bottom=pads[1],
+                                        y_in=y if summing else None)
+                        relu = relu and not relu_out
                     else:
                         yy, _ = conv3x3_bn_relu_in(xp, ws, b, *bn_in, with_stats=False,
                                                    pad_top=pads[0], pad_bottom=pads[1])
                 else:
                     yy = conv2d_nhwc(xp, ws, conv.stride, conv.pad)
-            y = yy if y is None else y + yy
-        if ofs != w.shape[2]:
-            raise ValueError(f"parts carry {ofs} channels, the conv takes {w.shape[2]}")
+            y = yy if y is None or summed else y + yy
         if bias is not None:  # no kernel launch took it
             y = y + bias.to(y.dtype)
+        if relu:  # no launch applied it
+            y = torch.relu(y)
         if g is not None:
             axis.mark_partial(conv.w, conv.b)
             if conv.stride == 1:  # the slab's rows (a strided conv set its own layout)

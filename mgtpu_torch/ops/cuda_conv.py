@@ -22,6 +22,16 @@ its convs (so the forward follows cuDNN's backward), and ``window``
 :func:`_route` picks from dtype, shape, alignment and that flag alone;
 it is not a fallback, and a launch that fails raises.
 
+The running part sum (``y_in``, conv3x3 only): the output is
+``relu?(round(acc + bias + float(y_in)))``, the f32 accumulator seeded
+with the bias as without it, ``y_in`` (the output's shape and dtype)
+added in f32 before the one rounding and the ReLU after it, so the
+multigrid exchange sums its parts in the kernels' epilogues instead of
+in a stock add a part (`mgtpu_torch.nn.ConvBN.conv_parts`, eval mode).
+Every design the route picks takes it (tile refuses it); a launch that
+reads one is counted in ``kernels.SUMMED``. The output is a new tensor,
+and ``y_in`` must lie on 16 bytes (the kernels read it as they write y).
+
 Per-side H padding (``pad_top``, ``pad_bottom``, each 0 or 1; default
 1): where one is 0, ``x`` carries the neighbour's row on that side (the
 halo row of an H-slab under ``-spatial``, `mgtpu_torch.parallel.axis`)
@@ -73,12 +83,18 @@ def out_rows(x, pad_top=1, pad_bottom=1) -> int:
     return x.shape[1] - (1 - pad_top) - (1 - pad_bottom)
 
 
-def conv3x3_plain(x, w, b, *, relu_out=False, with_stats=True, pad_top=1, pad_bottom=1):
+def conv3x3_plain(x, w, b, *, relu_out=False, with_stats=True, pad_top=1, pad_bottom=1,
+                  y_in=None):
     """Stock-torch version, the same formula as ``xla_conv3x3``:
     y = conv(x, w) + b in ``x.dtype`` [ReLU]; stats (2, Co) f32 of y.
     Under per-side padding the zero rows are added to x where a pad is 1
-    and the conv pads W alone."""
-    wt = w.permute(3, 2, 0, 1)
+    and the conv pads W alone. With ``y_in`` the conv runs in f32 (bf16
+    products are exact there; float64 stays), ``y_in`` is added there and
+    the sum rounded to ``x.dtype`` once, before the ReLU."""
+    wt, dt = w.permute(3, 2, 0, 1), x.dtype
+    if y_in is not None:
+        acc = torch.promote_types(dt, torch.float32)
+        x, wt, b, y_in_acc = x.to(acc), wt.to(acc), b.to(acc), y_in.to(acc)
     if (pad_top, pad_bottom) == (1, 1):
         y = nhwc(F.conv2d(nchw(x), wt, b.to(x.dtype), padding=1))
     else:
@@ -86,6 +102,8 @@ def conv3x3_plain(x, w, b, *, relu_out=False, with_stats=True, pad_top=1, pad_bo
         y = nhwc(F.conv2d(nchw(_pad_rows(x, pad_top, pad_bottom)), wt, b.to(x.dtype),
                           padding=(0, 1)))
     y = y.contiguous()
+    if y_in is not None:
+        y = (y + y_in_acc).to(dt)
     if relu_out:
         y = torch.relu(y)
     return y, _stats(y, w.shape[3], with_stats)
@@ -359,12 +377,31 @@ def _sms(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _launch(kernel, route, x, w, b, vectors, relu_out, with_stats, pads=(1, 1)):
+def _check_y_in(y_in, x, w, pads):
+    """Raise unless ``y_in`` is a contiguous tensor of the output's shape
+    and dtype on x's device."""
+    shape = (x.shape[0], out_rows(x, *pads), x.shape[2], w.shape[3])
+    if (y_in.dtype != x.dtype or tuple(y_in.shape) != shape or not y_in.is_contiguous()
+            or y_in.device != x.device):
+        raise ValueError(f"conv3x3: y_in must be a contiguous {x.dtype} {shape} tensor on "
+                         f"{x.device}, got {tuple(y_in.shape)} {y_in.dtype} on {y_in.device}")
+
+
+def _launch(kernel, route, x, w, b, vectors, relu_out, with_stats, pads=(1, 1), y_in=None):
     n, _, wd, ci = x.shape
     h = out_rows(x, *pads)
     if h < 1:
         raise ValueError(f"{kernel}: {x.shape[1]} input rows under pads {pads} leave no output")
     co = w.shape[3]
+    if y_in is not None:
+        if kernel != "conv3x3" or route == "tile":
+            raise ValueError(f"{kernel} through {route}: takes no y_in")
+        _check_y_in(y_in, x, w, pads)
+        if y_in.data_ptr() % 16:  # the kernels read y_in as they write y, up to 16 bytes
+            raise ValueError("conv3x3: y_in must lie on 16 bytes")
+        vectors = (y_in,)
+    elif kernel == "conv3x3":
+        vectors = (None,)
     y = torch.empty((n, h, wd, co), dtype=x.dtype, device=x.device)
     stats = torch.zeros((2, co), dtype=torch.float32, device=x.device)
     if y.numel():
@@ -378,22 +415,26 @@ def _launch(kernel, route, x, w, b, vectors, relu_out, with_stats, pads=(1, 1)):
                                   "tile": ""}[route]
         kind = 2 if tf32 else int(bf16)  # the window entry's branch; tile's is_bf16
         kernels.launch(kernel, entry, x.device, x.data_ptr(), w.data_ptr(), b.data_ptr(),
-                       *(v.data_ptr() for v in vectors), y.data_ptr(), stats.data_ptr(), n, h,
-                       wd, ci, co, w.stride(1), int(relu_out), int(with_stats), kind, *pads,
-                       *plan, route=route, padded=tuple(pads) != (1, 1))
+                       *(0 if v is None else v.data_ptr() for v in vectors), y.data_ptr(),
+                       stats.data_ptr(), n, h, wd, ci, co, w.stride(1), int(relu_out),
+                       int(with_stats), kind, *pads, *plan, route=route,
+                       padded=tuple(pads) != (1, 1), summed=y_in is not None)
     return y, stats
 
 
-def conv3x3_forward(x, w, b, *, relu_out=False, with_stats=True, pad_top=1, pad_bottom=1):
+def conv3x3_forward(x, w, b, *, relu_out=False, with_stats=True, pad_top=1, pad_bottom=1,
+                    y_in=None):
     """The forward alone: CPU tensors take the plain version; CUDA
     tensors launch the kernel (the design :func:`_route` picks) or
     raise."""
     if x.device.type == "cpu":
+        if y_in is not None:
+            _check_y_in(y_in, x, w, (pad_top, pad_bottom))
         return conv3x3_plain(x, w, b, relu_out=relu_out, with_stats=with_stats,
-                             pad_top=pad_top, pad_bottom=pad_bottom)
+                             pad_top=pad_top, pad_bottom=pad_bottom, y_in=y_in)
     _check("conv3x3", x, w, b)
     return _launch("conv3x3", _route(x, w), x, w, b, (), relu_out, with_stats,
-                   (pad_top, pad_bottom))
+                   (pad_top, pad_bottom), y_in)
 
 
 def conv3x3_bn_relu_in_forward(x, w, b, scale, shift, *, relu_out=False, with_stats=True,
@@ -466,12 +507,13 @@ def _relu_out_grad(gy, y, relu_out):
 class _Conv3x3(torch.autograd.Function):
     """Its backward sees None for an output that no loss reads (a scale
     whose output is discarded) and returns None: nothing is
-    differentiated behind it."""
+    differentiated behind it. The output is a new tensor; ``y_in``'s
+    gradient is the output's, through the ReLU's mask as the conv's."""
 
     @staticmethod
-    def forward(ctx, x, w, b, relu_out, with_stats, pad_top, pad_bottom):
+    def forward(ctx, x, w, b, y_in, relu_out, with_stats, pad_top, pad_bottom):
         y, stats = conv3x3_forward(x, w, b, relu_out=relu_out, with_stats=with_stats,
-                                   pad_top=pad_top, pad_bottom=pad_bottom)
+                                   pad_top=pad_top, pad_bottom=pad_bottom, y_in=y_in)
         ctx.relu_out, ctx.pads = relu_out, (pad_top, pad_bottom)
         ctx.save_for_backward(x, w, y if relu_out else None)
         ctx.mark_non_differentiable(stats)
@@ -481,13 +523,13 @@ class _Conv3x3(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy, _gstats):
         if gy is None:
-            return (None,) * 7
+            return (None,) * 8
         x, w, y = ctx.saved_tensors
         gy = _relu_out_grad(gy, y, ctx.relu_out)
-        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        need_x, need_w, need_b, need_y_in = ctx.needs_input_grad[:4]
         dx, dw = _conv_grads(gy, x, w, need_x, need_w, ctx.pads)
         db = gy.float().sum(dim=_AXES) if need_b else None
-        return dx, dw, db, None, None, None, None
+        return dx, dw, db, (gy if need_y_in else None), None, None, None, None
 
 
 class _Conv3x3BnReluIn(torch.autograd.Function):
@@ -526,26 +568,29 @@ class _Conv3x3BnReluIn(torch.autograd.Function):
         return dx, dw, db, dscale, dshift, None, None, None, None
 
 
-def conv3x3(x, w, b, *, relu_out=False, with_stats=True, pad_top=1, pad_bottom=1):
+def conv3x3(x, w, b, *, relu_out=False, with_stats=True, pad_top=1, pad_bottom=1, y_in=None):
     """x (N, H, W, Ci) NHWC; w (3, 3, Ci, Co) HWIO; b (Co,) f32.
     Returns (y (N, H, W, Co) in x.dtype, stats (2, Co) f32, zeros when
     ``with_stats`` is False). The f32 accumulator starts at the bias;
     stats sum the f32 values after the ReLU and before the cast.
+    ``y_in`` (contiguous, y's shape and dtype; a running part sum) is
+    added to the accumulator before the rounding and the ReLU; y is a
+    new tensor.
 
     ``w`` may be a slice of a wider HWIO weight along its input
     channels (a view), as the multigrid exchange passes it.
     ``pad_top`` / ``pad_bottom`` 0: x carries a halo row on that side
     instead of the zero pad (the module's head).
-    Differentiable in x, w and b (not through stats). CPU tensors take
+    Differentiable in x, w, b and y_in (not through stats). CPU tensors take
     the plain version; CUDA tensors launch the kernel or raise; under
     ``torch.export``, the op ``mgtpu::conv3x3`` (inference only). A span
     (`mgtpu_torch.trace`), ``conv3x3``."""
     if torch.compiler.is_exporting():
         from mgtpu_torch.ops import library  # noqa: F401 (registers the op)
 
-        return torch.ops.mgtpu.conv3x3(x, w, b, relu_out, with_stats, pad_top, pad_bottom)
+        return torch.ops.mgtpu.conv3x3(x, w, b, relu_out, with_stats, pad_top, pad_bottom, y_in)
     with trace.span("conv3x3"):
-        return _Conv3x3.apply(x, w, b, relu_out, with_stats, pad_top, pad_bottom)
+        return _Conv3x3.apply(x, w, b, y_in, relu_out, with_stats, pad_top, pad_bottom)
 
 
 def conv3x3_bn_relu_in(x, w, b, scale, shift, *, relu_out=False, with_stats=True, pad_top=1,

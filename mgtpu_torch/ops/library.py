@@ -35,7 +35,8 @@ Two ops differ from their eager call in what they return, because a
 custom op's outputs may not alias its inputs: ``conv_i8`` writes a new
 tensor where the eager call adds into the part sum ``y_in`` in place
 (the kernel reads ``y_in`` and writes the output through two pointers;
-the bits are the same), and ``quant_i8`` returns, beside the int8
+the bits are the same; ``conv3x3``'s part sum ``y_in`` is read alone
+in both), and ``quant_i8`` returns, beside the int8
 values, the (absmax, scale) pair of a dynamic quantize, or an empty
 tensor where the scale was given (the caller keeps its own);
 ``quant_i8_group`` the (absmax, scale) rows of its dynamic members, a
@@ -45,7 +46,8 @@ as one flat list, (oh, ow) a member, (0, 0) for a part without up.
 The convs' per-side H padding (an H-slab's halo mode) is in the schemas
 with defaults: ``conv3x3``'s ``pad_top=1, pad_bottom=1``, ``conv_i8``'s
 ``pad_top=None, pad_bottom=None`` (its ``pad``), so a program traced
-before they existed, or without a mesh, keeps the symmetric launch.
+before they existed, or without a mesh, keeps the symmetric launch;
+``conv3x3``'s part sum ``y_in=None`` comes last for the same reason.
 """
 
 from __future__ import annotations
@@ -55,9 +57,9 @@ import torch
 from mgtpu_torch.ops import cuda_conv, cuda_conv_i8, cuda_pool, quant
 
 
-def conv3x3(x, w, b, relu_out, with_stats, pad_top=1, pad_bottom=1):
+def conv3x3(x, w, b, relu_out, with_stats, pad_top=1, pad_bottom=1, y_in=None):
     return cuda_conv.conv3x3_forward(x, w, b, relu_out=relu_out, with_stats=with_stats,
-                                     pad_top=pad_top, pad_bottom=pad_bottom)
+                                     pad_top=pad_top, pad_bottom=pad_bottom, y_in=y_in)
 
 
 def conv3x3_bn_relu_in(x, w, b, scale, shift, relu_out, with_stats, pad_top=1, pad_bottom=1):
@@ -66,7 +68,7 @@ def conv3x3_bn_relu_in(x, w, b, scale, shift, relu_out, with_stats, pad_top=1, p
                                                 pad_bottom=pad_bottom)
 
 
-def _conv3x3_fake(x, w, b, relu_out, with_stats, pad_top=1, pad_bottom=1):
+def _conv3x3_fake(x, w, b, relu_out, with_stats, pad_top=1, pad_bottom=1, y_in=None):
     n, _, wd, _ = x.shape
     co = w.shape[3]
     h = cuda_conv.out_rows(x, pad_top, pad_bottom)
@@ -136,7 +138,8 @@ def _quant_i8_group_fake(xs, sxs, ups):
 _LIB = torch.library.Library("mgtpu", "DEF")
 for _schema, _impl, _fake in (
         ("conv3x3(Tensor x, Tensor w, Tensor b, bool relu_out, bool with_stats,"
-         " int pad_top=1, int pad_bottom=1) -> (Tensor, Tensor)", conv3x3, _conv3x3_fake),
+         " int pad_top=1, int pad_bottom=1, Tensor? y_in=None) -> (Tensor, Tensor)", conv3x3,
+         _conv3x3_fake),
         ("conv3x3_bn_relu_in(Tensor x, Tensor w, Tensor b, Tensor scale, Tensor shift,"
          " bool relu_out, bool with_stats, int pad_top=1, int pad_bottom=1)"
          " -> (Tensor, Tensor)", conv3x3_bn_relu_in,

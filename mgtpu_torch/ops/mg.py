@@ -22,6 +22,7 @@ neighbour in the layout of its own scale, so no layer mixes the two.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -224,7 +225,9 @@ class MgResidual(Layer):
     takes a 1x1 ConvBN. With ``dropout``, in train mode every part of
     each exchange is materialized at fine resolution and dropped with
     its own mask before its conv. The JAX layer's materialized
-    (non-fused) exchange is not ported."""
+    (non-fused) exchange is not ported. In eval mode a stage-2 conv that
+    `ConvBN.ends_in_kernel` takes the shortcut as the start of its part
+    sum and the outer ReLU in its last `conv3x3` launch."""
 
     def __init__(self, in_widths, out_widths, kernels=None, eps=1e-5, dropout=0.0,
                  shortcut_type="A", final_relu=True, compute_dtype=None, device=None,
@@ -251,7 +254,10 @@ class MgResidual(Layer):
         })
         self.drop = Dropout(dropout, generator) if dropout > 0 else None
 
-    def _stage(self, layers, pyr):
+    def _stage(self, layers, pyr, shorts=None):
+        """One stage's convs on ``pyr``; with ``shorts`` (stage 2, a
+        function a scale that computes its shortcut), each scale's output
+        joined with its shortcut (`ConvBN.apply_parts`)."""
         down = pool_finer(pyr)
         stage = []
         for i in range(len(layers)):
@@ -261,8 +267,18 @@ class MgResidual(Layer):
                 parts = [("same", self.drop(materialize_part(kind, xp, oh, ow)))
                          for kind, xp in parts]
             stage.append(parts)
-        return tuple(layer.apply_parts(parts)
-                     for layer, parts in zip(layers, quantize_layer(layers, stage)))
+        return tuple(layer.apply_parts(parts, short=None if shorts is None else shorts[i],
+                                       relu=self.final_relu)
+                     for i, (layer, parts) in enumerate(zip(layers,
+                                                            quantize_layer(layers, stage))))
+
+    def _shortcut(self, i, x):
+        cin, cout = self.in_widths[i], self.out_widths[i]
+        if str(i) in self.shortcuts:
+            return self.shortcuts[str(i)](x)
+        if cin == cout:
+            return x
+        return F.pad(x, (0, cout - cin))  # zero-pad widen
 
     def _train_stages(self, pyr):
         """Both stages in train mode. Stage 1 stops at each scale's raw
@@ -290,20 +306,16 @@ class MgResidual(Layer):
 
     def forward(self, pyr):
         with trace.span("MgResidual", self.at):
-            if self.training and self.drop is None:
+            if not self.training:
+                shorts = [functools.partial(self._shortcut, i, x) for i, x in enumerate(pyr)]
+                return self._stage(self.stage2, self._stage(self.stage1, pyr), shorts)
+            if self.drop is None:
                 h = self._train_stages(pyr)
             else:
                 h = self._stage(self.stage2, self._stage(self.stage1, pyr))
             out = []
             for i, (x, y) in enumerate(zip(pyr, h)):
-                cin, cout = self.in_widths[i], self.out_widths[i]
-                if str(i) in self.shortcuts:
-                    short = self.shortcuts[str(i)](x)
-                elif cin == cout:
-                    short = x
-                else:  # zero-pad widen
-                    short = F.pad(x, (0, cout - cin))
-                z = y + short.to(y.dtype)
+                z = y + self._shortcut(i, x).to(y.dtype)
                 out.append(torch.relu(z) if self.final_relu else z)
             return tuple(out)
 

@@ -87,8 +87,8 @@ class Counts:
     def _conv_parts(self, m):
         run = type(m).conv_parts.__get__(m)
 
-        def counted(parts):
-            y = run(parts)
+        def counted(parts, **kw):  # kw: a residual's shortcut and ReLU (y_in, relu)
+            y = run(parts, **kw)
             self.reference += _numel(y.shape) * m.k * m.k * m.conv.c_in
             self.as_run += _part_macs(m, parts, y)
             return y

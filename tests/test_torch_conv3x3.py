@@ -2,9 +2,11 @@
 ``conv3x3_bn_relu_in``) against the JAX package's Pallas kernels
 (`mgtpu.ops.pallas_conv`, in interpret mode) and their XLA formulations,
 in f32 on the CPU: values, stats, and the gradients of the autograd
-Functions against ``jax.grad``. On a CPU tensor the wrapper takes the
-plain version; the CUDA kernels themselves are compared with the plain
-versions on the card (tests/test_torch_cuda.py and chip_smoke.py)."""
+Functions against ``jax.grad``; conv3x3's running part sum ``y_in``
+against its formula and the stock sum, in f32 and bf16. On a CPU tensor
+the wrapper takes the plain version; the CUDA kernels themselves are
+compared with the plain versions on the card (tests/test_torch_cuda.py
+and chip_smoke.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +18,7 @@ from mgtpu.ops.pallas_conv import conv3x3 as pallas_conv3x3
 from mgtpu.ops.pallas_conv import conv3x3_bn_relu_in as pallas_conv3x3_bn_relu_in
 from mgtpu.ops.pallas_conv import xla_conv3x3, xla_conv3x3_bn_relu_in
 from mgtpu_torch.ops.cuda_conv import (conv3x3, conv3x3_bn_relu_in, conv3x3_bn_relu_in_plain,
-                                       conv3x3_plain)
+                                       conv3x3_forward, conv3x3_plain, out_rows)
 
 
 def _data(n=2, h=8, w=16, ci=8, co=8, seed=0):
@@ -202,3 +204,87 @@ def test_conv3x3_grad_reaches_the_wide_weight_through_a_slice():
     conv3x3_plain(x, ws, torch.zeros(4))[0].sum().backward()
     torch.testing.assert_close(w.grad[:, :, 2:5], ws.grad, rtol=1e-5, atol=1e-5)
     assert not w.grad[:, :, :2].any() and not w.grad[:, :, 5:].any()
+
+
+# ---------------------------------------------------- the running part sum
+
+
+def _y_in_case(dtype, seed=13):
+    x, wt, b = (torch.from_numpy(a) for a in _data(seed=seed))
+    y_in = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal((2, 8, 16, 8),
+                                                                           dtype=np.float32))
+    return x.to(dtype), wt.to(dtype), b, y_in.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu_out", [False, True])
+@pytest.mark.parametrize("with_stats", [False, True])
+@pytest.mark.parametrize("pads", [(1, 1), (0, 1)])
+def test_conv3x3_y_in_adds_before_the_rounding(dtype, relu_out, with_stats, pads):
+    """y = relu?(round(conv(x, w) + b + float(y_in))): the conv and the
+    add in f32, one rounding to the dtype, then the ReLU; the stats of
+    that y; y a new tensor, y_in left as it was; under each pad pair (an
+    H-slab's halo mode: (0, 1) reads a halo row above). In bf16 the one
+    rounding differs from the stock sum of the rounded conv (two
+    roundings) somewhere."""
+    x, wt, b, y_in = _y_in_case(dtype)
+    pt, pb = pads
+    y_in = y_in[:, :out_rows(x, pt, pb)].contiguous()
+    acc = conv3x3_plain(x.float(), wt.float(), b, with_stats=False, pad_top=pt,
+                        pad_bottom=pb)[0]
+    want = (acc + y_in.float()).to(dtype)
+    want = torch.relu(want) if relu_out else want
+    keep = y_in.clone()
+    y, st = conv3x3_forward(x, wt, b, relu_out=relu_out, with_stats=with_stats, y_in=y_in,
+                            pad_top=pt, pad_bottom=pb)
+    assert y.dtype == dtype and torch.equal(y, want)
+    assert y.data_ptr() != y_in.data_ptr() and torch.equal(y_in, keep)
+    wf = want.float()
+    st_want = torch.stack([wf.sum((0, 1, 2)), (wf * wf).sum((0, 1, 2))])
+    assert torch.equal(st, st_want if with_stats else torch.zeros_like(st_want))
+    if dtype == torch.bfloat16:
+        stock = conv3x3_plain(x, wt, b, with_stats=False, pad_top=pt, pad_bottom=pb)[0] + keep
+        assert not torch.equal(y, torch.relu(stock) if relu_out else stock)
+
+
+def test_conv3x3_y_in_refuses_another_shape():
+    x, wt, b, y_in = _y_in_case(torch.float32)
+    with pytest.raises(ValueError, match="y_in"):
+        conv3x3(x, wt, b, y_in=y_in[:, :4].contiguous())
+    with pytest.raises(ValueError, match="y_in"):
+        conv3x3(x, wt, b, y_in=y_in.bfloat16())
+
+
+@pytest.mark.parametrize("relu_out", [False, True])
+def test_conv3x3_grads_reach_y_in(relu_out):
+    """d/d(x, w, b, y_in) of sum(conv3x3(x, w, b, y_in=y_in) * r) against
+    autograd through the stock sum relu?(conv3x3(x, w, b) + y_in): y_in
+    takes the output's gradient, through the ReLU's mask."""
+    x, wt, b, y_in = _y_in_case(torch.float32, seed=15)
+    r = torch.from_numpy(np.random.default_rng(16).standard_normal((2, 8, 16, 8),
+                                                                   dtype=np.float32))
+
+    def grads(fn):
+        ts = [t.clone().requires_grad_() for t in (x, wt, b, y_in)]
+        (fn(*ts) * r).sum().backward()
+        return [t.grad for t in ts]
+
+    got = grads(lambda *t: conv3x3(*t[:3], relu_out=relu_out, y_in=t[3])[0])
+    stock = (lambda *t: torch.relu(conv3x3(*t[:3])[0] + t[3])) if relu_out else \
+        (lambda *t: conv3x3(*t[:3])[0] + t[3])
+    for g, gr in zip(got, grads(stock)):
+        torch.testing.assert_close(g, gr, rtol=1e-5, atol=1e-5)
+
+
+def test_conv3x3_op_with_y_in_round_trips_through_export():
+    """A module that calls conv3x3 with y_in exports (`torch.export`, the
+    op ``mgtpu::conv3x3`` with its ``y_in``) and runs as the eager call."""
+    x, wt, b, y_in = _y_in_case(torch.float32, seed=17)
+
+    class Conv(torch.nn.Module):
+        def forward(self, x, y_in):
+            return conv3x3(x, wt, b, relu_out=True, with_stats=False, y_in=y_in)[0]
+
+    program = torch.export.export(Conv(), (x, y_in))
+    assert "mgtpu.conv3x3" in str(program.graph)
+    torch.testing.assert_close(program.module()(x, y_in), Conv()(x, y_in), rtol=0, atol=0)

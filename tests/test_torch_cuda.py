@@ -241,6 +241,106 @@ def test_halo_launch_matches_plain_and_whole_image(dev, shape, dtype, pads, prol
     torch.testing.assert_close(y, y_all[:, lo:hi], rtol=0, atol=0)
 
 
+# the running part sum y_in through every design conv3x3 routes to: sm90
+# at 64-wide tiles (M = 135, no multiple of the 128-pixel tile: the last
+# tile's second warpgroup has no rows, its first a partial box) and at
+# 128-wide ones (sm90's pick_bn takes 128 at 32x14x14x256->256 on 132
+# SMs), window in bf16 (Co 16 in pairs; Co 13, odd, element by element)
+# and in f32 on FMAs (Co 16 in float4s; 10 and 1 element by element),
+# and window_tf32 (the dense wgmma branch; Ci 3, the packed one)
+Y_IN_CASES = [("sm90", (3, 9, 5, 64, 128), torch.bfloat16),
+              ("sm90", (32, 14, 14, 256, 256), torch.bfloat16),
+              ("window", (2, 7, 7, 16, 16), torch.bfloat16),
+              ("window", (2, 6, 5, 19, 13), torch.bfloat16),
+              ("window", (2, 7, 7, 16, 16), torch.float32),
+              ("window", (2, 6, 5, 19, 10), torch.float32),
+              ("window", (2, 9, 5, 24, 1), torch.float32),
+              ("window_tf32", (2, 16, 16, 64, 64), torch.float32),
+              ("window_tf32", (2, 9, 7, 3, 10), torch.float32)]
+
+
+@pytest.mark.parametrize("design, shape, dtype", Y_IN_CASES,
+                         ids=[f"{d}-{'x'.join(map(str, s))}-{str(t)[6:]}"
+                              for d, s, t in Y_IN_CASES])
+@pytest.mark.parametrize("relu_out", [False, True])
+@pytest.mark.parametrize("pads", PADS, ids=[f"pads{a}{b}" for a, b in PADS])
+def test_conv3x3_y_in_matches_plain(dev, design, shape, dtype, relu_out, pads):
+    """conv3x3 with a running part sum y_in, one launch through the routed
+    design, counted in kernels.SUMMED: y = relu?(round(acc + bias +
+    float(y_in))) against the plain version (in f32; for TF32 on the
+    operands rounded as the kernel rounds them, in float64, to the
+    bound of its f32 sums, one more term for y_in), the stats against
+    the unrounded values', and under each pad pair (a slab's halo mode);
+    y a new tensor."""
+    pt, pb = pads
+    x, w, b = _conv_inputs(*shape, dtype, dev)
+    n, h, wd, ci, co = shape
+    rows = h - (1 - pt) - (1 - pb)
+    y_in = torch.randn((n, rows, wd, co), generator=torch.Generator().manual_seed(5)).to(dev,
+                                                                                         dtype)
+    torch.backends.cudnn.allow_tf32 = design == "window_tf32"  # the fixture restores it
+    assert _route(x, w) == design
+    kw = dict(relu_out=relu_out, pad_top=pt, pad_bottom=pb)
+    kernels.reset_launches()
+    y, st = cuda_conv.conv3x3_forward(x, w, b, y_in=y_in, **kw)
+    torch.cuda.synchronize()
+    assert kernels.SUMMED == {k: int(k == ("conv3x3", design)) for k in kernels.SUMMED}
+    assert kernels.ROUTES[("conv3x3", design)] == 1 and sum(kernels.ROUTES.values()) == 1
+    assert y.dtype == dtype and y.shape == y_in.shape and y.data_ptr() != y_in.data_ptr()
+    if design == "window_tf32":
+        xr, wr = (cuda_conv.tf32_round(t).double() for t in (x, w))
+        y_ref = conv3x3_plain(xr, wr, b.double(), y_in=y_in.double(), with_stats=False, **kw)[0]
+        mag = conv3x3_plain(xr.abs(), wr.abs(), b.double().abs(), y_in=y_in.double().abs(),
+                            pad_top=pt, pad_bottom=pb, with_stats=False)[0]
+        err = (y.double() - y_ref).abs() - (9 * ci + 2) * 2.0 ** -22 * mag
+        assert err.max().item() <= 0
+        st_ref = torch.stack([y.sum((0, 1, 2)), (y * y).sum((0, 1, 2))])
+    else:
+        y_ref, st_ref = conv3x3_plain(x.float(), w.float(), b, y_in=y_in.float(), **kw)
+        # as in test_conv3x3_kernel_matches_plain
+        rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(y.float(), y_ref, rtol=rtol,
+                                   atol=1e-5 * y_ref.abs().max().item())
+    torch.testing.assert_close(st, st_ref.float(), rtol=1e-4,
+                               atol=1e-5 * st_ref.abs().max().item())
+
+
+def test_conv3x3_y_in_refusals(dev):
+    """The tile design takes no y_in; y_in must be contiguous, of y's
+    shape and dtype, and lie on 16 bytes."""
+    x, w, b = _conv_inputs(2, 8, 8, 64, 64, torch.bfloat16, dev)
+    y_in = torch.randn((2, 8, 8, 64), device=dev).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="y_in"):
+        cuda_conv._launch("conv3x3", "tile", x, w, b, (), False, False, (1, 1), y_in)
+    for bad in (y_in[:, :4], y_in.float(), y_in.transpose(1, 2)):
+        with pytest.raises(ValueError, match="y_in"):
+            conv3x3(x, w, b, y_in=bad)
+    off = torch.zeros(y_in.numel() + 1, dtype=torch.bfloat16, device=dev)[1:].view(y_in.shape)
+    assert off.data_ptr() % 16
+    with pytest.raises(ValueError, match="16 bytes"):
+        conv3x3(x, w, b, y_in=off)
+
+
+def test_conv3x3_y_in_exports_and_serves_on_the_card(dev):
+    """A module calling conv3x3 with y_in exports (`torch.export`: the op
+    ``mgtpu::conv3x3`` with its ``y_in``), launches once with a part sum
+    and gives the eager call's bits."""
+    x, w, b = _conv_inputs(2, 14, 14, 64, 64, torch.bfloat16, dev)
+    y_in = torch.randn((2, 14, 14, 64), device=dev).to(torch.bfloat16)
+
+    class Conv(torch.nn.Module):
+        def forward(self, x, y_in):
+            return conv3x3(x, w, b, relu_out=True, with_stats=False, y_in=y_in)[0]
+
+    program = torch.export.export(Conv(), (x, y_in))
+    kernels.reset_launches()
+    with torch.no_grad():
+        got = program.module()(x, y_in)
+        torch.cuda.synchronize()
+        assert kernels.SUMMED[("conv3x3", "sm90")] == 1
+        assert torch.equal(got, Conv()(x, y_in))
+
+
 # the window design (csrc/conv3x3_window.cu) at the widths it takes: every
 # Ci of the zoo's narrow convs (packed taps below 16, chunks above 64 in
 # f32) against every Co (n8 tiles of 8 to 64, several blocks above 64), M
@@ -325,7 +425,7 @@ def test_window_refuses_a_plan_of_other_shared_memory(dev):
     st = torch.zeros((2, 32), device=dev)
     with pytest.raises(RuntimeError, match="mg_conv3x3_window"):
         kernels.launch("conv3x3", "mg_conv3x3_window", x.device, x.data_ptr(), w.data_ptr(),
-                       b.data_ptr(), y.data_ptr(), st.data_ptr(), 2, 7, 7, 32, 32, w.stride(1),
+                       b.data_ptr(), 0, y.data_ptr(), st.data_ptr(), 2, 7, 7, 32, 32, w.stride(1),
                        0, 1, 1, 1, 1, p.ti, p.th, p.tw, p.bn, p.kc, p.stages, p.grid_x,
                        p.smem + 16, route="window")
 
